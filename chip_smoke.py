@@ -9,16 +9,25 @@ CUDA toolkit.  It imports nothing of JAX or of the JAX package.  In order:
 1. the card's name and power limit (``nvidia-smi``);
 2. builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, in parallel) and prints the build time;
-3. holds each kernel against its plain PyTorch version at the shapes the
-   main path gives it, and times the kernel, the plain version, one
-   PyTorch library call for the same function, and the least time the
-   card could take (the larger of bytes over 3.35 TB/s and operations
-   over 67 TFLOP/s f32, the H100 SXM data sheet's peaks);
+3. holds each kernel of the fit against its plain PyTorch version at the
+   shapes the main path gives it, and times the kernel, the plain
+   version, one PyTorch library call for the same function, and the
+   least time the card could take (the larger of bytes over 3.35 TB/s
+   and operations over 67 TFLOP/s f32, the H100 SXM data sheet's peaks);
 4. runs the full-width fit (``LargeVisConfig()`` defaults: K=150, 8
    trees, window 64, perplexity 50) on a Gaussian mixture of N=100,000
    points in d=100, with every kernel's launch count reset just before
    and read just after, and checks the layout and the graph;
-5. runs the 2000-point quality fixture (accuracy >= 0.95);
+5. on the fit's graph, samplers and layout, the split path: the
+   ``largevis_grads`` kernel and the ordered scatter against their plain
+   versions; 50 fused and 50 split SGD steps from one state, bitwise
+   equal; the split layout (at 2,000 samples per node, a printed cut);
+   200 autograd steps of ``prob_fn="exp_quadratic"``;
+6. ``LargeVis.transform`` of 10,000 held-out points of the fit's
+   clusters, by the fused and by the split route, and
+   ``LargeVis.insert`` of 2,000 more, each with its launch counts read;
+7. runs the 2000-point quality fixture (accuracy >= 0.95), by the fused
+   and by the split route;
 
 then prints a JSON line of the kernel records and, last, the device line.
 Any failed check exits with status 1 and prints no result.
@@ -26,6 +35,7 @@ Any failed check exits with status 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -36,7 +46,9 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_F32_PER_S = 67e12          # H100 SXM f32, outside the tensor cores
 PAPER_SAMPLES_PER_NODE = 10_000
-N_POINTS, DIM = 100_000, 100    # the full-width fit's data
+SPLIT_SAMPLES_PER_NODE = 2_000  # the split layout's cut (printed)
+N_POINTS, DIM, CLUSTERS = 100_000, 100, 10   # the full-width fit's data
+N_TRANSFORM, N_INSERT = 10_000, 2_000        # held-out points
 
 
 def fail(msg: str) -> None:
@@ -76,6 +88,47 @@ def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_profile(torch, fn, n: int = 50):
+    """``fn`` called n times under ``torch.profiler``: (host ms per call,
+    {device event name: (device ms per call, events seen)}).  Only the
+    card's own events (kernels, memsets, copies) count as device time;
+    host wall time includes the profiler's own overhead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) / n * 1e3
+    dev = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        total = getattr(e, "self_device_time_total", None)
+        if total is None:
+            total = e.self_cuda_time_total
+        dev[e.key] = (total / n / 1e3, e.count)
+    return host, dev
+
+
+def busy_line(host, dev, top: int = 3) -> str:
+    """One printed summary of :func:`device_profile`."""
+    total = sum(ms for ms, _ in dev.values())
+    names = sorted(dev, key=lambda k: -dev[k][0])[:top]
+    def short(key):
+        key = key.replace("(anonymous namespace)::", "")
+        return key.removeprefix("void ").split("(")[0][:48]
+    tops = ", ".join(f"{short(k)} {dev[k][0]:.4f}" for k in names)
+    return (f"host {host:.4f} ms, device {total:.4f} ms per call, busy "
+            f"{total / host:.3f} (largest: {tops})")
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +244,7 @@ def check_edge_step(torch, n_nodes, cfg):
     gen = torch.Generator(device=dev).manual_seed(11)
     B, Mn, s = cfg.batch_size, cfg.n_negatives, cfg.out_dim
     kw = dict(gamma=cfg.gamma, a=cfg.prob_a, clip=cfg.grad_clip)
-    main = None
+    main, max_err = None, 0.0
     for N in (n_nodes, 64):
         y = torch.randn((N, s), generator=gen, device=dev) * 10.0
         i = torch.randint(0, N, (B,), generator=gen, device=dev,
@@ -213,6 +266,7 @@ def check_edge_step(torch, n_nodes, cfg):
             err = float((got - want).abs().max())
             check(torch.equal(got, want),
                   f"fused_edge_step: not bitwise at N={N} (max err {err})")
+            max_err = max(max_err, err)
         if main is None:
             main = (y, i, j, negs, mask)
     y, i, j, negs, mask = main
@@ -238,7 +292,7 @@ def check_edge_step(torch, n_nodes, cfg):
     return dict(name="fused_edge_step", route="cuda",
                 source="src/repro_torch/csrc/largevis_step.cu",
                 replaces="src/repro/kernels/largevis_step.py:268",
-                max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bms,
+                max_abs_err=max_err, ms=ms, plain_ms=plain, bound_ms=bms,
                 bound_by=by, library_ms=lib)
 
 
@@ -282,6 +336,86 @@ def check_pairwise(torch, x):
 # the main path
 # ---------------------------------------------------------------------------
 
+def check_split_kernels(torch, cfg):
+    """The split route's kernels at its shapes: ``largevis_grads`` on rows
+    of a scale-10 y (N = 100,000, s = 2) at B = 4096, 4095 and 37 with
+    M = 5 negatives, about a tenth masked, and the ordered scatter of the
+    B*(2+M) update rows, also on a duplicate-dense N = 64; each bitwise
+    against its plain version run on a CPU copy (the reference: on CUDA
+    the plain scatter's index_add_ is atomic)."""
+    from repro_torch.kernels import largevis_grad, largevis_step, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    B, Mn, s = cfg.batch_size, cfg.n_negatives, cfg.out_dim
+    kw = dict(gamma=cfg.gamma, a=cfg.prob_a, clip=cfg.grad_clip)
+    y = torch.randn((N_POINTS, s), generator=gen, device=dev) * 10.0
+    main, max_err, card_err = None, 0.0, 0.0
+    for b in (B, B - 1, 37):
+        i = torch.randint(0, N_POINTS, (b,), generator=gen, device=dev)
+        j = torch.randint(0, N_POINTS, (b,), generator=gen, device=dev)
+        negs = torch.randint(0, N_POINTS, (b, Mn), generator=gen,
+                             device=dev)
+        keep = torch.rand((b, Mn), generator=gen, device=dev) > 0.1
+        mask = (keep & (negs != i[:, None]) & (negs != j[:, None])).float()
+        args = (y[i], y[j], y[negs], mask)
+        got = largevis_grad.largevis_grads(*args, **kw)
+        want = ref.largevis_grads_ref(*(t.cpu() for t in args[:3]),
+                                      neg_mask=mask.cpu(), **kw)
+        plain = ref.largevis_grads_ref(*args[:3], neg_mask=mask, **kw)
+        for g, w, c in zip(got, want, plain):
+            err = float((g.cpu() - w).abs().max())
+            check(torch.equal(g.cpu(), w), f"largevis_grads: not bitwise at "
+                  f"B={b} (max err {err})")
+            max_err = max(max_err, err)
+            card_err = max(card_err, float((c - g).abs().max()))
+        if main is None:
+            main = args
+    ms = time_ms(torch, lambda: largevis_grad.largevis_grads(*main, **kw),
+                 reps=50)
+    plain_ms = time_ms(torch, lambda: ref.largevis_grads_ref(
+        *main[:3], neg_mask=main[3], **kw), reps=50)
+    n_bytes = 4 * B * (4 * s + 2 * Mn * s + Mn)
+    n_ops = B * ((4 * s + 2) + Mn * (7 * s + 3))
+    bms, by = bound_ms(n_bytes, n_ops)
+    _, dev_events = device_profile(
+        torch, lambda: largevis_grad.largevis_grads(*main, **kw))
+    kern = [(ms_, n) for k, (ms_, n) in dev_events.items()
+            if "largevis_grads_kernel" in k]
+    check(len(kern) == 1, f"largevis_grads: the profiler saw {len(kern)} "
+          "kernels of that name")
+    kern_ms = kern[0][0] * 50 / kern[0][1]      # per launch it saw
+
+    scatter_ms = None
+    for N in (N_POINTS, 64):
+        idx = torch.randint(0, N, (B * (2 + Mn),), generator=gen, device=dev)
+        upd = torch.randn((idx.numel(), s), generator=gen, device=dev)
+        yb = torch.randn((N, s), generator=gen, device=dev)
+        want = ref.scatter_add_ordered_ref(yb.cpu(), idx.cpu(), upd.cpu())
+        got = largevis_step.scatter_add_ordered(yb.clone(), idx, upd).cpu()
+        check(torch.equal(got, want), f"scatter_add_ordered: not bitwise at "
+              f"N={N} (max err {float((got - want).abs().max())})")
+        if scatter_ms is None:
+            yk = yb.clone()
+            scatter_ms = time_ms(torch, lambda: largevis_step
+                                 .scatter_add_ordered(yk, idx, upd), reps=50)
+    print(f"largevis_grads: (B={B}, M={Mn}, s={s}) bitwise equal to the "
+          f"plain version on a CPU copy, also at B={B - 1} and B=37 with "
+          f"masked negatives (the plain version on the card: max |err| "
+          f"{card_err:.3g}); kernel {ms:.4f} ms a call (CUDA events over "
+          f"back-to-back calls: the wrapper's host time), of which the "
+          f"kernel's own device time {kern_ms:.5f} ms (profiler), plain "
+          f"{plain_ms:.4f} ms, no single library call, bound {bms:.5f} ms "
+          f"({by}); "
+          f"scatter_add_ordered of {B * (2 + Mn)} rows bitwise equal to the "
+          f"plain version, also on N=64: {scatter_ms:.4f} ms", flush=True)
+    return dict(name="largevis_grads", route="cuda",
+                source="src/repro_torch/csrc/largevis_grad.cu",
+                replaces="src/repro/kernels/largevis_grad.py:55",
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None)
+
+
 def run_fit(torch, x, labels, cfg):
     from repro_torch import largevis
     from repro_torch.core import metrics
@@ -324,25 +458,262 @@ def run_fit(torch, x, labels, cfg):
     # forest + one exploring round recovers about three quarters)
     check(recall >= 0.7, f"graph_recall {recall} < 0.7")
     check(acc >= 0.8, f"knn_classifier_accuracy {acc} < 0.8")
-    for name, n in counts.items():
-        check(n > 0, f"{name} was not launched on the main path")
+    for name in ("topk_sqdist", "fused_edge_step", "pairwise_sqdist"):
+        check(counts[name] > 0, f"{name} was not launched on the main path")
+    return res, acc, counts
+
+
+def _step_kw(res, cfg):
+    return dict(edge_sampler=res.edge_sampler, neg_sampler=res.neg_sampler,
+                n_negatives=cfg.n_negatives, a=cfg.prob_a, gamma=cfg.gamma,
+                clip=cfg.grad_clip, rho0=cfg.rho0, batch=cfg.batch_size)
+
+
+def run_routes(torch, res, cfg, steps: int = 50):
+    """``steps`` fused and ``steps`` split SGD steps from the fitted y and
+    the fit's samplers, each from a generator seeded alike, in the order
+    fused, split, split, fused: every result bitwise equal.  Host-bound
+    step times compare only within one call."""
+    from repro_torch.core import layout_engine
+
+    kw = _step_kw(res, cfg)
+    outs, ms = [], {"fused": [], "split": []}
+    for route in ("fused", "split", "split", "fused"):
+        y = res.y.clone()
+        gen = torch.Generator(device=y.device).manual_seed(21)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(steps):
+            y = layout_engine.sgd_edge_step(y, gen, t / steps,
+                                            layout_step=route, **kw)
+        torch.cuda.synchronize()
+        ms[route].append((time.perf_counter() - t0) / steps * 1e3)
+        outs.append(y)
+    for y in outs[1:]:
+        check(torch.equal(y, outs[0]), "fused and split steps differ")
+    check(not torch.equal(outs[0], res.y), "the steps did not move y")
+    fused, split = (sum(v) / len(v) for v in (ms["fused"], ms["split"]))
+    print(f"routes: {steps} fused and {steps} split steps (B="
+          f"{cfg.batch_size}) from the fitted layout bitwise equal, twice "
+          f"each; fused {fused:.4f} ms/step, split {split:.4f} ms/step "
+          f"(host clock, this call)", flush=True)
+    for route in ("fused", "split"):
+        y = res.y.clone()
+        gen = torch.Generator(device=y.device).manual_seed(22)
+        host, dev = device_profile(torch, lambda: layout_engine.sgd_edge_step(
+            y, gen, 0.5, layout_step=route, **kw), n=steps)
+        print(f"  profiled {route} step: {busy_line(host, dev)}",
+              flush=True)
+
+
+def run_split_layout(torch, res, labels, cfg):
+    """The layout of the fit's graph by the split route, its launch
+    counts read just before and just after."""
+    from repro_torch import RoutingConfig
+    from repro_torch.core import metrics
+    from repro_torch.core.largevis import layout_graph
+    from repro_torch.kernels import ops
+
+    spn = min(SPLIT_SAMPLES_PER_NODE, cfg.samples_per_node)
+    scfg = dataclasses.replace(cfg, samples_per_node=spn,
+                               routing=RoutingConfig(layout_step="split"))
+    print(f"cut: split layout samples_per_node {PAPER_SAMPLES_PER_NODE} -> "
+          f"{spn} (a second layout of full length would add minutes to the "
+          f"run; the fit's fused layout ran at {cfg.samples_per_node})",
+          flush=True)
+    ops.reset_launch_counts()
+    lay, t = layout_graph(res.knn_idx, res.weights, cfg=scfg, device="cuda")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    acc = metrics.knn_classifier_accuracy(lay.y, labels)
+    print(f"split layout: samples_per_node={spn}, {lay.steps} steps, "
+          f"layout_s {t['layout_s']:.3f} s ({t['layout_s'] / lay.steps * 1e3:.4f}"
+          f" ms/step), sampler_s {t['sampler_s']:.3f} s; "
+          f"knn_classifier_accuracy {acc:.4f}; launches {counts}",
+          flush=True)
+    check(bool(torch.isfinite(lay.y).all()), "split layout not finite")
+    check(acc >= 0.8, f"split layout accuracy {acc} < 0.8")
+    check(counts["largevis_grads"] > 0 and counts["scatter_add_ordered"] > 0,
+          "the split layout did not launch largevis_grads and the ordered "
+          "scatter")
+    check(counts["fused_edge_step"] == 0,
+          "the split layout launched the fused edge step")
     return counts
 
 
-def run_fixture(torch):
+def run_autodiff(torch, res, cfg, steps: int = 200):
+    """``steps`` split steps of ``prob_fn="exp_quadratic"`` (autograd
+    forces) from the fitted layout."""
+    from repro_torch.core import layout_engine
+
+    kw = _step_kw(res, cfg)
+    y = res.y.clone()
+    gen = torch.Generator(device=y.device).manual_seed(23)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(steps):
+        y = layout_engine.sgd_edge_step(y, gen, t / steps, layout_step="split",
+                                        prob_fn="exp_quadratic", **kw)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    moved = float((y - res.y).abs().max())
+    print(f"autodiff: {steps} split steps of prob_fn=exp_quadratic, "
+          f"{step_ms:.4f} ms/step, finite, max |dy| {moved:.4g}", flush=True)
+    check(bool(torch.isfinite(y).all()), "exp_quadratic steps not finite")
+    check(moved > 0, "exp_quadratic steps did not move y")
+
+
+def held_out(n: int, seed: int):
+    """n more points of the fit's mixture: its centres are
+    ``gaussian_mixture``'s first draw from ``default_rng(0)``; labels and
+    noise come from ``default_rng(seed)``."""
+    import numpy as np
+    centers = (np.random.default_rng(0).standard_normal((CLUSTERS, DIM))
+               * 6.0 / np.sqrt(2))
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, CLUSTERS, n)
+    x = centers[labels] + rng.standard_normal((n, DIM))
+    return x.astype(np.float32), labels
+
+
+def query_accuracy(torch, y_corpus, labels, y_query, q_labels, k=5,
+                   chunk=1000):
+    """5-NN label accuracy of the queries against the corpus layout, in
+    row chunks (10k x 100k distances at once would be 4 GB)."""
+    from repro_torch.kernels import ops
+
+    hits = 0
+    for r0 in range(0, y_query.shape[0], chunk):
+        d = ops.pairwise_sqdist(y_query[r0:r0 + chunk], y_corpus)
+        nn = torch.sort(d, dim=1, stable=True).indices[:, :k]
+        votes = torch.nn.functional.one_hot(labels[nn], CLUSTERS).sum(1)
+        hits += int((votes.argmax(1) == q_labels[r0:r0 + chunk]).sum())
+    return hits / y_query.shape[0]
+
+
+def run_transform(torch, res, labels, acc_fit, cfg):
+    """``LargeVis.transform`` of N_TRANSFORM held-out points by the fused
+    (default) and the split route; the carrier never changes."""
+    from repro_torch import LargeVis, RoutingConfig
+    from repro_torch.kernels import knn_topk, ops, ref
+
+    dev = res.y.device
+    xq_np, lq_np = held_out(N_TRANSFORM, seed=1)
+    xq = torch.from_numpy(xq_np).to(dev)
+    lq = torch.from_numpy(lq_np).to(dev)
+    lab = torch.from_numpy(labels).to(dev)
+    y_before = res.y.clone()
+    out = {}
+    for route in ("auto", "split"):
+        rcfg = dataclasses.replace(cfg, routing=RoutingConfig(
+            layout_step=route))
+        model = LargeVis(rcfg, device="cuda")
+        model.result_ = dataclasses.replace(res, cfg=rcfg)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yq = model.transform(xq)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        acc = query_accuracy(torch, res.y, lab, yq, lq)
+        print(f"transform ({route}): Q={N_TRANSFORM} into N={N_POINTS}, "
+              f"{cfg.transform_steps} steps, {secs:.3f} s; 5-NN accuracy "
+              f"{acc:.4f} (fit {acc_fit:.4f}); launches {counts}",
+              flush=True)
+        check(torch.equal(res.y, y_before), "transform changed the carrier")
+        check(tuple(yq.shape) == (N_TRANSFORM, cfg.out_dim)
+              and bool(torch.isfinite(yq).all()), "transform rows not finite")
+        check(acc >= acc_fit - 0.05,
+              f"transform accuracy {acc} < fit {acc_fit} - 0.05")
+        check(counts["topk_sqdist"] > 0, "transform skipped topk_sqdist")
+        step = "largevis_grads" if route == "split" else "fused_edge_step"
+        check(counts[step] == cfg.transform_steps,
+              f"transform ({route}) launched {step} {counts[step]} times")
+        out[route] = yq
+    check(torch.equal(out["auto"], out["split"]),
+          "the fused and split transforms differ")
+
+    a = xq[None, :1000].contiguous()
+    k = min(cfg.n_neighbors, N_POINTS)
+    got = knn_topk.topk_sqdist(a, res.x[None], k)
+    want = ref.topk_sqdist_ref(a, res.x[None], k)
+    err, swaps, gap, tol = agree_topk(torch, a, res.x[None], res.x, got,
+                                      want, "topk_sqdist (queries)")
+    ms = time_ms(torch, lambda: knn_topk.topk_sqdist(xq[None], res.x[None],
+                                                     k), reps=3, warmup=1)
+    print(f"query_neighbors: topk_sqdist (G=1, M=1000, N={N_POINTS}, "
+          f"d={DIM}, k={k}) {swaps} id slot(s) differ from the plain "
+          f"version (only ties allowed; largest gap {gap:.3g}), max |dist "
+          f"err| {err:.3g} (tol {tol:.3g}); all {N_TRANSFORM} queries "
+          f"{ms:.3f} ms; the two transforms bitwise equal", flush=True)
+
+
+def run_insert(torch, res, cfg):
+    """``LargeVis.insert`` of N_INSERT held-out points; it grows the
+    carrier, so it runs last."""
+    from repro_torch import LargeVis
+    from repro_torch.kernels import ops
+
+    dev = res.y.device
+    xi = torch.from_numpy(held_out(N_INSERT, seed=2)[0]).to(dev)
+    model = LargeVis(cfg, device="cuda")
+    model.result_ = res
+    y_before = res.y.clone()
+    K = res.knn_idx.shape[1]
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y_new = model.insert(xi)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    r = model.result_
+    n_all = N_POINTS + N_INSERT
+    check(torch.equal(r.y[:N_POINTS], y_before), "insert moved fitted rows")
+    check(torch.equal(r.y[N_POINTS:], y_new)
+          and bool(torch.isfinite(y_new).all()), "inserted rows not finite")
+    check(tuple(r.knn_idx.shape) == (n_all, K) and r.x.shape[0] == n_all,
+          f"grown graph shape {tuple(r.knn_idx.shape)}")
+    rows = torch.arange(n_all, device=dev)[:, None]
+    check(bool((r.knn_idx != rows).all()), "the grown graph has a self edge")
+    check(bool((r.knn_dist.diff(dim=1) >= 0).all()),
+          "the grown graph's distances are not ascending")
+    check(r.edge_sampler.n_edges == n_all * K
+          and r.neg_sampler.n_nodes == n_all
+          and r.neg_sampler.threshold.shape[0] == n_all,
+          "the samplers do not cover the grown graph")
+    hits = 0
+    for r0 in range(0, N_INSERT, 500):
+        d = ops.pairwise_sqdist(xi[r0:r0 + 500], r.x)
+        own = torch.arange(r0, min(r0 + 500, N_INSERT), device=dev)
+        d[own - r0, N_POINTS + own] = float("inf")
+        true = torch.sort(d, dim=1, stable=True).indices[:, :K]
+        got = r.knn_idx[N_POINTS + own].long()
+        hits += int((got[:, :, None] == true[:, None, :]).any(-1).sum())
+    recall = hits / (N_INSERT * K)
+    print(f"insert: Q={N_INSERT} into N={N_POINTS}, {secs:.3f} s; new rows' "
+          f"recall against exact {K}-NN {recall:.4f}; launches {counts}",
+          flush=True)
+    check(recall >= 0.99, f"inserted rows' recall {recall} < 0.99")
+
+
+def run_fixture(torch, layout_step: str = "auto"):
     """The 2000-point quality fixture of the JAX package's engine test."""
-    from repro_torch import LargeVisConfig, largevis
+    from repro_torch import LargeVisConfig, RoutingConfig, largevis
     from repro_torch.core import metrics
     from repro_torch.data.synthetic import gaussian_mixture
 
     x, labels = gaussian_mixture(0, 2000, 32, 8)
     cfg = LargeVisConfig(n_neighbors=15, n_trees=4, n_explore_iters=2,
                          window=32, perplexity=10.0, samples_per_node=2000,
-                         batch_size=4096)
+                         batch_size=4096,
+                         routing=RoutingConfig(layout_step=layout_step))
     res = largevis(x, cfg=cfg, device="cuda")
     acc = metrics.knn_classifier_accuracy(res.y, labels)
-    print(f"fixture: N=2000 d=32, knn_classifier_accuracy {acc:.4f} "
-          f"(bar 0.95), {sum(res.timings.values()):.2f} s", flush=True)
+    print(f"fixture ({layout_step}): N=2000 d=32, knn_classifier_accuracy "
+          f"{acc:.4f} (bar 0.95), {sum(res.timings.values()):.2f} s",
+          flush=True)
     check(acc >= 0.95, f"fixture accuracy {acc} < 0.95")
     check(bool(torch.isfinite(res.y).all()), "fixture layout not finite")
 
@@ -368,7 +739,7 @@ def main() -> None:
     print(smi, flush=True)
     dev = resolve_device("cuda")           # also switches TF32 off
     t0 = time.perf_counter()
-    reports = _build.build("knn_topk", "largevis_step")
+    reports = _build.build("knn_topk", "largevis_step", "largevis_grad")
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(sorted(reports)) or 'cached'})", flush=True)
     for name, rep in sorted(reports.items()):
@@ -379,17 +750,27 @@ def main() -> None:
     cfg = LargeVisConfig(samples_per_node=args.samples_per_node)
     if args.samples_per_node != PAPER_SAMPLES_PER_NODE:
         print(f"cut: samples_per_node {PAPER_SAMPLES_PER_NODE} -> "
-              f"{args.samples_per_node} (nothing else is cut)", flush=True)
-    xn, labels = gaussian_mixture(0, N_POINTS, DIM, 10)
+              f"{args.samples_per_node} (the fit's layout; the split "
+              f"layout's own cut is printed with it)", flush=True)
+    xn, labels = gaussian_mixture(0, N_POINTS, DIM, CLUSTERS)
     x = torch.from_numpy(xn).to(dev)
 
     kernels = [check_topk(torch, x, cfg),
                check_edge_step(torch, N_POINTS, cfg),
                check_pairwise(torch, x)]
-    counts = run_fit(torch, x, labels, cfg)
+    res, acc_fit, counts = run_fit(torch, x, labels, cfg)
     for rec in kernels:
         rec["launches"] = counts[rec["name"]]
+    grads = check_split_kernels(torch, cfg)
+    run_routes(torch, res, cfg)
+    grads["launches"] = run_split_layout(torch, res, labels,
+                                         cfg)["largevis_grads"]
+    kernels.append(grads)
+    run_autodiff(torch, res, cfg)
+    run_transform(torch, res, labels, acc_fit, cfg)
+    run_insert(torch, res, cfg)
     run_fixture(torch)
+    run_fixture(torch, "split")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

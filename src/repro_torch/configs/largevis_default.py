@@ -24,7 +24,8 @@ class RoutingConfig:
     """Implementation routing knobs (same names as the JAX package).
 
     The port honours ``layout_step`` ("auto" and "fused" run the fused
-    edge-step kernel; "split" raises until the split path is ported) and
+    edge-step kernel for ``prob_fn="inv_quadratic"``; "split", and any
+    other ``prob_fn``, run the gather / forces / ordered-scatter path) and
     ignores the rest: kernels are chosen by the device of the tensors.
     """
     knn: str = "auto"
@@ -56,7 +57,7 @@ class LargeVisConfig:
     gamma: float = 7.0
     rho0: float = 1.0               # initial lr; rho_t = rho0 * (1 - t/T)
     samples_per_node: int = 10_000  # T = samples_per_node * N edge samples
-    prob_fn: str = "inv_quadratic"  # f(x)=1/(1+a x^2); the only one ported
+    prob_fn: str = "inv_quadratic"  # f(x)=1/(1+a x^2); or "exp_quadratic"
     prob_a: float = 1.0
     grad_clip: float = 5.0          # reference-impl per-coordinate clip
     batch_size: int = 4096          # edge samples per SGD step
@@ -64,7 +65,7 @@ class LargeVisConfig:
     sync_every: int = 1             # local-SGD period (not ported)
     init_scale: float = 1e-4        # initial layout ~ N(0, init_scale)
     neg_power: float = 0.75         # P_n(j) ∝ d_j^0.75
-    # --- out-of-sample transform (not ported yet) ---
+    # --- out-of-sample transform / insert ---
     transform_steps: int = 48
     transform_rho0: float = 0.0
     # --- implementation routing ---

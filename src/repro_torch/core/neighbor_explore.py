@@ -62,35 +62,46 @@ def _tile_explore(x, knn_idx, knn_dist, rev, rows, sample: int,
     return knn_lib.merge_candidates(ids, ds, K, self_idx=rows)
 
 
-def _explore_round(x, knn_idx, knn_dist, *, sample: int, tile: int,
+def _explore_round(x, knn_idx, knn_dist, rows, *, sample: int, tile: int,
                    r_cap: int, generator):
-    """One exploring iteration over every row, tile by tile."""
-    N = knn_idx.shape[0]
+    """One exploring iteration over ``rows``, tile by tile; every tile
+    reads the graph as it was at the start of the round, and only
+    ``rows`` are written."""
     rev = reverse_neighbors(knn_idx, r_cap)
-    out_i = torch.empty_like(knn_idx)
-    out_d = torch.empty_like(knn_dist)
-    for t0 in range(0, N, tile):
-        rows = torch.arange(t0, min(t0 + tile, N), device=x.device)
-        out_i[t0:t0 + tile], out_d[t0:t0 + tile] = _tile_explore(
-            x, knn_idx, knn_dist, rev, rows, sample, generator)
+    out_i = knn_idx.clone()
+    out_d = knn_dist.clone()
+    for t0 in range(0, rows.shape[0], tile):
+        r = rows[t0:t0 + tile]
+        out_i[r], out_d[r] = _tile_explore(x, knn_idx, knn_dist, rev, r,
+                                           sample, generator)
     return out_i, out_d
 
 
 def neighbor_explore(x, knn_idx, knn_dist, *, iters: int = 1,
                      sample: int = 0, generator=None,
-                     tile: int | None = None):
+                     tile: int | None = None, rows=None):
     """Refine (knn_idx, knn_dist) for ``iters`` rounds.
 
     Reverse neighbors are capped at K per row.  ``tile`` bounds the
     (tile, K^2 + K, d) gather; it is further capped so that gather stays
-    under ~256 MB of f32.
+    under ~256 MB of f32.  ``rows`` (row indices) restricts
+    exploring to those rows, the repair mode of ``transform.knn_insert``:
+    candidates still come from the full graph, forward and reverse, but
+    only ``rows`` are recomputed and written back.
     """
     N, K = knn_idx.shape
+    if rows is None:
+        rows = torch.arange(N, device=x.device)
+    rows = rows.to(device=x.device, dtype=torch.int64)
+    n_rows = rows.shape[0]
+    if n_rows == 0:
+        return knn_idx, knn_dist
     tile = tile or ops.EXPLORE_TILE
     budget = 64 * (1 << 20)
-    tile = max(16, min(tile, N, budget // max(1, (K * K + K) * x.shape[1])))
+    tile = max(16, min(tile, n_rows,
+                       budget // max(1, (K * K + K) * x.shape[1])))
     for _ in range(iters):
-        knn_idx, knn_dist = _explore_round(x, knn_idx, knn_dist,
+        knn_idx, knn_dist = _explore_round(x, knn_idx, knn_dist, rows,
                                            sample=sample, tile=tile,
                                            r_cap=K, generator=generator)
     return knn_idx, knn_dist

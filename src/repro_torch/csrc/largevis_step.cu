@@ -12,33 +12,25 @@
 //   costs what its launches cost.
 //   Design: two kernels, and a stable sort between them.
 //   * edge_forces_kernel (phase 0), one thread per edge: gather y[i],
-//     y[j], y[negs], compute the Eqn-6 forces with the JAX oracle's op
-//     order, every operation rounded on its own (__fmul_rn, __fadd_rn,
-//     __fdiv_rn: no contraction into FMAs) and the M negative forces
-//     summed left to right, clip, and stage the -lr*g rows with their
-//     destination rows (rows below n_frozen get -0.0, a bitwise no-op).
+//     y[j], y[negs], compute the Eqn-6 forces (largevis_forces.cuh: the
+//     JAX oracle's op order, every operation rounded on its own, the M
+//     negative forces summed left to right, clipped), and stage the
+//     -lr*g rows with their destination rows (rows below n_frozen get
+//     -0.0, a bitwise no-op).
 //   * The wrapper stable-sorts the destinations (torch.sort on an int
 //     key: it orders the updates, it computes none of them).
 //   * edge_accumulate_kernel (phase 1), one thread per row segment of
 //     the sorted stream: add the row's updates one after another, in
 //     stream order.  No atomics, so the result is bitwise the plain
-//     version's on the CPU.
+//     version's on the CPU.  The sort and this kernel alone are also the
+//     split path's ordered scatter (scatter_add_ordered), which replaces
+//     the JAX split path's y.at[idx].add(upd).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "largevis_forces.cuh"
+
 namespace {
-
-__device__ inline float clipf(float x, float c) {
-  return fminf(fmaxf(x, -c), c);
-}
-
-template <int S>
-__device__ inline float sqnorm(const float* v) {
-  float acc = __fmul_rn(v[0], v[0]);
-#pragma unroll
-  for (int k = 1; k < S; ++k) acc = __fadd_rn(acc, __fmul_rn(v[k], v[k]));
-  return acc;
-}
 
 template <int S>
 __global__ void edge_forces_kernel(
@@ -51,48 +43,31 @@ __global__ void edge_forces_kernel(
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= B) return;
   const int i = ei[e], j = ej[e];
-  float yi[S], dij[S], gpos[S], push[S];
+  float yi[S], yj[S], gi[S], gj[S];
 #pragma unroll
   for (int k = 0; k < S; ++k) {
     yi[k] = y[(size_t)i * S + k];
-    dij[k] = __fsub_rn(yi[k], y[(size_t)j * S + k]);
-  }
-  const float d2 = sqnorm<S>(dij);
-  const float gp = __fdiv_rn(c2a, __fadd_rn(1.0f, __fmul_rn(a, d2)));
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    gpos[k] = __fmul_rn(gp, dij[k]);
-    push[k] = 0.0f;
+    yj[k] = y[(size_t)j * S + k];
   }
   const float nlr = -(lr_vec != nullptr ? lr_vec[e] : lr);
   const size_t base = (size_t)e * (2 + M);
-  for (int m = 0; m < M; ++m) {
-    const int n = negs[(size_t)e * M + m];
-    const float mk = mask[(size_t)e * M + m];
-    float din[S];
+  const int* en = negs + (size_t)e * M;
+  largevis::edge_forces<S>(
+      yi, yj, M, [&](int m) { return y + (size_t)en[m] * S; },
+      mask + (size_t)e * M, c2a, a, c2g, eps, clip, gi, gj,
+      [&](int m, const float* g) {
+        const int n = en[m];
+        const bool live = n >= n_frozen;
 #pragma unroll
-    for (int k = 0; k < S; ++k)
-      din[k] = __fsub_rn(yi[k], y[(size_t)n * S + k]);
-    const float dn2 = sqnorm<S>(din);
-    const float den = __fmul_rn(__fadd_rn(eps, dn2),
-                                __fadd_rn(1.0f, __fmul_rn(a, dn2)));
-    const bool live = n >= n_frozen;
-#pragma unroll
-    for (int k = 0; k < S; ++k) {
-      const float g = __fmul_rn(__fdiv_rn(__fmul_rn(c2g, din[k]), den), mk);
-      push[k] = m == 0 ? g : __fadd_rn(push[k], g);
-      upd[(base + 2 + m) * S + k] = live ? __fmul_rn(nlr, clipf(-g, clip))
-                                         : -0.0f;
-    }
-    dst[base + 2 + m] = n;
-  }
+        for (int k = 0; k < S; ++k)
+          upd[(base + 2 + m) * S + k] = live ? __fmul_rn(nlr, g[k]) : -0.0f;
+        dst[base + 2 + m] = n;
+      });
   const bool live_i = i >= n_frozen, live_j = j >= n_frozen;
 #pragma unroll
   for (int k = 0; k < S; ++k) {
-    const float gi = clipf(__fadd_rn(gpos[k], push[k]), clip);
-    const float gj = clipf(-gpos[k], clip);
-    upd[base * S + k] = live_i ? __fmul_rn(nlr, gi) : -0.0f;
-    upd[(base + 1) * S + k] = live_j ? __fmul_rn(nlr, gj) : -0.0f;
+    upd[base * S + k] = live_i ? __fmul_rn(nlr, gi[k]) : -0.0f;
+    upd[(base + 1) * S + k] = live_j ? __fmul_rn(nlr, gj[k]) : -0.0f;
   }
   dst[base] = i;
   dst[base + 1] = j;

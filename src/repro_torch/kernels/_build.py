@@ -6,10 +6,10 @@ shared library with a plain C interface, loaded with ``ctypes``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o <build>/<name>-<hash>.so csrc/<name>.cu
 
-The library's file name carries a hash of its source and flags, so an
-edited source rebuilds and an unchanged one loads at once.  Builds happen
-at first use, never at import; :func:`build` starts one ``nvcc`` per
-source in parallel.  The build directory is ``_build/`` inside the
+The library's file name carries a hash of its source, the shared headers
+``csrc/*.cuh`` and the flags, so an edited source or header rebuilds and
+an unchanged one loads at once.  Builds happen at first use, never at
+import; :func:`build` starts one ``nvcc`` per source in parallel.  The build directory is ``_build/`` inside the
 package (git-ignored), or ``$REPRO_TORCH_BUILD_DIR``.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
@@ -53,6 +53,8 @@ def nvcc() -> str:
 def target(name: str) -> Path:
     """The library path for ``csrc/<name>.cu`` at its current content."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(FLAGS).encode())
     return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -4,8 +4,16 @@ One in-place SGD update of the (N, s) embedding over a batch of sampled
 edges: phase 0 computes and stages every update row, a stable sort of
 the destination rows orders them, phase 1 adds each row's updates in the
 canonical per-edge order ``[i_e, j_e, negs_e,0..M-1]``.  Bitwise equal
-to ``ref.fused_edge_step_ref`` run on the CPU.  CUDA tensors only; the
-launcher counts its calls in ``fused_edge_step.launches``.
+to ``ref.fused_edge_step_ref`` run on the CPU.
+
+Phase 1 alone, the sort and the accumulation, is also
+:func:`scatter_add_ordered`: the split path's scatter of a staged update
+stream, with duplicates added in stream order as the JAX split path's
+``y.at[idx].add(upd)`` adds them on the CPU (``index_add_`` on CUDA uses
+atomics, whose order varies from run to run).
+
+CUDA tensors only; each launcher counts its calls in
+``<function>.launches``.
 """
 from __future__ import annotations
 
@@ -78,12 +86,52 @@ def fused_edge_step(y, i, j, negs, neg_mask, lr, *, gamma: float = 7.0,
         2.0 * a, a, -2.0 * gamma, eps, clip, int(n_frozen), p(upd), p(dst),
         stream)
     _build.check(rc, "fused_edge_step (phase 0)")
-    dst_sorted, perm = torch.sort(dst, stable=True)
-    rc = lib.edge_accumulate_launch(p(y), s, p(upd), p(dst_sorted), p(perm),
-                                    U, stream)
-    _build.check(rc, "fused_edge_step (phase 1)")
+    _accumulate(lib, y, dst, upd, stream, "fused_edge_step (phase 1)")
     fused_edge_step.launches += 1
     return y
 
 
 fused_edge_step.launches = 0
+
+
+def _accumulate(lib, y, dst, upd, stream, what: str) -> None:
+    """Phase 1: stable-sort the destination rows, then add each row's
+    updates in stream order."""
+    dst_sorted, perm = torch.sort(dst, stable=True)
+    rc = lib.edge_accumulate_launch(_build.ptr(y), y.shape[1],
+                                    _build.ptr(upd), _build.ptr(dst_sorted),
+                                    _build.ptr(perm), dst.shape[0], stream)
+    _build.check(rc, what)
+
+
+def scatter_add_ordered(y, idx, upd):
+    """``y[idx[u]] += upd[u]`` for u = 0..U-1 on the card, in place, with
+    the updates to one row added in stream order; returns ``y``.
+
+    y: (N, s) contiguous f32; idx: (U,) rows in [0, N), unchecked as in
+    :func:`fused_edge_step`; upd: (U, s).
+    """
+    dev = y.device
+    if dev.type != "cuda" or y.dtype != torch.float32 or \
+            not y.is_contiguous():
+        raise ValueError("scatter_add_ordered: y must be a contiguous f32 "
+                         f"CUDA tensor, got {y.dtype} on {dev}")
+    N, s = y.shape
+    U = idx.shape[0]
+    if not 1 <= s <= MAX_S:
+        raise ValueError(f"scatter_add_ordered: out_dim {s} outside "
+                         f"[1, {MAX_S}]")
+    if tuple(upd.shape) != (U, s):
+        raise ValueError(f"scatter_add_ordered: {U} rows beside updates of "
+                         f"shape {tuple(upd.shape)}")
+    for t in (idx, upd):
+        if t.device != dev:
+            raise ValueError(f"scatter_add_ordered: {t.device} beside {dev}")
+    _accumulate(_lib(), y, idx.to(torch.int32).contiguous(),
+                upd.to(torch.float32).contiguous(), _build.stream(dev),
+                "scatter_add_ordered")
+    scatter_add_ordered.launches += 1
+    return y
+
+
+scatter_add_ordered.launches = 0

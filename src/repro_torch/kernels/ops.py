@@ -7,7 +7,7 @@ package's ``AUTOTUNE=off`` defaults; the port has no autotuner yet.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import knn_topk, largevis_step, ref
+from repro_torch.kernels import knn_topk, largevis_grad, largevis_step, ref
 
 # the JAX package's legacy (autotune "off") tiles; results do not depend
 # on them, only memory and speed do
@@ -49,10 +49,30 @@ def largevis_edge_step(y, i, j, negs, neg_mask, lr, *, gamma=7.0, a=1.0,
                                    a=a, clip=clip, eps=eps, n_frozen=n_frozen)
 
 
+def largevis_grads(yi, yj, yneg, neg_mask, *, gamma=7.0, a=1.0, clip=5.0,
+                   eps=0.1):
+    """The Eqn-6 forces (gi, gj, gneg) of gathered edge coordinates."""
+    if _route(yi):
+        return largevis_grad.largevis_grads(yi, yj, yneg, neg_mask,
+                                            gamma=gamma, a=a, clip=clip,
+                                            eps=eps)
+    return ref.largevis_grads_ref(yi, yj, yneg, gamma=gamma, a=a, clip=clip,
+                                  eps=eps, neg_mask=neg_mask)
+
+
+def scatter_add_ordered(y, idx, upd):
+    """``y[idx] += upd`` in place, duplicates in stream order; returns y."""
+    if _route(y):
+        return largevis_step.scatter_add_ordered(y, idx, upd)
+    return ref.scatter_add_ordered_ref(y, idx, upd)
+
+
 _LAUNCHERS = {
     "topk_sqdist": knn_topk.topk_sqdist,
     "fused_edge_step": largevis_step.fused_edge_step,
     "pairwise_sqdist": knn_topk.pairwise_sqdist,
+    "largevis_grads": largevis_grad.largevis_grads,
+    "scatter_add_ordered": largevis_step.scatter_add_ordered,
 }
 
 

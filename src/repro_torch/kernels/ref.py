@@ -149,18 +149,20 @@ def largevis_grads_ref(yi, yj, yneg, *, gamma: float = 7.0, a: float = 1.0,
 
     yi, yj: (B, s); yneg: (B, M, s); neg_mask: (B, M) 1.0 valid / 0.0
     skip.  Returns (gi, gj, gneg), each coordinate clipped to +-clip.
-    The M negative forces on yi are summed left to right, which is the
-    order XLA's reduction uses, so the result is bitwise the JAX oracle's.
+    The M negative forces on yi, and the squared norms, are summed left
+    to right, which is the order XLA's reduction uses, so the result is
+    bitwise the JAX oracle's (and the CUDA kernels', which sum in the same
+    order).
     """
     yi, yj, yneg = yi.float(), yj.float(), yneg.float()
     dij = yi - yj                                          # (B, s)
-    d2 = (dij * dij).sum(-1, keepdim=True)                 # (B, 1)
+    d2 = sq_norms(dij)[:, None]                            # (B, 1)
     # a tensor numerator: ``float / tensor`` is reciprocal-then-multiply in
     # torch, one rounding more than XLA's division
     c2a = torch.tensor(2.0 * a, dtype=torch.float32, device=yi.device)
     gpos = (c2a / (1.0 + a * d2)) * dij
     din = yi[:, None, :] - yneg                            # (B, M, s)
-    dn2 = (din * din).sum(-1, keepdim=True)                # (B, M, 1)
+    dn2 = sq_norms(din)[..., None]                         # (B, M, 1)
     gneg_i = -2.0 * gamma * din / ((eps + dn2) * (1.0 + a * dn2))
     if neg_mask is not None:
         gneg_i = gneg_i * neg_mask[..., None]
@@ -179,23 +181,29 @@ def largevis_grads_ref(yi, yj, yneg, *, gamma: float = 7.0, a: float = 1.0,
 # fused edge step: gather -> forces -> scatter-accumulate
 # ---------------------------------------------------------------------------
 
+def scatter_add_ordered_ref(y, idx, upd):
+    """``y[idx[u]] += upd[u]`` in place; on the CPU ``index_add_`` adds the
+    updates to one row in stream order (on CUDA it uses atomics, whose
+    order varies, so this version is the reference only on the CPU).
+    Returns ``y``."""
+    return y.index_add_(0, idx.long(), upd)
+
+
 def fused_edge_step_ref(y, i, j, negs, neg_mask, lr, *, gamma: float = 7.0,
                         a: float = 1.0, clip: float = 5.0, eps: float = 0.1,
                         n_frozen: int = 0):
     """One SGD update of the (N, s) embedding over an edge batch, in place.
 
-    Every gather happens before any update.  The update stream is
-    ``[i_e, j_e, negs_e,0..M-1] for e = 0..B-1`` and duplicates
-    accumulate in that order (``index_add_`` on the CPU applies them in
-    stream order; on CUDA it uses atomics, whose order varies, so this
-    version is the reference only on the CPU).  ``lr`` is a scalar or a
-    (B,) per-edge vector.  Rows below ``n_frozen`` receive -0.0, a
-    bitwise no-op.  Returns ``y``.
+    Every gather happens before any update; the updates ``-lr * g``
+    accumulate in the canonical per-edge order ``[i_e, j_e,
+    negs_e,0..M-1] for e = 0..B-1``.  ``lr`` is a scalar or a (B,)
+    per-edge vector.  Updates to rows below ``n_frozen`` are -0.0, a
+    bitwise no-op, so those rows never change.  Returns ``y``.
     """
     i, j, negs = i.long(), j.long(), negs.long()
     gi, gj, gneg = largevis_grads_ref(y[i], y[j], y[negs], gamma=gamma, a=a,
                                       clip=clip, eps=eps, neg_mask=neg_mask)
-    s = y.shape[1]
+    s = gi.shape[1]
     idx = torch.cat([i[:, None], j[:, None], negs], dim=1).reshape(-1)
     upd = torch.cat([gi[:, None], gj[:, None], gneg], dim=1).reshape(-1, s)
     lr = torch.as_tensor(lr, dtype=torch.float32, device=y.device)
@@ -205,4 +213,4 @@ def fused_edge_step_ref(y, i, j, negs, neg_mask, lr, *, gamma: float = 7.0,
     if n_frozen:
         upd = torch.where((idx >= n_frozen)[:, None], upd,
                           torch.tensor(-0.0, device=y.device))
-    return y.index_add_(0, idx, upd)
+    return scatter_add_ordered_ref(y, idx, upd)

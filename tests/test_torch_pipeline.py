@@ -126,13 +126,21 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 def test_unported_routes_raise():
+    """The split route and the autograd prob_fn run; unknown names raise
+    ValueError, as in the JAX package; the routes still to port raise
+    NotImplementedError naming the ROADMAP."""
     from repro_torch.core import layout_engine
-    z = torch.zeros((4, 2))
-    i = torch.zeros(2, dtype=torch.int32)
-    n = torch.zeros((2, 1), dtype=torch.int32)
-    for kw in (dict(layout_step="split"), dict(prob_fn="inv_exp")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            layout_engine.apply_edge_batch(z, i, i, n, n.float(), 0.1, **kw)
+    z = torch.arange(8.0).reshape(4, 2)
+    i = torch.tensor([0, 1], dtype=torch.int32)
+    j = torch.tensor([2, 3], dtype=torch.int32)
+    n = torch.tensor([[3], [0]], dtype=torch.int32)
+    for kw in (dict(layout_step="split"), dict(prob_fn="exp_quadratic")):
+        y = layout_engine.apply_edge_batch(z.clone(), i, j, n, n.float(),
+                                           0.1, **kw)
+        assert bool(torch.isfinite(y).all()) and not torch.equal(y, z)
+    for kw in (dict(prob_fn="inv_exp"), dict(layout_step="tiled")):
+        with pytest.raises(ValueError):
+            layout_engine.apply_edge_batch(z, i, j, n, n.float(), 0.1, **kw)
     x = torch.zeros((8, 3))
     for cfg in (LargeVisConfig(rp_mode="tree"),
                 LargeVisConfig(distributed=True)):
