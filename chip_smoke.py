@@ -13,7 +13,8 @@ CUDA toolkit.  It imports nothing of JAX or of the JAX package.  In order:
    shapes the main path gives it, and times the kernel, the plain
    version, one PyTorch library call for the same function, and the
    least time the card could take (the larger of bytes over 3.35 TB/s
-   and operations over 67 TFLOP/s f32, the H100 SXM data sheet's peaks);
+   and operations over 67 TFLOP/s f32, or 989 TFLOP/s for bf16 operands,
+   the H100 SXM data sheet's peaks);
 4. runs the full-width fit (``LargeVisConfig()`` defaults: K=150, 8
    trees, window 64, perplexity 50) on a Gaussian mixture of N=100,000
    points in d=100, with every kernel's launch count reset just before
@@ -27,7 +28,17 @@ CUDA toolkit.  It imports nothing of JAX or of the JAX package.  In order:
    clusters, by the fused and by the split route, and
    ``LargeVis.insert`` of 2,000 more, each with its launch counts read;
 7. runs the 2000-point quality fixture (accuracy >= 0.95), by the fused
-   and by the split route;
+   and by the split route: the two layouts bitwise equal, since the
+   negative sampler's in-degree sum is ordered (two samplers built on
+   the card from the fit's graph are checked bitwise equal after the fit);
+8. the LM serving path: ``flash_attention`` against its plain version at
+   the serve path's shape (1, 4096, 16, 64) in bf16 and f32, then
+   ``ServeEngine`` with ``qwen1.5-0.5b`` at full width (random weights
+   from a seed, bf16) serving 8 requests, 4 of 4096 tokens (prefill
+   through the flash kernel) and 4 of 16-512 tokens (``mha_full``), with
+   the launch counts read just before and just after; the kernel's
+   4096-token prefill logits against the same prefill through the plain
+   version; decode against prefill at reduced depth in f32;
 
 then prints a JSON line of the kernel records and, last, the device line.
 Any failed check exits with status 1 and prints no result.
@@ -45,10 +56,25 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_F32_PER_S = 67e12          # H100 SXM f32, outside the tensor cores
+PEAK_BF16_PER_S = 989e12        # H100 SXM bf16, dense tensor cores
 PAPER_SAMPLES_PER_NODE = 10_000
 SPLIT_SAMPLES_PER_NODE = 2_000  # the split layout's cut (printed)
 N_POINTS, DIM, CLUSTERS = 100_000, 100, 10   # the full-width fit's data
 N_TRANSFORM, N_INSERT = 10_000, 2_000        # held-out points
+LM_ARCH = "qwen1.5-0.5b"
+FLASH_SHAPE = (1, 4096, 16, 64)   # (B, S, H, hd) of a long prompt's prefill
+# kernel vs plain version: f32, the same f32 softmax summed in another
+# order (|err| <= FLASH_F32_TOL); bf16, both f32 results rounded to 8
+# bits, which differ where they straddle a rounding boundary: |err| <=
+# FLASH_BF16_ULPS bf16 ulps of |plain| + FLASH_F32_TOL, element by element
+FLASH_F32_TOL, FLASH_BF16_ULPS = 2e-5, 2
+# the bf16 model's last logits through the kernel vs the plain version,
+# relative to the largest |logit|: one-ulp differences of the attention
+# outputs carried through 24 layers of bf16 activations
+PREFILL_REL_TOL = 5e-2
+DECODE_REL_TOL = 2e-3             # the JAX package's own bound (test_models)
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_MAX_NEW = 4, 4128, 16
+LONG_PROMPT, N_LONG, N_SHORT = 4096, 4, 4
 
 
 def fail(msg: str) -> None:
@@ -69,10 +95,17 @@ def nvidia_smi() -> str:
     return out[0]
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             peak_ops: float = PEAK_F32_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_PER_S * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bf16_ulp(torch, x):
+    """The spacing of bf16 numbers at |x|, 2^(floor(log2 |x|) - 7)."""
+    a = x.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
 def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
@@ -698,6 +731,24 @@ def run_insert(torch, res, cfg):
     check(recall >= 0.99, f"inserted rows' recall {recall} < 0.99")
 
 
+def check_negative_sampler(torch, res, cfg):
+    """Two negative samplers built on the card from the fit's graph are
+    bitwise equal, and equal to the fit's own: the in-degree sum adds in
+    stream order."""
+    from repro_torch.core import sampler
+
+    builds = [sampler.build_negative_sampler(res.knn_idx, res.weights,
+                                             power=cfg.neg_power)
+              for _ in range(2)]
+    for ns in builds:
+        check(torch.equal(ns.threshold, res.neg_sampler.threshold)
+              and torch.equal(ns.alias, res.neg_sampler.alias),
+              "two negative samplers built from one graph differ")
+    print(f"negative sampler: two builds from the fit's graph (N="
+          f"{res.knn_idx.shape[0]}, K={res.knn_idx.shape[1]}) bitwise equal "
+          f"to each other and to the fit's", flush=True)
+
+
 def run_fixture(torch, layout_step: str = "auto"):
     """The 2000-point quality fixture of the JAX package's engine test."""
     from repro_torch import LargeVisConfig, RoutingConfig, largevis
@@ -716,6 +767,226 @@ def run_fixture(torch, layout_step: str = "auto"):
           flush=True)
     check(acc >= 0.95, f"fixture accuracy {acc} < 0.95")
     check(bool(torch.isfinite(res.y).all()), "fixture layout not finite")
+    return acc, res.y
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path
+# ---------------------------------------------------------------------------
+
+def check_flash(torch):
+    """``flash_attention`` against its plain version at the serve path's
+    shape in bf16 and f32, and at ragged shapes (S and T not multiples of
+    the kernel's 64-row tiles, S < T and S > T, non-causal); timed in bf16,
+    the path's dtype, beside the plain version and SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    B, S, H, hd = FLASH_SHAPE
+    shapes = [(FLASH_SHAPE, S, True), ((2, 1000, 3, 64), 1037, True),
+              ((1, 300, 2, 64), 77, True), ((1, 130, 4, 64), 130, False)]
+    max_err, errs, main = 0.0, [], {}
+    for (b, s, h, d), t, causal in shapes:
+        for name in ("bfloat16", "float32"):
+            dt = getattr(torch, name)
+            q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dt)
+            k, v = (torch.randn((b, t, h, d), generator=gen, device=dev)
+                    .to(dt) for _ in range(2))
+            got = fa.flash_attention(q, k, v, causal=causal)
+            want = ref.flash_attention_ref(q, k, v, causal=causal)
+            diff = (got.float() - want.float()).abs()
+            limit = torch.full_like(diff, FLASH_F32_TOL)
+            if dt == torch.bfloat16:
+                limit += FLASH_BF16_ULPS * bf16_ulp(torch, want)
+            err = float(diff.max())
+            worst = float((diff / limit).max())
+            check(got.dtype == dt and bool(torch.isfinite(got).all())
+                  and worst <= 1.0,
+                  f"flash_attention: ({b}, {s}, {h}, {d}) x T={t} {name} "
+                  f"causal={causal}: max |err| {err}, {worst:.3g} x its "
+                  "limit")
+            max_err = max(max_err, err)
+            errs.append(f"({b},{s},{h},{d})xT={t}{'' if causal else ' nc'} "
+                        f"{name} {err:.3g} ({worst:.3g} x limit, median "
+                        f"limit {float(limit.median()):.3g})")
+            if t == S and causal:
+                main[name] = (q, k, v)
+    q, k, v = main["bfloat16"]
+    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v))
+    ms32 = time_ms(torch, lambda: fa.flash_attention(*main["float32"]))
+    plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v), reps=3)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    pairs = B * H * S * (S + 1) // 2        # (q, k) pairs under the mask
+    n_ops = 4 * pairs * hd
+    n_bytes = 4 * B * S * H * hd * 2        # q, k, v read, out written
+    bms, by = bound_ms(n_bytes, n_ops, PEAK_BF16_PER_S)
+    print(f"flash_attention: (B={B}, S=T={S}, H={H}, hd={hd}) causal, max "
+          f"|err| against the plain version (limit f32 {FLASH_F32_TOL}; "
+          f"bf16 {FLASH_BF16_ULPS} bf16 ulps of |plain| + {FLASH_F32_TOL}, "
+          f"per element): "
+          f"{'; '.join(errs)}; kernel bf16 {ms:.4f} ms (f32 {ms32:.4f} "
+          f"ms), plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound {bms:.5f} "
+          f"ms ({by}, bf16 tensor-core peak)", flush=True)
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:72",
+                max_abs_err=max_err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=lib)
+
+
+def check_prefill_plain(torch, eng, prompts):
+    """The engine's model on the long prompts: last logits of the prefill
+    through the kernel against the same prefill through the plain
+    version (``ops.flash_attention`` swapped for it), on the card."""
+    from unittest import mock
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import lm
+
+    worst, agree = 0.0, 0
+    for p in prompts:
+        toks = torch.tensor([p], dtype=torch.long, device=eng.device)
+        got, _ = lm.lm_prefill(eng.params, eng.cfg, toks)
+        with mock.patch.object(ops, "flash_attention",
+                               ref.flash_attention_ref):
+            want, _ = lm.lm_prefill(eng.params, eng.cfg, toks)
+        rel = float((got - want).abs().max() / want.abs().max())
+        check(bool(torch.isfinite(got).all()) and rel <= PREFILL_REL_TOL,
+              f"prefill logits through the kernel vs the plain version: "
+              f"rel {rel} > {PREFILL_REL_TOL}")
+        worst = max(worst, rel)
+        agree += int(torch.equal(got.argmax(-1), want.argmax(-1)))
+    print(f"prefill ({len(prompts)} prompts of {len(prompts[0])} tokens, "
+          f"{str(eng.cfg.dtype).removeprefix('torch.')}): last logits through the kernel vs through the plain "
+          f"version max |diff| / max |logit| {worst:.3g} (tol "
+          f"{PREFILL_REL_TOL}); greedy token equal on {agree} of "
+          f"{len(prompts)} (printed, not required in bf16)", flush=True)
+
+
+def run_serve(torch):
+    """``ServeEngine`` at full width: 4 slots, 8 requests (4 long prompts
+    through the flash kernel, 4 short through ``mha_full``), 16 new
+    tokens each; launch counts reset just before and read just after."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import Request, ServeEngine
+    from repro_torch.models import lm
+
+    cfg = get_config(LM_ARCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in eng.params.parameters())
+    rng = np.random.default_rng(0)
+    lengths = [LONG_PROMPT] * N_LONG + \
+        rng.integers(16, 513, N_SHORT).tolist()
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+    check_prefill_plain(torch, eng, prompts[:N_LONG])   # also warms up
+
+    prefill_ms, decode_ms = [], []
+
+    def timed(fn, out):
+        def call(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn(*args)
+            torch.cuda.synchronize()
+            out.append((args[1].shape, (time.perf_counter() - t) * 1e3))
+            return res
+        return call
+
+    eng._prefill = timed(eng._prefill, prefill_ms)
+    eng._decode = timed(eng._decode, decode_ms)
+    reqs = [Request(i, p, max_new=SERVE_MAX_NEW) for i, p in
+            enumerate(prompts)]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    steps = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    n_tok = sum(len(r.out) for r in reqs)
+    dec = [ms for _, ms in decode_ms]
+    by_len = {}
+    for shape, ms in prefill_ms:
+        by_len.setdefault(shape[1], []).append(ms)
+    pre = ", ".join(f"{n}: {sum(v) / len(v):.2f}" for n, v in
+                    sorted(by_len.items()))
+    print(f"serve: {LM_ARCH} ({n_params / 1e6:.1f}M parameters, matrices "
+          f"{str(cfg.dtype).removeprefix('torch.')}, engine built in "
+          f"{build_s:.2f} s), {SERVE_SLOTS} slots x "
+          f"max_len {SERVE_MAX_LEN}, {len(reqs)} requests ({N_LONG} of "
+          f"{LONG_PROMPT} tokens, {N_SHORT} of {lengths[N_LONG:]}), "
+          f"max_new {SERVE_MAX_NEW}: {steps} engine steps, {n_tok} tokens "
+          f"in {wall:.3f} s ({n_tok / wall:.1f} tokens/s end to end); "
+          f"prefill ms by prompt length {{{pre}}}; decode "
+          f"{sum(dec) / len(dec):.3f} ms per engine step over {len(dec)} "
+          f"steps (min {min(dec):.3f}, max {max(dec):.3f}); launches "
+          f"{counts}", flush=True)
+    for p in (prompts[0], prompts[N_LONG]):
+        toks = torch.tensor([p], dtype=torch.long, device=eng.device)
+        host, dev = device_profile(torch, lambda: lm.lm_prefill(
+            eng.params, cfg, toks), n=3)
+        print(f"  profiled {len(p)}-token prefill: {busy_line(host, dev)}",
+              flush=True)
+    last = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long, device=eng.device)
+    pos = torch.full((SERVE_SLOTS,), SERVE_MAX_LEN - 2, device=eng.device)
+    host, dev = device_profile(torch, lambda: lm.lm_decode(
+        eng.params, cfg, last, eng.cache, pos), n=10)
+    print(f"  profiled decode step ({SERVE_SLOTS} slots at position "
+          f"{SERVE_MAX_LEN - 2}): {busy_line(host, dev)}", flush=True)
+    want = cfg.n_layers * N_LONG
+    check(counts["flash_attention"] == want,
+          f"flash_attention launched {counts['flash_attention']} times on "
+          f"the serve path, expected {cfg.n_layers} layers x {N_LONG} long "
+          f"prompts = {want}")
+    check(all(r.done and len(r.out) == SERVE_MAX_NEW for r in reqs),
+          "a request did not finish with max_new tokens")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out),
+          "a token outside the vocabulary")
+    return counts["flash_attention"]
+
+
+def check_decode_matches_prefill(torch, n_layers: int = 2, S: int = 1000):
+    """At full width and reduced depth in f32: prefill(S) + decode(token
+    S) against prefill(S + 1), both prefills through the flash kernel
+    (``attn_impl="chunked"``), as the JAX package's test_models checks."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.largevis import seeded_generator
+    from repro_torch.models import lm
+    from repro_torch.models.factory import init_cache
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=n_layers,
+                              dtype=torch.float32)
+    params = lm.init_lm(seeded_generator(dev, 5), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, S + 1),
+                         generator=seeded_generator(dev, 6), device=dev)
+    want, _ = lm.lm_prefill(params, cfg, toks, attn_impl="chunked")
+    _, one = lm.lm_prefill(params, cfg, toks[:, :S], attn_impl="chunked")
+    cache = init_cache(cfg, 2, S + 1, dev)
+    for name in ("k", "v"):
+        cache[name][:, :, :S] = one[name]
+    got, _ = lm.lm_decode(params, cfg, toks[:, S:], cache,
+                          torch.full((2,), S, device=dev))
+    rel = float((got - want).abs().max() / want.abs().max())
+    print(f"decode vs prefill: {LM_ARCH} at full width, {n_layers} layers "
+          f"(cut from {get_config(LM_ARCH).n_layers}), f32, B=2: "
+          f"prefill({S}) + decode(token {S}) vs prefill({S + 1}) max |diff| "
+          f"/ max |logit| {rel:.3g} (tol {DECODE_REL_TOL})", flush=True)
+    check(rel <= DECODE_REL_TOL, f"decode vs prefill rel {rel}")
 
 
 def main() -> None:
@@ -739,7 +1010,8 @@ def main() -> None:
     print(smi, flush=True)
     dev = resolve_device("cuda")           # also switches TF32 off
     t0 = time.perf_counter()
-    reports = _build.build("knn_topk", "largevis_step", "largevis_grad")
+    reports = _build.build("knn_topk", "largevis_step", "largevis_grad",
+                           "flash_attention")
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(sorted(reports)) or 'cached'})", flush=True)
     for name, rep in sorted(reports.items()):
@@ -761,6 +1033,7 @@ def main() -> None:
     res, acc_fit, counts = run_fit(torch, x, labels, cfg)
     for rec in kernels:
         rec["launches"] = counts[rec["name"]]
+    check_negative_sampler(torch, res, cfg)
     grads = check_split_kernels(torch, cfg)
     run_routes(torch, res, cfg)
     grads["launches"] = run_split_layout(torch, res, labels,
@@ -769,8 +1042,17 @@ def main() -> None:
     run_autodiff(torch, res, cfg)
     run_transform(torch, res, labels, acc_fit, cfg)
     run_insert(torch, res, cfg)
-    run_fixture(torch)
-    run_fixture(torch, "split")
+    acc_auto, y_auto = run_fixture(torch)
+    acc_split, y_split = run_fixture(torch, "split")
+    check(torch.equal(y_auto, y_split),
+          "the fused and split fixture fits differ")
+    print(f"fixture: fused {acc_auto:.4f}, split {acc_split:.4f}: the two "
+          f"fits' layouts bitwise equal", flush=True)
+
+    flash = check_flash(torch)
+    flash["launches"] = run_serve(torch)
+    kernels.append(flash)
+    check_decode_matches_prefill(torch)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

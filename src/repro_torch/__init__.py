@@ -5,6 +5,8 @@ step, and the out-of-sample transform and insert on an NVIDIA H100
 through hand-written CUDA kernels (``csrc/``), built with ``nvcc`` at
 first use; on the CPU (``device="cpu"``) the same entry points run the
 kernels' plain PyTorch versions.  It imports neither JAX nor the ``repro`` package.
+The LM serving path (``qwen1.5-0.5b``) is ``launch.serve.ServeEngine``
+over ``models/``; its long-prompt prefill runs the flash-attention kernel.
 
 * :class:`LargeVis` — the estimator (``fit`` / ``fit_transform`` /
   ``transform`` / ``insert``).

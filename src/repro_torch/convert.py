@@ -1,4 +1,5 @@
-"""Carry a fitted LargeVis state between the JAX package and the port.
+"""Carry state between the JAX package and the port: a fitted LargeVis
+state, and an LM's parameters.
 
 The state is a dict of numpy arrays (LargeVis's counterpart of model
 weights): ``y``, ``knn_idx``, ``knn_dist``, ``weights``, ``x``, the edge
@@ -9,6 +10,12 @@ the node sampler's ``node_threshold``/``node_alias``.
 them (the port's :class:`LargeVisResult`, or the JAX package's, whose
 arrays ``numpy.asarray`` accepts), and :func:`result_from_numpy` builds the
 port's result on a device.  A round trip is bitwise.
+
+:func:`lm_params_from_numpy` builds the port's LM parameters from the JAX
+parameter pytree as numpy, and :func:`lm_params_to_numpy` gives it back.
+JAX stacks each block position ``p`` of the pattern over the periods
+along axis 0 (``blocks/pos{p}``); the port keeps the blocks in layer
+order, layer ``period * P + p``.  A round trip is bitwise.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import torch
 from repro_torch.configs.largevis_default import LargeVisConfig
 from repro_torch.core.largevis import LargeVisResult, resolve_device
 from repro_torch.core.sampler import EdgeSampler, NodeSampler
+from repro_torch.models import lm
 
 _FIELDS = ("y", "knn_idx", "knn_dist", "weights", "x")
 _EDGE = ("src", "dst", "threshold", "alias")
@@ -57,3 +65,51 @@ def result_from_numpy(arrays: dict, cfg: LargeVisConfig | None = None,
         weights=t("weights"), timings={}, edge_samples=0, x=t("x"),
         edge_sampler=edge, neg_sampler=node,
         cfg=cfg if cfg is not None else LargeVisConfig())
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_params_from_numpy(tree: dict, cfg, device="cuda"):
+    """The port's LM parameters (f32, as ``lm.init_lm`` makes them) from
+    the JAX package's parameter pytree with numpy leaves."""
+    dev = resolve_device(device)
+    lm.check_supported(cfg)
+    P = len(cfg.block_pattern)
+
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+
+    out = {k: _map(v, t) for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = [_map(tree["blocks"][f"pos{li % P}"],
+                          lambda a, i=li // P: t(np.asarray(a)[i]))
+                     for li in range(cfg.n_layers)]
+    return lm.as_module(out)
+
+
+def lm_params_to_numpy(params, cfg) -> dict:
+    """The JAX-layout parameter pytree (numpy leaves) of the port's LM
+    parameters; weights cast for inference come back as f32."""
+    P = len(cfg.block_pattern)
+
+    def tree(m):
+        if isinstance(m, torch.nn.ParameterDict):
+            return {k: v.detach().float().cpu().numpy()
+                    for k, v in m.items()}
+        return {k: tree(v) for k, v in m.items()}
+
+    out = {k: tree(v) for k, v in params.items() if k != "blocks"}
+    layers = [tree(b) for b in params["blocks"]]
+    out["blocks"] = {
+        f"pos{p}": _stack([layers[li] for li in range(p, cfg.n_layers, P)])
+        for p in range(P)}
+    return out
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)

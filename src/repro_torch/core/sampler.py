@@ -8,9 +8,10 @@ Vose's pairing with exact per-index marginals.  The prefix sums run in
 float64, which the card has natively (float32 loses the marginals from
 E ~ 1e5 on).  ``build_alias`` is the numpy Vose loop, kept as the oracle.
 
-The in-degree sum of the negative sampler is an ``index_add_``, which on
-CUDA uses atomics: tables built on the card may differ in their slots
-from run to run, never in their marginals.
+The negative sampler's in-degree sum adds duplicate destinations in
+stream order (``ops.scatter_add_ordered``), as the JAX package's
+``deg.at[idx].add`` does, so its tables are a function of the graph: on
+the card two builds from one graph are bitwise equal.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from repro_torch.kernels import ops
 
 
 def build_alias(probs: np.ndarray):
@@ -150,15 +153,24 @@ def build_edge_sampler(knn_idx, weights) -> EdgeSampler:
     return EdgeSampler(src, dst, thr, alias, N * K)
 
 
+def weighted_degree(knn_idx, weights) -> torch.Tensor:
+    """d_j = sum_i w_ij over out- and in-edges, (N,) f32: the row sums,
+    then each edge's weight added to its destination in stream order (an
+    empty slot, id -1, wraps to row N-1 as JAX's indexing does)."""
+    N, _ = knn_idx.shape
+    w = weights.float().clamp_min(0.0)
+    deg = w.sum(1)
+    ops.scatter_add_ordered(deg[:, None], knn_idx.reshape(-1).remainder(N),
+                            w.reshape(-1, 1))
+    return deg
+
+
 def build_negative_sampler(knn_idx, weights, *,
                            power: float = 0.75) -> NodeSampler:
     """Weighted degree d_j = sum_i w_ij (in + out), then ^power."""
-    N, _ = knn_idx.shape
-    w = weights.float().clamp_min(0.0)
-    deg = w.sum(1).index_add_(0, knn_idx.reshape(-1).remainder(N),
-                              w.reshape(-1))
+    deg = weighted_degree(knn_idx, weights)
     thr, alias = _alias_pairing(deg.clamp_min(1e-12) ** power)
-    return NodeSampler(thr, alias, N)
+    return NodeSampler(thr, alias, knn_idx.shape[0])
 
 
 def alias_marginals(threshold, alias) -> np.ndarray:

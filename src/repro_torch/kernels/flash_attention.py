@@ -1,0 +1,80 @@
+"""Launcher for the forward flash-attention kernel in
+``csrc/flash_attention.cu``.
+
+q (B, S, H, hd), k and v (B, T, H, hd) with the heads already broadcast
+(GQA callers repeat the kv heads first); the causal mask is top-left
+(``kpos <= qpos``), as the JAX package's Pallas kernel has it.  The
+kernel's tiles (64 query rows by 64 key rows) change no result.  CUDA
+tensors only; the launcher counts its calls in
+``flash_attention.launches``.  The plain version is
+``ref.flash_attention_ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+HEAD_DIMS = (16, 32, 64)   # reduced configs, tests, qwen1.5-0.5b
+MAX_BH = 65535              # B * H rides on grid.y
+MAX_LEN = 2**31 - 1         # S and T are C ints
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = [_P] * 4 + [_I] * 7 + [_F, _P]
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    lib.flash_attention_launch.argtypes = _ARGTYPES
+    lib.flash_attention_launch.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """softmax(q k^T / sqrt(hd) + mask) v on the card, scores and
+    accumulation in f32, the output in q's dtype (bf16 or f32)."""
+    dev = q.device
+    for t in (q, k, v):
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError("flash_attention: tensors on one CUDA device, "
+                             f"got {t.device} beside {dev}")
+        if t.dtype != q.dtype or t.dtype not in (torch.bfloat16,
+                                                  torch.float32):
+            raise ValueError("flash_attention: q, k and v all bf16 or all "
+                             f"f32, got {q.dtype}, {k.dtype}, {v.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("flash_attention: q, k and v must be "
+                             "contiguous")
+    if q.dim() != 4 or k.dim() != 4 or tuple(v.shape) != tuple(k.shape) \
+            or tuple(k.shape[::2]) != tuple(q.shape[::2]) \
+            or k.shape[3] != q.shape[3]:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)} and v {tuple(v.shape)} are not "
+                         "(B, S, H, hd), (B, T, H, hd), (B, T, H, hd) with "
+                         "the heads pre-broadcast")
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {hd} not in "
+                         f"{HEAD_DIMS}")
+    if not (1 <= S <= MAX_LEN and 1 <= T <= MAX_LEN):
+        raise ValueError(f"flash_attention: sequence lengths S={S}, T={T} "
+                         f"outside [1, {MAX_LEN}]")
+    if not 1 <= B * H <= MAX_BH:
+        raise ValueError(f"flash_attention: B*H = {B * H} outside the "
+                         f"grid's limit [1, {MAX_BH}]")
+    out = torch.empty_like(q)
+    p = _build.ptr
+    rc = _lib().flash_attention_launch(
+        p(q), p(k), p(v), p(out), B, S, T, H, hd,
+        int(q.dtype == torch.bfloat16), int(bool(causal)),
+        1.0 / math.sqrt(hd), _build.stream(dev))
+    _build.check(rc, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -7,7 +7,8 @@ package's ``AUTOTUNE=off`` defaults; the port has no autotuner yet.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import knn_topk, largevis_grad, largevis_step, ref
+from repro_torch.kernels import (flash_attention as flash, knn_topk,
+                                 largevis_grad, largevis_step, ref)
 
 # the JAX package's legacy (autotune "off") tiles; results do not depend
 # on them, only memory and speed do
@@ -67,12 +68,21 @@ def scatter_add_ordered(y, idx, upd):
     return ref.scatter_add_ordered_ref(y, idx, upd)
 
 
+def flash_attention(q, k, v, *, causal: bool = True):
+    """Forward attention, heads pre-broadcast, top-left causal mask; see
+    ``ref.flash_attention_ref``."""
+    if _route(q):
+        return flash.flash_attention(q, k, v, causal=causal)
+    return ref.flash_attention_ref(q, k, v, causal=causal)
+
+
 _LAUNCHERS = {
     "topk_sqdist": knn_topk.topk_sqdist,
     "fused_edge_step": largevis_step.fused_edge_step,
     "pairwise_sqdist": knn_topk.pairwise_sqdist,
     "largevis_grads": largevis_grad.largevis_grads,
     "scatter_add_ordered": largevis_step.scatter_add_ordered,
+    "flash_attention": flash.flash_attention,
 }
 
 

@@ -16,6 +16,8 @@ can hold them to ``repro.kernels.ref`` on the same numpy inputs:
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 # Similarity of a masked candidate (padding, self-edge, bucket mismatch,
@@ -214,3 +216,29 @@ def fused_edge_step_ref(y, i, j, negs, neg_mask, lr, *, gamma: float = 7.0,
         upd = torch.where((idx >= n_frozen)[:, None], upd,
                           torch.tensor(-0.0, device=y.device))
     return scatter_add_ordered_ref(y, idx, upd)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+FLASH_NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True):
+    """q (B, S, H, hd), k and v (B, T, H, hd), heads pre-broadcast.
+
+    One f32 softmax over the whole (S, T) score matrix, ``(q.k) * scale``
+    with scale = 1/sqrt(hd) as the kernel multiplies it; masked scores are
+    -1e30.  The causal mask is top-left, ``kpos <= qpos`` with both counted
+    from 0, as the JAX package's Pallas kernel has it (its plain version
+    ``flash_attention_ref`` aligns bottom-right, ``tril(k=T-S)``; the two
+    agree only at S == T).  The output is cast to q's dtype."""
+    S, T, hd = q.shape[1], k.shape[1], q.shape[3]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * \
+        (1.0 / math.sqrt(hd))
+    if causal:
+        keep = torch.ones((S, T), dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, FLASH_NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)

@@ -1,0 +1,119 @@
+"""Shared primitive layers: norms, rotary embeddings, MLPs, embeddings.
+
+The JAX package's ``models/layers.py`` in PyTorch.  Parameters are plain
+dicts of tensors at init (``models/lm.py`` wraps them in modules); each
+``apply`` casts a weight to the activations' dtype at use, which is a
+no-op for weights already cast for inference.  Norms, rotary angles and
+logits are f32.  ``cross_entropy`` waits for training.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def init_rmsnorm(dim: int, device) -> dict:
+    return {"scale": torch.ones((dim,), dtype=torch.float32, device=device)}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * params["scale"]).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies, shape (head_dim//2,)."""
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                             device=device) / head_dim
+    return 1.0 / (theta ** exponents)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: broadcastable to
+    (..., seq).  Rotates the two halves of head_dim, in f32."""
+    if theta <= 0:
+        return x
+    inv = rope_freqs(x.shape[-1], theta, x.device)
+    ang = positions.float()[..., None] * inv           # (..., seq, hd/2)
+    cos = torch.cos(ang)[..., None, :]                 # (..., seq, 1, hd/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Dense / MLP
+# ---------------------------------------------------------------------------
+
+def dense_init(generator: torch.Generator, shape, scale: float = None):
+    """Normal with std 1/sqrt(fan_in) (fan_in = shape[0]), or ``scale``."""
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=generator.device) * scale
+
+
+def init_mlp(generator, d_model: int, d_ff: int, mlp_type: str) -> dict:
+    """The decoder MLPs (the JAX package's biased gelu MLP serves its
+    encoder-decoder, which is not ported)."""
+    p = {}
+    if mlp_type in ("swiglu", "geglu"):
+        p["w_gate"] = dense_init(generator, (d_model, d_ff))
+        p["w_up"] = dense_init(generator, (d_model, d_ff))
+        p["w_down"] = dense_init(generator, (d_ff, d_model))
+    elif mlp_type == "gelu":
+        p["w_up"] = dense_init(generator, (d_model, d_ff))
+        p["w_down"] = dense_init(generator, (d_ff, d_model))
+    else:
+        raise ValueError(mlp_type)
+    return p
+
+
+def mlp(params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
+    dtype = x.dtype
+    if mlp_type in ("swiglu", "geglu"):
+        gate = x @ params["w_gate"].to(dtype)
+        up = x @ params["w_up"].to(dtype)
+        act = F.silu(gate) if mlp_type == "swiglu" else \
+            F.gelu(gate, approximate="tanh")
+        return (act * up) @ params["w_down"].to(dtype)
+    h = F.gelu(x @ params["w_up"].to(dtype), approximate="tanh")
+    return h @ params["w_down"].to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def init_embedding(generator, vocab: int, d_model: int) -> dict:
+    return {"table": torch.randn((vocab, d_model), generator=generator,
+                                 dtype=torch.float32,
+                                 device=generator.device) * 0.02}
+
+
+def embed(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """The table's rows, cast to ``dtype`` (gathered first: the same
+    values as casting the whole table)."""
+    return params["table"][tokens].to(dtype)
+
+
+def unembed(params, x: torch.Tensor, table: torch.Tensor = None):
+    """Logits in f32 (softmax stability).  A full-f32 product: the card
+    runs it with TF32 off (``core.largevis.resolve_device`` sets that)."""
+    t = table if table is not None else params["table"]
+    return x.float() @ t.float().T

@@ -129,3 +129,31 @@ def test_sample_alias_draws_follow_marginals():
     counts = np.bincount(draws.numpy(), minlength=5) / 200_000
     se = np.sqrt(probs * (1 - probs) / 200_000)
     assert (np.abs(counts - probs) <= 5 * se + 1e-9).all(), counts
+
+
+def test_weighted_degree_bitwise_jax(graph):
+    """The negative sampler's in-degree adds are bitwise JAX's
+    ``deg.at[idx].add(w)`` from the same out-degrees: duplicate
+    destinations add in stream order (``ops.scatter_add_ordered``, never
+    an atomic scatter), so the tables are a function of the graph.  Also
+    on a graph whose every edge lands on one of 7 rows, where the order of
+    the adds shows (the reversed stream differs).  The out-degrees are row
+    sums, whose order neither package fixes (XLA's changes with K): within
+    f32 rounding of JAX's."""
+    idx, _, _, w = graph
+    rng = np.random.default_rng(4)
+    dense_idx = rng.integers(0, 7, idx.shape).astype(idx.dtype)
+    dense_w = (rng.random(w.shape) * 10.0 ** rng.integers(-6, 3, w.shape)
+               ).astype(np.float32)
+    for i, ww in ((idx, w), (dense_idx, dense_w)):
+        got = tsamp.weighted_degree(T(i), T(ww)).numpy()
+        out_deg = T(ww).clamp_min(0.0).sum(1).numpy()
+        np.testing.assert_allclose(
+            out_deg, np.asarray(jnp.sum(jnp.asarray(ww), axis=1)),
+            rtol=1e-6)
+        want = jnp.asarray(out_deg).at[i.reshape(-1)].add(
+            jnp.asarray(ww).reshape(-1))
+        np.testing.assert_array_equal(got, np.asarray(want))
+    backwards = jnp.asarray(out_deg).at[i.reshape(-1)[::-1]].add(
+        jnp.asarray(ww).reshape(-1)[::-1])
+    assert not np.array_equal(got, np.asarray(backwards))

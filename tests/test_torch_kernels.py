@@ -316,4 +316,5 @@ def test_cuda_launchers_refuse_cpu_tensors():
                                       0.1)
     assert ops.launch_counts() == {"topk_sqdist": 0, "fused_edge_step": 0,
                                    "pairwise_sqdist": 0, "largevis_grads": 0,
-                                   "scatter_add_ordered": 0}
+                                   "scatter_add_ordered": 0,
+                                   "flash_attention": 0}
