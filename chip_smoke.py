@@ -32,13 +32,17 @@ CUDA toolkit.  It imports nothing of JAX or of the JAX package.  In order:
    negative sampler's in-degree sum is ordered (two samplers built on
    the card from the fit's graph are checked bitwise equal after the fit);
 8. the LM serving path: ``flash_attention`` against its plain version at
-   the serve path's shape (1, 4096, 16, 64) in bf16 and f32, then
+   the serve path's shape (1, 4096, 16, 64) in bf16 and f32, and at
+   ragged shapes, S = T = 4095 and 4097 and head dims 16 and 32, timed
+   by CUDA events and by the profiler's device time, then
    ``ServeEngine`` with ``qwen1.5-0.5b`` at full width (random weights
    from a seed, bf16) serving 8 requests, 4 of 4096 tokens (prefill
    through the flash kernel) and 4 of 16-512 tokens (``mha_full``), with
    the launch counts read just before and just after; the kernel's
    4096-token prefill logits against the same prefill through the plain
-   version; decode against prefill at reduced depth in f32;
+   version; one timed prefill of a 16,384-token prompt (wall and device
+   time, busy share, flash launches; no plain comparison at that
+   length); decode against prefill at reduced depth in f32;
 
 then prints a JSON line of the kernel records and, last, the device line.
 Any failed check exits with status 1 and prints no result.
@@ -75,6 +79,7 @@ PREFILL_REL_TOL = 5e-2
 DECODE_REL_TOL = 2e-3             # the JAX package's own bound (test_models)
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_MAX_NEW = 4, 4128, 16
 LONG_PROMPT, N_LONG, N_SHORT = 4096, 4, 4
+TIMED_PROMPT = 16_384             # one timed prefill, batch 1
 
 
 def fail(msg: str) -> None:
@@ -150,6 +155,14 @@ def device_profile(torch, fn, n: int = 50):
             total = e.self_cuda_time_total
         dev[e.key] = (total / n / 1e3, e.count)
     return host, dev
+
+
+def per_launch(dev, n: int, name: str = "flash"):
+    """Device ms a launch of the kernels whose name holds ``name``, from
+    :func:`device_profile`'s record of n calls, and the launches seen."""
+    seen = sum(c for key, (_, c) in dev.items() if name in key)
+    total = sum(t for key, (t, _) in dev.items() if name in key) * n
+    return total / max(seen, 1), seen
 
 
 def busy_line(host, dev, top: int = 3) -> str:
@@ -777,8 +790,10 @@ def run_fixture(torch, layout_step: str = "auto"):
 def check_flash(torch):
     """``flash_attention`` against its plain version at the serve path's
     shape in bf16 and f32, and at ragged shapes (S and T not multiples of
-    the kernel's 64-row tiles, S < T and S > T, non-causal); timed in bf16,
-    the path's dtype, beside the plain version and SDPA."""
+    the kernels' 128-row and 64-row tiles, S < T and S > T, non-causal,
+    head dims 16 and 32); timed in bf16, the path's dtype, beside the
+    plain version and SDPA, by CUDA events and by the profiler's device
+    time of the kernel alone."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -788,7 +803,12 @@ def check_flash(torch):
     gen = torch.Generator(device=dev).manual_seed(17)
     B, S, H, hd = FLASH_SHAPE
     shapes = [(FLASH_SHAPE, S, True), ((2, 1000, 3, 64), 1037, True),
-              ((1, 300, 2, 64), 77, True), ((1, 130, 4, 64), 130, False)]
+              ((1, 300, 2, 64), 77, True), ((1, 130, 4, 64), 130, False),
+              ((1, S - 1, H, hd), S - 1, True),
+              ((1, S + 1, H, hd), S + 1, True),
+              ((1, S, 4, 32), S, True), ((2, 1000, 3, 32), 1037, True),
+              ((1, 130, 4, 32), 130, False), ((1, S, 4, 16), S, True),
+              ((1, 300, 2, 16), 77, True), ((1, 130, 4, 16), 130, False)]
     max_err, errs, main = 0.0, [], {}
     for (b, s, h, d), t, causal in shapes:
         for name in ("bfloat16", "float32"):
@@ -813,10 +833,14 @@ def check_flash(torch):
             errs.append(f"({b},{s},{h},{d})xT={t}{'' if causal else ' nc'} "
                         f"{name} {err:.3g} ({worst:.3g} x limit, median "
                         f"limit {float(limit.median()):.3g})")
-            if t == S and causal:
+            if (b, s, h, d) == FLASH_SHAPE and t == S and causal:
                 main[name] = (q, k, v)
     q, k, v = main["bfloat16"]
     ms = time_ms(torch, lambda: fa.flash_attention(q, k, v))
+    n_prof = 20
+    _, dev = device_profile(torch, lambda: fa.flash_attention(q, k, v),
+                            n=n_prof)
+    kern_ms, seen = per_launch(dev, n_prof)
     ms32 = time_ms(torch, lambda: fa.flash_attention(*main["float32"]))
     plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v), reps=3)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -830,9 +854,11 @@ def check_flash(torch):
           f"|err| against the plain version (limit f32 {FLASH_F32_TOL}; "
           f"bf16 {FLASH_BF16_ULPS} bf16 ulps of |plain| + {FLASH_F32_TOL}, "
           f"per element): "
-          f"{'; '.join(errs)}; kernel bf16 {ms:.4f} ms (f32 {ms32:.4f} "
-          f"ms), plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound {bms:.5f} "
-          f"ms ({by}, bf16 tensor-core peak)", flush=True)
+          f"{'; '.join(errs)}; kernel bf16 {ms:.4f} ms by CUDA events, "
+          f"{kern_ms:.4f} ms of device time a launch by the profiler "
+          f"({seen} of {n_prof} launches seen) (f32 "
+          f"{ms32:.4f} ms), plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound "
+          f"{bms:.5f} ms ({by}, bf16 tensor-core peak)", flush=True)
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:72",
@@ -867,6 +893,43 @@ def check_prefill_plain(torch, eng, prompts):
           f"version max |diff| / max |logit| {worst:.3g} (tol "
           f"{PREFILL_REL_TOL}); greedy token equal on {agree} of "
           f"{len(prompts)} (printed, not required in bf16)", flush=True)
+
+
+def time_prefill(torch, params, cfg, n_tokens: int = TIMED_PROMPT):
+    """One prefill of an ``n_tokens`` prompt, batch 1, after one warm-up:
+    its wall time (host clock around a synchronize), its device time and
+    busy share under the profiler, and its flash launches.  Returns the
+    flash launches."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    rng = np.random.default_rng(1)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (1, n_tokens)),
+                        dtype=torch.long, device="cuda")
+    logits, _ = lm.lm_prefill(params, cfg, toks)         # warm-up
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = lm.lm_prefill(params, cfg, toks)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = ops.launch_counts()["flash_attention"]
+    check(tuple(logits.shape) == (1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"the {n_tokens}-token prefill's logits are not finite")
+    check(launches == cfg.n_layers,
+          f"the {n_tokens}-token prefill launched flash_attention "
+          f"{launches} times, expected {cfg.n_layers}")
+    host, dev = device_profile(torch, lambda: lm.lm_prefill(params, cfg,
+                                                            toks), n=1)
+    flash_ms, seen = per_launch(dev, 1)
+    print(f"timed prefill: {n_tokens} tokens, batch 1: wall {wall:.2f} ms; "
+          f"profiled {busy_line(host, dev)}; flash {launches} launches, "
+          f"{flash_ms * seen:.4f} ms of device time ({flash_ms:.4f} ms a "
+          f"launch, {seen} seen)", flush=True)
+    return launches
 
 
 def run_serve(torch):
@@ -939,8 +1002,11 @@ def run_serve(torch):
         toks = torch.tensor([p], dtype=torch.long, device=eng.device)
         host, dev = device_profile(torch, lambda: lm.lm_prefill(
             eng.params, cfg, toks), n=3)
-        print(f"  profiled {len(p)}-token prefill: {busy_line(host, dev)}",
-              flush=True)
+        flash_ms, seen = per_launch(dev, 3)
+        flash = (f"; flash {flash_ms:.4f} ms a launch ({seen} launches "
+                 "seen in 3 prefills)") if seen else ""
+        print(f"  profiled {len(p)}-token prefill: {busy_line(host, dev)}"
+              f"{flash}", flush=True)
     last = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long, device=eng.device)
     pos = torch.full((SERVE_SLOTS,), SERVE_MAX_LEN - 2, device=eng.device)
     host, dev = device_profile(torch, lambda: lm.lm_decode(
@@ -956,6 +1022,7 @@ def run_serve(torch):
           "a request did not finish with max_new tokens")
     check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out),
           "a token outside the vocabulary")
+    time_prefill(torch, eng.params, cfg)
     return counts["flash_attention"]
 
 

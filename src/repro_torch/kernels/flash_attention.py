@@ -3,9 +3,10 @@
 
 q (B, S, H, hd), k and v (B, T, H, hd) with the heads already broadcast
 (GQA callers repeat the kv heads first); the causal mask is top-left
-(``kpos <= qpos``), as the JAX package's Pallas kernel has it.  The
-kernel's tiles (64 query rows by 64 key rows) change no result.  CUDA
-tensors only; the launcher counts its calls in
+(``kpos <= qpos``), as the JAX package's Pallas kernel has it.  bf16
+inputs go to the wgmma kernel (128 query rows by 128 key rows, read by
+TMA), f32 inputs to the f32 FMA kernel (64 by 64); the tiles change no
+result.  CUDA tensors only; the launcher counts its calls in
 ``flash_attention.launches``.  The plain version is
 ``ref.flash_attention_ref``.
 """
@@ -19,8 +20,10 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64)   # reduced configs, tests, qwen1.5-0.5b
-MAX_BH = 65535              # B * H rides on grid.y
+MAX_BH = 65535              # B * H rides on grid.y (f32)
 MAX_LEN = 2**31 - 1         # S and T are C ints
+BQ_BF16 = 128               # query rows of a bf16 block
+MAX_BLOCKS = 2**31 - 1      # bf16: ceil(S / BQ_BF16) * B * H on grid.x
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 4 + [_I] * 7 + [_F, _P]
@@ -66,6 +69,13 @@ def flash_attention(q, k, v, *, causal: bool = True):
     if not 1 <= B * H <= MAX_BH:
         raise ValueError(f"flash_attention: B*H = {B * H} outside the "
                          f"grid's limit [1, {MAX_BH}]")
+    if q.dtype == torch.bfloat16:
+        if -(-S // BQ_BF16) * B * H > MAX_BLOCKS:
+            raise ValueError(f"flash_attention: ceil(S/{BQ_BF16})*B*H "
+                             f"blocks above the grid's limit {MAX_BLOCKS}")
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("flash_attention: bf16 q, k and v must be "
+                             "16-byte aligned (TMA)")
     out = torch.empty_like(q)
     p = _build.ptr
     rc = _lib().flash_attention_launch(

@@ -15,7 +15,17 @@ JAX's plain version.
 Tolerances: f32 2e-5 (the same f32 softmax, summed in another order);
 bf16 3e-2 (outputs of magnitude up to ~4 rounded to 8 bits: a few bf16
 ulps where the two f32 results straddle a rounding boundary).
+
+The bf16 CUDA kernel's arithmetic is emulated here in plain torch
+(``_kernel_emulation``: its tiles, f32 scores of bf16 q and k, the online
+softmax in base 2, P split into bf16 ``hi + lo`` for two products with
+the bf16 V, f32 accumulation) and held to the plain version under
+``chip_smoke.py``'s per-element limit for the kernel: 2 bf16 ulps of
+|plain| + 2e-5.  A single bf16 P breaks that limit, which is why the
+kernel splits it.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,7 +35,7 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro.models import attention as jattn
 from repro_torch.kernels import flash_attention as tflash
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as tattn
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -121,6 +131,113 @@ def test_attend_auto_rule_matches_jax():
     finally:
         mp.undo()
     assert calls == [4096]
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernel's arithmetic
+# ---------------------------------------------------------------------------
+
+BQ = 128                   # the kernel's query rows a block
+BK = 128                   # its key rows a tile (static_assert(BK == BQ))
+LOG2E = 1.4426950408889634
+
+
+def _kernel_emulation(q, k, v, *, causal=True, split=True):
+    """The bf16 kernel's arithmetic on CPU tensors: blocks of BQ query
+    rows walk key tiles of BK rows; scores are f32 sums of the exact
+    bf16 products; the online softmax works in base 2 on the raw scores
+    (``exp2(s * c - m * c)``, c = log2(e) / sqrt(hd)) with masked scores
+    -1e30; P.V is ``hi V + lo V`` with ``hi = bf16(P)``, ``lo = bf16(P -
+    hi)`` (``split=False``: ``hi V`` alone) accumulated in f32; the output
+    is ``acc / max(l, 1e-30)`` rounded once to bf16."""
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    c = LOG2E / math.sqrt(hd)
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))  # (B,H,.,hd)
+    out = torch.empty((B, H, S, hd))
+    for q0 in range(0, S, BQ):
+        rows = torch.arange(q0, min(q0 + BQ, S))
+        qt = qf[:, :, rows]
+        m = torch.full((B, H, len(rows), 1), ref.FLASH_NEG_INF)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, H, len(rows), hd))
+        kv_end = min(T, q0 + BQ) if causal else T
+        for k0 in range(0, kv_end, BK):
+            cols = torch.arange(k0, min(k0 + BK, T))
+            s = qt @ kf[:, :, cols].transpose(-1, -2)
+            if causal:
+                s = s.masked_fill(cols[None, :] > rows[:, None],
+                                  ref.FLASH_NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            corr = torch.exp2((m - m_new) * c)
+            p = torch.exp2(s * c - m_new * c)
+            l = l * corr + p.sum(-1, keepdim=True)
+            hi = p.bfloat16().float()
+            pv = hi @ vf[:, :, cols]
+            if split:
+                pv = pv + (p - hi).bfloat16().float() @ vf[:, :, cols]
+            acc = acc * corr + pv
+            m = m_new
+        out[:, :, rows] = acc / l.clamp_min(1e-30)
+    return out.transpose(1, 2).bfloat16()
+
+
+def _bf16_limit(plain):
+    """chip_smoke.py's per-element limit: 2 bf16 ulps of |plain| + 2e-5."""
+    a = plain.float().abs().clamp_min(2.0 ** -126)
+    return 2e-5 + 2 * torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def _ratio(got, plain):
+    """The worst |got - plain| over its limit, element by element."""
+    return float(((got.float() - plain.float()).abs()
+                  / _bf16_limit(plain)).max())
+
+
+def _bf16_qkv(S, T, hd, seed, H=2):
+    return tuple(torch.from_numpy(a).bfloat16()
+                 for a in _qkv(1, S, T, H, H, hd, seed))
+
+
+SHAPES = [(256, 256, True), (300, 77, True), (1000, 1037, True),
+          (130, 130, False)]
+# one row or key either side of the 128-row tiles, and S < T
+RAGGED = [(127, 127, True), (129, 129, True), (77, 300, True),
+          (129, 255, False)]
+
+
+@pytest.mark.parametrize("S,T,causal", SHAPES + RAGGED)
+@pytest.mark.parametrize("hd", [16, 32, 64])
+def test_kernel_arithmetic_matches_plain_version(hd, S, T, causal):
+    q, k, v = _bf16_qkv(S, T, hd, seed=hd + S + T)
+    got = _kernel_emulation(q, k, v, causal=causal)
+    plain = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert _ratio(got, plain) <= 1.0
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+def test_kernel_arithmetic_matches_pallas_kernel(hd, causal):
+    """S = T = 256, two of the Pallas kernel's 128-row blocks each way."""
+    q, k, v = _bf16_qkv(256, 256, hd, seed=3 * hd)
+    got = _kernel_emulation(q, k, v, causal=causal)
+    want = jflash(*(jnp.asarray(_np(x), jnp.bfloat16) for x in (q, k, v)),
+                  causal=causal, q_block=128, kv_block=128, interpret=True)
+    want = torch.from_numpy(_np(want)).bfloat16()
+    assert _ratio(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("S,T,causal", SHAPES)
+@pytest.mark.parametrize("hd", [16, 32, 64])
+def test_single_bf16_p_breaks_the_limit(hd, S, T, causal):
+    """Without ``lo`` P is rounded to 2^-9 relative, and the product leaves
+    the limit, by more than 10x at these shapes, where outputs are
+    small."""
+    q, k, v = _bf16_qkv(S, T, hd, seed=hd + S + T)
+    plain = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert _ratio(_kernel_emulation(q, k, v, causal=causal, split=False),
+                  plain) > 10.0
 
 
 def test_cuda_launcher_refuses_cpu_tensors():
