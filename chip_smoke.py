@@ -2,9 +2,13 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --parent PATH   # before and after, in turns
 
 From the root of a checkout, on a machine with an NVIDIA H100 and the
-CUDA toolkit.  It imports nothing of JAX or of the JAX package.  In order:
+CUDA toolkit.  It imports nothing of JAX or of the JAX package.  With
+``--parent PATH`` (a checkout of the parent commit) it only times the
+parent's package and this one in turns, parent, change, change, parent,
+in one process (``run_parent``).  Without it, in order:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
@@ -14,19 +18,29 @@ CUDA toolkit.  It imports nothing of JAX or of the JAX package.  In order:
    version, one PyTorch library call for the same function, and the
    least time the card could take (the larger of bytes over 3.35 TB/s
    and operations over 67 TFLOP/s f32, or 989 TFLOP/s for bf16 operands,
-   the H100 SXM data sheet's peaks);
+   the H100 SXM data sheet's peaks).  ``topk_sqdist``: the window fold
+   through the index form, a tie-heavy integer grid with and without
+   dedup, k = 1 and k > N at shapes off the kernel's tiles, k = 256
+   with multi-tile dedup, ids and distances exactly the plain
+   version's.  ``fused_edge_step``: bitwise at the fit's shape, on
+   N = 64, on a hub batch (one row takes about 2,000 updates) and over
+   200 consecutive steps, with one device event a call;
 4. runs the full-width fit (``LargeVisConfig()`` defaults: K=150, 8
    trees, window 64, perplexity 50) on a Gaussian mixture of N=100,000
    points in d=100, with every kernel's launch count reset just before
    and read just after, and checks the layout and the graph;
 5. on the fit's graph, samplers and layout, the split path: the
-   ``largevis_grads`` kernel and the ordered scatter against their plain
-   versions; 50 fused and 50 split SGD steps from one state, bitwise
-   equal; the split layout (at 2,000 samples per node, a printed cut);
-   200 autograd steps of ``prob_fn="exp_quadratic"``;
+   ``largevis_grads`` kernel and the ordered scatter (at the step size
+   through the linked lists, at the in-degree size through the sort)
+   against their plain versions; 50 fused and 50 split SGD steps from
+   one state, bitwise equal, with each route's device launches a step;
+   the split layout (at 2,000 samples per node, a printed cut); 200
+   autograd steps of ``prob_fn="exp_quadratic"``;
 6. ``LargeVis.transform`` of 10,000 held-out points of the fit's
-   clusters, by the fused and by the split route, and
-   ``LargeVis.insert`` of 2,000 more, each with its launch counts read;
+   clusters, by the fused and by the split route (and the queries'
+   top-k, (1, 10000, 100000), beside ``torch.cdist`` + ``topk`` and its
+   bound), and ``LargeVis.insert`` of 2,000 more, each with its launch
+   counts read;
 7. runs the 2000-point quality fixture (accuracy >= 0.95), by the fused
    and by the split route: the two layouts bitwise equal, since the
    negative sampler's in-degree sum is ordered (two samplers built on
@@ -45,7 +59,10 @@ CUDA toolkit.  It imports nothing of JAX or of the JAX package.  In order:
    length); decode against prefill at reduced depth in f32;
 
 then prints a JSON line of the kernel records and, last, the device line.
-Any failed check exits with status 1 and prints no result.
+Any failed check exits with status 1 and prints no result.  Device times
+from the profiler are per launch seen, with the launches seen printed
+beside those made; a busy share is printed only when the profiler saw
+every launch of the hand-written kernels.
 """
 from __future__ import annotations
 
@@ -128,17 +145,59 @@ def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_profile(torch, fn, n: int = 50):
-    """``fn`` called n times under ``torch.profiler``: (host ms per call,
-    {device event name: (device ms per call, events seen)}).  Only the
-    card's own events (kernels, memsets, copies) count as device time;
-    host wall time includes the profiler's own overhead."""
+# The profiler's event names of each hand-written kernel, by launcher.
+KERNEL_EVENTS = {
+    "fused_edge_step": ("edge_step_kernel<", "true>"),
+    "scatter_add_ordered": ("edge_step_kernel<", "false>"),
+    "largevis_grads": ("largevis_grads_kernel",),
+    "topk_sqdist": ("topk_kernel",),
+    "pairwise_sqdist": ("pairwise_kernel",),
+    "flash_attention": ("flash_attention",),
+}
+
+
+def _is_event_of(launcher: str, key: str) -> bool:
+    if launcher == "scatter_add_ordered" and "edge_accumulate_kernel" in key:
+        return True                      # the sort path's kernel
+    if launcher == "fused_edge_step" and "edge_forces_kernel" in key:
+        return True                      # a parent checkout's phase 0
+    return all(part in key for part in KERNEL_EVENTS[launcher])
+
+
+@dataclasses.dataclass
+class Profile:
+    """``n`` calls under ``torch.profiler``: host ms a call; per device
+    event name (total device ms, events seen); per hand-written kernel
+    the launches its wrapper made in those calls."""
+    n: int
+    host: float
+    events: dict
+    made: dict
+
+    def kernel(self, launcher: str):
+        """(device ms a launch seen, launches seen, launches made)."""
+        hits = [v for key, v in self.events.items()
+                if _is_event_of(launcher, key)]
+        seen = sum(c for _, c in hits)
+        total = sum(t for t, _ in hits)
+        return total / max(seen, 1), seen, self.made.get(launcher, 0)
+
+
+def device_profile(torch, fn, n: int = 50) -> Profile:
+    """``fn`` called n times under ``torch.profiler``.  Only the card's own
+    events (kernels, memsets, copies) count as device time; host wall time
+    includes the profiler's own overhead.  The profiler can miss some of
+    many back-to-back launches in a long process, so a kernel's time is
+    divided by the launches it saw, never by the calls made."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    before = ops.launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -146,35 +205,52 @@ def device_profile(torch, fn, n: int = 50):
             fn()
         torch.cuda.synchronize()
         host = (time.perf_counter() - t0) / n * 1e3
-    dev = {}
+    made = {name: c - before[name] for name, c in ops.launch_counts().items()
+            if c > before[name]}
+    events = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         total = getattr(e, "self_device_time_total", None)
         if total is None:
             total = e.self_cuda_time_total
-        dev[e.key] = (total / n / 1e3, e.count)
-    return host, dev
+        events[e.key] = (total / 1e3, e.count)
+    return Profile(n, host, events, made)
 
 
-def per_launch(dev, n: int, name: str = "flash"):
-    """Device ms a launch of the kernels whose name holds ``name``, from
-    :func:`device_profile`'s record of n calls, and the launches seen."""
-    seen = sum(c for key, (_, c) in dev.items() if name in key)
-    total = sum(t for key, (t, _) in dev.items() if name in key) * n
-    return total / max(seen, 1), seen
+def kernels_seen(prof: Profile) -> tuple[str, bool]:
+    """Each hand-written kernel's device ms a launch seen, with the
+    launches seen beside those made; and whether all were seen."""
+    parts, complete = [], True
+    for name in prof.made:
+        ms, seen, made = prof.kernel(name)
+        complete &= seen >= made
+        parts.append(f"{name} {ms:.5f} ms a launch ({seen} of {made} "
+                     "launches seen)")
+    return "; ".join(parts), complete
 
 
-def busy_line(host, dev, top: int = 3) -> str:
-    """One printed summary of :func:`device_profile`."""
-    total = sum(ms for ms, _ in dev.values())
+def busy_line(prof: Profile, top: int = 3) -> str:
+    """One printed summary of :func:`device_profile`.  Where the profiler
+    missed launches of a hand-written kernel, the device total and busy
+    share would read low: the line says so and gives no busy share."""
+    dev = prof.events
+    total = sum(ms for ms, _ in dev.values()) / prof.n
     names = sorted(dev, key=lambda k: -dev[k][0])[:top]
+
     def short(key):
         key = key.replace("(anonymous namespace)::", "")
         return key.removeprefix("void ").split("(")[0][:48]
-    tops = ", ".join(f"{short(k)} {dev[k][0]:.4f}" for k in names)
-    return (f"host {host:.4f} ms, device {total:.4f} ms per call, busy "
-            f"{total / host:.3f} (largest: {tops})")
+    tops = ", ".join(f"{short(k)} {dev[k][0] / prof.n:.4f}" for k in names)
+    kern, complete = kernels_seen(prof)
+    launches = sum(c for _, c in dev.values()) / prof.n
+    head = (f"host {prof.host:.4f} ms, device {total:.4f} ms per call, "
+            f"{launches:.2f} device events per call")
+    busy = (f"busy {total / prof.host:.3f}" if complete else
+            "busy share not measured (the profiler missed launches; the "
+            "device time is a lower bound)")
+    return (f"{head}, {busy} (largest: {tops})"
+            + (f"; kernels: {kern}" if kern else ""))
 
 
 # ---------------------------------------------------------------------------
@@ -213,11 +289,34 @@ def agree_topk(torch, a, b, points, got, want, what: str):
     return err, int(g.numel()), gap, tol
 
 
+def exact_topk(torch, got, want, what: str) -> None:
+    """Ids equal and distances bitwise equal to the plain version's."""
+    (ki, kd), (pi, pd) = got, want
+    diff = int((ki != pi).sum())
+    check(diff == 0 and torch.equal(kd, pd), f"{what}: {diff} id slot(s) "
+          f"differ, max |dist err| {float((kd - pd).abs().max())}")
+
+
+def tie_grid(torch, n_points: int, d: int, seed: int):
+    """Points on an integer grid in [0, 3)^d, each repeated 4 times and
+    shuffled: products and norms are exact, so many distances tie
+    exactly (the repeats at 0) and only the tie order decides the ids."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 3, (n_points // 4, d)).astype(np.float32)
+    pts = np.repeat(base, 4, axis=0)[rng.permutation(n_points)]
+    return torch.from_numpy(pts).cuda()
+
+
 def check_topk(torch, x, cfg):
-    """One tree's window fold at the fit's shapes: all ceil(N/W) blocks of
-    W rows against their 3W candidates, k = K, seeded with the state the
-    previous tree left, with dedup; and one exact search at the kernel's
-    largest k (256) with multi-tile dedup."""
+    """One tree's window fold at the fit's shapes through the index form
+    (x and the sorted order, read in place): all ceil(N/W) blocks of W
+    rows against their 3W candidates, k = K, seeded with the state the
+    previous tree left, with dedup; a tie-heavy input (integer grid, each
+    point 4 times) with and without dedup; k = 1 and k > N at shapes that
+    are not multiples of the kernel's tiles; one exact search at the
+    kernel's largest k (256) with multi-tile dedup.  Ids and distances
+    must equal the plain version's exactly."""
     from repro_torch.core import knn
     from repro_torch.kernels import knn_topk, ref
 
@@ -233,25 +332,63 @@ def check_topk(torch, x, cfg):
     a, b, kw, _ = knn.window_fold_args(x, codes[:, 1], k, W, run_i, run_d)
     got = knn_topk.topk_sqdist(a, b, k, **kw)
     want = ref.topk_sqdist_ref(a, b, k, **kw)
-    err, n_swaps, gap, tol = agree_topk(torch, a, b, x, got, want,
+    ga = ref.gather_rows(x, kw["a_idx"])
+    gb = ref.gather_rows(x, kw["b_idx"])
+    err, n_swaps, gap, tol = agree_topk(torch, ga, gb, x, got, want,
                                         "topk_sqdist")
+    exact_topk(torch, got, want, "topk_sqdist (the fold)")
 
+    checked = []
+    ids = torch.arange(4000, dtype=torch.int32, device=x.device)
+    pts = tie_grid(torch, 4000, 16, seed=3)
+    for dedup, bn in ((False, None), (True, 128), (True, 1000)):
+        kw_t = dict(a_ids=ids, b_ids=ids, dedup=dedup, bn=bn)
+        exact_topk(torch, knn_topk.topk_sqdist(pts, pts, k, **kw_t),
+                   ref.topk_sqdist_ref(pts, pts, k, **kw_t),
+                   f"topk_sqdist (tie-heavy, dedup={dedup}, bn={bn})")
+        checked.append(f"ties dedup={dedup} bn={bn}")
+    # many columns against few rows (the queries' regime), with and
+    # without a seed: long passes of ties through the filter and merges
+    big = tie_grid(torch, 40_000, 16, seed=4)
+    ids_b = torch.arange(40_000, dtype=torch.int32, device=x.device)
+    q = big[:1000]
+    kw_r = dict(a_ids=ids_b[:1000], b_ids=ids_b)
+    exact_topk(torch, knn_topk.topk_sqdist(q, big, k, **kw_r),
+               ref.topk_sqdist_ref(q, big, k, **kw_r),
+               "topk_sqdist (ties, 1000 x 40000)")
+    seed_i, seed_d = ref.topk_sqdist_ref(q, big[:15_000], k,
+                                         a_ids=ids_b[:1000],
+                                         b_ids=ids_b[:15_000])
+    kw_s = dict(kw_r, init_ids=seed_i, init_dists=seed_d)
+    exact_topk(torch, knn_topk.topk_sqdist(q, big, k, **kw_s),
+               ref.topk_sqdist_ref(q, big, k, **kw_s),
+               "topk_sqdist (ties, 1000 x 40000, seeded)")
+    checked.append("ties 1000 x 40000, seeded and not")
+    g2 = torch.Generator(device=x.device).manual_seed(8)
+    for (G, M, Nc, dd), kk in (((3, 1001, 777, 37), 1), ((2, 45, 100, 9), k),
+                               ((2, 33, 65, 37), 3)):
+        a2 = torch.randn((G, M, dd), generator=g2, device=x.device)
+        b2 = torch.randn((G, Nc, dd), generator=g2, device=x.device)
+        exact_topk(torch, knn_topk.topk_sqdist(a2, b2, kk),
+                   ref.topk_sqdist_ref(a2, b2, kk),
+                   f"topk_sqdist (G={G}, M={M}, N={Nc}, d={dd}, k={kk})")
+        checked.append(f"({G},{M},{Nc},{dd}) k={kk}")
     sub = x[None, :600].contiguous()
     ids = torch.arange(600, dtype=torch.int32, device=x.device)[None]
     kmax = knn_topk.MAX_K
     kw_max = dict(a_ids=ids, b_ids=ids, dedup=True, bn=128)
-    _, swaps_max, _, _ = agree_topk(
-        torch, sub, sub, sub[0],
-        knn_topk.topk_sqdist(sub, sub, kmax, **kw_max),
-        ref.topk_sqdist_ref(sub, sub, kmax, **kw_max),
-        f"topk_sqdist (k={kmax})")
-    G, M, _ = a.shape
-    Nc = b.shape[1]
-    # the fold's own work: the candidates are sorted x's blocks j-1..j+1,
-    # so x (and its ids) is read once, not the wrapper's 3x gathered b
-    n_bytes = 4 * (G * M * d + N * d + G * M + N
-                   + 2 * G * M * k + 2 * G * M * k)
-    n_ops = 2 * G * M * Nc * d + 2 * (G * M + N) * d
+    exact_topk(torch, knn_topk.topk_sqdist(sub, sub, kmax, **kw_max),
+               ref.topk_sqdist_ref(sub, sub, kmax, **kw_max),
+               f"topk_sqdist (k={kmax})")
+    checked.append(f"k={kmax} multi-tile dedup")
+
+    G, M = kw["a_idx"].shape
+    Nc = kw["b_idx"].shape[1]
+    # the fold's own work: x (the rows and their candidates) read once,
+    # the row and candidate indices, the seed state read, the result
+    # written; products of every (row, candidate) pair and the norms
+    n_bytes = 4 * (N * d + G * M + G * Nc + 4 * G * M * k)
+    n_ops = 2 * G * M * Nc * d + 2 * N * d
     bms, by = bound_ms(n_bytes, n_ops)
     ms = time_ms(torch, lambda: knn_topk.topk_sqdist(a, b, k, **kw))
 
@@ -262,17 +399,15 @@ def check_topk(torch, x, cfg):
     fold_ms = time_ms(torch, whole_fold)
     plain = time_ms(torch, lambda: ref.topk_sqdist_ref(a, b, k, **kw),
                     reps=3, warmup=1)
-    lib = time_ms(torch, lambda: torch.cdist(a, b).topk(
+    lib = time_ms(torch, lambda: torch.cdist(ga, gb).topk(
         k, dim=-1, largest=False))
-    print(f"topk_sqdist: (G={G}, M={M}, N={Nc}, d={d}, k={k}, init, dedup) "
-          f"id slots differing from the plain version: {n_swaps} of "
-          f"{got[0].numel()} (only ties allowed; largest gap {gap:.3g}), "
-          f"max |dist err| {err:.3g} (tol {tol:.3g}); kernel {ms:.3f} ms, "
-          f"plain {plain:.3f} ms, torch.cdist+topk {lib:.3f} ms, "
-          f"bound {bms:.4f} ms ({by}); the tree's whole fold with the "
-          f"wrapper's gather of b {fold_ms:.3f} ms; exact search at "
-          f"k={kmax} (600 points, multi-tile dedup): {swaps_max} slot(s) "
-          f"differ", flush=True)
+    print(f"topk_sqdist: (G={G}, M={M}, N={Nc}, d={d}, k={k}, init, dedup, "
+          f"x read in place through row indices) id slots differing from "
+          f"the plain version: {n_swaps} of {got[0].numel()}, max |dist "
+          f"err| {err:.3g}; also exact: {'; '.join(checked)}; kernel "
+          f"{ms:.3f} ms, plain {plain:.3f} ms, torch.cdist+topk {lib:.3f} "
+          f"ms (on the gathered blocks), bound {bms:.4f} ms ({by}); the "
+          f"tree's whole fold {fold_ms:.3f} ms", flush=True)
     return dict(name="topk_sqdist", route="cuda",
                 source="src/repro_torch/csrc/knn_topk.cu",
                 replaces="src/repro/kernels/knn_topk.py:183",
@@ -280,10 +415,34 @@ def check_topk(torch, x, cfg):
                 bound_by=by, library_ms=lib)
 
 
+def _edge_batch(torch, gen, N, B, Mn, hub=None):
+    """A random edge batch on N rows; with ``hub`` about 2,000 of its
+    B*(2+M) updates go to that one row (300 sources, 300 targets and
+    every 14th negative slot)."""
+    dev = gen.device
+    i = torch.randint(0, N, (B,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    j = torch.randint(0, N, (B,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    negs = torch.randint(0, N, (B, Mn), generator=gen, device=dev,
+                         dtype=torch.int32)
+    if hub is not None:
+        i[:300] = hub
+        j[300:600] = hub
+        negs.view(-1)[::14] = hub
+    mask = ((negs != i[:, None]) & (negs != j[:, None])).float()
+    return i, j, negs, mask
+
+
 def check_edge_step(torch, n_nodes, cfg):
-    """The fit's step shape — y (N, 2), B = 4096 edges, M = 5 — and one
-    duplicate-dense batch on N = 64 rows; bitwise against the plain
-    version run on a CPU copy (on CUDA its index_add_ is atomic)."""
+    """The fit's step shape — y (N, 2), B = 4096 edges, M = 5 — a
+    duplicate-dense batch on N = 64 rows and a hub batch (one row takes
+    about 2,000 updates), each with a scalar lr and with per-edge lr and
+    frozen rows; then 200 consecutive steps against 200 plain steps (the
+    lists' heads must come back clean after every step).  Bitwise against
+    the plain version run on a CPU copy (on CUDA its index_add_ is
+    atomic).  The profiler's events of a call must all be the one
+    kernel: no sort, no memset, no copy."""
     from repro_torch.kernels import largevis_step, ref
 
     dev = torch.device("cuda")
@@ -291,15 +450,9 @@ def check_edge_step(torch, n_nodes, cfg):
     B, Mn, s = cfg.batch_size, cfg.n_negatives, cfg.out_dim
     kw = dict(gamma=cfg.gamma, a=cfg.prob_a, clip=cfg.grad_clip)
     main, max_err = None, 0.0
-    for N in (n_nodes, 64):
+    for N, hub in ((n_nodes, None), (64, None), (n_nodes, 7)):
         y = torch.randn((N, s), generator=gen, device=dev) * 10.0
-        i = torch.randint(0, N, (B,), generator=gen, device=dev,
-                          dtype=torch.int32)
-        j = torch.randint(0, N, (B,), generator=gen, device=dev,
-                          dtype=torch.int32)
-        negs = torch.randint(0, N, (B, Mn), generator=gen, device=dev,
-                             dtype=torch.int32)
-        mask = ((negs != i[:, None]) & (negs != j[:, None])).float()
+        i, j, negs, mask = _edge_batch(torch, gen, N, B, Mn, hub)
         for lr, n_frozen in ((0.37, 0), (torch.rand(B, generator=gen,
                                                     device=dev), N // 3)):
             want = ref.fused_edge_step_ref(
@@ -310,15 +463,36 @@ def check_edge_step(torch, n_nodes, cfg):
                 y.clone(), i, j, negs, mask, lr, n_frozen=n_frozen,
                 **kw).cpu()
             err = float((got - want).abs().max())
-            check(torch.equal(got, want),
-                  f"fused_edge_step: not bitwise at N={N} (max err {err})")
+            check(torch.equal(got, want), f"fused_edge_step: not bitwise at "
+                  f"N={N}{' (hub batch)' if hub is not None else ''} "
+                  f"(max err {err})")
             max_err = max(max_err, err)
         if main is None:
             main = (y, i, j, negs, mask)
+    n_seq = 200
+    y = torch.randn((n_nodes, s), generator=gen, device=dev) * 10.0
+    yc = y.cpu()
+    for t in range(n_seq):
+        batch = _edge_batch(torch, gen, n_nodes, B, Mn)
+        lr = 1.0 - t / n_seq
+        largevis_step.fused_edge_step(y, *batch, lr, **kw)
+        ref.fused_edge_step_ref(yc, *(b.cpu() for b in batch), lr, **kw)
+    check(torch.equal(y.cpu(), yc), f"fused_edge_step: {n_seq} consecutive "
+          "steps differ from the plain version's")
+
     y, i, j, negs, mask = main
     yk = y.clone()
     ms = time_ms(torch, lambda: largevis_step.fused_edge_step(
         yk, i, j, negs, mask, 0.37, **kw), reps=50)
+    prof = device_profile(torch, lambda: largevis_step.fused_edge_step(
+        yk, i, j, negs, mask, 0.37, **kw))
+    kern_ms, seen, made = prof.kernel("fused_edge_step")
+    others = [k for k in prof.events if not _is_event_of("fused_edge_step",
+                                                          k)]
+    check(not others, f"fused_edge_step: a call launched more than its "
+          f"kernel: {others}")
+    check(0 < seen <= made == prof.n, f"fused_edge_step: {seen} device "
+          f"launches seen for {made} launches made in {prof.n} calls")
     yp = y.clone()
     plain = time_ms(torch, lambda: ref.fused_edge_step_ref(
         yp, i, j, negs, mask, 0.37, **kw), reps=50)
@@ -331,10 +505,15 @@ def check_edge_step(torch, n_nodes, cfg):
     n_ops = B * ((4 * s + 2) + Mn * (7 * s + 3) + 2 * (2 + Mn) * s)
     bms, by = bound_ms(n_bytes, n_ops)
     print(f"fused_edge_step: (N={n_nodes}, s={s}, B={B}, M={Mn}) bitwise "
-          f"equal to the plain version, also at N=64 and with per-edge lr "
-          f"and frozen rows; kernel {ms:.4f} ms, plain (atomic index_add_) "
-          f"{plain:.4f} ms, index_add_ alone {lib:.4f} ms, bound "
-          f"{bms:.5f} ms ({by})", flush=True)
+          f"equal to the plain version, also at N=64, on a hub batch (one "
+          f"row takes about 2,000 updates) and with per-edge lr and frozen "
+          f"rows, and over {n_seq} consecutive steps; device launches a "
+          f"call: 1 kernel, no other event ({seen} of {made} launches "
+          f"seen); kernel {ms:.4f} ms a call by CUDA events, {kern_ms:.5f} "
+          f"ms of device time a launch (profiler), plain (atomic "
+          f"index_add_) {plain:.4f} ms, index_add_ (the scatter alone; no "
+          f"call computes the step) {lib:.4f} ms, bound {bms:.5f} ms "
+          f"({by})", flush=True)
     return dict(name="fused_edge_step", route="cuda",
                 source="src/repro_torch/csrc/largevis_step.cu",
                 replaces="src/repro/kernels/largevis_step.py:268",
@@ -424,37 +603,55 @@ def check_split_kernels(torch, cfg):
     n_bytes = 4 * B * (4 * s + 2 * Mn * s + Mn)
     n_ops = B * ((4 * s + 2) + Mn * (7 * s + 3))
     bms, by = bound_ms(n_bytes, n_ops)
-    _, dev_events = device_profile(
-        torch, lambda: largevis_grad.largevis_grads(*main, **kw))
-    kern = [(ms_, n) for k, (ms_, n) in dev_events.items()
-            if "largevis_grads_kernel" in k]
-    check(len(kern) == 1, f"largevis_grads: the profiler saw {len(kern)} "
-          "kernels of that name")
-    kern_ms = kern[0][0] * 50 / kern[0][1]      # per launch it saw
+    kern_ms, kern_seen, kern_made = device_profile(
+        torch, lambda: largevis_grad.largevis_grads(*main, **kw)).kernel(
+            "largevis_grads")
+    check(kern_seen > 0, "largevis_grads: the profiler saw no launch")
 
-    scatter_ms = None
-    for N in (N_POINTS, 64):
-        idx = torch.randint(0, N, (B * (2 + Mn),), generator=gen, device=dev)
-        upd = torch.randn((idx.numel(), s), generator=gen, device=dev)
-        yb = torch.randn((N, s), generator=gen, device=dev)
+    # the step size (linked lists, one launch) on the fit's N and on a
+    # duplicate-dense N = 64; the in-degree sum's size U = N*K, s = 1
+    # (above LINK_MAX_U: the sort and one thread a row segment)
+    scatter_ms = {}
+    U_deg = N_POINTS * cfg.n_neighbors
+    for N, U, w in ((N_POINTS, B * (2 + Mn), s), (64, B * (2 + Mn), s),
+                    (N_POINTS, U_deg, 1)):
+        idx = torch.randint(0, N, (U,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        upd = torch.randn((U, w), generator=gen, device=dev)
+        yb = torch.randn((N, w), generator=gen, device=dev)
         want = ref.scatter_add_ordered_ref(yb.cpu(), idx.cpu(), upd.cpu())
         got = largevis_step.scatter_add_ordered(yb.clone(), idx, upd).cpu()
         check(torch.equal(got, want), f"scatter_add_ordered: not bitwise at "
-              f"N={N} (max err {float((got - want).abs().max())})")
-        if scatter_ms is None:
+              f"N={N}, U={U} (max err {float((got - want).abs().max())})")
+        path = "lists" if U <= largevis_step.LINK_MAX_U else "sort"
+        if N == N_POINTS:
             yk = yb.clone()
-            scatter_ms = time_ms(torch, lambda: largevis_step
-                                 .scatter_add_ordered(yk, idx, upd), reps=50)
+            scatter_ms[path, U] = time_ms(
+                torch, lambda: largevis_step.scatter_add_ordered(yk, idx,
+                                                                 upd),
+                reps=50 if path == "lists" else 5)
+            if path == "lists":
+                prof = device_profile(torch, lambda: largevis_step
+                                      .scatter_add_ordered(yk, idx, upd))
+                others = [k for k in prof.events
+                          if not _is_event_of("scatter_add_ordered", k)]
+                check(not others, "scatter_add_ordered at the step size "
+                      f"launched more than its kernel: {others}")
+    scatter_txt = ", ".join(f"{path} (U={U}) {ms:.4f} ms"
+                            for (path, U), ms in scatter_ms.items())
     print(f"largevis_grads: (B={B}, M={Mn}, s={s}) bitwise equal to the "
           f"plain version on a CPU copy, also at B={B - 1} and B=37 with "
           f"masked negatives (the plain version on the card: max |err| "
           f"{card_err:.3g}); kernel {ms:.4f} ms a call (CUDA events over "
           f"back-to-back calls: the wrapper's host time), of which the "
-          f"kernel's own device time {kern_ms:.5f} ms (profiler), plain "
+          f"kernel's own device time {kern_ms:.5f} ms a launch (profiler, "
+          f"{kern_seen} of {kern_made} launches seen), plain "
           f"{plain_ms:.4f} ms, no single library call, bound {bms:.5f} ms "
           f"({by}); "
-          f"scatter_add_ordered of {B * (2 + Mn)} rows bitwise equal to the "
-          f"plain version, also on N=64: {scatter_ms:.4f} ms", flush=True)
+          f"scatter_add_ordered bitwise equal to the plain version at the "
+          f"step size (U={B * (2 + Mn)}, also on N=64; one launch, no other "
+          f"event) and at the in-degree size (U={U_deg}, s=1): "
+          f"{scatter_txt}", flush=True)
     return dict(name="largevis_grads", route="cuda",
                 source="src/repro_torch/csrc/largevis_grad.cu",
                 replaces="src/repro/kernels/largevis_grad.py:55",
@@ -544,12 +741,33 @@ def run_routes(torch, res, cfg, steps: int = 50):
           f"each; fused {fused:.4f} ms/step, split {split:.4f} ms/step "
           f"(host clock, this call)", flush=True)
     for route in ("fused", "split"):
-        y = res.y.clone()
-        gen = torch.Generator(device=y.device).manual_seed(22)
-        host, dev = device_profile(torch, lambda: layout_engine.sgd_edge_step(
-            y, gen, 0.5, layout_step=route, **kw), n=steps)
-        print(f"  profiled {route} step: {busy_line(host, dev)}",
-              flush=True)
+        prof = profile_steps(torch, res, cfg, route, steps)
+        print(f"  profiled {route} step: {busy_line(prof)}; device launches "
+              f"a step {step_launches(prof)}", flush=True)
+
+
+def profile_steps(torch, res, cfg, route: str, n: int) -> Profile:
+    """``n`` SGD steps of one route from the fitted layout, profiled."""
+    from repro_torch.core import layout_engine
+
+    kw = _step_kw(res, cfg)
+    y = res.y.clone()
+    gen = torch.Generator(device=y.device).manual_seed(22)
+    return device_profile(torch, lambda: layout_engine.sgd_edge_step(
+        y, gen, 0.5, layout_step=route, **kw), n=n)
+
+
+def step_launches(prof: Profile) -> str:
+    """Device events a step, with the largest few counts by name."""
+    per = {k: c / prof.n for k, (_, c) in prof.events.items()}
+    total = sum(per.values())
+
+    def short(key):
+        key = key.replace("(anonymous namespace)::", "")
+        return key.removeprefix("void ").split("(")[0][:40]
+    top = sorted(per, key=lambda k: -per[k])[:4]
+    return (f"{total:.2f} ("
+            + ", ".join(f"{short(k)} {per[k]:.2f}" for k in top) + ", ...)")
 
 
 def run_split_layout(torch, res, labels, cfg):
@@ -686,13 +904,31 @@ def run_transform(torch, res, labels, acc_fit, cfg):
     want = ref.topk_sqdist_ref(a, res.x[None], k)
     err, swaps, gap, tol = agree_topk(torch, a, res.x[None], res.x, got,
                                       want, "topk_sqdist (queries)")
-    ms = time_ms(torch, lambda: knn_topk.topk_sqdist(xq[None], res.x[None],
-                                                     k), reps=3, warmup=1)
+    exact_topk(torch, got, want, "topk_sqdist (queries)")
+    ms, lib, bms, by = time_queries(torch, xq, res.x, k)
     print(f"query_neighbors: topk_sqdist (G=1, M=1000, N={N_POINTS}, "
           f"d={DIM}, k={k}) {swaps} id slot(s) differ from the plain "
-          f"version (only ties allowed; largest gap {gap:.3g}), max |dist "
-          f"err| {err:.3g} (tol {tol:.3g}); all {N_TRANSFORM} queries "
-          f"{ms:.3f} ms; the two transforms bitwise equal", flush=True)
+          f"version, max |dist err| {err:.3g}; all {N_TRANSFORM} queries "
+          f"(1, {N_TRANSFORM}, {N_POINTS}): kernel {ms:.3f} ms, "
+          f"torch.cdist+topk {lib:.3f} ms, bound {bms:.4f} ms ({by}); the "
+          f"two transforms bitwise equal", flush=True)
+
+
+def time_queries(torch, xq, x, k: int):
+    """``topk_sqdist`` of every query against the corpus, (1, Q, N): the
+    kernel, ``torch.cdist`` + ``topk`` and the bound (ms)."""
+    from repro_torch.kernels import knn_topk
+
+    Q, d = xq.shape
+    N = x.shape[0]
+    ms = time_ms(torch, lambda: knn_topk.topk_sqdist(xq[None], x[None], k),
+                 reps=3, warmup=1)
+    lib = time_ms(torch, lambda: torch.cdist(xq[None], x[None]).topk(
+        k, dim=-1, largest=False), reps=3, warmup=1)
+    n_bytes = 4 * (Q * d + N * d + 2 * Q * k)
+    n_ops = 2 * Q * N * d + 2 * (Q + N) * d
+    bms, by = bound_ms(n_bytes, n_ops)
+    return ms, lib, bms, by
 
 
 def run_insert(torch, res, cfg):
@@ -838,9 +1074,9 @@ def check_flash(torch):
     q, k, v = main["bfloat16"]
     ms = time_ms(torch, lambda: fa.flash_attention(q, k, v))
     n_prof = 20
-    _, dev = device_profile(torch, lambda: fa.flash_attention(q, k, v),
-                            n=n_prof)
-    kern_ms, seen = per_launch(dev, n_prof)
+    kern_ms, seen, _ = device_profile(
+        torch, lambda: fa.flash_attention(q, k, v), n=n_prof).kernel(
+            "flash_attention")
     ms32 = time_ms(torch, lambda: fa.flash_attention(*main["float32"]))
     plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v), reps=3)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -922,11 +1158,11 @@ def time_prefill(torch, params, cfg, n_tokens: int = TIMED_PROMPT):
     check(launches == cfg.n_layers,
           f"the {n_tokens}-token prefill launched flash_attention "
           f"{launches} times, expected {cfg.n_layers}")
-    host, dev = device_profile(torch, lambda: lm.lm_prefill(params, cfg,
-                                                            toks), n=1)
-    flash_ms, seen = per_launch(dev, 1)
+    prof = device_profile(torch, lambda: lm.lm_prefill(params, cfg, toks),
+                          n=1)
+    flash_ms, seen, _ = prof.kernel("flash_attention")
     print(f"timed prefill: {n_tokens} tokens, batch 1: wall {wall:.2f} ms; "
-          f"profiled {busy_line(host, dev)}; flash {launches} launches, "
+          f"profiled {busy_line(prof)}; flash {launches} launches, "
           f"{flash_ms * seen:.4f} ms of device time ({flash_ms:.4f} ms a "
           f"launch, {seen} seen)", flush=True)
     return launches
@@ -1000,19 +1236,16 @@ def run_serve(torch):
           f"{counts}", flush=True)
     for p in (prompts[0], prompts[N_LONG]):
         toks = torch.tensor([p], dtype=torch.long, device=eng.device)
-        host, dev = device_profile(torch, lambda: lm.lm_prefill(
+        prof = device_profile(torch, lambda: lm.lm_prefill(
             eng.params, cfg, toks), n=3)
-        flash_ms, seen = per_launch(dev, 3)
-        flash = (f"; flash {flash_ms:.4f} ms a launch ({seen} launches "
-                 "seen in 3 prefills)") if seen else ""
-        print(f"  profiled {len(p)}-token prefill: {busy_line(host, dev)}"
-              f"{flash}", flush=True)
+        print(f"  profiled {len(p)}-token prefill (3 calls): "
+              f"{busy_line(prof)}", flush=True)
     last = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long, device=eng.device)
     pos = torch.full((SERVE_SLOTS,), SERVE_MAX_LEN - 2, device=eng.device)
-    host, dev = device_profile(torch, lambda: lm.lm_decode(
+    prof = device_profile(torch, lambda: lm.lm_decode(
         eng.params, cfg, last, eng.cache, pos), n=10)
     print(f"  profiled decode step ({SERVE_SLOTS} slots at position "
-          f"{SERVE_MAX_LEN - 2}): {busy_line(host, dev)}", flush=True)
+          f"{SERVE_MAX_LEN - 2}): {busy_line(prof)}", flush=True)
     want = cfg.n_layers * N_LONG
     check(counts["flash_attention"] == want,
           f"flash_attention launched {counts['flash_attention']} times on "
@@ -1056,10 +1289,160 @@ def check_decode_matches_prefill(torch, n_layers: int = 2, S: int = 1000):
     check(rel <= DECODE_REL_TOL, f"decode vs prefill rel {rel}")
 
 
+# ---------------------------------------------------------------------------
+# before and after: a parent checkout's package and this one, in turns
+# ---------------------------------------------------------------------------
+
+PARENT_STEPS = 2_000
+
+
+def _drop_package() -> None:
+    for name in [n for n in sys.modules
+                 if n == "repro_torch" or n.startswith("repro_torch.")]:
+        del sys.modules[name]
+
+
+def load_package(src: Path) -> dict:
+    """Import the ``repro_torch`` under ``src``, every module of it, and
+    return its ``sys.modules`` entries (left active)."""
+    import importlib
+    import pkgutil
+
+    _drop_package()
+    sys.path.insert(0, str(src))
+    try:
+        pkg = importlib.import_module("repro_torch")
+        for info in pkgutil.walk_packages(pkg.__path__, "repro_torch."):
+            importlib.import_module(info.name)
+    finally:
+        sys.path.remove(str(src))
+    return {n: m for n, m in sys.modules.items()
+            if n == "repro_torch" or n.startswith("repro_torch.")}
+
+
+def activate(mods: dict) -> None:
+    """Make one loaded package the ``repro_torch`` that imports find."""
+    _drop_package()
+    sys.modules.update(mods)
+
+
+def bench_turn(torch, x, xq, spn: int) -> dict:
+    """One turn of the active package: the fit (``layout_s``),
+    ``transform`` of the held-out queries, PARENT_STEPS fused and split
+    SGD steps on the fit's samplers (host ms, device ms and device
+    launches a step), one tree's window fold and the queries' top-k."""
+    from repro_torch import LargeVis, LargeVisConfig, largevis
+    from repro_torch.core import knn, layout_engine
+    from repro_torch.kernels import knn_topk, ref
+
+    cfg = LargeVisConfig(samples_per_node=spn)
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = largevis(x, cfg=cfg, device="cuda")
+    torch.cuda.synchronize()
+    out["fit_s"] = time.perf_counter() - t0
+    out["layout_s"] = res.timings["layout_s"]
+    out["knn_s"] = res.timings["knn_s"]
+    model = LargeVis(cfg, device="cuda")
+    model.result_ = res
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.transform(xq)
+    torch.cuda.synchronize()
+    out["transform_s"] = time.perf_counter() - t0
+    kw = _step_kw(res, cfg)
+    for route in ("fused", "split"):
+        y = res.y.clone()
+        gen = torch.Generator(device=y.device).manual_seed(21)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(PARENT_STEPS):
+            y = layout_engine.sgd_edge_step(y, gen, t / PARENT_STEPS,
+                                            layout_step=route, **kw)
+        torch.cuda.synchronize()
+        out[f"{route}_host_ms"] = ((time.perf_counter() - t0)
+                                   / PARENT_STEPS * 1e3)
+        prof = profile_steps(torch, res, cfg, route, 50)
+        out[f"{route}_device_ms"] = sum(t for t, _ in prof.events.values()
+                                        ) / prof.n
+        out[f"{route}_launches"] = sum(c for _, c in prof.events.values()
+                                       ) / prof.n
+        out[f"{route}_all_seen"] = kernels_seen(prof)[1]
+        out[f"{route}_kernels"] = kernels_seen(prof)[0]
+    N, d = x.shape
+    k, W = cfg.n_neighbors, cfg.window
+    depth = knn._auto_depth(N, cfg.leaf_target)
+    codes = knn.hash_codes(x, 2, depth, generator=torch.Generator(
+        device=x.device).manual_seed(7))
+    run_i = torch.full((N, k), -1, dtype=torch.int32, device=x.device)
+    run_d = torch.full((N, k), ref.INVALID_DIST, device=x.device)
+    run_i, run_d = knn._window_fold_one_tree(x, codes[:, 0], k, W, run_i,
+                                             run_d)
+    a, b, fkw, _ = knn.window_fold_args(x, codes[:, 1], k, W, run_i, run_d)
+    out["fold_kernel_ms"] = time_ms(
+        torch, lambda: knn_topk.topk_sqdist(a, b, k, **fkw))
+
+    def whole_fold():
+        a2, b2, kw2, _ = knn.window_fold_args(x, codes[:, 1], k, W, run_i,
+                                              run_d)
+        return knn_topk.topk_sqdist(a2, b2, k, **kw2)
+    out["fold_whole_ms"] = time_ms(torch, whole_fold)
+    out["queries_ms"] = time_ms(torch, lambda: knn_topk.topk_sqdist(
+        xq[None], x[None], k), reps=3, warmup=1)
+    out["y"] = res.y.cpu()
+    return out
+
+
+def run_parent(torch, parent: Path, spn: int) -> None:
+    """Time a parent checkout's package and this one in turns, parent,
+    change, change, parent, in one process on one card (``bench_turn``),
+    and print each turn and the means."""
+    import numpy as np
+
+    src = parent / "src"
+    if not (src / "repro_torch").is_dir():
+        fail(f"--parent {parent}: no src/repro_torch there")
+    pkgs = {"parent": load_package(src), "change": load_package(ROOT / "src")}
+    for name, mods in pkgs.items():
+        activate(mods)
+        from repro_torch.kernels import _build
+        t0 = time.perf_counter()
+        _build.build("knn_topk", "largevis_step", "largevis_grad")
+        print(f"{name}: kernels built in {time.perf_counter() - t0:.2f} s "
+              f"({mods['repro_torch'].__file__})", flush=True)
+    from repro_torch.core.largevis import resolve_device
+    from repro_torch.data.synthetic import gaussian_mixture
+    dev = resolve_device("cuda")
+    x = torch.from_numpy(gaussian_mixture(0, N_POINTS, DIM, CLUSTERS)[0]
+                         ).to(dev)
+    xq = torch.from_numpy(held_out(N_TRANSFORM, seed=1)[0]).to(dev)
+    turns = []
+    for name in ("parent", "change", "change", "parent"):
+        activate(pkgs[name])
+        r = bench_turn(torch, x, xq, spn)
+        turns.append((name, r))
+        print(f"turn {len(turns)} ({name}): " + ", ".join(
+            f"{key} {val:.4f}" if isinstance(val, float) else f"{key} {val}"
+            for key, val in r.items() if key != "y"), flush=True)
+    same = all(torch.equal(r["y"], turns[0][1]["y"]) for _, r in turns)
+    print(f"the four fits' layouts bitwise equal: {same}", flush=True)
+    for key in turns[0][1]:
+        if key == "y" or not isinstance(turns[0][1][key], float):
+            continue
+        mean = {n: float(np.mean([r[key] for m, r in turns if m == n]))
+                for n in ("parent", "change")}
+        print(f"  {key}: parent {mean['parent']:.4f}, change "
+              f"{mean['change']:.4f}", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--samples-per-node", type=int,
                     default=PAPER_SAMPLES_PER_NODE)
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a checkout of the parent commit: time its "
+                    "package and this one in turns, and nothing else")
     args = ap.parse_args()
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         fail("src/repro_torch is missing: run from a checkout of the "
@@ -1067,6 +1450,11 @@ def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("CUDA is not available")
+    if args.parent is not None:
+        print(nvidia_smi(), flush=True)
+        run_parent(torch, args.parent.resolve(), args.samples_per_node)
+        print(nvidia_smi())
+        return
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import LargeVisConfig
     from repro_torch.core.largevis import resolve_device

@@ -82,9 +82,11 @@ def window_fold_args(x, code, k: int, window: int, run_ids, run_d):
     The edge blocks' repeated neighbour segment (block 0's j-1 is itself,
     the last block's j+1 is itself) carries id -1, so no candidate is
     offered twice; candidates already in the state are masked (dedup).
-    Returns (a, b, kwargs, order): ``order`` maps sorted rows to points.
+    The blocks are row indices into x (the index form: x is read in
+    place, -1 a padding row), and a row's index is its id.
+    Returns (x, x, kwargs, order): ``order`` maps sorted rows to points.
     """
-    N, d = x.shape
+    N = x.shape[0]
     W = min(window, N)
     dev = x.device
     order = torch.sort(code, stable=True).indices          # sorted -> orig
@@ -95,7 +97,6 @@ def window_fold_args(x, code, k: int, window: int, run_ids, run_d):
     valid = (order_p >= 0)[:, None]
     st_i = torch.where(valid, run_ids[safe], -1)
     st_d = torch.where(valid, run_d[safe], ref_lib.INVALID_DIST)
-    blocks = x[safe].reshape(nb, W, d)
     ids = order_p.to(torch.int32).reshape(nb, W)
     jj = torch.arange(nb, device=dev)
     nbr = torch.stack([(jj - 1).clamp(0, nb - 1), jj,
@@ -103,10 +104,11 @@ def window_fold_args(x, code, k: int, window: int, run_ids, run_d):
     bid = ids[nbr]                                         # (nb, 3, W)
     bid[0, 0] = -1                                         # j-1 == j at 0
     bid[nb - 1, 2] = -1                                    # j+1 == j at end
-    kw = dict(a_ids=ids, b_ids=bid.reshape(nb, 3 * W),
+    bid = bid.reshape(nb, 3 * W)
+    kw = dict(a_idx=ids, b_idx=bid, a_ids=ids, b_ids=bid,
               init_ids=st_i.reshape(nb, W, k),
               init_dists=st_d.reshape(nb, W, k), dedup=True, bn=3 * W)
-    return blocks, blocks[nbr].reshape(nb, 3 * W, d), kw, order
+    return x, x, kw, order
 
 
 def _window_fold_one_tree(x, code, k: int, window: int, run_ids, run_d):

@@ -3,38 +3,77 @@
 //
 // topk_sqdist replaces the Pallas kernel repro/kernels/knn_topk.py::
 // topk_sqdist (_topk_kernel, merge _select_topk).  For each row of a it
-// folds column tiles of b into a running top-k of the similarity
+// folds the columns of b into a running top-k of the similarity
 // s = ((2 a.b - |a|^2) - |b|^2), masking padding (id < 0), self pairs,
 // bucket-code mismatches and (with dedup) ids already in the state, and
 // writes (ids, max(-s, 0)) in ascending distance.  A leading group
-// dimension G runs independent problems in one launch: the forest's
-// window blocks of one tree are one launch.
-//   Bound: memory.  At the forest's shapes (M = 64 rows against N = 192
-//   candidates, d = 100, k = 150) a group moves its a and b blocks and
-//   reads and writes a (64, 150) state of ids and distances: at the
-//   card's peaks the bytes take about twice the time of its 2*M*N*d
-//   flops in f32.  The merge of each candidate into a 150-long sorted
-//   list is what the simple design spends its time on.
-//   Design: one block of 8 warps owns (group, 32 rows); blocks are one
-//   linear index over (group, row tile), so G * ceil(M / 32) may reach
-//   2^31 - 1.  The running state (sims and ids, k <= 256) of its rows
-//   lives in shared memory, sorted descending.  For each chunk of up to
-//   64 columns the block stages a and b in 32-wide feature slices, every
-//   thread accumulates 8 dot products with fp32 FMAs in feature order
-//   (no tensor cores, no TF32; cuBLAS's f32 GEMM sums in the same order,
-//   so these products are bitwise the plain version's).  From the same
-//   staged slices three warps sum the row norms |b|^2 of the chunk's
-//   columns and, in the first chunk, |a|^2 of the block's rows, left to
-//   right in feature order with every product and sum rounded on its own
-//   (ref.sq_norms's order).  The block then masks the similarities, and
-//   each warp inserts its rows' surviving
-//   candidates one by one: position by ballot over the list, shift by
-//   one.  Insertion with a strict '>' puts a candidate after every equal
-//   entry already present, so ties keep the earliest position, as
-//   lax.top_k does.  With dedup the state's ids are snapshotted at each
-//   column-tile boundary of width bn, the JAX oracle's semantics; only
-//   candidates that beat the snapshot's k-th similarity are compared
-//   with it.
+// dimension G runs independent problems in one launch (the forest's
+// window blocks of one tree).  a and b are read in place: either (G, M, d)
+// and (G, N, d) blocks, or a base matrix and (G, M) / (G, N) int32 row
+// indices, -1 reading a zero row (the window fold passes x and the
+// sorted order, and never gathers its 3x larger candidate blocks).
+//   Bound: at the forest's shapes (G = 1563 groups of 64 rows against 192
+//   candidates, d = 100, k = 150) the bytes: x read once and a (64, 150)
+//   state of ids and distances read and written a group; at the queries'
+//   (10,000 rows against 100,000, d = 100) the 2*M*N*d f32 operations.
+//   Design: one block of 4 warps owns (group, 32 rows); blocks are one
+//   linear index over (group, row tile), at most 2^31 - 1.
+//   * Products.  The block walks one stream of (chunk of up to 64
+//     columns, 16-wide feature slice) steps.  cp.async copies each slice
+//     of a and b into shared memory, 16 bytes at a time when d % 4 == 0
+//     (else 4), zero-filled past the edges and for index -1, XOR-swizzled
+//     so that eight consecutive rows read at one offset hit eight bank
+//     groups; three stages keep two slices in flight across chunk
+//     boundaries, with one barrier a slice.  Every thread keeps a 4 x 4
+//     register tile of outputs (rows ty + 8i, columns tx + 16j) and
+//     reads its a and b values as float4s of four features.  Each output
+//     is one fp32 FMA chain in feature order from 0 (no tensor cores, no
+//     TF32): cuBLAS's f32 GEMM sums in the same order at these shapes,
+//     so these products are bitwise the plain version's.  From the same
+//     slices two warps sum |b|^2 of the chunk's columns and, in the first
+//     chunk, |a|^2 of the rows, left to right in feature order with every
+//     product and sum rounded on its own (ref.sq_norms's order).
+//   * Threshold filter.  A candidate survives only if s beats its row's
+//     current k-th similarity; the masks are tested only for survivors.
+//     Once the state is full almost every candidate fails: about
+//     k ln(N / k) of the queries' 100,000 columns pass.
+//   * Batched merge.  A chunk's survivors are counted first; a row whose
+//     buffer (CAP (s, column) keys in shared memory) would overflow is
+//     merged before they are appended, and every buffer is merged at
+//     each dedup tile's end and at the end.  The row's warp drops what
+//     no longer beats the k-th similarity and (with dedup) the ids of
+//     the snapshot, sorts the rest bitonically in registers by (s desc,
+//     column asc), and merges it with the sorted state along the merge
+//     path: every entry finds its output rank by binary search in the
+//     other list, the state first among ties, and ranks below k are
+//     written.  That is lax.top_k's earliest-position order over
+//     concat(state, columns), one merge per batch of up to CAP instead
+//     of one insertion per candidate.  With dedup the state's ids are
+//     snapshotted at each column-tile boundary of width bn (the JAX
+//     oracle's semantics).
+//   * Memory.  The running state (sims, descending, and ids) lives in
+//     the output arrays: only merges touch it, each taking up to CAP
+//     survivors, so it takes no shared memory; the sims become distances
+//     at the end.  Shared memory holds the buffers, the slices
+//     and (with dedup) the snapshot: 38 KB a block at k = 150 without
+//     dedup, 57 KB with it.  ptxas reports no spills at four blocks an
+//     SM (118-124 registers).
+//   The masks run in one loop over a chunk's survivors: unrolled over the
+//   16 outputs (with the bucket-code loop) they spread the chunk's path
+//   over so much code that the instruction fetch set the pace.  Where
+//   the time still goes (PERF.md): the queries' 313 row tiles give about
+//   2.4 blocks an SM, and each block's pass over 100,000 columns is
+//   bound by its own instruction latencies (one block alone takes 16 ms
+//   of the grid's 21).  Measured no faster: a third or fourth block an
+//   SM, 32-wide slices, two or four stages, larger buffers, and cutting
+//   each row tile's columns into ranges merged by a second kernel (each
+//   range fills its own state, so the merges grow more than the
+//   products shrink).
+//   Similarities compare in IEEE total order (-0.0 below +0.0), as XLA
+//   sorts them and as ref.topk_sqdist_ref does: a seeded distance of 0 is
+//   a state entry at -0.0, which ranks below a candidate at +0.0.
+//   ids and distances stay bitwise the plain version's (the same products
+//   and norms, and an exact selection), whatever the buffer's size.
 //
 // pairwise_sqdist replaces repro/kernels/knn_topk.py::pairwise_sqdist.
 //   Bound: at d = 100 (graph recall) its 2d flops per entry at the
@@ -51,45 +90,261 @@
 namespace {
 
 constexpr float INVALID_SIM = -3.0e38f;
-constexpr int BM = 32;        // rows per block
-constexpr int BNK = 64;       // columns per compute chunk
-constexpr int DK = 32;        // feature slice staged in shared memory
-constexpr int THREADS = 256;  // 8 warps
-constexpr int ROWS_PER_WARP = BM / (THREADS / 32);
+constexpr int BM = 32;          // rows per block
+constexpr int BNK = 64;         // columns per chunk
+constexpr int DK = 16;          // feature slice
+constexpr int THREADS = 128;    // 4 warps; a warp merges 8 rows
+constexpr int WARPS = THREADS / 32;
+constexpr int ROWS_PER_WARP = BM / WARPS;
+constexpr int CAP = BNK + 8;    // buffered candidates a row
+constexpr int NST = 3;          // slice stages in flight
 constexpr int MAX_K = 256;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned long long NO_KEY = ~0ull;
+
+__host__ __device__ inline int pad4(int k) { return (k + 3) & ~3; }
 
 __host__ __device__ inline size_t topk_smem_bytes(int k, int dedup) {
-  size_t words = (size_t)BM * k * 2            // state sims + ids
-               + (dedup ? (size_t)BM * k : 0)  // snapshot ids
-               + BM                            // snapshot k-th sim
-               + (size_t)BM * BNK              // masked tile sims
-               + (size_t)BM * (DK + 1)         // a slice
-               + (size_t)BNK * (DK + 1)        // b slice
-               + BM + BNK                      // norms
-               + BM + BNK;                     // ids
-  return words * 4;
+  return (size_t)BM * CAP * 8                  // buffer keys
+         + (size_t)BM * 8                      // row offsets of a
+         + (size_t)NST * DK * (BM + BNK) * 4   // slices of a and b
+         + (dedup ? (size_t)BM * pad4(k) * 4 : 0)  // snapshot ids
+         + (size_t)(BM + BNK + BM) * 4         // norms, k-th sims
+         + (size_t)3 * BM * 4;                 // row ids, buffer counts
 }
 
-__global__ void __launch_bounds__(THREADS)
-topk_kernel(const float* __restrict__ a, const float* __restrict__ b,
-            const int* __restrict__ a_ids, const int* __restrict__ b_ids,
-            const int* __restrict__ codes_a, const int* __restrict__ codes_b,
-            int T, const int* __restrict__ init_ids,
-            const float* __restrict__ init_dists, int* __restrict__ out_ids,
-            float* __restrict__ out_dists, int M, int N, int d, int k,
-            int bn, int dedup) {
-  extern __shared__ float smem[];
-  float* st_s = smem;                                        // [BM][k]
-  int* st_i = reinterpret_cast<int*>(st_s + BM * k);         // [BM][k]
-  int* snap_i = st_i + BM * k;                               // [BM][k]
-  float* snap_kth = reinterpret_cast<float*>(snap_i + (dedup ? BM * k : 0));
-  float* tile = snap_kth + BM;                               // [BM][BNK]
-  float* a_sh = tile + BM * BNK;                             // [BM][DK+1]
-  float* b_sh = a_sh + BM * (DK + 1);                        // [BNK][DK+1]
-  float* an_sh = b_sh + BNK * (DK + 1);
+// An f32's rank in IEEE total order (-0.0 below +0.0), the order XLA
+// sorts in: a seeded distance of 0 is a state entry at -0.0, which
+// lax.top_k ranks below a candidate at +0.0.  Every comparison of
+// similarities goes through it.
+__device__ inline unsigned ord_of(float s) {
+  const unsigned u = __float_as_uint(s);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// (s desc, column asc) as one ascending 64-bit key.
+__device__ inline unsigned long long make_key(float s, int pos) {
+  return ((unsigned long long)(~ord_of(s)) << 32) | (unsigned)pos;
+}
+
+__device__ inline unsigned key_ord(unsigned long long key) {
+  return ~(unsigned)(key >> 32);
+}
+
+__device__ inline float key_sim(unsigned long long key) {
+  unsigned u = ~(unsigned)(key >> 32);
+  u = (u & 0x80000000u) ? (u & 0x7fffffffu) : ~u;
+  return __uint_as_float(u);
+}
+
+__device__ inline int key_pos(unsigned long long key) {
+  return (int)(unsigned)(key & 0xffffffffu);
+}
+
+__device__ inline void cp_async4(void* smem, const float* src, bool ok) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N_PENDING>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N_PENDING));
+}
+
+// Bitonic sort of P = 32 * T keys held striped (element t * 32 + lane),
+// ascending.
+template <int T>
+__device__ inline void warp_sort(unsigned long long (&key)[4], int lane) {
+  constexpr int P = 32 * T;
+#pragma unroll
+  for (int size = 2; size <= P; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride >= 32) {
+        const int ts = stride >> 5;
+#pragma unroll
+        for (int t = 0; t < T; ++t) {
+          if (t & ts) continue;
+          const bool asc = ((t * 32 + lane) & size) == 0;
+          const unsigned long long lo = key[t], hi = key[t | ts];
+          const bool swap = asc ? lo > hi : lo < hi;
+          key[t] = swap ? hi : lo;
+          key[t | ts] = swap ? lo : hi;
+        }
+      } else {
+#pragma unroll
+        for (int t = 0; t < T; ++t) {
+          const unsigned long long other =
+              __shfl_xor_sync(FULL, key[t], stride);
+          const bool asc = ((t * 32 + lane) & size) == 0;
+          const bool lower = (lane & stride) == 0;
+          const unsigned long long mn = key[t] < other ? key[t] : other;
+          const unsigned long long mx = key[t] < other ? other : key[t];
+          key[t] = (asc == lower) ? mn : mx;
+        }
+      }
+    }
+  }
+}
+
+struct TopkArgs {
+  const float* a;
+  const int* a_idx;
+  const float* b;
+  const int* b_idx;
+  const int* a_ids;
+  const int* b_ids;
+  const int* codes_a;
+  const int* codes_b;
+  int T;
+  const int* init_ids;
+  const float* init_dists;
+  int* out_ids;
+  float* out_dists;
+  int M, N, d, k, bn, dedup;
+};
+
+// Merge row r's buffer into its state; one warp, every lane.
+__device__ void merge_row(const TopkArgs& p, int g, int r, float* ss,
+                          int* si, const int* snap, unsigned long long* bk,
+                          int* cnt, float* thr, int lane) {
+  const int n = cnt[r];
+  const int k = p.k;
+  const unsigned kth = ord_of(ss[k - 1]);
+  unsigned long long key[4];
+  int nv = 0;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int j = t * 32 + lane;
+    key[t] = NO_KEY;
+    bool keep = false;
+    if (j < n) {
+      key[t] = bk[j];
+      keep = key_ord(key[t]) > kth;
+    }
+    if (p.dedup && __any_sync(FULL, keep)) {
+      const int id = keep ? (p.b_ids ? p.b_ids[(size_t)g * p.N +
+                                               key_pos(key[t])]
+                                     : key_pos(key[t]))
+                          : -2;
+      const int4* sn = reinterpret_cast<const int4*>(snap);
+      bool dup = false;
+      for (int x = 0; x < pad4(k) / 4; ++x) {
+        const int4 v = sn[x];
+        dup |= (v.x == id) | (v.y == id) | (v.z == id) | (v.w == id);
+      }
+      keep &= !dup;
+    }
+    if (!keep) key[t] = NO_KEY;
+    nv += __popc(__ballot_sync(FULL, keep));
+  }
+  cnt[r] = 0;            // every lane read n above; nobody appends now
+  if (nv == 0) return;
+  if (n <= 32) warp_sort<1>(key, lane);
+  else if (n <= 64) warp_sort<2>(key, lane);
+  else warp_sort<4>(key, lane);
+  __syncwarp();
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    if (t * 32 + lane < nv) bk[t * 32 + lane] = key[t];
+  __syncwarp();
+
+  // ranks along the merge path, the state first among ties
+  float s_st[MAX_K / 32];
+  int i_st[MAX_K / 32], r_st[MAX_K / 32];
+#pragma unroll
+  for (int t = 0; t < MAX_K / 32; ++t) {
+    const int i = t * 32 + lane;
+    r_st[t] = k;
+    if (i < k) {
+      s_st[t] = ss[i];
+      i_st[t] = si[i];
+      const unsigned o = ord_of(s_st[t]);
+      int lo = 0, hi = nv;          // first buffer entry with s <= s_st
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (key_ord(bk[mid]) > o) lo = mid + 1;
+        else hi = mid;
+      }
+      r_st[t] = i + lo;
+    }
+  }
+  float s_bf[4];
+  int i_bf[4], r_bf[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int j = t * 32 + lane;
+    r_bf[t] = k;
+    if (j < nv) {
+      s_bf[t] = key_sim(key[t]);
+      const int pos = key_pos(key[t]);
+      i_bf[t] = p.b_ids ? p.b_ids[(size_t)g * p.N + pos] : pos;
+      const unsigned o = key_ord(key[t]);
+      int lo = 0, hi = k;           // first state entry with s < s_bf
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (ord_of(ss[mid]) >= o) lo = mid + 1;
+        else hi = mid;
+      }
+      r_bf[t] = j + lo;
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int t = 0; t < MAX_K / 32; ++t) {
+    if (r_st[t] < k) {
+      ss[r_st[t]] = s_st[t];
+      si[r_st[t]] = i_st[t];
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    if (r_bf[t] < k) {
+      ss[r_bf[t]] = s_bf[t];
+      si[r_bf[t]] = i_bf[t];
+    }
+  }
+  __syncwarp();
+  if (lane == 0) thr[r] = ss[k - 1];
+  __syncwarp();
+}
+
+// 16-byte chunk c4 (of 4) of row `row` in a slice, XOR-swizzled so that
+// eight consecutive rows read at one chunk hit eight distinct bank groups.
+__device__ inline int swz(int row, int c4) {
+  return row * DK + ((c4 ^ ((row >> 1) & 3)) << 2);
+}
+
+__device__ inline void cp_async16(void* smem, const float* src, bool ok) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+// VEC: d % 4 == 0 and 16-byte aligned bases, so a slice moves in 16-byte
+// copies; otherwise in 4-byte copies of single features.
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS, 4)
+topk_kernel(const TopkArgs p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int M = p.M, N = p.N, d = p.d, k = p.k;
+  const int kp = pad4(k);
+  unsigned long long* bufk = reinterpret_cast<unsigned long long*>(smem_raw);
+  long long* arow = reinterpret_cast<long long*>(bufk + BM * CAP);
+  float* as = reinterpret_cast<float*>(arow + BM);       // [NST][BM][DK]
+  float* bs = as + NST * BM * DK;                        // [NST][BNK][DK]
+  int* snap = reinterpret_cast<int*>(bs + NST * BNK * DK);  // [BM][kp]
+  float* an_sh = reinterpret_cast<float*>(snap + (p.dedup ? BM * kp : 0));
   float* bn_sh = an_sh + BM;
-  int* aid_sh = reinterpret_cast<int*>(bn_sh + BNK);
-  int* bid_sh = aid_sh + BM;
+  float* thr = bn_sh + BNK;
+  int* aid_sh = reinterpret_cast<int*>(thr + BM);
+  int* cnt = aid_sh + BM;
+  int* pend = cnt + BM;
 
   const int row_tiles = (M + BM - 1) / BM;
   const int g = blockIdx.x / row_tiles;
@@ -97,28 +352,40 @@ topk_kernel(const float* __restrict__ a, const float* __restrict__ b,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const float* ag = a + (size_t)g * M * d;
-  const float* bg = b + (size_t)g * N * d;
+  const int rows = min(BM, M - r0);
+  // The running state (sims, descending, and ids) of the block's rows
+  // lives in the outputs themselves: only merges touch it, so it need
+  // not take shared memory.  The sims become distances at the end.
+  float* st_s = p.out_dists + ((size_t)g * M + r0) * k;
+  int* st_i = p.out_ids + ((size_t)g * M + r0) * k;
 
-  // ---- running state and row ids -------------------------------------
-  for (int idx = tid; idx < BM * k; idx += THREADS) {
-    const int r = idx / k, t = idx - r * k, row = r0 + r;
+  // ---- running state, row ids and row offsets -------------------------
+  for (int idx = tid; idx < rows * k; idx += THREADS) {
     int id = -1;
     float s = INVALID_SIM;
-    if (init_ids != nullptr && row < M) {
-      const size_t o = ((size_t)g * M + row) * k + t;
-      id = init_ids[o];
-      s = fmaxf(-init_dists[o], INVALID_SIM);
+    if (p.init_ids != nullptr) {
+      const size_t o = ((size_t)g * M + r0) * k + idx;
+      id = p.init_ids[o];
+      s = fmaxf(-p.init_dists[o], INVALID_SIM);
     }
     st_s[idx] = s;
     st_i[idx] = id;
   }
   if (tid < BM) {
     const int row = r0 + tid;
-    aid_sh[tid] = row < M ? a_ids[(size_t)g * M + row] : -1;
+    const size_t o = (size_t)g * M + row;
+    aid_sh[tid] = (row < M && p.a_ids != nullptr) ? p.a_ids[o] : -1;
+    long long off = -1;
+    if (row < M) {
+      if (p.a_idx == nullptr) off = (long long)o * d;
+      else if (p.a_idx[o] >= 0) off = (long long)p.a_idx[o] * d;
+    }
+    arow[tid] = off;
+    cnt[tid] = 0;
+    pend[tid] = 0;
   }
   __syncthreads();
-  if (init_ids != nullptr && tid < BM) {
+  if (p.init_ids != nullptr && tid < rows) {
     // stable insertion sort, descending: the seed need not be sorted
     float* ss = st_s + tid * k;
     int* si = st_i + tid * k;
@@ -126,7 +393,7 @@ topk_kernel(const float* __restrict__ a, const float* __restrict__ b,
       const float v = ss[t];
       const int vi = si[t];
       int u = t - 1;
-      while (u >= 0 && ss[u] < v) {
+      while (u >= 0 && ord_of(ss[u]) < ord_of(v)) {
         ss[u + 1] = ss[u];
         si[u + 1] = si[u];
         --u;
@@ -136,140 +403,243 @@ topk_kernel(const float* __restrict__ a, const float* __restrict__ b,
     }
   }
   __syncthreads();
+  if (tid < rows) thr[tid] = st_s[tid * k + k - 1];
 
-  // thread -> (row r, columns c0 + cc + 8u) of the dot-product tile
-  const int r = tid >> 3;
-  const int cc = tid & 7;
-  for (int c0 = 0; c0 < N; ) {
-    int cw = min(BNK, N - c0);
-    if (dedup) {
-      cw = min(cw, bn - c0 % bn);            // never straddle a dedup tile
-      if (c0 % bn == 0) {
-        for (int idx = tid; idx < BM * k; idx += THREADS)
-          snap_i[idx] = st_i[idx];
-        if (tid < BM) snap_kth[tid] = st_s[tid * k + k - 1];
+  // ---- the slice stream: (chunk, feature slice) in order, NST - 1 ahead
+  auto width = [&](int c0) {
+    int w = min(BNK, N - c0);
+    if (p.dedup) w = min(w, p.bn - c0 % p.bn);  // never straddle a tile
+    return w;
+  };
+  auto b_off = [&](int col) -> long long {     // element offset, -1 pad
+    const size_t o = (size_t)g * N + col;
+    if (p.b_idx == nullptr) return (long long)o * d;
+    const int bi = p.b_idx[o];
+    return bi >= 0 ? (long long)bi * d : -1;
+  };
+  // VEC: each thread copies the same 16-byte chunk of the same rows in
+  // every slice of a chunk, so their offsets are worked out once: the a
+  // rows' for the block, the b rows' when the cursor enters a chunk.
+  constexpr int C4 = DK / 4;           // 16-byte chunks of a slice row
+  constexpr int AU = BM * C4 / THREADS, BU = BNK * C4 / THREADS;
+  long long a_off[AU], b_off_c[BU];
+#pragma unroll
+  for (int u = 0; u < AU; ++u) a_off[u] = arow[(tid + u * THREADS) / C4];
+  int ic0 = 0, icw = N > 0 ? width(0) : 0, iq0 = 0, stage_w = 0;
+  auto issue_next = [&]() {
+    if (ic0 < N) {
+      float* as_s = as + stage_w * BM * DK;
+      float* bs_s = bs + stage_w * BNK * DK;
+      if (VEC) {
+        const int c4 = tid % C4;
+#pragma unroll
+        for (int u = 0; u < AU; ++u) {
+          const int row = (tid + u * THREADS) / C4;
+          const bool ok = a_off[u] >= 0 && iq0 + 4 * c4 < d;
+          cp_async16(&as_s[swz(row, c4)],
+                     ok ? p.a + a_off[u] + iq0 + 4 * c4 : p.a, ok);
+        }
+#pragma unroll
+        for (int u = 0; u < BU; ++u) {
+          const int row = (tid + u * THREADS) / C4;
+          if (iq0 == 0) b_off_c[u] = row < icw ? b_off(ic0 + row) : -1;
+          const bool ok = b_off_c[u] >= 0 && iq0 + 4 * c4 < d;
+          cp_async16(&bs_s[swz(row, c4)],
+                     ok ? p.b + b_off_c[u] + iq0 + 4 * c4 : p.b, ok);
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < BM * DK / THREADS; ++u) {
+          const int idx = tid + u * THREADS, row = idx / DK, q = idx % DK;
+          const long long off = arow[row];
+          const bool ok = off >= 0 && iq0 + q < d;
+          cp_async4(&as_s[swz(row, q >> 2) + (q & 3)],
+                    ok ? p.a + off + iq0 + q : p.a, ok);
+        }
+#pragma unroll
+        for (int u = 0; u < BNK * DK / THREADS; ++u) {
+          const int idx = tid + u * THREADS, row = idx / DK, q = idx % DK;
+          const long long off = row < icw ? b_off(ic0 + row) : -1;
+          const bool ok = off >= 0 && iq0 + q < d;
+          cp_async4(&bs_s[swz(row, q >> 2) + (q & 3)],
+                    ok ? p.b + off + iq0 + q : p.b, ok);
+        }
+      }
+      iq0 += DK;
+      if (iq0 >= d) {
+        iq0 = 0;
+        ic0 += icw;
+        icw = ic0 < N ? width(ic0) : 0;
       }
     }
-    if (tid < cw) bid_sh[tid] = b_ids[(size_t)g * N + c0 + tid];
+    cp_async_commit();                 // empty groups keep the count even
+    stage_w = stage_w + 1 == NST ? 0 : stage_w + 1;
+  };
+#pragma unroll
+  for (int t = 0; t < NST - 1; ++t) issue_next();
 
-    // threads [0, BNK) sum |b|^2 of column tid, threads [BNK, BNK + BM)
-    // |a|^2 of row tid - BNK (first chunk only), in feature order
-    const bool norm_b = tid < BNK;
-    const bool norm_a = c0 == 0 && tid >= BNK && tid < BNK + BM;
-    const float* norm_src = norm_b ? b_sh + tid * (DK + 1)
-                                   : a_sh + (tid - BNK) * (DK + 1);
+  // thread -> rows ty + 8i, columns tx + 16j of a chunk (i, j < 4)
+  const int tx = tid & 15, ty = tid >> 4;
+  const bool norm_b = tid < BNK;
+  const bool norm_a_thread = tid >= BNK && tid < BNK + BM;
+  int stage_r = 0;
+
+  for (int c0 = 0; c0 < N;) {
+    const int cw = width(c0);
+    const bool tile_end = c0 + cw == N || (c0 + cw) % p.bn == 0;
+    if (p.dedup && c0 % p.bn == 0) {
+      for (int idx = tid; idx < BM * kp; idx += THREADS) {
+        const int r = idx / kp, t = idx - r * kp;
+        snap[idx] = t < k && r < rows ? st_i[r * k + t] : -2;
+      }
+    }
+    const bool norm_a = norm_a_thread && c0 == 0;
+    const int nrow = norm_b ? tid : tid - BNK;
     float nrm = 0.0f;
-    float acc[BNK / 8];
+    float acc[4][4];
 #pragma unroll
-    for (int u = 0; u < BNK / 8; ++u) acc[u] = 0.0f;
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
     for (int q0 = 0; q0 < d; q0 += DK) {
+      cp_async_wait<NST - 2>();        // this slice has landed
+      __syncthreads();                 // for every thread; the oldest stage
+      issue_next();                    // is free again: refill it
       const int dk = min(DK, d - q0);
-      for (int idx = tid; idx < BM * DK; idx += THREADS) {
-        const int rr = idx / DK, q = idx - rr * DK, row = r0 + rr;
-        a_sh[rr * (DK + 1) + q] =
-            (row < M && q < dk) ? ag[(size_t)row * d + q0 + q] : 0.0f;
-      }
-      for (int idx = tid; idx < BNK * DK; idx += THREADS) {
-        const int c = idx / DK, q = idx - c * DK;
-        b_sh[c * (DK + 1) + q] =
-            (c < cw && q < dk) ? bg[(size_t)(c0 + c) * d + q0 + q] : 0.0f;
-      }
-      __syncthreads();
+      const float* as_s = as + stage_r * BM * DK;
+      const float* bs_s = bs + stage_r * BNK * DK;
       if (norm_b || norm_a) {
-        for (int q = 0; q < dk; ++q)
-          nrm = __fadd_rn(nrm, __fmul_rn(norm_src[q], norm_src[q]));
-      }
-      for (int q = 0; q < dk; ++q) {
-        const float av = a_sh[r * (DK + 1) + q];
+        const float* src = norm_b ? bs_s : as_s;
 #pragma unroll
-        for (int u = 0; u < BNK / 8; ++u)
-          acc[u] = fmaf(av, b_sh[(cc + 8 * u) * (DK + 1) + q], acc[u]);
+        for (int c4 = 0; c4 < DK / 4; ++c4) {
+          if (4 * c4 < dk) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(&src[swz(nrow, c4)]);
+            const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int qq = 0; qq < 4; ++qq)
+              if (VEC || 4 * c4 + qq < dk)
+                nrm = __fadd_rn(nrm, __fmul_rn(vv[qq], vv[qq]));
+          }
+        }
       }
-      __syncthreads();
+#pragma unroll
+      for (int c4 = 0; c4 < DK / 4; ++c4) {
+        if (4 * c4 < dk) {
+          float av[4][4], bv[4][4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                &as_s[swz(ty + 8 * i, c4)]);
+            av[i][0] = v.x; av[i][1] = v.y; av[i][2] = v.z; av[i][3] = v.w;
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                &bs_s[swz(tx + 16 * j, c4)]);
+            bv[j][0] = v.x; bv[j][1] = v.y; bv[j][2] = v.z; bv[j][3] = v.w;
+          }
+#pragma unroll
+          for (int qq = 0; qq < 4; ++qq) {
+            if (VEC || 4 * c4 + qq < dk) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                  acc[i][j] = fmaf(av[i][qq], bv[j][qq], acc[i][j]);
+            }
+          }
+        }
+      }
+      stage_r = stage_r + 1 == NST ? 0 : stage_r + 1;
     }
     if (norm_b) bn_sh[tid] = nrm;
     if (norm_a) an_sh[tid - BNK] = nrm;
     __syncthreads();
 
-    // ---- similarity + masks (the state is not touched yet) ------------
-    const int row = r0 + r;
+    // ---- threshold filter, then the masks for the few survivors --------
+    unsigned pass = 0;                 // bit 4i + j: output (i, j) survives
 #pragma unroll
-    for (int u = 0; u < BNK / 8; ++u) {
-      const int c = cc + 8 * u;
-      if (c >= cw) continue;
-      float s = __fsub_rn(__fsub_rn(2.0f * acc[u], an_sh[r]), bn_sh[c]);
-      const int bid = bid_sh[c];
-      bool bad = row >= M || bid < 0 || bid == aid_sh[r];
-      if (!bad && codes_a != nullptr) {
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 8 * i;
+      if (r0 + r >= M) continue;
+      const unsigned kth = ord_of(thr[r]);
+      const float an = an_sh[r];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const float s = __fsub_rn(__fsub_rn(2.0f * acc[i][j], an), bn_sh[c]);
+        acc[i][j] = s;
+        if (c < cw && ord_of(s) > kth) pass |= 1u << (4 * i + j);
+      }
+    }
+    // one copy of the mask code, looped over the survivors (unrolled over
+    // all 16 outputs it would spread the loop's code past the instruction
+    // cache)
+#pragma unroll 1
+    for (unsigned m = pass; m != 0; m &= m - 1) {
+      const int bit = __ffs(m) - 1;
+      const int r = ty + 8 * (bit >> 2), row = r0 + r;
+      const int pos = c0 + tx + 16 * (bit & 3);
+      const int id = p.b_ids ? p.b_ids[(size_t)g * N + pos] : pos;
+      bool bad = id < 0 || id == aid_sh[r];
+      if (!bad && p.codes_a != nullptr) {
         bool match = false;
-        const int* ca = codes_a + ((size_t)g * M + row) * T;
-        const int* cb = codes_b + ((size_t)g * N + c0 + c) * T;
-        for (int t = 0; t < T; ++t) match |= ca[t] == cb[t];
+        const int* ca = p.codes_a + ((size_t)g * M + row) * p.T;
+        const int* cb = p.codes_b + ((size_t)g * N + pos) * p.T;
+        for (int t = 0; t < p.T; ++t) match |= ca[t] == cb[t];
         bad = !match;
       }
-      if (!bad && dedup && s > snap_kth[r]) {
-        const int* si = snap_i + r * k;
-        for (int t = 0; t < k; ++t) {
-          if (si[t] == bid) {
-            bad = true;
-            break;
-          }
-        }
-      }
-      tile[r * BNK + c] = bad ? INVALID_SIM : s;
+      if (bad) pass &= ~(1u << bit);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int n_pass = __popc(pass >> (4 * i) & 0xFu);
+      if (n_pass) atomicAdd(&pend[ty + 8 * i], n_pass);
     }
     __syncthreads();
 
-    // ---- merge: each warp inserts its rows' candidates in column order
+    // ---- merge the rows whose buffers would overflow -------------------
     for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-      const int wr = warp * ROWS_PER_WARP + rr;
-      if (r0 + wr >= M) break;
-      float* ss = st_s + wr * k;
-      int* si = st_i + wr * k;
-      for (int c = 0; c < cw; ++c) {
-        const float v = tile[wr * BNK + c];
-        if (!(v > ss[k - 1])) continue;
-        int pos = 0;                         // entries >= v stay in front
-        for (int t0 = 0; t0 < k; t0 += 32) {
-          const int t = t0 + lane;
-          pos += __popc(__ballot_sync(0xffffffffu, t < k && ss[t] >= v));
-        }
-        for (int t0 = ((k - 2) >> 5) << 5; t0 >= 0 && t0 + 31 >= pos;
-             t0 -= 32) {
-          const int t = t0 + lane;
-          const bool mv = t >= pos && t < k - 1;
-          float sv = 0.0f;
-          int iv = 0;
-          if (mv) {
-            sv = ss[t];
-            iv = si[t];
-          }
-          __syncwarp();
-          if (mv) {
-            ss[t + 1] = sv;
-            si[t + 1] = iv;
-          }
-          __syncwarp();
-        }
-        if (lane == 0) {
-          ss[pos] = v;
-          si[pos] = bid_sh[c];
-        }
-        __syncwarp();
-      }
+      const int r = warp * ROWS_PER_WARP + rr;
+      if (r0 + r < M && cnt[r] + pend[r] > CAP)
+        merge_row(p, g, r, st_s + r * k, st_i + r * k, snap + r * kp,
+                  bufk + r * CAP, cnt, thr, lane);
     }
     __syncthreads();
+
+    // ---- append the survivors that still beat the k-th similarity ------
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 8 * i;
+      const unsigned kth = ord_of(thr[r]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if ((pass >> (4 * i + j) & 1u) && ord_of(acc[i][j]) > kth) {
+          const int slot = atomicAdd(&cnt[r], 1);
+          bufk[r * CAP + slot] = make_key(acc[i][j], c0 + tx + 16 * j);
+        }
+      }
+    }
+    if (tid < BM) pend[tid] = 0;
+    __syncthreads();
+
+    // ---- at a dedup tile's end and at the end, merge every buffer -------
+    if (c0 + cw == N || (p.dedup && tile_end)) {
+      for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
+        const int r = warp * ROWS_PER_WARP + rr;
+        if (r0 + r < M && cnt[r] > 0)
+          merge_row(p, g, r, st_s + r * k, st_i + r * k, snap + r * kp,
+                    bufk + r * CAP, cnt, thr, lane);
+      }
+      __syncthreads();
+    }
     c0 += cw;
   }
-
-  for (int idx = tid; idx < BM * k; idx += THREADS) {
-    const int rr = idx / k, t = idx - rr * k, row2 = r0 + rr;
-    if (row2 < M) {
-      const size_t o = ((size_t)g * M + row2) * k + t;
-      out_ids[o] = st_i[idx];
-      out_dists[o] = fmaxf(-st_s[idx], 0.0f);
-    }
-  }
+  cp_async_wait<0>();
+  for (int idx = tid; idx < rows * k; idx += THREADS)
+    st_s[idx] = fmaxf(-st_s[idx], 0.0f);
 }
 
 constexpr int PT = 64;   // pairwise output tile
@@ -340,26 +710,31 @@ pairwise_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
 }  // namespace
 
+
 extern "C" int topk_sqdist_launch(
-    const float* a, const float* b, const int* a_ids, const int* b_ids,
-    const int* codes_a, const int* codes_b, int T, const int* init_ids,
-    const float* init_dists, int* out_ids, float* out_dists, int G, int M,
-    int N, int d, int k, int bn, int dedup, void* stream) {
+    const float* a, const int* a_idx, const float* b, const int* b_idx,
+    const int* a_ids, const int* b_ids, const int* codes_a,
+    const int* codes_b, int T, const int* init_ids, const float* init_dists,
+    int* out_ids, float* out_dists, int G, int M, int N, int d, int k, int bn,
+    int dedup, void* stream) {
   if (k < 1 || k > MAX_K || bn < 1) return cudaErrorInvalidValue;
   if (G == 0 || M == 0) return cudaSuccess;
   const long long blocks = (long long)G * ((M + BM - 1) / BM);
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
   const size_t smem = topk_smem_bytes(k, dedup);
+  const bool vec = d % 4 == 0 && (uintptr_t)a % 16 == 0 &&
+                   (uintptr_t)b % 16 == 0;
+  auto kernel = vec ? topk_kernel<true> : topk_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  topk_kernel<<<(unsigned)blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      a, b, a_ids, b_ids, codes_a, codes_b, T, init_ids,
-      init_dists, out_ids, out_dists, M, N, d, k, bn, dedup);
+  const TopkArgs p{a,        a_idx,    b,          b_idx,   a_ids,
+                   b_ids,    codes_a,  codes_b,    T,       init_ids,
+                   init_dists, out_ids, out_dists, M,       N,
+                   d,        k,        bn,         dedup};
+  kernel<<<(unsigned)blocks, THREADS, smem, (cudaStream_t)stream>>>(p);
   return cudaGetLastError();
 }
-
-extern "C" int topk_sqdist_max_k() { return MAX_K; }
 
 extern "C" int pairwise_sqdist_launch(const float* a, const float* b,
                                       float* out, int M, int N, int d,

@@ -88,12 +88,20 @@ def build(*names: str) -> dict[str, str]:
     return reports
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+def load(name: str, argtypes: dict) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it if needed.
+
+    ``argtypes`` maps each C entry point to its ctypes argument types; they
+    are set once, when the library is first loaded (every entry point
+    returns an int, a CUDA error code)."""
     lib = _libs.get(name)
     if lib is None:
         build(name)
-        lib = _libs[name] = ctypes.CDLL(str(target(name)))
+        lib = ctypes.CDLL(str(target(name)))
+        for fn_name, types in argtypes.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes, fn.restype = types, ctypes.c_int
+        _libs[name] = lib
     return lib
 
 

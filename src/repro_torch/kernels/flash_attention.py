@@ -30,10 +30,7 @@ _ARGTYPES = [_P] * 4 + [_I] * 7 + [_F, _P]
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
-    lib.flash_attention_launch.argtypes = _ARGTYPES
-    lib.flash_attention_launch.restype = ctypes.c_int
-    return lib
+    return _build.load("flash_attention", {"flash_attention_launch": _ARGTYPES})
 
 
 def flash_attention(q, k, v, *, causal: bool = True):

@@ -22,10 +22,7 @@ _ARGTYPES = [_P] * 4 + [_I] * 3 + [_F] * 5 + [_P] * 4
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("largevis_grad")
-    lib.largevis_grads_launch.argtypes = _ARGTYPES
-    lib.largevis_grads_launch.restype = ctypes.c_int
-    return lib
+    return _build.load("largevis_grad", {"largevis_grads_launch": _ARGTYPES})
 
 
 def largevis_grads(yi, yj, yneg, neg_mask, *, gamma: float = 7.0,

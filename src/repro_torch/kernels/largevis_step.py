@@ -1,16 +1,33 @@
 """Launcher for the fused edge step in ``csrc/largevis_step.cu``.
 
 One in-place SGD update of the (N, s) embedding over a batch of sampled
-edges: phase 0 computes and stages every update row, a stable sort of
-the destination rows orders them, phase 1 adds each row's updates in the
-canonical per-edge order ``[i_e, j_e, negs_e,0..M-1]``.  Bitwise equal
-to ``ref.fused_edge_step_ref`` run on the CPU.
+edges, in one cooperative launch and without a sort: phase 0 computes
+and stages every update row and links it into its destination row's
+list (an ``atomicExch`` on a per-row head); after a grid-wide sync,
+phase 1 lets one owner a row add the row's updates in ascending stream
+position, which is the canonical per-edge order ``[i_e, j_e,
+negs_e,0..M-1]``; a row with more than a few updates is left to phase
+2, after a second sync, where a block gathers its updates in that order
+by one scan of the destinations.  Bitwise equal to
+``ref.fused_edge_step_ref`` run on the CPU.
 
-Phase 1 alone, the sort and the accumulation, is also
-:func:`scatter_add_ordered`: the split path's scatter of a staged update
-stream, with duplicates added in stream order as the JAX split path's
-``y.at[idx].add(upd)`` adds them on the CPU (``index_add_`` on CUDA uses
-atomics, whose order varies from run to run).
+The same launch without the forces is :func:`scatter_add_ordered`: the
+split path's scatter of a staged update stream, with duplicates added in
+stream order as the JAX split path's ``y.at[idx].add(upd)`` adds them on
+the CPU (``index_add_`` on CUDA uses atomics, whose order varies from run
+to run).  Its size rule: a stream of at most ``LINK_MAX_U`` updates
+(every layout and transform step) takes the linked lists, one launch; a
+longer one (the negative sampler's in-degree sum, U = N*K, whose rows
+hold thousands of updates: a scan of all U updates for each of them
+would not pay) takes a stable ``torch.sort`` of the destinations and one
+thread a row segment.  The rule is on U alone; both paths are bitwise
+equal.
+
+The lists' heads (N int32, -1 between calls: each owner resets its row),
+links, staged rows and destinations live in scratch that the launchers
+keep across calls, keyed by device and shape: a call allocates nothing
+and never synchronises with the host, so the step can be captured in a
+CUDA graph.  Calls that share a key must run on one stream.
 
 CUDA tensors only; each launcher counts its calls in
 ``<function>.launches``.
@@ -24,21 +41,42 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_S = 4
+# streams longer than this scatter through the sort (module docstring)
+LINK_MAX_U = 1 << 17
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "edge_forces_launch": ([_P, _I] + [_P] * 5 + [_F, _I, _I] + [_F] * 5
-                           + [_I, _P, _P, _P]),
+    "edge_step_launch": ([_P, _I] + [_P] * 5 + [_F, _I, _I] + [_F] * 5
+                         + [_I] + [_P] * 7),
+    "scatter_link_launch": [_P, _I] + [_P] * 6 + [_I, _P],
     "edge_accumulate_launch": [_P, _I, _P, _P, _P, _I, _P],
 }
 
+# scratch kept across calls: {key: {name: tensor}}
+_scratch: dict = {}
+
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("largevis_step")
-    for name, argtypes in _ARGTYPES.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return lib
+    return _build.load("largevis_step", _ARGTYPES)
+
+
+def _buffers(key, dev, n_rows: int, U: int, s: int = 0) -> dict:
+    """The lists' heads (n_rows, -1), links (U,), the count and list of
+    rows with a long list, and, with ``s``, the staged rows (U, s) and
+    their destinations (U,) for ``key``."""
+    buf = _scratch.get(key)
+    if buf is None:
+        i32 = dict(dtype=torch.int32, device=dev)
+        buf = dict(head=torch.full((n_rows,), -1, **i32),
+                   next=torch.empty((U,), **i32),
+                   n_long=torch.zeros((1,), **i32),
+                   long_rows=torch.empty((U,), **i32))
+        if s:
+            buf.update(upd=torch.empty((U, s), dtype=torch.float32,
+                                       device=dev),
+                       dst=torch.empty((U,), **i32))
+        _scratch[key] = buf
+    return buf
 
 
 def fused_edge_step(y, i, j, negs, neg_mask, lr, *, gamma: float = 7.0,
@@ -52,6 +90,8 @@ def fused_edge_step(y, i, j, negs, neg_mask, lr, *, gamma: float = 7.0,
     size) is accepted and ignored: the card holds y in device memory.
     Indices must lie in [0, N): the kernel reads and writes those rows
     unchecked (checking would cost a device-to-host read per step).
+    int32 indices and f32 mask and lr are used in place; other types are
+    converted first.
     """
     del y_tile
     dev = y.device
@@ -74,19 +114,14 @@ def fused_edge_step(y, i, j, negs, neg_mask, lr, *, gamma: float = 7.0,
     if torch.is_tensor(lr) and lr.dim():
         lr_vec = lr.to(device=dev, dtype=torch.float32).contiguous()
         lr = 0.0
-    lr = float(lr)
-    U = B * (2 + M)
-    upd = torch.empty((U, s), dtype=torch.float32, device=dev)
-    dst = torch.empty((U,), dtype=torch.int32, device=dev)
-    lib = _lib()
-    stream = _build.stream(dev)
+    buf = _buffers(("step", dev, N, B, M, s), dev, N, B * (2 + M), s)
     p = _build.ptr
-    rc = lib.edge_forces_launch(
-        p(y), s, p(i), p(j), p(negs), p(neg_mask), p(lr_vec), lr, B, M,
-        2.0 * a, a, -2.0 * gamma, eps, clip, int(n_frozen), p(upd), p(dst),
-        stream)
-    _build.check(rc, "fused_edge_step (phase 0)")
-    _accumulate(lib, y, dst, upd, stream, "fused_edge_step (phase 1)")
+    rc = _lib().edge_step_launch(
+        p(y), s, p(i), p(j), p(negs), p(neg_mask), p(lr_vec), float(lr), B,
+        M, 2.0 * a, a, -2.0 * gamma, eps, clip, int(n_frozen), p(buf["upd"]),
+        p(buf["dst"]), p(buf["next"]), p(buf["head"]), p(buf["n_long"]),
+        p(buf["long_rows"]), _build.stream(dev))
+    _build.check(rc, "fused_edge_step")
     fused_edge_step.launches += 1
     return y
 
@@ -94,22 +129,14 @@ def fused_edge_step(y, i, j, negs, neg_mask, lr, *, gamma: float = 7.0,
 fused_edge_step.launches = 0
 
 
-def _accumulate(lib, y, dst, upd, stream, what: str) -> None:
-    """Phase 1: stable-sort the destination rows, then add each row's
-    updates in stream order."""
-    dst_sorted, perm = torch.sort(dst, stable=True)
-    rc = lib.edge_accumulate_launch(_build.ptr(y), y.shape[1],
-                                    _build.ptr(upd), _build.ptr(dst_sorted),
-                                    _build.ptr(perm), dst.shape[0], stream)
-    _build.check(rc, what)
-
-
 def scatter_add_ordered(y, idx, upd):
     """``y[idx[u]] += upd[u]`` for u = 0..U-1 on the card, in place, with
     the updates to one row added in stream order; returns ``y``.
 
     y: (N, s) contiguous f32; idx: (U,) rows in [0, N), unchecked as in
-    :func:`fused_edge_step`; upd: (U, s).
+    :func:`fused_edge_step`; upd: (U, s).  U <= ``LINK_MAX_U``: one
+    launch through the linked lists; above it, a stable sort of idx and
+    one launch a row segment (module docstring).
     """
     dev = y.device
     if dev.type != "cuda" or y.dtype != torch.float32 or \
@@ -127,9 +154,19 @@ def scatter_add_ordered(y, idx, upd):
     for t in (idx, upd):
         if t.device != dev:
             raise ValueError(f"scatter_add_ordered: {t.device} beside {dev}")
-    _accumulate(_lib(), y, idx.to(torch.int32).contiguous(),
-                upd.to(torch.float32).contiguous(), _build.stream(dev),
-                "scatter_add_ordered")
+    idx = idx.to(torch.int32).contiguous()
+    upd = upd.to(torch.float32).contiguous()
+    p, stream = _build.ptr, _build.stream(dev)
+    if U <= LINK_MAX_U:
+        buf = _buffers(("scatter", dev, N, U), dev, N, U)
+        rc = _lib().scatter_link_launch(
+            p(y), s, p(upd), p(idx), p(buf["next"]), p(buf["head"]),
+            p(buf["n_long"]), p(buf["long_rows"]), U, stream)
+    else:
+        dst_sorted, perm = torch.sort(idx, stable=True)
+        rc = _lib().edge_accumulate_launch(p(y), s, p(upd), p(dst_sorted),
+                                           p(perm), U, stream)
+    _build.check(rc, "scatter_add_ordered")
     scatter_add_ordered.launches += 1
     return y
 

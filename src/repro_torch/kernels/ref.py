@@ -5,9 +5,10 @@ the card, and they follow the JAX oracles' op order so that the CPU tests
 can hold them to ``repro.kernels.ref`` on the same numpy inputs:
 
 * ``_sim_tile`` is ``((2ab - |a|^2) - |b|^2)``;
-* the top-k merge is a *stable* descending sort over ``[state | tile]``,
-  which keeps the earliest position among ties, as ``lax.top_k`` does
-  (``torch.topk`` does not);
+* the top-k merge is a *stable* descending sort over ``[state | tile]``
+  in IEEE total order (-0.0 below +0.0, as XLA sorts), which keeps the
+  earliest position among ties, as ``lax.top_k`` does (``torch.topk``
+  does not);
 * the sum of the M negative forces is taken left to right;
 * row norms |a|^2 are summed left to right in feature order, each
   product and each sum rounded on its own (``sq_norms``): the order the
@@ -65,20 +66,40 @@ def dedup_tile(n: int) -> int:
     return 8192 if n >= 65536 else 4096
 
 
+def total_order(s: torch.Tensor) -> torch.Tensor:
+    """f32 -> int32 keys in IEEE total order, -0.0 below +0.0, the order
+    XLA sorts floats in (``lax.top_k`` ranks a candidate at +0.0 above a
+    seeded state entry at -0.0; ``torch.sort`` would call them tied)."""
+    i = s.contiguous().view(torch.int32)
+    return torch.where(i < 0, i ^ 0x7FFFFFFF, i)
+
+
 def _sim_tile(a, b, an, bn):
     """(G, M, n) similarity s = 2 a.b - |a|^2 - |b|^2 (closer = larger)."""
     s = 2.0 * torch.matmul(a, b.transpose(1, 2))
     return s - an[:, :, None] - bn[:, None, :]
 
 
-def topk_sqdist_ref(a, b, k: int, *, a_ids=None, b_ids=None, codes_a=None,
-                    codes_b=None, init_ids=None, init_dists=None,
-                    dedup: bool = False, bn: int | None = None):
+def gather_rows(base, idx):
+    """``base[idx]`` with the rows of index -1 read as zeros."""
+    rows = base[idx.long().clamp_min(0)]
+    return rows.masked_fill((idx < 0)[..., None], 0.0)
+
+
+def topk_sqdist_ref(a, b, k: int, *, a_idx=None, b_idx=None, a_ids=None,
+                    b_ids=None, codes_a=None, codes_b=None, init_ids=None,
+                    init_dists=None, dedup: bool = False,
+                    bn: int | None = None):
     """For each row of ``a`` the ``k`` nearest rows of ``b``.
 
     a: (M, d) or (G, M, d); b: (N, d) or (G, N, d) — a leading group
     dimension runs G independent problems in one call.  Returns
     (ids int32, sqdists f32), each (..., M, k), distances ascending.
+
+    The index form: with ``a_idx`` (M,) or (G, M), ``a`` is a base matrix
+    and the rows are ``a[a_idx]``; likewise ``b_idx`` (N,) or (G, N) for
+    ``b``.  Index -1 reads a zero row (mask it with an id of -1).  This
+    version gathers first; the kernel reads the base in place.
 
     * ``b_ids`` (N,) gives candidate ids (default ``arange(N)``);
       negative ids are padding and never selected over real candidates.
@@ -95,6 +116,10 @@ def topk_sqdist_ref(a, b, k: int, *, a_ids=None, b_ids=None, codes_a=None,
     Columns fold in tiles of ``bn`` into the (M, k) state: concatenate
     ``[state | tile]``, stable-sort descending, keep k.
     """
+    if a_idx is not None:
+        a = gather_rows(a, a_idx)
+    if b_idx is not None:
+        b = gather_rows(b, b_idx)
     squeeze = a.dim() == 2
     if squeeze:
         a, b = a[None], b[None]
@@ -131,7 +156,7 @@ def topk_sqdist_ref(a, b, k: int, *, a_ids=None, b_ids=None, codes_a=None,
         s = s.masked_fill(bad, INVALID_SIM)
         s_all = torch.cat([ss, s], dim=-1)
         i_all = torch.cat([si, bit[:, None, :].expand(G, M, -1)], dim=-1)
-        order = torch.sort(s_all, dim=-1, descending=True,
+        order = torch.sort(total_order(s_all), dim=-1, descending=True,
                            stable=True).indices[..., :k]
         ss = torch.gather(s_all, -1, order)
         si = torch.gather(i_all, -1, order)
