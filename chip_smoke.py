@@ -24,28 +24,39 @@ in one process (``run_parent``).  Without it, in order:
    with multi-tile dedup, ids and distances exactly the plain
    version's.  ``fused_edge_step``: bitwise at the fit's shape, on
    N = 64, on a hub batch (one row takes about 2,000 updates) and over
-   200 consecutive steps, with one device event a call;
+   200 consecutive steps, with the lr a float, a 0-d tensor on the card
+   and a per-edge vector, with one device event a call;
 4. runs the full-width fit (``LargeVisConfig()`` defaults: K=150, 8
    trees, window 64, perplexity 50) on a Gaussian mixture of N=100,000
    points in d=100, with every kernel's launch count reset just before
-   and read just after, and checks the layout and the graph;
-5. on the fit's graph, samplers and layout, the split path: the
+   and read just after, and checks the layout and the graph; its layout
+   runs ``steps_per_dispatch`` = 100 steps a CUDA graph replay, and
+   ``fused_edge_step``'s launches must equal its steps (244,140);
+5. the fit's edge and negative samplers built twice more on the card,
+   bitwise equal to the fit's; a second fit from the same seed, bitwise
+   equal to the first at every stage;
+6. from the fit's layout and samplers, 240 steps through the chunk unit
+   (the first chunk eager, a 100-step and a 40-step graph replayed)
+   against the per-step loop, on the fused, the split and the autograd
+   route: bitwise equal, with the generator's state and the launches;
+   ``transform`` of 2,000 held-out points by the loop and through its
+   kept graph, bitwise equal; 10 replays under the profiler, and the
+   layout's busy share from them and from the profiled eager step;
+7. on the fit's graph, samplers and layout, the split path: the
    ``largevis_grads`` kernel and the ordered scatter (at the step size
    through the linked lists, at the in-degree size through the sort)
    against their plain versions; 50 fused and 50 split SGD steps from
    one state, bitwise equal, with each route's device launches a step;
    the split layout (at 2,000 samples per node, a printed cut); 200
    autograd steps of ``prob_fn="exp_quadratic"``;
-6. ``LargeVis.transform`` of 10,000 held-out points of the fit's
+8. ``LargeVis.transform`` of 10,000 held-out points of the fit's
    clusters, by the fused and by the split route (and the queries'
    top-k, (1, 10000, 100000), beside ``torch.cdist`` + ``topk`` and its
    bound), and ``LargeVis.insert`` of 2,000 more, each with its launch
    counts read;
-7. runs the 2000-point quality fixture (accuracy >= 0.95), by the fused
-   and by the split route: the two layouts bitwise equal, since the
-   negative sampler's in-degree sum is ordered (two samplers built on
-   the card from the fit's graph are checked bitwise equal after the fit);
-8. the LM serving path: ``flash_attention`` against its plain version at
+9. runs the 2000-point quality fixture (accuracy >= 0.95), by the fused
+   and by the split route: the two layouts bitwise equal;
+10. the LM serving path: ``flash_attention`` against its plain version at
    the serve path's shape (1, 4096, 16, 64) in bf16 and f32, and at
    ragged shapes, S = T = 4095 and 4097 and head dims 16 and 32, timed
    by CUDA events and by the profiler's device time, then
@@ -68,6 +79,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -437,8 +449,9 @@ def _edge_batch(torch, gen, N, B, Mn, hub=None):
 def check_edge_step(torch, n_nodes, cfg):
     """The fit's step shape — y (N, 2), B = 4096 edges, M = 5 — a
     duplicate-dense batch on N = 64 rows and a hub batch (one row takes
-    about 2,000 updates), each with a scalar lr and with per-edge lr and
-    frozen rows; then 200 consecutive steps against 200 plain steps (the
+    about 2,000 updates), each with a scalar lr, with the lr as a 0-d
+    tensor on the card (what a captured step reads) and with per-edge lr
+    and frozen rows; then 200 consecutive steps against 200 plain steps (the
     lists' heads must come back clean after every step).  Bitwise against
     the plain version run on a CPU copy (on CUDA its index_add_ is
     atomic).  The profiler's events of a call must all be the one
@@ -453,8 +466,9 @@ def check_edge_step(torch, n_nodes, cfg):
     for N, hub in ((n_nodes, None), (64, None), (n_nodes, 7)):
         y = torch.randn((N, s), generator=gen, device=dev) * 10.0
         i, j, negs, mask = _edge_batch(torch, gen, N, B, Mn, hub)
-        for lr, n_frozen in ((0.37, 0), (torch.rand(B, generator=gen,
-                                                    device=dev), N // 3)):
+        for lr, n_frozen in ((0.37, 0), (torch.tensor(0.37, device=dev), 0),
+                             (torch.rand(B, generator=gen, device=dev),
+                              N // 3)):
             want = ref.fused_edge_step_ref(
                 y.cpu(), i.cpu(), j.cpu(), negs.cpu(), mask.cpu(),
                 lr.cpu() if torch.is_tensor(lr) else lr, n_frozen=n_frozen,
@@ -506,8 +520,9 @@ def check_edge_step(torch, n_nodes, cfg):
     bms, by = bound_ms(n_bytes, n_ops)
     print(f"fused_edge_step: (N={n_nodes}, s={s}, B={B}, M={Mn}) bitwise "
           f"equal to the plain version, also at N=64, on a hub batch (one "
-          f"row takes about 2,000 updates) and with per-edge lr and frozen "
-          f"rows, and over {n_seq} consecutive steps; device launches a "
+          f"row takes about 2,000 updates), with the lr a 0-d tensor on the "
+          f"card, with per-edge lr and frozen rows, and over {n_seq} "
+          f"consecutive steps; device launches a "
           f"call: 1 kernel, no other event ({seen} of {made} launches "
           f"seen); kernel {ms:.4f} ms a call by CUDA events, {kern_ms:.5f} "
           f"ms of device time a launch (profiler), plain (atomic "
@@ -668,6 +683,18 @@ def run_fit(torch, x, labels, cfg):
     t0 = time.perf_counter()
     res = largevis(x, cfg=cfg, device="cuda")
     fit_s = time.perf_counter() - t0
+    fused = ops.launch_counts()["fused_edge_step"]
+    print(f"fit's layout: layout_s {res.timings['layout_s']:.3f} s, "
+          f"{res.steps} steps in {res.dispatches} dispatches of "
+          f"{res.steps_per_dispatch} (the first eager, the rest CUDA graph "
+          f"replays), {res.timings['layout_s'] / res.steps * 1e3:.4f} ms a "
+          f"step; fused_edge_step launches {fused}", flush=True)
+    check(res.steps_per_dispatch == cfg.steps_per_dispatch
+          and res.dispatches == -(-res.steps // cfg.steps_per_dispatch),
+          f"the layout ran {res.dispatches} dispatches of "
+          f"{res.steps_per_dispatch} steps")
+    check(fused == res.steps, f"fused_edge_step launched {fused} times in a "
+          f"layout of {res.steps} steps")
     recall = metrics.graph_recall(res.x, res.knn_idx)
     acc = metrics.knn_classifier_accuracy(res.y, labels)
     torch.cuda.synchronize()
@@ -740,10 +767,29 @@ def run_routes(torch, res, cfg, steps: int = 50):
           f"{cfg.batch_size}) from the fitted layout bitwise equal, twice "
           f"each; fused {fused:.4f} ms/step, split {split:.4f} ms/step "
           f"(host clock, this call)", flush=True)
+    profs = {}
     for route in ("fused", "split"):
-        prof = profile_steps(torch, res, cfg, route, steps)
+        profs[route] = prof = profile_steps(torch, res, cfg, route, steps)
         print(f"  profiled {route} step: {busy_line(prof)}; device launches "
               f"a step {step_launches(prof)}", flush=True)
+    return profs["fused"]
+
+
+def layout_busy(res, replays: Profile, eager: Profile, H: int = 100):
+    """The fit's layout's busy share two ways: the profiled replays'
+    device ms a step, and the profiled eager step's, each times the
+    layout's steps over its ``layout_s``."""
+    parts = []
+    for name, prof, n_steps in (("graph replays", replays, replays.n * H),
+                                ("eager steps", eager, eager.n)):
+        dev_ms = sum(t for t, _ in prof.events.values()) / n_steps
+        seen = kernels_seen(prof)[1]
+        parts.append(f"{name}: {dev_ms:.5f} ms of device time a step "
+                     f"({'every' if seen else 'not every'} hand-written "
+                     f"launch seen) x {res.steps} steps / layout_s = "
+                     f"{dev_ms * res.steps / 1e3 / res.timings['layout_s']:.3f}")
+    print(f"fit's layout busy share, from the {'; from the '.join(parts)}",
+          flush=True)
 
 
 def profile_steps(torch, res, cfg, route: str, n: int) -> Profile:
@@ -790,16 +836,19 @@ def run_split_layout(torch, res, labels, cfg):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     acc = metrics.knn_classifier_accuracy(lay.y, labels)
-    print(f"split layout: samples_per_node={spn}, {lay.steps} steps, "
+    print(f"split layout: samples_per_node={spn}, {lay.steps} steps in "
+          f"{lay.dispatches} dispatches, "
           f"layout_s {t['layout_s']:.3f} s ({t['layout_s'] / lay.steps * 1e3:.4f}"
           f" ms/step), sampler_s {t['sampler_s']:.3f} s; "
           f"knn_classifier_accuracy {acc:.4f}; launches {counts}",
           flush=True)
     check(bool(torch.isfinite(lay.y).all()), "split layout not finite")
     check(acc >= 0.8, f"split layout accuracy {acc} < 0.8")
-    check(counts["largevis_grads"] > 0 and counts["scatter_add_ordered"] > 0,
-          "the split layout did not launch largevis_grads and the ordered "
-          "scatter")
+    check(counts["largevis_grads"] == lay.steps
+          and counts["scatter_add_ordered"] == lay.steps + 1,
+          f"the split layout of {lay.steps} steps launched largevis_grads "
+          f"{counts['largevis_grads']} times and the ordered scatter "
+          f"{counts['scatter_add_ordered']} (one a step, one in-degree sum)")
     check(counts["fused_edge_step"] == 0,
           "the split layout launched the fused edge step")
     return counts
@@ -980,22 +1029,148 @@ def run_insert(torch, res, cfg):
     check(recall >= 0.99, f"inserted rows' recall {recall} < 0.99")
 
 
-def check_negative_sampler(torch, res, cfg):
-    """Two negative samplers built on the card from the fit's graph are
-    bitwise equal, and equal to the fit's own: the in-degree sum adds in
-    stream order."""
+def check_samplers(torch, res, cfg):
+    """Two edge samplers and two negative samplers built on the card from
+    the fit's graph are bitwise equal, to each other and to the fit's
+    own: the in-degree sum adds in stream order and the alias tables'
+    f64 sums are ordered (``sampler.ordered_cumsum``)."""
     from repro_torch.core import sampler
 
-    builds = [sampler.build_negative_sampler(res.knn_idx, res.weights,
-                                             power=cfg.neg_power)
-              for _ in range(2)]
-    for ns in builds:
-        check(torch.equal(ns.threshold, res.neg_sampler.threshold)
-              and torch.equal(ns.alias, res.neg_sampler.alias),
-              "two negative samplers built from one graph differ")
-    print(f"negative sampler: two builds from the fit's graph (N="
-          f"{res.knn_idx.shape[0]}, K={res.knn_idx.shape[1]}) bitwise equal "
-          f"to each other and to the fit's", flush=True)
+    N, K = res.knn_idx.shape
+    for name, build, own in (
+            ("edge", lambda: sampler.build_edge_sampler(res.knn_idx,
+                                                        res.weights),
+             res.edge_sampler),
+            ("negative", lambda: sampler.build_negative_sampler(
+                res.knn_idx, res.weights, power=cfg.neg_power),
+             res.neg_sampler)):
+        for built in (build(), build()):
+            diff = int((built.threshold != own.threshold).sum()
+                       + (built.alias != own.alias).sum())
+            check(diff == 0, f"two {name} samplers built from one graph "
+                  f"differ in {diff} entries")
+    print(f"samplers: two edge samplers ({N * K} entries) and two negative "
+          f"samplers ({N}) built from the fit's graph (N={N}, K={K}) "
+          f"bitwise equal to each other and to the fit's", flush=True)
+
+
+def run_second_fit(torch, x, res, cfg):
+    """A second fit from the same seed: bitwise the first, stage by stage
+    (graph, distances, weights, edge sampler, negative sampler, layout);
+    the first stage that differs is named."""
+    from repro_torch import largevis
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = largevis(x, cfg=cfg, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    stages = (("graph", lambda r: r.knn_idx), ("distances",
+              lambda r: r.knn_dist), ("weights", lambda r: r.weights),
+              ("edge sampler", lambda r: torch.cat([
+                  r.edge_sampler.threshold,
+                  r.edge_sampler.alias.float()])),
+              ("negative sampler", lambda r: torch.cat([
+                  r.neg_sampler.threshold, r.neg_sampler.alias.float()])),
+              ("layout", lambda r: r.y))
+    for name, get in stages:
+        a, b = get(res), get(again)
+        diff = int((a != b).sum())
+        check(diff == 0, f"two fits from one seed differ first in the "
+              f"{name} ({diff} entries)")
+    print(f"second fit: {secs:.2f} s (layout_s "
+          f"{again.timings['layout_s']:.3f} s); bitwise equal to the first "
+          f"at every stage: {', '.join(n for n, _ in stages)}", flush=True)
+
+
+def check_chunked(torch, res, cfg, steps: int = 240, H: int = 100):
+    """From the fit's layout and samplers, one generator seeded alike for
+    each: ``steps`` SGD steps through ``StepChunks`` (H a dispatch: the
+    first chunk eager, then a replay of the H-step graph and one of the
+    remainder's) against the per-step loop, on the fused and the split
+    route, and the autodiff route (``exp_quadratic``): y and the
+    generator's state after bitwise equal, and the launches equal.  Then
+    ``transform`` of 2,000 held-out points by the loop
+    (``steps_per_dispatch=1``) and by its kept graph, called twice (eager,
+    then a replay), bitwise equal.  Then 10 replays of the fused H-step
+    graph under the profiler."""
+    from repro_torch import LargeVis
+    from repro_torch.core import layout_engine
+    from repro_torch.kernels import ops
+
+    dev = res.y.device
+    kw = dict(edge_sampler=res.edge_sampler, neg_sampler=res.neg_sampler,
+              n_negatives=cfg.n_negatives, a=cfg.prob_a, gamma=cfg.gamma,
+              clip=cfg.grad_clip, batch=cfg.batch_size)
+    lrs = layout_engine.lr_table(cfg.rho0, steps, dev)
+    done = []
+    for route, prob_fn in (("fused", "inv_quadratic"),
+                           ("split", "inv_quadratic"),
+                           ("split", "exp_quadratic")):
+        step = functools.partial(layout_engine.sgd_edge_step,
+                                 layout_step=route, prob_fn=prob_fn, **kw)
+        outs = []
+        for chunked in (False, True):
+            y = res.y.clone()
+            gen = torch.Generator(device=dev).manual_seed(31)
+            ops.reset_launch_counts()
+            if chunked:
+                unit = layout_engine.StepChunks(step, y, H)
+                n_disp = unit.run_all(gen, lrs)
+            else:
+                for t in range(steps):
+                    step(y, gen, lr=lrs[t])
+            torch.cuda.synchronize()
+            outs.append((y, gen.get_state(), ops.launch_counts()))
+        (yl, gl, cl), (yc, gc, cc) = outs
+        what = f"{route} {prob_fn}"
+        check(torch.equal(yl, yc), f"chunked {what} steps differ from the "
+              f"loop (max |diff| {float((yl - yc).abs().max())})")
+        check(torch.equal(gl, gc), f"chunked {what} steps leave the "
+              "generator elsewhere than the loop")
+        check(cl == cc, f"chunked {what} launches {cc}, the loop {cl}")
+        check(not torch.equal(yc, res.y), f"{what} steps did not move y")
+        done.append(f"{what} ({n_disp} dispatches; launches "
+                    f"{ {k: v for k, v in cc.items() if v} })")
+
+    xq = torch.from_numpy(held_out(2000, seed=3)[0]).to(dev)
+    ys, counts = [], []
+    for spd in (1, cfg.steps_per_dispatch, cfg.steps_per_dispatch):
+        model = LargeVis(dataclasses.replace(cfg, steps_per_dispatch=spd),
+                         device="cuda")
+        model.result_ = res
+        gen = torch.Generator(device=dev).manual_seed(32)
+        ops.reset_launch_counts()
+        ys.append(model.transform(xq, generator=gen))
+        torch.cuda.synchronize()
+        counts.append(ops.launch_counts()["fused_edge_step"])
+    check(all(torch.equal(y, ys[0]) for y in ys[1:]),
+          "transform through its graph differs from its loop")
+    check(counts == [cfg.transform_steps] * 3,
+          f"transform launched fused_edge_step {counts} times")
+
+    step = functools.partial(layout_engine.sgd_edge_step,
+                             layout_step="fused", **kw)
+    y = res.y.clone()
+    gen = torch.Generator(device=dev).manual_seed(33)
+    unit = layout_engine.StepChunks(step, y, H)
+    many = layout_engine.lr_table(cfg.rho0, 20 * H, dev)
+    chunk = iter(range(20))
+
+    def replay():
+        c = next(chunk)
+        unit.run(gen, many[c * H:(c + 1) * H])
+    prof = device_profile(torch, replay, n=10)
+    print(f"chunked: {steps} steps (H={H}: the first chunk eager, then the "
+          f"{H}-step and the {steps % H or H}-step graphs replayed) from the "
+          f"fit's layout bitwise the per-step loop, generator state and "
+          f"launches equal: {'; '.join(done)}; transform of 2000 held-out "
+          f"points by the loop and through its kept graph (eager, then a "
+          f"replay) bitwise equal, {cfg.transform_steps} fused launches "
+          f"each", flush=True)
+    print(f"  profiled {H}-step replays (10): {busy_line(prof)}",
+          flush=True)
+    return prof
 
 
 def run_fixture(torch, layout_step: str = "auto"):
@@ -1328,7 +1503,9 @@ def activate(mods: dict) -> None:
 
 def bench_turn(torch, x, xq, spn: int) -> dict:
     """One turn of the active package: the fit (``layout_s``),
-    ``transform`` of the held-out queries, PARENT_STEPS fused and split
+    ``transform`` of the held-out queries twice (a package that keeps the
+    projection's graph replays it from the second call on, in the next
+    turn of the same package too), PARENT_STEPS fused and split
     SGD steps on the fit's samplers (host ms, device ms and device
     launches a step), one tree's window fold and the queries' top-k."""
     from repro_torch import LargeVis, LargeVisConfig, largevis
@@ -1346,11 +1523,12 @@ def bench_turn(torch, x, xq, spn: int) -> dict:
     out["knn_s"] = res.timings["knn_s"]
     model = LargeVis(cfg, device="cuda")
     model.result_ = res
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model.transform(xq)
-    torch.cuda.synchronize()
-    out["transform_s"] = time.perf_counter() - t0
+    for key in ("transform_s", "transform_again_s"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.transform(xq)
+        torch.cuda.synchronize()
+        out[key] = time.perf_counter() - t0
     kw = _step_kw(res, cfg)
     for route in ("fused", "split"):
         y = res.y.clone()
@@ -1425,8 +1603,12 @@ def run_parent(torch, parent: Path, spn: int) -> None:
         print(f"turn {len(turns)} ({name}): " + ", ".join(
             f"{key} {val:.4f}" if isinstance(val, float) else f"{key} {val}"
             for key, val in r.items() if key != "y"), flush=True)
-    same = all(torch.equal(r["y"], turns[0][1]["y"]) for _, r in turns)
-    print(f"the four fits' layouts bitwise equal: {same}", flush=True)
+    same = {n: torch.equal(*(r["y"] for m, r in turns if m == n))
+            for n in ("parent", "change")}
+    print(f"the parent's two fits' layouts bitwise equal: {same['parent']}; "
+          f"the change's: {same['change']}; parent and change: "
+          f"{torch.equal(turns[0][1]['y'], turns[1][1]['y'])}", flush=True)
+    check(same["change"], "the change's two fits from one seed differ")
     for key in turns[0][1]:
         if key == "y" or not isinstance(turns[0][1][key], float):
             continue
@@ -1488,9 +1670,12 @@ def main() -> None:
     res, acc_fit, counts = run_fit(torch, x, labels, cfg)
     for rec in kernels:
         rec["launches"] = counts[rec["name"]]
-    check_negative_sampler(torch, res, cfg)
+    check_samplers(torch, res, cfg)
+    run_second_fit(torch, x, res, cfg)
+    replays = check_chunked(torch, res, cfg)
     grads = check_split_kernels(torch, cfg)
-    run_routes(torch, res, cfg)
+    layout_busy(res, replays, run_routes(torch, res, cfg),
+                H=cfg.steps_per_dispatch)
     grads["launches"] = run_split_layout(torch, res, labels,
                                          cfg)["largevis_grads"]
     kernels.append(grads)

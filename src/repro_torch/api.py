@@ -86,15 +86,18 @@ class LargeVis:
         self.device = device
         self.result_: LargeVisResult | None = None
 
-    def fit(self, x) -> "LargeVis":
-        """Run the two-stage pipeline on ``x`` (N, d); returns ``self``."""
+    def fit(self, x, *, callback=None) -> "LargeVis":
+        """Run the two-stage pipeline on ``x`` (N, d); returns ``self``.
+        ``callback(t, steps, y)`` (visual progress) runs the layout's
+        per-step loop and is called every ``steps // 20`` steps."""
         x = _check_input(x, "fit(x)")
-        self.result_ = largevis(x, cfg=self.cfg, device=self.device)
+        self.result_ = largevis(x, cfg=self.cfg, device=self.device,
+                                callback=callback)
         return self
 
-    def fit_transform(self, x) -> torch.Tensor:
+    def fit_transform(self, x, *, callback=None) -> torch.Tensor:
         """``fit(x)`` and return the (N, out_dim) embedding."""
-        return self.fit(x).embedding_
+        return self.fit(x, callback=callback).embedding_
 
     @property
     def embedding_(self) -> torch.Tensor:

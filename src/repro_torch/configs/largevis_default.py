@@ -61,7 +61,7 @@ class LargeVisConfig:
     prob_a: float = 1.0
     grad_clip: float = 5.0          # reference-impl per-coordinate clip
     batch_size: int = 4096          # edge samples per SGD step
-    steps_per_dispatch: int = 100   # read by the JAX scan engine only
+    steps_per_dispatch: int = 100   # SGD steps a dispatch (CUDA graph)
     sync_every: int = 1             # local-SGD period (not ported)
     init_scale: float = 1e-4        # initial layout ~ N(0, init_scale)
     neg_power: float = 0.75         # P_n(j) ∝ d_j^0.75

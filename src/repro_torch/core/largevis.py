@@ -7,7 +7,9 @@
 The pipeline is the paper's two stages, on one device: (1) the
 approximate KNN graph (projection forest + neighbor exploring) and its
 perplexity-calibrated weights, (2) the alias samplers and the
-edge-sampling SGD layout.  Each stage is timed after
+edge-sampling SGD layout, ``cfg.steps_per_dispatch`` steps a CUDA graph
+replay.  ``callback(t, steps, y)`` (visual progress) selects the
+per-step loop, as in the JAX package.  Each stage is timed after
 ``torch.cuda.synchronize()``, so the timings split the work honestly.
 
 The entry points run on the card unless the caller asks for the CPU
@@ -46,6 +48,10 @@ class LargeVisResult:
     edge_sampler: sampler_lib.EdgeSampler | None = None
     neg_sampler: sampler_lib.NodeSampler | None = None
     cfg: LargeVisConfig | None = None
+    # the layout's SGD steps and how they were dispatched
+    steps: int = 0
+    steps_per_dispatch: int = 0
+    dispatches: int = 0
 
 
 def resolve_device(device) -> torch.device:
@@ -107,7 +113,7 @@ def build_graph(x, *, cfg: LargeVisConfig | None = None, device="cuda",
 
 def layout_graph(knn_idx, weights, *, cfg: LargeVisConfig | None = None,
                  device="cuda", generator: torch.Generator | None = None,
-                 return_samplers: bool = False):
+                 callback=None, return_samplers: bool = False):
     """Stage 2: alias samplers + SGD layout of a weighted KNN graph.
 
     Returns (LayoutResult, timings), or (LayoutResult, (edge_sampler,
@@ -126,7 +132,7 @@ def layout_graph(knn_idx, weights, *, cfg: LargeVisConfig | None = None,
     _sync(dev)
     t1 = time.perf_counter()
     res = layout_lib.run_layout(generator, edge_s, neg_s, knn_idx.shape[0],
-                                cfg, device=dev)
+                                cfg, device=dev, callback=callback)
     _sync(dev)
     t2 = time.perf_counter()
     timings = {"sampler_s": t1 - t0, "layout_s": t2 - t1}
@@ -136,15 +142,19 @@ def layout_graph(knn_idx, weights, *, cfg: LargeVisConfig | None = None,
 
 
 def largevis(x, *, cfg: LargeVisConfig | None = None, device="cuda",
-             proj=None) -> LargeVisResult:
+             proj=None, callback=None) -> LargeVisResult:
     """Run the full pipeline on one device; see the module docstring."""
     cfg = cfg if cfg is not None else LargeVisConfig()
     dev = resolve_device(device)
     x = as_tensor(x, dev, torch.float32)
     idx, dist, w, t_graph = build_graph(x, cfg=cfg, device=dev, proj=proj)
     res, (edge_s, neg_s), t_layout = layout_graph(
-        idx, w, cfg=cfg, device=dev, return_samplers=True)
+        idx, w, cfg=cfg, device=dev, callback=callback,
+        return_samplers=True)
     return LargeVisResult(y=res.y, knn_idx=idx, knn_dist=dist, weights=w,
                           timings={**t_graph, **t_layout},
                           edge_samples=res.edge_samples, x=x,
-                          edge_sampler=edge_s, neg_sampler=neg_s, cfg=cfg)
+                          edge_sampler=edge_s, neg_sampler=neg_s, cfg=cfg,
+                          steps=res.steps,
+                          steps_per_dispatch=res.steps_per_dispatch,
+                          dispatches=res.dispatches)

@@ -1,4 +1,4 @@
-"""The SGD edge step of the layout (paper §3.2).
+"""The SGD edge step of the layout (paper §3.2) and its dispatch unit.
 
 ``sgd_edge_step`` samples a batch of edges and negatives from the alias
 samplers, sets the t/T learning rate and applies the batch through
@@ -14,6 +14,13 @@ samplers, sets the t/T learning rate and applies the batch through
 
 Both routes add the updates in the canonical per-edge order, so for
 ``inv_quadratic`` they agree bitwise, on the CPU and on the card.
+
+:class:`StepChunks` is the counterpart of the JAX package's jitted
+``layout_chunk`` (a ``lax.scan`` of H steps a device dispatch): on the
+card, H consecutive steps captured once into a CUDA graph and replayed;
+on the CPU the same H steps run one after another.  The learning rate
+is a device value (:func:`lr_table`), so a captured step reads it
+instead of freezing a host float.
 """
 from __future__ import annotations
 
@@ -26,24 +33,39 @@ from repro_torch.kernels import ops
 LAYOUT_STEPS = ("auto", "fused", "split")
 
 
+def dispatch_steps(requested: int, *, n_nodes: int, batch: int) -> int:
+    """Steps per dispatch: ``requested`` (``cfg.steps_per_dispatch``)
+    wins when set; 0 means "no opinion", which in the JAX package asks
+    its autotuner.  The port has no autotuner yet, so 0 stays 0 and the
+    callers run the per-step loop."""
+    del n_nodes, batch      # the autotuner's cell, when there is one
+    return int(requested) if requested else 0
+
+
+def chunk_schedule(steps: int, H: int) -> list:
+    """(first step, length) of each dispatch: full chunks of H, then the
+    remainder."""
+    return [(t0, min(H, steps - t0)) for t0 in range(0, steps, H)]
+
+
 def edge_update_stream(i, j, negs, gi, gj, gneg, lr, n_frozen: int = 0):
     """The split route's update stream: rows ``idx`` (B*(2+M),) and
     updates ``-lr * g`` (B*(2+M), s) in the canonical per-edge order
     ``[i_e, j_e, negs_e,0..M-1] for e = 0..B-1``.
 
-    ``lr`` is a scalar or a (B,) per-edge vector.  Updates to rows below
-    ``n_frozen`` become -0.0, a bitwise no-op when added.
+    ``lr`` is a float, a 0-d f32 tensor or a (B,) per-edge vector; a
+    tensor on the device is read there (no host-to-device copy, so the
+    stream can be captured).  Updates to rows below ``n_frozen`` become
+    -0.0, a bitwise no-op when added.
     """
     s = gi.shape[1]
     idx = torch.cat([i[:, None], j[:, None], negs], dim=1).reshape(-1)
     upd = torch.cat([gi[:, None], gj[:, None], gneg], dim=1).reshape(-1, s)
-    lr = torch.as_tensor(lr, dtype=torch.float32, device=gi.device)
-    if lr.dim():                         # (B,) per-edge -> per update row
-        lr = lr.repeat_interleave(2 + negs.shape[1])[:, None]
-    upd = -lr * upd
+    if torch.is_tensor(lr) and lr.dim():  # (B,) per-edge -> per update row
+        lr = lr.float().repeat_interleave(2 + negs.shape[1])[:, None]
+    upd = upd * -lr
     if n_frozen:
-        upd = torch.where((idx >= n_frozen)[:, None], upd,
-                          torch.tensor(-0.0, device=gi.device))
+        upd = upd.masked_fill((idx < n_frozen)[:, None], -0.0)
     return idx, upd
 
 
@@ -53,7 +75,8 @@ def apply_edge_batch(y, i, j, negs, neg_mask, lr, *,
                      layout_step: str = "auto", n_frozen: int = 0):
     """Apply one pre-sampled edge batch to the (N, s) embedding in place.
 
-    ``lr`` is a float or a (B,) per-edge tensor.  Duplicate rows
+    ``lr`` is a float, a 0-d f32 tensor on y's device (what a captured
+    step reads) or a (B,) per-edge tensor.  Duplicate rows
     accumulate in the canonical per-edge order ``[i_e, j_e,
     negs_e,0..M-1]``.  Rows below ``n_frozen`` never change (the
     frozen-corpus transform).  Returns ``y``.
@@ -84,18 +107,114 @@ def step_lr(rho0: float, t_frac: float) -> float:
     return float(f32(rho0) * max(f32(1.0) - f32(t_frac), f32(1e-4)))
 
 
-def sgd_edge_step(y, generator, t_frac: float, *, edge_sampler,
-                  neg_sampler, n_negatives: int,
+def lr_table(rho0: float, steps: int, device) -> torch.Tensor:
+    """(steps,) f32 on ``device``: entry t is ``step_lr(rho0, t / steps)``
+    bitwise (t/steps in f64, rounded to f32, then the same f32
+    operations)."""
+    f32 = np.float32
+    t_frac = (np.arange(steps, dtype=np.float64) / steps).astype(f32)
+    lr = f32(rho0) * np.maximum(f32(1.0) - t_frac, f32(1e-4))
+    return torch.from_numpy(lr).to(device)
+
+
+def sgd_edge_step(y, generator, t_frac: float | None = None, *,
+                  edge_sampler, neg_sampler, n_negatives: int,
                   prob_fn: str = "inv_quadratic", a: float = 1.0,
                   gamma: float = 7.0, clip: float = 5.0, rho0: float = 1.0,
-                  batch: int = 4096, layout_step: str = "auto"):
-    """One SGD step over a freshly sampled edge batch; t_frac = t/T.  The
-    batch is drawn before it is routed, so every route sees the same
-    batch from the same generator."""
+                  batch: int = 4096, layout_step: str = "auto", lr=None):
+    """One SGD step over a freshly sampled edge batch; t_frac = t/T sets
+    the lr ``step_lr(rho0, t_frac)``, or ``lr`` (a 0-d f32 tensor on y's
+    device, an entry of :func:`lr_table`) gives it.  The batch is drawn
+    before it is routed, so every route sees the same batch from the same
+    generator."""
     i, j = edge_sampler.sample(generator, batch)
     negs = neg_sampler.sample(generator, (batch, n_negatives))
     # a negative that is the source or the target of its edge is masked
     neg_mask = ((negs != i[:, None]) & (negs != j[:, None])).float()
-    return apply_edge_batch(y, i, j, negs, neg_mask, step_lr(rho0, t_frac),
-                            prob_fn=prob_fn, a=a, gamma=gamma, clip=clip,
+    if lr is None:
+        lr = step_lr(rho0, t_frac)
+    return apply_edge_batch(y, i, j, negs, neg_mask, lr, prob_fn=prob_fn,
+                            a=a, gamma=gamma, clip=clip,
                             layout_step=layout_step)
+
+
+class StepChunks:
+    """Consecutive steps ``step(y, generator, lr=lr)`` of one trajectory,
+    H a dispatch, each updating the static ``y`` in place.
+
+    :meth:`run` takes the lrs of the next chunk (a slice of an
+    :func:`lr_table`) and the trajectory's generator.  On the CPU it runs
+    the steps one after another.  On the card the first chunk runs
+    eagerly on a side stream: it is the warm-up of PyTorch's graph recipe
+    (the launchers' scratch, the cooperative launch's occupancy query),
+    and its steps are real ones.  Every later chunk replays the CUDA
+    graph of its length, captured at its first use: the steps read the
+    static ``y``, an lr buffer refreshed before each replay, and a
+    generator of the unit's own, registered with the graph, whose Philox
+    state is set from the trajectory's before each replay and handed
+    back after it, so a replay draws what the eager steps would.  The
+    kernels' launch counts grow by the capture's launches at each replay
+    (``ops.capture_launches``).  A capture or a replay that fails raises.
+    """
+
+    def __init__(self, step, y: torch.Tensor, H: int):
+        self.step, self.y, self.H = step, y, int(H)
+        self._warm = False
+        self._graphs: dict = {}          # chunk length -> (graph, launches)
+        if y.device.type == "cuda":
+            self._lr = torch.empty(self.H, dtype=torch.float32,
+                                   device=y.device)
+            self._gen = torch.Generator(device=y.device)
+
+    def run_all(self, generator, lrs: torch.Tensor) -> int:
+        """Run ``len(lrs)`` steps, H a dispatch (the remainder last);
+        returns the dispatches."""
+        schedule = chunk_schedule(lrs.shape[0], self.H)
+        for t0, h in schedule:
+            self.run(generator, lrs[t0:t0 + h])
+        return len(schedule)
+
+    def run(self, generator, lrs: torch.Tensor) -> None:
+        """Run ``len(lrs)`` (at most H) steps with these lrs."""
+        h = lrs.shape[0]
+        if not 0 < h <= self.H:
+            raise ValueError(f"a chunk of {h} steps in a unit of {self.H}")
+        if self.y.device.type != "cuda":
+            for k in range(h):
+                self.step(self.y, generator, lr=lrs[k])
+            return
+        if not self._warm:
+            main = torch.cuda.current_stream(self.y.device)
+            side = torch.cuda.Stream(self.y.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                for k in range(h):
+                    self.step(self.y, generator, lr=lrs[k])
+            main.wait_stream(side)
+            self._warm = True
+            return
+        if h not in self._graphs:
+            self._graphs[h] = self._capture(h)
+        graph, launches = self._graphs[h]
+        self._lr[:h].copy_(lrs)
+        self._gen.set_state(generator.get_state())
+        graph.replay()
+        generator.set_state(self._gen.get_state())
+        ops.add_launches(launches)
+
+    def _capture(self, h: int):
+        graph = torch.cuda.CUDAGraph()
+        register = getattr(graph, "register_generator_state", None)
+        if register is None:
+            raise RuntimeError(
+                f"torch {torch.__version__}: CUDAGraph has no "
+                "register_generator_state, so a captured step cannot draw "
+                "from the layout's generator")
+        register(self._gen)
+
+        def record():
+            with torch.cuda.graph(graph):
+                for k in range(h):
+                    self.step(self.y, self._gen, lr=self._lr[k])
+
+        return graph, ops.capture_launches(record)

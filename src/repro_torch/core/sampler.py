@@ -8,14 +8,19 @@ Vose's pairing with exact per-index marginals.  The prefix sums run in
 float64, which the card has natively (float32 loses the marginals from
 E ~ 1e5 on).  ``build_alias`` is the numpy Vose loop, kept as the oracle.
 
-The negative sampler's in-degree sum adds duplicate destinations in
-stream order (``ops.scatter_add_ordered``), as the JAX package's
-``deg.at[idx].add`` does, so its tables are a function of the graph: on
-the card two builds from one graph are bitwise equal.
+The tables are a function of the graph, on the card too, so two fits
+from one seed are bitwise equal: the negative sampler's in-degree sum
+adds duplicate destinations in stream order (``ops.scatter_add_ordered``),
+as the JAX package's ``deg.at[idx].add`` does, and on CUDA the f64 sums
+of ``_alias_pairing`` go through :func:`ordered_cumsum`, whose float
+grouping is fixed by the length alone (a 1-D ``torch.cumsum`` on CUDA
+groups by timing).  On the CPU ``torch.cumsum`` adds left to right, as
+the JAX package does, and stays.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -49,10 +54,43 @@ def build_alias(probs: np.ndarray):
     return threshold.astype(np.float32), alias
 
 
-def _alias_pairing(probs: torch.Tensor, *, hi_dtype=torch.float64):
+# the row length of ordered_cumsum
+SCAN_BLOCK = 1024
+
+
+def ordered_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of the 1-D ``x`` whose float grouping depends
+    on its length alone: ``x`` in rows of ``SCAN_BLOCK`` (zero-padded, at
+    least two rows), each row scanned on its own, the row totals added
+    left to right, and each row's carry added to it.
+
+    A 1-D ``torch.cumsum`` on CUDA is a decoupled look-back scan, which
+    adds the tiles' sums in the order they finish.  A (rows, block) scan
+    along its last dimension takes one fixed tree a row, and a (rows, 2)
+    scan along its first one a single sequential pass a column, so both
+    group the same way on every run.  For nonnegative ``x`` the result
+    is nondecreasing: a row's last sum is exactly the next row's carry.
+    """
+    n = x.shape[0]
+    rows = max(2, -(-n // SCAN_BLOCK))
+    padded = x.new_zeros(rows * SCAN_BLOCK)
+    padded[:n] = x
+    part = padded.view(rows, SCAN_BLOCK).cumsum(1)
+    last = part[:, -1]
+    totals = torch.stack([last, torch.zeros_like(last)], 1).cumsum(0)[:, 0]
+    carry = torch.cat([totals.new_zeros(1), totals[:-1]])
+    return (part + carry[:, None]).view(-1)[:n]
+
+
+def _alias_pairing(probs: torch.Tensor, *, hi_dtype=torch.float64,
+                   ordered: bool | None = None):
     """Vectorized alias-table construction.  probs: (n,) nonnegative, any
     scale (all zero -> uniform).  Returns (threshold (n,) f32, alias (n,)
     int32) with exact per-index marginals.
+
+    ``ordered`` (default: on CUDA) takes the float sums through
+    :func:`ordered_cumsum`; otherwise through ``torch.sum`` and
+    ``torch.cumsum``, left to right on the CPU as in the JAX package.
 
     Smalls (scaled < 1, deficit 1-s) are stably partitioned in front of
     larges (surplus s-1).  Small i aliases the first large whose
@@ -63,9 +101,11 @@ def _alias_pairing(probs: torch.Tensor, *, hi_dtype=torch.float64):
     as the JAX package's, so on the CPU the tables are bitwise equal.
     """
     dev = probs.device
+    if ordered is None:
+        ordered = dev.type == "cuda"
     p = probs.float().reshape(-1).to(hi_dtype).clamp_min(0.0)
     n = p.shape[0]
-    total = p.sum()
+    total = ordered_cumsum(p)[-1] if ordered else p.sum()
     p = torch.where(total > 0, p, torch.ones_like(p))
     n_t = torch.tensor(float(n), dtype=hi_dtype, device=dev)
     total = torch.where(total > 0, total, n_t)
@@ -85,8 +125,10 @@ def _alias_pairing(probs: torch.Tensor, *, hi_dtype=torch.float64):
     zero = torch.zeros((), dtype=hi_dtype, device=dev)
     d = torch.where(small, 1.0 - ss, zero)   # deficits, small prefix
     e = torch.where(small, zero, ss - 1.0)   # surpluses, large suffix
-    D = torch.cumsum(d, 0)
-    SE = torch.cumsum(e, 0)
+    scan = ordered_cumsum if ordered else functools.partial(torch.cumsum,
+                                                            dim=0)
+    D = scan(d)
+    SE = scan(e)
 
     tgt = torch.minimum(torch.maximum(torch.searchsorted(SE, D, side="left"),
                                       m), torch.tensor(n - 1, device=dev))

@@ -12,7 +12,10 @@ own pieces:
   tensor with ``n_frozen = N``: corpus rows pull and push the queries,
   but their updates are -0.0, so the fitted coordinates keep their bits.
   A query's positive edge is drawn from p_{.|q}, its negatives from the
-  fitted noise sampler.
+  fitted noise sampler.  The steps run ``cfg.steps_per_dispatch`` a
+  dispatch through the layout's ``StepChunks`` (the JAX package scans
+  them in ``_project_scan``); on the card its graphs are kept across
+  calls, one unit a shape (:func:`_query_unit`).
 * :func:`knn_insert` grows the (N, K) KNN graph by Q new points without
   a rebuild: the new rows merge their corpus top-k with a query-vs-query
   top-k, corpus rows adopt new points through a reverse-candidate
@@ -23,16 +26,24 @@ Both back :class:`repro_torch.LargeVis`'s ``transform`` and ``insert``.
 """
 from __future__ import annotations
 
+import collections
+import functools
+
 import torch
 
 from repro_torch.configs.largevis_default import LargeVisConfig
 from repro_torch.core import knn as knn_lib
 from repro_torch.core import neighbor_explore as explore_lib
 from repro_torch.core import perplexity as perp_lib
+from repro_torch.core import layout_engine
 from repro_torch.core.largevis import seeded_generator
-from repro_torch.core.layout_engine import apply_edge_batch, step_lr
+from repro_torch.core.layout_engine import apply_edge_batch
 from repro_torch.core.sampler import NodeSampler
 from repro_torch.kernels import ops
+
+# projection units kept on the card, most recently used last
+_UNITS: collections.OrderedDict = collections.OrderedDict()
+MAX_UNITS = 8
 
 
 def uniform_node_sampler(n: int, device) -> NodeSampler:
@@ -61,10 +72,13 @@ def sample_query_edges(generator, p, nn_idx, neg_sampler, n_negatives: int):
     """One positive and M negatives per query row.
 
     The positive is neighbor column c of the row with probability
-    p[row, c] (one categorical draw per row); the negatives come from the
+    p[row, c] (one categorical draw per row, argmax of p / Exp(1), the
+    draw ``torch.multinomial(p, 1)`` makes, without its host-side check
+    of p, which a captured step cannot have); the negatives come from the
     noise sampler, and a negative equal to the positive is masked, as in
     ``layout_engine.sgd_edge_step``.  Returns (j, negs, neg_mask)."""
-    cols = torch.multinomial(p, 1, generator=generator)          # (Q, 1)
+    expo = torch.empty_like(p).exponential_(1.0, generator=generator)
+    cols = torch.div(p, expo).argmax(1, keepdim=True)            # (Q, 1)
     j = torch.gather(nn_idx, 1, cols)[:, 0]
     negs = neg_sampler.sample(generator, (p.shape[0], n_negatives))
     neg_mask = (negs != j[:, None]).float()
@@ -101,18 +115,73 @@ def project(x_new, *, x, y, generator=None, cfg: LargeVisConfig | None = None,
     y_full = torch.cat([y.float(), _weighted_mean_init(p, nn_idx, y).float()])
     if neg_sampler is None:
         neg_sampler = uniform_node_sampler(n, dev)
-    rho0 = cfg.transform_rho0 or cfg.rho0
     steps = int(cfg.transform_steps)
-    i = n + torch.arange(q, dtype=torch.int32, device=dev)
-    for t in range(steps):
-        j, negs, neg_mask = sample_query_edges(generator, p, nn_idx,
-                                               neg_sampler, cfg.n_negatives)
-        y_full = apply_edge_batch(
-            y_full, i, j, negs, neg_mask, step_lr(rho0, t / steps),
-            prob_fn=cfg.prob_fn, a=cfg.prob_a, gamma=cfg.gamma,
-            clip=cfg.grad_clip, layout_step=cfg.routing.layout_step,
-            n_frozen=n)
-    return y_full[n:], {"nn_idx": nn_idx, "nn_dist": nn_dist, "p": p}
+    lrs = layout_engine.lr_table(cfg.transform_rho0 or cfg.rho0, steps, dev)
+    H = layout_engine.dispatch_steps(int(cfg.steps_per_dispatch),
+                                     n_nodes=n + q, batch=q)
+    unit = _query_unit(n, q, k, y_full.shape[1], dev, cfg, H)
+    unit.y.copy_(y_full)
+    unit.p.copy_(p)
+    unit.nn_idx.copy_(nn_idx)
+    unit.neg.threshold.copy_(neg_sampler.threshold)
+    unit.neg.alias.copy_(neg_sampler.alias)
+    if H > 1:
+        unit.chunks.run_all(generator, lrs)
+    else:
+        for t in range(steps):
+            unit.step(unit.y, generator, lr=lrs[t])
+    return unit.y[n:].clone(), {"nn_idx": nn_idx, "nn_dist": nn_dist,
+                                "p": p}
+
+
+class _QueryUnit:
+    """The projection's state for one shape: [corpus; queries] ``y``, the
+    queries' neighbors ``nn_idx`` and distribution ``p``, the noise
+    tables ``neg``, one frozen-corpus step over them, and with H > 1 its
+    ``StepChunks``."""
+
+    def __init__(self, n: int, q: int, k: int, s: int, dev, cfg, H: int):
+        f32, i32 = dict(dtype=torch.float32, device=dev), dict(
+            dtype=torch.int32, device=dev)
+        self.y = torch.empty((n + q, s), **f32)
+        self.p = torch.empty((q, k), **f32)
+        self.nn_idx = torch.empty((q, k), **i32)
+        self.neg = NodeSampler(torch.empty(n, **f32), torch.empty(n, **i32),
+                               n)
+        self.step = functools.partial(
+            _query_step, i=n + torch.arange(q, **i32), p=self.p,
+            nn_idx=self.nn_idx, neg_sampler=self.neg,
+            n_negatives=cfg.n_negatives, prob_fn=cfg.prob_fn, a=cfg.prob_a,
+            gamma=cfg.gamma, clip=cfg.grad_clip,
+            layout_step=cfg.routing.layout_step, n_frozen=n)
+        if H > 1:
+            self.chunks = layout_engine.StepChunks(self.step, self.y, H)
+
+
+def _query_step(y, generator, *, lr, i, p, nn_idx, neg_sampler,
+                n_negatives: int, n_frozen: int, **kw):
+    """One frozen-corpus SGD step of the queries, y updated in place."""
+    j, negs, neg_mask = sample_query_edges(generator, p, nn_idx,
+                                           neg_sampler, n_negatives)
+    apply_edge_batch(y, i, j, negs, neg_mask, lr, n_frozen=n_frozen, **kw)
+
+
+def _query_unit(n: int, q: int, k: int, s: int, dev, cfg, H: int):
+    """A :class:`_QueryUnit` with its ``StepChunks`` graphs.  On the CPU a
+    fresh one each call; on the card one kept for each (N, Q, k, s, H,
+    step hyper-parameters), at most ``MAX_UNITS``, so a graph is captured
+    once a shape and each call copies its inputs into the unit."""
+    if dev.type != "cuda":
+        return _QueryUnit(n, q, k, s, dev, cfg, H)
+    key = (dev, n, q, k, s, H, cfg.n_negatives, cfg.prob_fn, cfg.prob_a,
+           cfg.gamma, cfg.grad_clip, cfg.routing.layout_step)
+    unit = _UNITS.pop(key, None)
+    if unit is None:
+        unit = _QueryUnit(n, q, k, s, dev, cfg, H)
+    _UNITS[key] = unit
+    while len(_UNITS) > MAX_UNITS:
+        _UNITS.popitem(last=False)
+    return unit
 
 
 # ---------------------------------------------------------------------------

@@ -42,7 +42,9 @@
 //   The launcher keeps head (N, -1), next, the staged rows and their
 //   destinations across calls (kernels/largevis_step.py): no allocation
 //   and no host-device sync a call, so the step can be captured in a
-//   CUDA graph.
+//   CUDA graph.  The lr is a kernel argument or read from the device (a
+//   per-edge vector, or one scalar with stride 0), which a captured step
+//   needs: a replay would repeat the argument frozen at capture.
 //
 // scatter_link_launch is the same launch without the forces: the split
 // route's ordered scatter y[idx] += upd (replacing the JAX split path's
@@ -72,7 +74,8 @@ struct StepArgs {
   const int* ej;
   const int* negs;
   const float* mask;
-  const float* lr_vec;
+  const float* lr_vec;  // lr_vec[e * lr_stride] when set, else lr
+  int lr_stride;        // 1: per edge; 0: one device scalar
   float lr;
   int B, M;
   float c2a, a, c2g, eps, clip;
@@ -95,7 +98,8 @@ __device__ inline void stage_edge(const StepArgs& p, int e) {
     yi[k] = p.y[(size_t)i * S + k];
     yj[k] = p.y[(size_t)j * S + k];
   }
-  const float nlr = -(p.lr_vec != nullptr ? p.lr_vec[e] : p.lr);
+  const float nlr =
+      -(p.lr_vec != nullptr ? p.lr_vec[(size_t)e * p.lr_stride] : p.lr);
   const int M = p.M;
   const int base = e * (2 + M);
   const int* en = p.negs + (size_t)e * M;
@@ -337,7 +341,8 @@ int launch_by_s(int s, const StepArgs& p, int work, void* stream) {
 
 extern "C" int edge_step_launch(float* y, int s, const int* i, const int* j,
                                 const int* negs, const float* mask,
-                                const float* lr_vec, float lr, int B, int M,
+                                const float* lr_vec, int lr_stride,
+                                float lr, int B, int M,
                                 float c2a, float a, float c2g, float eps,
                                 float clip, int n_frozen, float* upd,
                                 int* dst, int* next, int* head, int* n_long,
@@ -345,8 +350,10 @@ extern "C" int edge_step_launch(float* y, int s, const int* i, const int* j,
   if (B == 0) return cudaSuccess;
   const long long U = (long long)B * (2 + M);
   if (U > INT_MAX) return cudaErrorInvalidValue;
-  StepArgs p{y, i, j, negs, mask, lr_vec, lr, B, M, c2a, a, c2g, eps, clip,
-             n_frozen, upd, dst, next, head, n_long, long_rows, (int)U};
+  StepArgs p{y,      i,         j,    negs, mask, lr_vec, lr_stride,
+             lr,     B,         M,    c2a,  a,    c2g,    eps,
+             clip,   n_frozen,  upd,  dst,  next, head,   n_long,
+             long_rows, (int)U};
   return launch_by_s<true>(s, p, (int)U, stream);
 }
 
@@ -355,7 +362,7 @@ extern "C" int scatter_link_launch(float* y, int s, const float* upd,
                                    int* n_long, int* long_rows, int U,
                                    void* stream) {
   if (U == 0) return cudaSuccess;
-  StepArgs p{y, nullptr, nullptr, nullptr, nullptr, nullptr, 0.0f, 0, 0,
+  StepArgs p{y, nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0.0f, 0, 0,
              0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0, const_cast<float*>(upd),
              const_cast<int*>(dst), next, head, n_long, long_rows, U};
   return launch_by_s<false>(s, p, U, stream);

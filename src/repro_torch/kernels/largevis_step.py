@@ -46,8 +46,8 @@ LINK_MAX_U = 1 << 17
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "edge_step_launch": ([_P, _I] + [_P] * 5 + [_F, _I, _I] + [_F] * 5
-                         + [_I] + [_P] * 7),
+    "edge_step_launch": ([_P, _I] + [_P] * 5 + [_I, _F, _I, _I]
+                         + [_F] * 5 + [_I] + [_P] * 7),
     "scatter_link_launch": [_P, _I] + [_P] * 6 + [_I, _P],
     "edge_accumulate_launch": [_P, _I, _P, _P, _P, _I, _P],
 }
@@ -85,9 +85,11 @@ def fused_edge_step(y, i, j, negs, neg_mask, lr, *, gamma: float = 7.0,
     """Update ``y`` (N, s) f32 on the card in place and return it.
 
     i/j: (B,) edge endpoints; negs: (B, M) negatives; neg_mask: (B, M)
-    1.0 valid / 0.0 collision; lr: a float or a (B,) tensor.  Rows below
-    ``n_frozen`` never change.  ``y_tile`` (the TPU kernel's VMEM slab
-    size) is accepted and ignored: the card holds y in device memory.
+    1.0 valid / 0.0 collision; lr: a float (a kernel argument), a 0-d
+    tensor (read on the device, as a captured step needs) or a (B,)
+    tensor.  Rows below ``n_frozen`` never change.  ``y_tile`` (the TPU
+    kernel's VMEM slab size) is accepted and ignored: the card holds y in
+    device memory.
     Indices must lie in [0, N): the kernel reads and writes those rows
     unchecked (checking would cost a device-to-host read per step).
     int32 indices and f32 mask and lr are used in place; other types are
@@ -110,17 +112,20 @@ def fused_edge_step(y, i, j, negs, neg_mask, lr, *, gamma: float = 7.0,
     j = j.to(torch.int32).contiguous()
     negs = negs.to(torch.int32).contiguous()
     neg_mask = neg_mask.to(torch.float32).contiguous()
-    lr_vec = None
-    if torch.is_tensor(lr) and lr.dim():
+    lr_vec, lr_stride = None, 0
+    if torch.is_tensor(lr):
+        if lr.dim() and tuple(lr.shape) != (B,):
+            raise ValueError(f"fused_edge_step: lr of shape "
+                             f"{tuple(lr.shape)} for {B} edges")
         lr_vec = lr.to(device=dev, dtype=torch.float32).contiguous()
-        lr = 0.0
+        lr_stride, lr = (1 if lr.dim() else 0), 0.0
     buf = _buffers(("step", dev, N, B, M, s), dev, N, B * (2 + M), s)
     p = _build.ptr
     rc = _lib().edge_step_launch(
-        p(y), s, p(i), p(j), p(negs), p(neg_mask), p(lr_vec), float(lr), B,
-        M, 2.0 * a, a, -2.0 * gamma, eps, clip, int(n_frozen), p(buf["upd"]),
-        p(buf["dst"]), p(buf["next"]), p(buf["head"]), p(buf["n_long"]),
-        p(buf["long_rows"]), _build.stream(dev))
+        p(y), s, p(i), p(j), p(negs), p(neg_mask), p(lr_vec), lr_stride,
+        float(lr), B, M, 2.0 * a, a, -2.0 * gamma, eps, clip, int(n_frozen),
+        p(buf["upd"]), p(buf["dst"]), p(buf["next"]), p(buf["head"]),
+        p(buf["n_long"]), p(buf["long_rows"]), _build.stream(dev))
     _build.check(rc, "fused_edge_step")
     fused_edge_step.launches += 1
     return y

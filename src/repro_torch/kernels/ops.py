@@ -94,3 +94,26 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in _LAUNCHERS.values():
         fn.launches = 0
+
+
+def capture_launches(record) -> dict:
+    """Run ``record``, a CUDA graph capture, and return the launches its
+    wrappers counted, by kernel.  A capture launches nothing, so those
+    counts are taken back off; each replay of the graph then adds them
+    with :func:`add_launches`."""
+    before = launch_counts()
+    try:
+        record()
+        after = launch_counts()
+    finally:
+        for name, c in before.items():
+            _LAUNCHERS[name].launches = c
+    return {name: c - before[name] for name, c in after.items()
+            if c != before[name]}
+
+
+def add_launches(made: dict) -> None:
+    """Count the launches of one graph replay (from
+    :func:`capture_launches`)."""
+    for name, c in made.items():
+        _LAUNCHERS[name].launches += c
