@@ -8,7 +8,8 @@ From the root of a checkout, on a machine with an NVIDIA H100 and the
 CUDA toolkit.  It imports nothing of JAX or of the JAX package.  With
 ``--parent PATH`` (a checkout of the parent commit) it only times the
 parent's package and this one in turns, parent, change, change, parent,
-in one process (``run_parent``).  Without it, in order:
+in one process (``run_parent``), and requires the two packages'
+``pairwise_sqdist`` outputs to be bitwise equal.  Without it, in order:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
@@ -25,7 +26,10 @@ in one process (``run_parent``).  Without it, in order:
    version's.  ``fused_edge_step``: bitwise at the fit's shape, on
    N = 64, on a hub batch (one row takes about 2,000 updates) and over
    200 consecutive steps, with the lr a float, a 0-d tensor on the card
-   and a per-edge vector, with one device event a call;
+   and a per-edge vector, with one device event a call.
+   ``pairwise_sqdist``: graph_recall's (2000, 100) x (100000, 100), the
+   layout accuracy's (1000, 2) x (99000, 2) and (777, 100) x (50001, 100)
+   off the kernel's tiles, the first two timed beside ``torch.cdist``;
 4. runs the full-width fit (``LargeVisConfig()`` defaults: K=150, 8
    trees, window 64, perplexity 50) on a Gaussian mixture of N=100,000
    points in d=100, with every kernel's launch count reset just before
@@ -43,10 +47,14 @@ in one process (``run_parent``).  Without it, in order:
    kept graph, bitwise equal; 10 replays under the profiler, and the
    layout's busy share from them and from the profiled eager step;
 7. on the fit's graph, samplers and layout, the split path: the
-   ``largevis_grads`` kernel and the ordered scatter (at the step size
-   through the linked lists, at the in-degree size through the sort)
-   against their plain versions; 50 fused and 50 split SGD steps from
-   one state, bitwise equal, with each route's device launches a step;
+   ``largevis_grads`` kernel in its indexed form (y read in place, the
+   update stream written: B = 4096, 4095, 37 and a hub batch, three lr
+   forms, frozen rows) and its gathered form, and the ordered scatter (at
+   the step size through the linked lists, at the in-degree size through
+   the sort), bitwise against their plain versions on a CPU copy; 50
+   fused and 50 split SGD steps from one state, bitwise equal, with each
+   route's device launches a step, eager and in 10 replays of the split
+   route's 100-step graph;
    the split layout (at 2,000 samples per node, a printed cut); 200
    autograd steps of ``prob_fn="exp_quadratic"``;
 8. ``LargeVis.transform`` of 10,000 held-out points of the fit's
@@ -136,6 +144,35 @@ def bound_ms(n_bytes: float, n_ops: float,
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def clocks_during(torch, fn, seconds: float = 1.0) -> list:
+    """Call ``fn`` back to back for about ``seconds`` while sampling the
+    card's SM clock and power draw (``nvidia-smi``) from a thread; the
+    samples, as nvidia-smi prints them."""
+    import threading
+
+    samples, done = [], threading.Event()
+
+    def poll():
+        while not done.is_set():
+            samples.append(subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,"
+                 "power.draw", "--format=csv,noheader"], capture_output=True,
+                text=True).stdout.strip())
+            done.wait(0.2)
+    fn()
+    torch.cuda.synchronize()
+    th = threading.Thread(target=poll)
+    th.start()
+    t_end = time.perf_counter() + seconds
+    while time.perf_counter() < t_end:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    done.set()
+    th.join()
+    return samples
+
+
 def bf16_ulp(torch, x):
     """The spacing of bf16 numbers at |x|, 2^(floor(log2 |x|) - 7)."""
     a = x.float().abs().clamp_min(2.0 ** -126)
@@ -171,6 +208,8 @@ KERNEL_EVENTS = {
 def _is_event_of(launcher: str, key: str) -> bool:
     if launcher == "scatter_add_ordered" and "edge_accumulate_kernel" in key:
         return True                      # the sort path's kernel
+    if launcher == "largevis_grads" and "grads_stream_kernel" in key:
+        return True                      # the indexed form
     if launcher == "fused_edge_step" and "edge_forces_kernel" in key:
         return True                      # a parent checkout's phase 0
     return all(part in key for part in KERNEL_EVENTS[launcher])
@@ -536,40 +575,77 @@ def check_edge_step(torch, n_nodes, cfg):
                 bound_by=by, library_ms=lib)
 
 
+def pairwise_bound(M: int, N: int, d: int) -> tuple[float, str]:
+    """Bytes: a and b read once, the (M, N) matrix written once; operations:
+    the products, the norms and the epilogue."""
+    return bound_ms(4 * (M * d + N * d + M * N),
+                    2 * M * N * d + 2 * (M + N) * d + 3 * M * N)
+
+
+def pairwise_shapes(torch, x):
+    """The metrics' two shapes on the fit's data: graph_recall's (2000 rows
+    of x against all of x, d = 100) and the layout accuracy's at d = 2
+    (1000 rows against the other 99,000)."""
+    rows = torch.randperm(x.shape[0], generator=torch.Generator(
+        device=x.device).manual_seed(17), device=x.device)[:2000]
+    return {"recall": (x[rows].contiguous(), x),
+            "accuracy": (x[:1000, :2].contiguous(),
+                         x[1000:, :2].contiguous())}
+
+
 def check_pairwise(torch, x):
-    """graph_recall's shape: 2000 rows of x against all of x."""
+    """graph_recall's shape (2000, 100) x (100000, 100), the layout
+    accuracy's (1000, 2) x (99000, 2) and one off the 128 x 128 tiles
+    (777, 100) x (50001, 100): each against the plain version (cuBLAS's
+    product: bitwise where it keeps feature order, else within a few ulps
+    of |a|^2 + |b|^2), the two main shapes timed beside ``torch.cdist``
+    and their bounds."""
     from repro_torch.kernels import knn_topk, ref
 
-    rows = torch.randperm(x.shape[0], device=x.device)[:2000]
-    a = x[rows].contiguous()
-    got = knn_topk.pairwise_sqdist(a, x)
-    want = ref.pairwise_sqdist_ref(a, x)
-    an = (a.double() ** 2).sum(-1)
-    bn = (x.double() ** 2).sum(-1)
-    tol = 4e-6 * float(an.max() + bn.max())
-    err = float((got - want).abs().max())
-    check(err <= tol, f"pairwise_sqdist: error {err} > {tol}")
-    small = x[:1000, :2].contiguous(), x[1000:, :2].contiguous()
-    err2 = float((knn_topk.pairwise_sqdist(*small)
-                  - ref.pairwise_sqdist_ref(*small)).abs().max())
-    check(err2 <= 1e-3, f"pairwise_sqdist (d=2): error {err2}")
-    M, d = a.shape
-    N = x.shape[0]
-    n_bytes = 4 * (M * d + N * d + M * N)
-    n_ops = 2 * M * N * d + 2 * (M + N) * d + 3 * M * N
-    bms, by = bound_ms(n_bytes, n_ops)
-    ms = time_ms(torch, lambda: knn_topk.pairwise_sqdist(a, x))
-    plain = time_ms(torch, lambda: ref.pairwise_sqdist_ref(a, x))
-    lib = time_ms(torch, lambda: torch.cdist(a, x))
-    print(f"pairwise_sqdist: ({M}, {d}) x ({N}, {d}) max |err| {err:.3g} "
-          f"(tol {tol:.3g}), (1000, 2) x ({N - 1000}, 2) max |err| "
-          f"{err2:.3g}; kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-          f"torch.cdist {lib:.3f} ms, bound {bms:.4f} ms ({by})", flush=True)
-    return dict(name="pairwise_sqdist", route="cuda",
-                source="src/repro_torch/csrc/knn_topk.cu",
-                replaces="src/repro/kernels/knn_topk.py:65",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=lib)
+    shapes = pairwise_shapes(torch, x)
+    shapes["off-tile"] = (x[:777].contiguous(), x[:50_001])
+    parts, rec = [], None
+    for name, (a, b) in shapes.items():
+        got = knn_topk.pairwise_sqdist(a, b)
+        want = ref.pairwise_sqdist_ref(a, b)
+        if name == "accuracy":
+            tol = 1e-3
+        else:
+            an = (a.double() ** 2).sum(-1)
+            bn = (b.double() ** 2).sum(-1)
+            tol = 4e-6 * float(an.max() + bn.max())
+        err = float((got - want).abs().max())
+        check(err <= tol, f"pairwise_sqdist ({name}): error {err} > {tol}")
+        M, d = a.shape
+        N = b.shape[0]
+        txt = (f"{name} ({M}, {d}) x ({N}, {d}): max |err| {err:.3g} (tol "
+               f"{tol:.3g}, {int((got != want).sum())} of {M * N} entries "
+               f"not bitwise)")
+        del got, want
+        if name != "off-tile":
+            ms = time_ms(torch, lambda: knn_topk.pairwise_sqdist(a, b))
+            plain = time_ms(torch, lambda: ref.pairwise_sqdist_ref(a, b))
+            lib = time_ms(torch, lambda: torch.cdist(a, b))
+            mm = time_ms(torch, lambda: a @ b.T)
+            bms, by = pairwise_bound(M, N, d)
+            txt += (f"; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                    f"torch.cdist {lib:.4f} ms, cuBLAS's f32 product alone "
+                    f"(a @ b.T) {mm:.4f} ms, bound {bms:.4f} ms ({by})")
+            if name == "recall":
+                clk = clocks_during(torch, lambda: knn_topk.pairwise_sqdist(
+                    a, b))
+                txt += (f"; SM clock and power while the kernel runs "
+                        f"(MHz, max MHz, W): {clk}")
+            if rec is None:
+                rec = dict(name="pairwise_sqdist", route="cuda",
+                           source="src/repro_torch/csrc/knn_topk.cu",
+                           replaces="src/repro/kernels/knn_topk.py:65",
+                           max_abs_err=err, ms=ms, plain_ms=plain,
+                           bound_ms=bms, bound_by=by, library_ms=lib)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        parts.append(txt)
+    print("pairwise_sqdist: " + "; ".join(parts), flush=True)
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -577,12 +653,16 @@ def check_pairwise(torch, x):
 # ---------------------------------------------------------------------------
 
 def check_split_kernels(torch, cfg):
-    """The split route's kernels at its shapes: ``largevis_grads`` on rows
-    of a scale-10 y (N = 100,000, s = 2) at B = 4096, 4095 and 37 with
-    M = 5 negatives, about a tenth masked, and the ordered scatter of the
-    B*(2+M) update rows, also on a duplicate-dense N = 64; each bitwise
-    against its plain version run on a CPU copy (the reference: on CUDA
-    the plain scatter's index_add_ is atomic)."""
+    """The split route's kernels at its shapes, each bitwise against its
+    plain version run on a CPU copy (the reference: on CUDA the plain
+    scatter's index_add_ is atomic).  The indexed ``largevis_grads``
+    (what the split route launches) on a scale-10 y (N = 100,000, s = 2)
+    at B = 4096, 4095 and 37 with M = 5 negatives, with the lr a float, a
+    0-d tensor on the card and a per-edge vector with frozen rows, and on
+    a hub batch (one row takes about 2,000 updates); the gathered form on
+    rows of the same y at the same B, about a tenth of the negatives
+    masked; the ordered scatter of the B*(2+M) update rows, also on a
+    duplicate-dense N = 64 and at the in-degree sum's size."""
     from repro_torch.kernels import largevis_grad, largevis_step, ref
 
     dev = torch.device("cuda")
@@ -590,7 +670,55 @@ def check_split_kernels(torch, cfg):
     B, Mn, s = cfg.batch_size, cfg.n_negatives, cfg.out_dim
     kw = dict(gamma=cfg.gamma, a=cfg.prob_a, clip=cfg.grad_clip)
     y = torch.randn((N_POINTS, s), generator=gen, device=dev) * 10.0
-    main, max_err, card_err = None, 0.0, 0.0
+    yc = y.cpu()
+    max_err, n_cases = 0.0, 0
+    for b, hub in ((B, None), (B - 1, None), (37, None), (B, 7)):
+        batch = _edge_batch(torch, gen, N_POINTS, b, Mn, hub)
+        for lr, n_frozen in ((0.37, 0), (torch.tensor(0.37, device=dev), 0),
+                             (torch.rand(b, generator=gen, device=dev),
+                              N_POINTS // 3)):
+            want = ref.largevis_grads_stream_ref(
+                yc, *(t.cpu() for t in batch),
+                lr.cpu() if torch.is_tensor(lr) else lr, n_frozen, **kw)
+            got = [t.cpu() for t in largevis_grad.largevis_grads_stream(
+                y, *batch, lr, n_frozen, **kw)]
+            err = float((got[1] - want[1]).abs().max())
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1]),
+                  f"largevis_grads (indexed): not bitwise at B={b}"
+                  f"{' (hub batch)' if hub is not None else ''}, lr "
+                  f"{type(lr).__name__}, n_frozen={n_frozen} (max err "
+                  f"{err})")
+            max_err = max(max_err, err)
+            n_cases += 1
+    batch = _edge_batch(torch, gen, N_POINTS, B, Mn)
+    lr = torch.tensor(0.37, device=dev)      # what a captured step reads
+    ms = time_ms(torch, lambda: largevis_grad.largevis_grads_stream(
+        y, *batch, lr, **kw), reps=50)
+    plain_ms = time_ms(torch, lambda: ref.largevis_grads_stream_ref(
+        y, *batch, lr, **kw), reps=50)
+    prof = device_profile(torch, lambda: largevis_grad.largevis_grads_stream(
+        y, *batch, lr, **kw))
+    kern_ms, kern_seen, kern_made = prof.kernel("largevis_grads")
+    check(kern_seen > 0, "largevis_grads (indexed): the profiler saw no "
+          "launch")
+    others = [k for k in prof.events if not _is_event_of("largevis_grads",
+                                                          k)]
+    check(not others, f"largevis_grads (indexed): a call launched more than "
+          f"its kernel: {others}")
+    i, j, negs, mask = batch
+    U = B * (2 + Mn)
+    rows = int(torch.unique(torch.cat([i[:, None], j[:, None], negs],
+                                      1)).numel())
+    # read: the U indices, the rows they name, the mask; write: the U
+    # indices and update rows
+    n_bytes = 4 * (U + rows * s + B * Mn + U + U * s)
+    n_ops = B * ((4 * s + 2) + Mn * (7 * s + 3)) + U * s
+    bms, by = bound_ms(n_bytes, n_ops)
+
+    # the gathered form (the JAX contract), bitwise as before
+    card_err, g_err = 0.0, 0.0
+    main = None
     for b in (B, B - 1, 37):
         i = torch.randint(0, N_POINTS, (b,), generator=gen, device=dev)
         j = torch.randint(0, N_POINTS, (b,), generator=gen, device=dev)
@@ -605,23 +733,18 @@ def check_split_kernels(torch, cfg):
         plain = ref.largevis_grads_ref(*args[:3], neg_mask=mask, **kw)
         for g, w, c in zip(got, want, plain):
             err = float((g.cpu() - w).abs().max())
-            check(torch.equal(g.cpu(), w), f"largevis_grads: not bitwise at "
-                  f"B={b} (max err {err})")
-            max_err = max(max_err, err)
+            check(torch.equal(g.cpu(), w), f"largevis_grads (gathered): not "
+                  f"bitwise at B={b} (max err {err})")
+            g_err = max(g_err, err)
             card_err = max(card_err, float((c - g).abs().max()))
         if main is None:
             main = args
-    ms = time_ms(torch, lambda: largevis_grad.largevis_grads(*main, **kw),
-                 reps=50)
-    plain_ms = time_ms(torch, lambda: ref.largevis_grads_ref(
-        *main[:3], neg_mask=main[3], **kw), reps=50)
-    n_bytes = 4 * B * (4 * s + 2 * Mn * s + Mn)
-    n_ops = B * ((4 * s + 2) + Mn * (7 * s + 3))
-    bms, by = bound_ms(n_bytes, n_ops)
-    kern_ms, kern_seen, kern_made = device_profile(
+    g_ms = time_ms(torch, lambda: largevis_grad.largevis_grads(*main, **kw),
+                   reps=50)
+    g_kern, g_seen, g_made = device_profile(
         torch, lambda: largevis_grad.largevis_grads(*main, **kw)).kernel(
             "largevis_grads")
-    check(kern_seen > 0, "largevis_grads: the profiler saw no launch")
+    check(g_seen > 0, "largevis_grads (gathered): the profiler saw no launch")
 
     # the step size (linked lists, one launch) on the fit's N and on a
     # duplicate-dense N = 64; the in-degree sum's size U = N*K, s = 1
@@ -654,24 +777,28 @@ def check_split_kernels(torch, cfg):
                       f"launched more than its kernel: {others}")
     scatter_txt = ", ".join(f"{path} (U={U}) {ms:.4f} ms"
                             for (path, U), ms in scatter_ms.items())
-    print(f"largevis_grads: (B={B}, M={Mn}, s={s}) bitwise equal to the "
-          f"plain version on a CPU copy, also at B={B - 1} and B=37 with "
-          f"masked negatives (the plain version on the card: max |err| "
-          f"{card_err:.3g}); kernel {ms:.4f} ms a call (CUDA events over "
-          f"back-to-back calls: the wrapper's host time), of which the "
-          f"kernel's own device time {kern_ms:.5f} ms a launch (profiler, "
-          f"{kern_seen} of {kern_made} launches seen), plain "
-          f"{plain_ms:.4f} ms, no single library call, bound {bms:.5f} ms "
-          f"({by}); "
-          f"scatter_add_ordered bitwise equal to the plain version at the "
-          f"step size (U={B * (2 + Mn)}, also on N=64; one launch, no other "
-          f"event) and at the in-degree size (U={U_deg}, s=1): "
-          f"{scatter_txt}", flush=True)
+    print(f"largevis_grads (indexed: y read in place, the update stream "
+          f"written): (N={N_POINTS}, s={s}, B={B}, M={Mn}) bitwise equal to "
+          f"the plain version on a CPU copy in {n_cases} cases (B={B}, "
+          f"{B - 1}, 37 and a hub batch; the lr a float, a 0-d tensor on "
+          f"the card, per edge with frozen rows); {ms:.4f} ms a call (CUDA "
+          f"events over back-to-back calls: the wrapper's host time), of "
+          f"which the kernel's own device time {kern_ms:.5f} ms a launch "
+          f"(profiler, {kern_seen} of {kern_made} launches seen; no other "
+          f"event), plain (gathers, forces, stream) {plain_ms:.4f} ms, no "
+          f"single library call, bound {bms:.6f} ms ({by}: {n_bytes} bytes, "
+          f"{rows} rows of y); gathered form bitwise at B={B}, {B - 1}, 37 "
+          f"(the plain version on the card: max |err| {card_err:.3g}), "
+          f"{g_ms:.4f} ms a call, {g_kern:.5f} ms a launch ({g_seen} of "
+          f"{g_made} seen); scatter_add_ordered bitwise equal to the plain "
+          f"version at the step size (U={B * (2 + Mn)}, also on N=64; one "
+          f"launch, no other event) and at the in-degree size (U={U_deg}, "
+          f"s=1): {scatter_txt}", flush=True)
     return dict(name="largevis_grads", route="cuda",
                 source="src/repro_torch/csrc/largevis_grad.cu",
                 replaces="src/repro/kernels/largevis_grad.py:55",
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=None)
+                max_abs_err=max(max_err, g_err), ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=None)
 
 
 def run_fit(torch, x, labels, cfg):
@@ -772,6 +899,10 @@ def run_routes(torch, res, cfg, steps: int = 50):
         profs[route] = prof = profile_steps(torch, res, cfg, route, steps)
         print(f"  profiled {route} step: {busy_line(prof)}; device launches "
               f"a step {step_launches(prof)}", flush=True)
+    H = cfg.steps_per_dispatch
+    split = profile_replays(torch, res, cfg, "split", H)
+    print(f"  profiled split replays (10 of {H} steps): "
+          f"{replay_line(split, H)}", flush=True)
     return profs["fused"]
 
 
@@ -1149,18 +1280,7 @@ def check_chunked(torch, res, cfg, steps: int = 240, H: int = 100):
     check(counts == [cfg.transform_steps] * 3,
           f"transform launched fused_edge_step {counts} times")
 
-    step = functools.partial(layout_engine.sgd_edge_step,
-                             layout_step="fused", **kw)
-    y = res.y.clone()
-    gen = torch.Generator(device=dev).manual_seed(33)
-    unit = layout_engine.StepChunks(step, y, H)
-    many = layout_engine.lr_table(cfg.rho0, 20 * H, dev)
-    chunk = iter(range(20))
-
-    def replay():
-        c = next(chunk)
-        unit.run(gen, many[c * H:(c + 1) * H])
-    prof = device_profile(torch, replay, n=10)
+    prof = profile_replays(torch, res, cfg, "fused", H)
     print(f"chunked: {steps} steps (H={H}: the first chunk eager, then the "
           f"{H}-step and the {steps % H or H}-step graphs replayed) from the "
           f"fit's layout bitwise the per-step loop, generator state and "
@@ -1168,9 +1288,41 @@ def check_chunked(torch, res, cfg, steps: int = 240, H: int = 100):
           f"points by the loop and through its kept graph (eager, then a "
           f"replay) bitwise equal, {cfg.transform_steps} fused launches "
           f"each", flush=True)
-    print(f"  profiled {H}-step replays (10): {busy_line(prof)}",
-          flush=True)
+    print(f"  profiled {H}-step replays (10): {busy_line(prof)}; "
+          f"{replay_line(prof, H)}", flush=True)
     return prof
+
+
+def profile_replays(torch, res, cfg, route: str, H: int = 100,
+                    n: int = 10) -> Profile:
+    """``n`` replays of the H-step graph of one route from the fitted
+    layout, under the profiler (after the eager first chunk and three
+    warm-up replays)."""
+    from repro_torch.core import layout_engine
+
+    dev = res.y.device
+    step = functools.partial(layout_engine.sgd_edge_step, layout_step=route,
+                             **_step_kw(res, cfg))
+    y = res.y.clone()
+    gen = torch.Generator(device=dev).manual_seed(33)
+    unit = layout_engine.StepChunks(step, y, H)
+    many = layout_engine.lr_table(cfg.rho0, (n + 4) * H, dev)
+    chunk = iter(range(n + 4))
+
+    def replay():
+        c = next(chunk)
+        unit.run(gen, many[c * H:(c + 1) * H])
+    return device_profile(torch, replay, n=n)
+
+
+def replay_line(prof: Profile, H: int) -> str:
+    """Device ms and device events a step of profiled graph replays."""
+    dev_ms = sum(t for t, _ in prof.events.values()) / (prof.n * H)
+    events = sum(c for _, c in prof.events.values()) / (prof.n * H)
+    kern, complete = kernels_seen(prof)
+    return (f"{dev_ms:.5f} ms of device time a step, {events:.2f} device "
+            f"events a step ({'every' if complete else 'not every'} "
+            f"hand-written launch seen: {kern})")
 
 
 def run_fixture(torch, layout_step: str = "auto"):
@@ -1507,7 +1659,10 @@ def bench_turn(torch, x, xq, spn: int) -> dict:
     projection's graph replays it from the second call on, in the next
     turn of the same package too), PARENT_STEPS fused and split
     SGD steps on the fit's samplers (host ms, device ms and device
-    launches a step), one tree's window fold and the queries' top-k."""
+    launches a step), one tree's window fold and the queries' top-k,
+    ``pairwise_sqdist`` at the metrics' two shapes (time and output), and
+    10 profiled replays of the fused and the split 100-step graphs
+    (device ms and device events a step)."""
     from repro_torch import LargeVis, LargeVisConfig, largevis
     from repro_torch.core import knn, layout_engine
     from repro_torch.kernels import knn_topk, ref
@@ -1568,6 +1723,18 @@ def bench_turn(torch, x, xq, spn: int) -> dict:
     out["fold_whole_ms"] = time_ms(torch, whole_fold)
     out["queries_ms"] = time_ms(torch, lambda: knn_topk.topk_sqdist(
         xq[None], x[None], k), reps=3, warmup=1)
+    for name, (a, b) in pairwise_shapes(torch, x).items():
+        out[f"pairwise_{name}_ms"] = time_ms(
+            torch, lambda: knn_topk.pairwise_sqdist(a, b))
+        out[f"pairwise_{name}"] = knn_topk.pairwise_sqdist(a, b)
+    H = cfg.steps_per_dispatch
+    for route in ("fused", "split"):
+        prof = profile_replays(torch, res, cfg, route, H)
+        out[f"{route}_graph_device_ms"] = sum(
+            t for t, _ in prof.events.values()) / (prof.n * H)
+        out[f"{route}_graph_events"] = sum(
+            c for _, c in prof.events.values()) / (prof.n * H)
+        out[f"{route}_graph_all_seen"] = kernels_seen(prof)[1]
     out["y"] = res.y.cpu()
     return out
 
@@ -1602,7 +1769,18 @@ def run_parent(torch, parent: Path, spn: int) -> None:
         turns.append((name, r))
         print(f"turn {len(turns)} ({name}): " + ", ".join(
             f"{key} {val:.4f}" if isinstance(val, float) else f"{key} {val}"
-            for key, val in r.items() if key != "y"), flush=True)
+            for key, val in r.items() if not torch.is_tensor(val)),
+            flush=True)
+    for key in ("pairwise_recall", "pairwise_accuracy"):
+        outs = [r[key] for _, r in turns]
+        diff = [int((o != outs[0]).sum()) for o in outs[1:]]
+        print(f"{key.replace('_', ' ')}: the four turns' outputs differ "
+              f"from the first turn's (the parent's) in {diff} entries",
+              flush=True)
+        check(not any(diff), f"{key}: the parent's and the change's "
+              "kernels differ")
+        for _, r in turns:
+            del r[key]
     same = {n: torch.equal(*(r["y"] for m, r in turns if m == n))
             for n in ("parent", "change")}
     print(f"the parent's two fits' layouts bitwise equal: {same['parent']}; "

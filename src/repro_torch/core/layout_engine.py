@@ -7,10 +7,13 @@ samplers, sets the t/T learning rate and applies the batch through
 * the fused route — one edge-step kernel gathers, computes the forces and
   scatters (``kernels/largevis_step.py``) — for ``layout_step`` "auto" or
   "fused" with the hand-derived ``prob_fn="inv_quadratic"``;
-* the split route otherwise: gather with torch indexing, the forces from
-  the ``largevis_grads`` kernel (``inv_quadratic``) or autograd
-  (``core/objective.py``, any other ``prob_fn``), then the ordered
-  scatter (``ops.scatter_add_ordered``).
+* the split route otherwise: the update stream of the batch, then the
+  ordered scatter (``ops.scatter_add_ordered``).  For ``inv_quadratic``
+  the indexed force kernel reads y at the batch's rows and writes the
+  stream in one launch (``ops.largevis_grads_stream``); any other
+  ``prob_fn`` gathers with torch indexing, takes autograd's forces
+  (``core/objective.py``) and builds the stream
+  (``ref.edge_update_stream``).
 
 Both routes add the updates in the canonical per-edge order, so for
 ``inv_quadratic`` they agree bitwise, on the CPU and on the card.
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import objective
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 LAYOUT_STEPS = ("auto", "fused", "split")
 
@@ -46,27 +49,6 @@ def chunk_schedule(steps: int, H: int) -> list:
     """(first step, length) of each dispatch: full chunks of H, then the
     remainder."""
     return [(t0, min(H, steps - t0)) for t0 in range(0, steps, H)]
-
-
-def edge_update_stream(i, j, negs, gi, gj, gneg, lr, n_frozen: int = 0):
-    """The split route's update stream: rows ``idx`` (B*(2+M),) and
-    updates ``-lr * g`` (B*(2+M), s) in the canonical per-edge order
-    ``[i_e, j_e, negs_e,0..M-1] for e = 0..B-1``.
-
-    ``lr`` is a float, a 0-d f32 tensor or a (B,) per-edge vector; a
-    tensor on the device is read there (no host-to-device copy, so the
-    stream can be captured).  Updates to rows below ``n_frozen`` become
-    -0.0, a bitwise no-op when added.
-    """
-    s = gi.shape[1]
-    idx = torch.cat([i[:, None], j[:, None], negs], dim=1).reshape(-1)
-    upd = torch.cat([gi[:, None], gj[:, None], gneg], dim=1).reshape(-1, s)
-    if torch.is_tensor(lr) and lr.dim():  # (B,) per-edge -> per update row
-        lr = lr.float().repeat_interleave(2 + negs.shape[1])[:, None]
-    upd = upd * -lr
-    if n_frozen:
-        upd = upd.masked_fill((idx < n_frozen)[:, None], -0.0)
-    return idx, upd
 
 
 def apply_edge_batch(y, i, j, negs, neg_mask, lr, *,
@@ -88,16 +70,17 @@ def apply_edge_batch(y, i, j, negs, neg_mask, lr, *,
         return ops.largevis_edge_step(y, i, j, negs, neg_mask, lr,
                                       gamma=gamma, a=a, clip=clip,
                                       n_frozen=n_frozen)
-    i, j, negs = i.long(), j.long(), negs.long()
-    yi, yj, yneg = y[i], y[j], y[negs]
     if prob_fn == "inv_quadratic":
-        gi, gj, gneg = ops.largevis_grads(yi, yj, yneg, neg_mask,
-                                          gamma=gamma, a=a, clip=clip)
+        idx, upd = ops.largevis_grads_stream(y, i, j, negs, neg_mask, lr,
+                                             n_frozen, gamma=gamma, a=a,
+                                             clip=clip)
     else:
+        i, j, negs = i.long(), j.long(), negs.long()
         gi, gj, gneg = objective.grads_autodiff(
-            yi, yj, yneg, neg_mask, prob_fn=prob_fn, a=a, gamma=gamma,
+            y[i], y[j], y[negs], neg_mask, prob_fn=prob_fn, a=a, gamma=gamma,
             clip=clip)
-    idx, upd = edge_update_stream(i, j, negs, gi, gj, gneg, lr, n_frozen)
+        idx, upd = ref.edge_update_stream(i, j, negs, gi, gj, gneg, lr,
+                                          n_frozen)
     return ops.scatter_add_ordered(y, idx, upd)
 
 

@@ -79,10 +79,36 @@
 //   Bound: at d = 100 (graph recall) its 2d flops per entry at the
 //   card's f32 rate; at d = 2 (the layout metric) the (M, N) f32 matrix
 //   it writes.
-//   Design: 64x64 output tiles (one linear block index), 16-wide feature
-//   slices in shared memory, 4x4 outputs per thread with fp32 FMAs in
-//   feature order; two warps sum the tile's row norms from the same
-//   slices in ref.sq_norms's order: out = max((|a|^2 + |b|^2) - 2 a.b, 0).
+//   Design: Hopper's SIMT path, no tensor cores and no TF32 (a TF32
+//   product rounds otherwise, and the metrics rank by a stable sort,
+//   where ties decide).  128 x 128 output tiles, one linear block index
+//   with the row tiles varying fastest (the blocks resident at once
+//   share a few b tiles, so b comes from DRAM about once); 256 threads,
+//   each owning 8 x 8 outputs (rows ty + 16i, columns 4tx + 64h + c), so
+//   a thread reads its 8 a-values and 8 b-values of four features as
+//   eight float4s each: 16 products for every shared load.  cp.async
+//   stages 32-wide feature slices of a and b in three stages (two in
+//   flight while one is consumed, one barrier a slice), 16 bytes at a
+//   time when d % 4 == 0 (else 4), zero-filled past the edges, in rows
+//   of 16-byte chunks XOR-swizzled by row / 4, so that the eight rows a
+//   quarter-warp reads at one chunk, and the eight chunks of a row it
+//   writes, hit eight distinct bank groups.  (Feature-major tiles would
+//   also give float4 reads, but a 16-byte copy of a row-major source
+//   lands four features of one row side by side.)  Each output is one
+//   fp32 FMA chain in feature order from 0; every thread also sums one
+//   row norm from the same slices, in ref.sq_norms's order; the epilogue
+//   is max((|a|^2 + |b|^2) - 2 a.b, 0), each operation rounded on its
+//   own, written four columns a store (streaming).  So the outputs do
+//   not depend on the tiling, and equal the plain version's wherever
+//   cuBLAS sums in feature order.
+//   Where the time goes (PERF.md): at d = 100 the products themselves,
+//   at under half the f32 rate; without its shared loads the kernel is
+//   barely faster, and cuBLAS's f32 product of the same shapes alone takes
+//   most of its time.  The writes overlap the products already.
+//   Measured no faster: 8 x 4 warps, one block an SM (with the next
+//   chunk's operands loaded during the current one's products), two
+//   stages, a chunk loop not unrolled, bulk-copy (TMA) stores, a
+//   persistent grid with staggered blocks, norms from a prepass kernel.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -642,68 +668,183 @@ topk_kernel(const TopkArgs p) {
     st_s[idx] = fmaxf(-st_s[idx], 0.0f);
 }
 
-constexpr int PT = 64;   // pairwise output tile
-constexpr int PK = 16;   // feature slice
+// ---- pairwise_sqdist -------------------------------------------------
+constexpr int PT = 128;         // output tile: PT rows of a x PT rows of b
+constexpr int PK = 32;          // feature slice
+constexpr int PST = 3;          // slice stages in flight
+constexpr int PTHREADS = 256;   // 16 x 16; each owns 8 x 8 outputs
+constexpr int PC4 = PK / 4;     // 16-byte chunks of a slice row
 
-__global__ void __launch_bounds__(256)
+constexpr size_t pairwise_smem_bytes() {
+  return (size_t)PST * 2 * PT * PK * 4 + 2 * PT * 4;
+}
+
+// 16-byte chunk c4 (of 8) of row `row` in a slice, XOR-swizzled by row / 4:
+// the eight rows 4t + c (t = 0..7) that a quarter-warp reads at one chunk
+// hit eight distinct bank groups, and so do the eight chunks of one row
+// that a quarter-warp's cp.async writes.
+__device__ inline int pswz(int row, int c4) {
+  return row * PK + ((c4 ^ ((row >> 2) & 7)) << 2);
+}
+
+// VEC: d % 4 == 0 and 16-byte aligned bases, so a slice moves in 16-byte
+// copies; otherwise in 4-byte copies of single features.
+template <bool VEC>
+__global__ void __launch_bounds__(PTHREADS, 2)
 pairwise_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                float* __restrict__ out, int M, int N, int d) {
-  __shared__ float as[PT][PK + 1];
-  __shared__ float bs[PT][PK + 1];
-  __shared__ float an_sh[PT], bn_sh[PT];
+                float* __restrict__ out, int M, int N, int d, int vec_out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* as = reinterpret_cast<float*>(smem_raw);     // [PST][PT][PK]
+  float* bs = as + PST * PT * PK;                      // [PST][PT][PK]
+  float* an_sh = bs + PST * PT * PK;                   // [PT]
+  float* bn_sh = an_sh + PT;                           // [PT]
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int n_tiles = (N + PT - 1) / PT;
-  const int m0 = (blockIdx.x / n_tiles) * PT;
-  const int n0 = (blockIdx.x % n_tiles) * PT;
-  // threads [0, PT) sum |a|^2 of tile row tid, [PT, 2 PT) |b|^2 of tile
-  // column tid - PT, in feature order
-  const float* norm_src = tid < PT ? as[tid] : bs[(tid - PT) & (PT - 1)];
-  float nrm = 0.0f;
-  float acc[4][4] = {};
-  for (int q0 = 0; q0 < d; q0 += PK) {
-    const int dk = min(PK, d - q0);
-    for (int idx = tid; idx < PT * PK; idx += 256) {
-      const int rr = idx / PK, q = idx - rr * PK;
-      as[rr][q] = (m0 + rr < M && q < dk)
-                      ? a[(size_t)(m0 + rr) * d + q0 + q] : 0.0f;
-      bs[rr][q] = (n0 + rr < N && q < dk)
-                      ? b[(size_t)(n0 + rr) * d + q0 + q] : 0.0f;
-    }
-    __syncthreads();
-    if (tid < 2 * PT) {
-      for (int q = 0; q < dk; ++q)
-        nrm = __fadd_rn(nrm, __fmul_rn(norm_src[q], norm_src[q]));
-    }
-    for (int q = 0; q < dk; ++q) {
-      float av[4], bv[4];
+  // row tiles vary fastest: the blocks resident at once share few b tiles
+  const int m_tiles = (M + PT - 1) / PT;
+  const int m0 = (blockIdx.x % m_tiles) * PT;
+  const int n0 = (blockIdx.x / m_tiles) * PT;
+  const int n_slices = (d + PK - 1) / PK;
+  const int m_lim = M - m0, n_lim = N - n0;
+
+  // VEC copies: thread -> chunk cc4 of rows cr0 + R u (u < PT / R); the
+  // swizzle is the same for all of them
+  constexpr int R = PTHREADS / PC4;
+  const int cc4 = tid % PC4, cr0 = tid / PC4;
+  const float* a_thr = a + ((size_t)m0 + cr0) * d + 4 * cc4;
+  const float* b_thr = b + ((size_t)n0 + cr0) * d + 4 * cc4;
+  const int c_dst = pswz(cr0, cc4);
+  int slice_w = 0, stage_w = 0;
+  auto issue_next = [&]() {
+    if (slice_w < n_slices) {
+      const int q0 = slice_w * PK;
+      const int dk = min(PK, d - q0);
+      float* as_s = as + stage_w * PT * PK;
+      float* bs_s = bs + stage_w * PT * PK;
+      if (VEC) {
+        const bool live = 4 * cc4 < dk;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        av[i] = as[ty * 4 + i][q];
-        bv[i] = bs[tx + 16 * i][q];
+        for (int u = 0; u < PT / R; ++u) {
+          const int row = cr0 + R * u;
+          const bool ok_a = live && row < m_lim, ok_b = live && row < n_lim;
+          const size_t off = (size_t)R * u * d + q0;
+          cp_async16(&as_s[c_dst + R * u * PK], ok_a ? a_thr + off : a,
+                     ok_a);
+          cp_async16(&bs_s[c_dst + R * u * PK], ok_b ? b_thr + off : b,
+                     ok_b);
+        }
+      } else {
+        for (int idx = tid; idx < PT * dk; idx += PTHREADS) {
+          const int row = idx / dk, q = idx - row * dk;
+          const int o = pswz(row, q >> 2) + (q & 3);
+          const bool ok_a = row < m_lim, ok_b = row < n_lim;
+          cp_async4(&as_s[o], ok_a ? a + ((size_t)m0 + row) * d + q0 + q : a,
+                    ok_a);
+          cp_async4(&bs_s[o], ok_b ? b + ((size_t)n0 + row) * d + q0 + q : b,
+                    ok_b);
+        }
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      ++slice_w;
     }
-    __syncthreads();
+    cp_async_commit();                 // empty groups keep the count even
+    stage_w = stage_w + 1 == PST ? 0 : stage_w + 1;
+  };
+#pragma unroll
+  for (int t = 0; t < PST - 1; ++t) issue_next();
+
+  // thread -> rows ty + 16 i (i < 8) and columns 4 tx + 64 h + c
+  // (h < 2, c < 4) of the tile; every thread also sums one row norm
+  // (threads 0..127 of a's rows, 128..255 of b's), its rows spread so
+  // that a quarter-warp reads eight bank groups
+  const int tx = tid & 15, ty = tid >> 4;
+  const int nrow = ((tid & 7) << 2) | ((tid >> 3) & 3) | (tid & 0x60);
+  const bool norm_of_b = tid >= PT;
+  float nrm = 0.0f;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
+  int stage_r = 0;
+  for (int sl = 0; sl < n_slices; ++sl) {
+    cp_async_wait<PST - 2>();          // this slice has landed
+    __syncthreads();                   // for every thread; the oldest stage
+    issue_next();                      // is free again: refill it
+    const int dk = min(PK, d - sl * PK);
+    const float* as_s = as + stage_r * PT * PK;
+    const float* bs_s = bs + stage_r * PT * PK;
+    {
+      const float* src = norm_of_b ? bs_s : as_s;
+#pragma unroll
+      for (int c4 = 0; c4 < PC4; ++c4) {
+        if (4 * c4 < dk) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(&src[pswz(nrow, c4)]);
+          const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int qq = 0; qq < 4; ++qq)
+            if (VEC || 4 * c4 + qq < dk)
+              nrm = __fadd_rn(nrm, __fmul_rn(vv[qq], vv[qq]));
+        }
+      }
+    }
+#pragma unroll
+    for (int c4 = 0; c4 < PC4; ++c4) {
+      if (4 * c4 < dk) {
+        float4 av[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          av[i] = *reinterpret_cast<const float4*>(
+              &as_s[pswz(ty + 16 * i, c4)]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 bv = *reinterpret_cast<const float4*>(
+              &bs_s[pswz(4 * tx + 64 * (j >> 2) + (j & 3), c4)]);
+          const float bq[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+          for (int qq = 0; qq < 4; ++qq) {
+            if (VEC || 4 * c4 + qq < dk) {
+#pragma unroll
+              for (int i = 0; i < 8; ++i) {
+                const float aq = qq == 0 ? av[i].x : qq == 1 ? av[i].y
+                               : qq == 2 ? av[i].z : av[i].w;
+                acc[i][j] = fmaf(aq, bq[qq], acc[i][j]);
+              }
+            }
+          }
+        }
+      }
+    }
+    stage_r = stage_r + 1 == PST ? 0 : stage_r + 1;
   }
-  if (tid < PT) an_sh[tid] = nrm;
-  else if (tid < 2 * PT) bn_sh[tid - PT] = nrm;
+  cp_async_wait<0>();
+  (norm_of_b ? bn_sh : an_sh)[nrow] = nrm;
   __syncthreads();
+
+  // epilogue: out = max((|a|^2 + |b|^2) - 2 a.b, 0), four columns a store
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int r = ty + 16 * i, row = m0 + r;
     if (row >= M) continue;
-    const float na = an_sh[ty * 4 + i];
+    const float na = an_sh[r];
+    float* orow = out + (size_t)row * N;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx + 16 * j;
-      if (col < N)
-        out[(size_t)row * N + col] = fmaxf(
-            __fsub_rn(__fadd_rn(na, bn_sh[tx + 16 * j]), 2.0f * acc[i][j]),
-            0.0f);
+    for (int h = 0; h < 2; ++h) {
+      const int c = 4 * tx + 64 * h, col = n0 + c;
+      float v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        v[q] = fmaxf(__fsub_rn(__fadd_rn(na, bn_sh[c + q]),
+                               2.0f * acc[i][4 * h + q]),
+                     0.0f);
+      if (vec_out && col + 3 < N) {
+        __stcs(reinterpret_cast<float4*>(orow + col),
+               make_float4(v[0], v[1], v[2], v[3]));
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (col + q < N) __stcs(orow + col + q, v[q]);
+      }
     }
   }
 }
@@ -743,7 +884,15 @@ extern "C" int pairwise_sqdist_launch(const float* a, const float* b,
   const long long blocks =
       (long long)((M + PT - 1) / PT) * ((N + PT - 1) / PT);
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  pairwise_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
-      a, b, out, M, N, d);
+  const bool vec = d % 4 == 0 && (uintptr_t)a % 16 == 0 &&
+                   (uintptr_t)b % 16 == 0;
+  const int vec_out = N % 4 == 0 && (uintptr_t)out % 16 == 0;
+  auto kernel = vec ? pairwise_kernel<true> : pairwise_kernel<false>;
+  const size_t smem = pairwise_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)blocks, PTHREADS, smem, (cudaStream_t)stream>>>(
+      a, b, out, M, N, d, vec_out);
   return cudaGetLastError();
 }

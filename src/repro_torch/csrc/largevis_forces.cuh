@@ -1,6 +1,7 @@
 // The Eqn-6 forces of one sampled edge, shared by the fused edge step
-// (largevis_step.cu) and the split path's force kernel (largevis_grad.cu),
-// so the two cannot drift apart.
+// (largevis_step.cu) and the split path's force kernels (largevis_grad.cu:
+// the gathered form and the indexed update stream), so the three cannot
+// drift apart.
 //
 // The op order is the JAX oracle's (repro/kernels/ref.py::
 // largevis_grads_ref), every multiply, add and divide rounded on its own
@@ -28,48 +29,79 @@ __device__ inline float sqnorm(const float* v) {
   return acc;
 }
 
-// Forces of one edge with M negatives.  neg_row(m) returns a pointer to
-// the S coordinates of negative m; on_neg(m, g) receives that negative's
-// clipped force g[S] as soon as it is known.  c2a = 2a, c2g = -2 gamma.
-// Writes the clipped forces on yi and yj to gi[S] and gj[S].
+// The pull of the edge (yi, yj): gpos[S], unclipped.  c2a = 2a.
+template <int S>
+__device__ inline void pull_force(const float* yi, const float* yj,
+                                  float c2a, float a, float* gpos) {
+  float dij[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) dij[k] = __fsub_rn(yi[k], yj[k]);
+  const float d2 = sqnorm<S>(dij);
+  const float gp = __fdiv_rn(c2a, __fadd_rn(1.0f, __fmul_rn(a, d2)));
+#pragma unroll
+  for (int k = 0; k < S; ++k) gpos[k] = __fmul_rn(gp, dij[k]);
+}
+
+// The push g[S] of one negative yn on yi, masked by mk, unclipped.
+// c2g = -2 gamma.
+template <int S>
+__device__ inline void push_force(const float* yi, const float* yn,
+                                  float mk, float c2g, float a, float eps,
+                                  float* g) {
+  float din[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) din[k] = __fsub_rn(yi[k], yn[k]);
+  const float dn2 = sqnorm<S>(din);
+  const float den = __fmul_rn(__fadd_rn(eps, dn2),
+                              __fadd_rn(1.0f, __fmul_rn(a, dn2)));
+#pragma unroll
+  for (int k = 0; k < S; ++k)
+    g[k] = __fmul_rn(__fdiv_rn(__fmul_rn(c2g, din[k]), den), mk);
+}
+
+// push += g_m, left to right from m = 0 (push starts at g_0, not at 0 + g_0).
+template <int S>
+__device__ inline void add_push(float* push, const float* g, int m) {
+#pragma unroll
+  for (int k = 0; k < S; ++k)
+    push[k] = m == 0 ? g[k] : __fadd_rn(push[k], g[k]);
+}
+
+// The clipped forces on yi and yj from the pull and the summed pushes
+// (push[] = 0 when M = 0).
+template <int S>
+__device__ inline void endpoint_forces(const float* gpos, const float* push,
+                                       float clip, float* gi, float* gj) {
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    gi[k] = clipf(__fadd_rn(gpos[k], push[k]), clip);
+    gj[k] = clipf(-gpos[k], clip);
+  }
+}
+
+// Forces of one edge with M negatives, one thread.  neg_row(m) returns a
+// pointer to the S coordinates of negative m; on_neg(m, g) receives that
+// negative's clipped force g[S] as soon as it is known.  Writes the
+// clipped forces on yi and yj to gi[S] and gj[S].
 template <int S, typename NegRow, typename OnNeg>
 __device__ inline void edge_forces(const float* yi, const float* yj, int M,
                                    NegRow neg_row, const float* mask,
                                    float c2a, float a, float c2g, float eps,
                                    float clip, float* gi, float* gj,
                                    OnNeg on_neg) {
-  float dij[S], gpos[S], push[S];
+  float gpos[S], push[S];
+  pull_force<S>(yi, yj, c2a, a, gpos);
 #pragma unroll
-  for (int k = 0; k < S; ++k) dij[k] = __fsub_rn(yi[k], yj[k]);
-  const float d2 = sqnorm<S>(dij);
-  const float gp = __fdiv_rn(c2a, __fadd_rn(1.0f, __fmul_rn(a, d2)));
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    gpos[k] = __fmul_rn(gp, dij[k]);
-    push[k] = 0.0f;
-  }
+  for (int k = 0; k < S; ++k) push[k] = 0.0f;
   for (int m = 0; m < M; ++m) {
-    const float* yn = neg_row(m);
-    const float mk = mask[m];
-    float din[S], gneg[S];
+    float g[S], gneg[S];
+    push_force<S>(yi, neg_row(m), mask[m], c2g, a, eps, g);
+    add_push<S>(push, g, m);
 #pragma unroll
-    for (int k = 0; k < S; ++k) din[k] = __fsub_rn(yi[k], yn[k]);
-    const float dn2 = sqnorm<S>(din);
-    const float den = __fmul_rn(__fadd_rn(eps, dn2),
-                                __fadd_rn(1.0f, __fmul_rn(a, dn2)));
-#pragma unroll
-    for (int k = 0; k < S; ++k) {
-      const float g = __fmul_rn(__fdiv_rn(__fmul_rn(c2g, din[k]), den), mk);
-      push[k] = m == 0 ? g : __fadd_rn(push[k], g);
-      gneg[k] = clipf(-g, clip);
-    }
+    for (int k = 0; k < S; ++k) gneg[k] = clipf(-g[k], clip);
     on_neg(m, gneg);
   }
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    gi[k] = clipf(__fadd_rn(gpos[k], push[k]), clip);
-    gj[k] = clipf(-gpos[k], clip);
-  }
+  endpoint_forces<S>(gpos, push, clip, gi, gj);
 }
 
 }  // namespace largevis

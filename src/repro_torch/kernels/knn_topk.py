@@ -30,9 +30,10 @@ from repro_torch.kernels import _build, ref
 MAX_K = 256
 # Blocks of one launch: a linear grid index, at most 2^31 - 1.  A block
 # of topk_sqdist owns 32 rows of one group, one of pairwise_sqdist a
-# 64 x 64 output tile.
+# 128 x 128 output tile.
 MAX_BLOCKS = 2**31 - 1
 BM = 32
+PT = 128
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
@@ -140,7 +141,7 @@ def pairwise_sqdist(a, b):
     N = b.shape[0]
     if b.shape[1] != d:
         raise ValueError(f"pairwise_sqdist: widths {d} and {b.shape[1]}")
-    _check_blocks("pairwise_sqdist", -(-M // 64) * -(-N // 64))
+    _check_blocks("pairwise_sqdist", -(-M // PT) * -(-N // PT))
     a = a.float().contiguous()
     b = b.float().contiguous()
     out = torch.empty((M, N), dtype=torch.float32, device=dev)

@@ -61,6 +61,19 @@ def largevis_grads(yi, yj, yneg, neg_mask, *, gamma=7.0, a=1.0, clip=5.0,
                                   eps=eps, neg_mask=neg_mask)
 
 
+def largevis_grads_stream(y, i, j, negs, neg_mask, lr, n_frozen: int = 0,
+                          *, gamma=7.0, a=1.0, clip=5.0, eps=0.1):
+    """The split route's update stream ``(idx, upd)`` of an edge batch,
+    forces from y read at the batch's rows; see
+    ``ref.largevis_grads_stream_ref``."""
+    kw = dict(gamma=gamma, a=a, clip=clip, eps=eps)
+    if _route(y):
+        return largevis_grad.largevis_grads_stream(y, i, j, negs, neg_mask,
+                                                   lr, n_frozen, **kw)
+    return ref.largevis_grads_stream_ref(y, i, j, negs, neg_mask, lr,
+                                         n_frozen, **kw)
+
+
 def scatter_add_ordered(y, idx, upd):
     """``y[idx] += upd`` in place, duplicates in stream order; returns y."""
     if _route(y):

@@ -204,6 +204,42 @@ def largevis_grads_ref(yi, yj, yneg, *, gamma: float = 7.0, a: float = 1.0,
     return gi, gj, gneg
 
 
+def edge_update_stream(i, j, negs, gi, gj, gneg, lr, n_frozen: int = 0):
+    """The split route's update stream from the forces of an edge batch:
+    rows ``idx`` (B*(2+M),) and updates ``-lr * g`` (B*(2+M), s) in the
+    canonical per-edge order ``[i_e, j_e, negs_e,0..M-1] for e =
+    0..B-1``.
+
+    ``lr`` is a float, a 0-d f32 tensor or a (B,) per-edge vector; a
+    tensor on the device is read there (no host-to-device copy, so the
+    stream can be captured).  Updates to rows below ``n_frozen`` become
+    -0.0, a bitwise no-op when added.
+    """
+    s = gi.shape[1]
+    idx = torch.cat([i[:, None], j[:, None], negs], dim=1).reshape(-1)
+    upd = torch.cat([gi[:, None], gj[:, None], gneg], dim=1).reshape(-1, s)
+    if torch.is_tensor(lr) and lr.dim():  # (B,) per-edge -> per update row
+        lr = lr.float().repeat_interleave(2 + negs.shape[1])[:, None]
+    upd = upd * -lr
+    if n_frozen:
+        upd = upd.masked_fill((idx < n_frozen)[:, None], -0.0)
+    return idx, upd
+
+
+def largevis_grads_stream_ref(y, i, j, negs, neg_mask, lr, n_frozen: int = 0,
+                              *, gamma: float = 7.0, a: float = 1.0,
+                              clip: float = 5.0, eps: float = 0.1):
+    """The indexed force kernel's plain version: gather y at the edge
+    batch, the forces of :func:`largevis_grads_ref`, then
+    :func:`edge_update_stream`.  Returns ``(idx (B*(2+M),) int32, upd
+    (B*(2+M), s) f32)``."""
+    il, jl, nl = i.long(), j.long(), negs.long()
+    gi, gj, gneg = largevis_grads_ref(y[il], y[jl], y[nl], gamma=gamma, a=a,
+                                      clip=clip, eps=eps, neg_mask=neg_mask)
+    idx, upd = edge_update_stream(il, jl, nl, gi, gj, gneg, lr, n_frozen)
+    return idx.to(torch.int32), upd
+
+
 # ---------------------------------------------------------------------------
 # fused edge step: gather -> forces -> scatter-accumulate
 # ---------------------------------------------------------------------------

@@ -274,7 +274,11 @@ def test_edge_step_frozen_rows_and_per_edge_lr():
 # pairwise_sqdist and routing
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("m,n,d", [(37, 91, 5), (120, 300, 100), (50, 64, 2)])
+@pytest.mark.parametrize("m,n,d", [(37, 91, 5), (120, 300, 100), (50, 64, 2),
+                                   # off the CUDA kernel's 128 x 128 tiles
+                                   (129, 257, 1), (130, 131, 2),
+                                   (255, 383, 3), (131, 260, 17),
+                                   (200, 129, 100), (1, 129, 17)])
 def test_pairwise_matches_jax_oracle(m, n, d):
     a, b = _pair(m, n, d, seed=m)
     want = jref.pairwise_sqdist_ref(jnp.asarray(a), jnp.asarray(b))
