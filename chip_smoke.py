@@ -60,8 +60,33 @@ in one process (``run_parent``), and requires the two packages'
 8. ``LargeVis.transform`` of 10,000 held-out points of the fit's
    clusters, by the fused and by the split route (and the queries'
    top-k, (1, 10000, 100000), beside ``torch.cdist`` + ``topk`` and its
-   bound), and ``LargeVis.insert`` of 2,000 more, each with its launch
-   counts read;
+   bound); then the projection server (``run_projection_server``),
+   ``ProjectionEngine(slots=1024)`` on the fit with its config (K = 150,
+   M = 5, 48 steps), its step one CUDA graph replay after one eager
+   step: its two kernels at its shapes (``topk_sqdist`` of an admit
+   block, (1, 1024, 100) x (1, 100000, 100), exact, timed beside
+   ``torch.cdist`` + ``topk`` and its bound; ``fused_edge_step`` of a
+   lockstep step, B = 1024, per-slot lr, n_frozen = N, every other slot
+   idle, bitwise its plain version and the split route's kernels, idle
+   rows and corpus unchanged); a warm-up drain of 2,048 queries, then the
+   timed drain of the same 10,000 queries, submitted at once, with the
+   launch counts reset just before and read just after (line
+   ``projection server:``: queries/s, p50 and p99 latency, engine steps
+   and graph replays, host ms an engine step, 5-NN accuracy beside
+   ``transform``'s, launches: ``topk_sqdist`` one an admit block,
+   ``fused_edge_step`` one a step); 30 profiled steps of a full engine
+   (device ms and events a step, busy share); the prefill of an admit
+   block (ms by CUDA events and profiled), and the drain's busy share
+   from its parts; then, each on a drain of 2,048 queries and each
+   failing the run, two engines from one seed bitwise equal, the graph
+   engine bitwise the engine that runs every step eagerly, the split
+   route bitwise the fused, NaN and wrong-dimension queries quarantined
+   with the healthy ones bitwise a clean run, and two step faults retried
+   bitwise transparently (line ``server checks:``); every drain keeps
+   the corpus rows bitwise and serves all its queries with finite
+   coordinates, and the served accuracy is within 0.05 of
+   ``transform``'s; then ``LargeVis.insert`` of 2,000 more points, each
+   phase with its launch counts read;
 9. runs the 2000-point quality fixture (accuracy >= 0.95), by the fused
    and by the split route: the two layouts bitwise equal;
 10. the LM serving path: ``flash_attention`` against its plain version at
@@ -102,6 +127,7 @@ PAPER_SAMPLES_PER_NODE = 10_000
 SPLIT_SAMPLES_PER_NODE = 2_000  # the split layout's cut (printed)
 N_POINTS, DIM, CLUSTERS = 100_000, 100, 10   # the full-width fit's data
 N_TRANSFORM, N_INSERT = 10_000, 2_000        # held-out points
+SERVE_PROJ_SLOTS, N_CHECK = 1024, 2_048     # the projection server
 LM_ARCH = "qwen1.5-0.5b"
 FLASH_SHAPE = (1, 4096, 16, 64)   # (B, S, H, hd) of a long prompt's prefill
 # kernel vs plain version: f32, the same f32 softmax summed in another
@@ -549,14 +575,7 @@ def check_edge_step(torch, n_nodes, cfg):
     yp = y.clone()
     plain = time_ms(torch, lambda: ref.fused_edge_step_ref(
         yp, i, j, negs, mask, 0.37, **kw), reps=50)
-    idx = torch.cat([i[:, None], j[:, None], negs], 1).reshape(-1).long()
-    upd = torch.randn((idx.numel(), s), generator=gen, device=dev)
-    yl = y.clone()
-    lib = time_ms(torch, lambda: yl.index_add_(0, idx, upd), reps=50)
-    rows = int(torch.unique(idx).numel())
-    n_bytes = 4 * (2 * rows * s + 2 * B + 2 * B * Mn)
-    n_ops = B * ((4 * s + 2) + Mn * (7 * s + 3) + 2 * (2 + Mn) * s)
-    bms, by = bound_ms(n_bytes, n_ops)
+    lib, bms, by = edge_step_yardsticks(torch, gen, y, i, j, negs)
     print(f"fused_edge_step: (N={n_nodes}, s={s}, B={B}, M={Mn}) bitwise "
           f"equal to the plain version, also at N=64, on a hub batch (one "
           f"row takes about 2,000 updates), with the lr a 0-d tensor on the "
@@ -573,6 +592,23 @@ def check_edge_step(torch, n_nodes, cfg):
                 replaces="src/repro/kernels/largevis_step.py:268",
                 max_abs_err=max_err, ms=ms, plain_ms=plain, bound_ms=bms,
                 bound_by=by, library_ms=lib)
+
+
+def edge_step_yardsticks(torch, gen, y, i, j, negs):
+    """An edge step's library time, ``index_add_`` of as many random
+    updates into the batch's rows (the scatter alone; no call computes
+    the step), and its bound: the rows it touches read and written once,
+    the batch read; the forces' and the updates' operations."""
+    s = y.shape[1]
+    B, Mn = negs.shape
+    idx = torch.cat([i[:, None], j[:, None], negs], 1).reshape(-1).long()
+    upd = torch.randn((idx.numel(), s), generator=gen, device=y.device)
+    yl = y.clone()
+    lib = time_ms(torch, lambda: yl.index_add_(0, idx, upd), reps=50)
+    rows = int(torch.unique(idx).numel())
+    n_bytes = 4 * (2 * rows * s + 2 * B + 2 * B * Mn)
+    n_ops = B * ((4 * s + 2) + Mn * (7 * s + 3) + 2 * (2 + Mn) * s)
+    return (lib, *bound_ms(n_bytes, n_ops))
 
 
 def pairwise_bound(M: int, N: int, d: int) -> tuple[float, str]:
@@ -1037,7 +1073,8 @@ def query_accuracy(torch, y_corpus, labels, y_query, q_labels, k=5,
 
 def run_transform(torch, res, labels, acc_fit, cfg):
     """``LargeVis.transform`` of N_TRANSFORM held-out points by the fused
-    (default) and the split route; the carrier never changes."""
+    (default) and the split route; the carrier never changes.  Returns
+    the fused route's 5-NN accuracy of the queries."""
     from repro_torch import LargeVis, RoutingConfig
     from repro_torch.kernels import knn_topk, ops, ref
 
@@ -1047,7 +1084,7 @@ def run_transform(torch, res, labels, acc_fit, cfg):
     lq = torch.from_numpy(lq_np).to(dev)
     lab = torch.from_numpy(labels).to(dev)
     y_before = res.y.clone()
-    out = {}
+    out, accs = {}, {}
     for route in ("auto", "split"):
         rcfg = dataclasses.replace(cfg, routing=RoutingConfig(
             layout_step=route))
@@ -1074,7 +1111,7 @@ def run_transform(torch, res, labels, acc_fit, cfg):
         step = "largevis_grads" if route == "split" else "fused_edge_step"
         check(counts[step] == cfg.transform_steps,
               f"transform ({route}) launched {step} {counts[step]} times")
-        out[route] = yq
+        out[route], accs[route] = yq, acc
     check(torch.equal(out["auto"], out["split"]),
           "the fused and split transforms differ")
 
@@ -1092,6 +1129,7 @@ def run_transform(torch, res, labels, acc_fit, cfg):
           f"(1, {N_TRANSFORM}, {N_POINTS}): kernel {ms:.3f} ms, "
           f"torch.cdist+topk {lib:.3f} ms, bound {bms:.4f} ms ({by}); the "
           f"two transforms bitwise equal", flush=True)
+    return accs["auto"]
 
 
 def time_queries(torch, xq, x, k: int):
@@ -1109,6 +1147,295 @@ def time_queries(torch, xq, x, k: int):
     n_ops = 2 * Q * N * d + 2 * (Q + N) * d
     bms, by = bound_ms(n_bytes, n_ops)
     return ms, lib, bms, by
+
+
+# ---------------------------------------------------------------------------
+# the projection server
+# ---------------------------------------------------------------------------
+
+def _engine_drain(res, xq, *, seed: int = 7, **kw):
+    """A fresh ``ProjectionEngine`` of SERVE_PROJ_SLOTS slots on the fit,
+    every query of xq (numpy) submitted, drained.  Returns (engine,
+    requests, steps)."""
+    from repro_torch.launch.serve_projection import (ProjectionEngine,
+                                                     ProjectRequest)
+
+    eng = ProjectionEngine(res, slots=SERVE_PROJ_SLOTS, seed=seed, **kw)
+    reqs = [ProjectRequest(r, xq[r]) for r in range(xq.shape[0])]
+    for r in reqs:
+        check(eng.submit(r), f"request {r.rid} refused")
+    return eng, reqs, eng.run()
+
+
+def _served(torch, res, eng, reqs, what: str):
+    """The requests' coordinates (Q, s) numpy, after checking that every
+    one completed with finite coordinates and that the engine's corpus
+    rows are still bitwise the fit's."""
+    import numpy as np
+
+    check(all(r.done and r.error is None and r.y is not None for r in reqs),
+          f"{what}: {sum(r.error is not None for r in reqs)} request(s) "
+          f"failed, {sum(not r.done for r in reqs)} not done")
+    y = np.stack([r.y for r in reqs])
+    check(y.shape == (len(reqs), res.y.shape[1])
+          and bool(np.isfinite(y).all()), f"{what}: non-finite results")
+    check(torch.equal(eng.y_full[:res.y.shape[0]], res.y),
+          f"{what}: the corpus rows moved")
+    return y
+
+
+def check_engine_kernels(torch, res, cfg, xb):
+    """The two kernels of the engine at its shapes: ``topk_sqdist`` of one
+    admit block, (1, slots, d) x (1, N, d), k = K, ids and distances
+    exactly the plain version's; ``fused_edge_step`` of one lockstep step,
+    y (N + slots, 2), B = slots, per-slot lr from the slot lr table,
+    n_frozen = N, every other slot idle (its positive looped onto itself,
+    its negatives masked), bitwise the plain version on a CPU copy, the
+    idle rows and the corpus keeping their bits, and the split route's
+    two kernels on the same batch bitwise equal to it.  Returns the
+    admit block's top-k time (ms)."""
+    from repro_torch.kernels import knn_topk, largevis_grad, largevis_step, \
+        ref
+    from repro_torch.launch.serve_projection import slot_lr, slot_lr_table
+
+    dev = res.y.device
+    N, S, Mn = res.y.shape[0], xb.shape[0], cfg.n_negatives
+    k = min(cfg.n_neighbors, N)
+    a = xb[None]
+    exact_topk(torch, knn_topk.topk_sqdist(a, res.x[None], k),
+               ref.topk_sqdist_ref(a, res.x[None], k),
+               "topk_sqdist (an admit block)")
+    topk_ms, topk_lib, topk_bms, topk_by = time_queries(torch, xb, res.x, k)
+    topk_plain = time_ms(torch, lambda: ref.topk_sqdist_ref(a, res.x[None],
+                                                            k),
+                         reps=3, warmup=1)
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    i32 = dict(dtype=torch.int32, device=dev)
+    y = torch.cat([res.y, torch.randn((S, res.y.shape[1]), generator=gen,
+                                      device=dev) * 10.0])
+    i = N + torch.arange(S, **i32)
+    idle = torch.arange(S, device=dev) % 2 == 1
+    j = torch.where(idle, i, torch.randint(0, N, (S,), generator=gen, **i32))
+    negs = torch.randint(0, N, (S, Mn), generator=gen, **i32)
+    mask = ((negs != j[:, None]) & ~idle[:, None]).float()
+    ages = torch.randint(0, cfg.transform_steps, (S,), generator=gen, **i32)
+    lr = slot_lr(slot_lr_table(cfg.transform_rho0 or cfg.rho0,
+                               cfg.transform_steps, dev), ages)
+    kw = dict(gamma=cfg.gamma, a=cfg.prob_a, clip=cfg.grad_clip, n_frozen=N)
+    want = ref.fused_edge_step_ref(y.cpu(), i.cpu(), j.cpu(), negs.cpu(),
+                                   mask.cpu(), lr.cpu(), **kw)
+    got = largevis_step.fused_edge_step(y.clone(), i, j, negs, mask, lr,
+                                        **kw)
+    err = float((got.cpu() - want).abs().max())
+    check(torch.equal(got.cpu(), want), "fused_edge_step (an engine step): "
+          f"not bitwise the plain version (max err {err})")
+    rows = N + torch.nonzero(idle).flatten()
+    check(torch.equal(got[rows], y[rows]) and torch.equal(got[:N], res.y),
+          "fused_edge_step (an engine step): an idle slot or the corpus "
+          "moved")
+    idx, upd = largevis_grad.largevis_grads_stream(y, i, j, negs, mask, lr,
+                                                   N, gamma=cfg.gamma,
+                                                   a=cfg.prob_a,
+                                                   clip=cfg.grad_clip)
+    split = largevis_step.scatter_add_ordered(y.clone(), idx, upd)
+    check(torch.equal(split, got), "the split route's kernels differ from "
+          "fused_edge_step on an engine step")
+    yk = y.clone()
+    ms = time_ms(torch, lambda: largevis_step.fused_edge_step(
+        yk, i, j, negs, mask, lr, **kw), reps=50)
+    yp = y.clone()
+    plain = time_ms(torch, lambda: ref.fused_edge_step_ref(
+        yp, i, j, negs, mask, lr, **kw), reps=20)
+    lib, bms, by = edge_step_yardsticks(torch, gen, y, i, j, negs)
+    print(f"engine kernels: topk_sqdist of an admit block (1, {S}, {DIM}) x "
+          f"(1, {N}, {DIM}), k={k}: ids and distances exactly the plain "
+          f"version's; kernel {topk_ms:.3f} ms, plain {topk_plain:.3f} ms, "
+          f"torch.cdist+topk {topk_lib:.3f} ms, bound {topk_bms:.4f} ms "
+          f"({topk_by}); "
+          f"fused_edge_step of a lockstep step (y ({N + S}, 2), B={S}, "
+          f"M={Mn}, per-slot lr, n_frozen={N}, every other slot idle) "
+          f"bitwise the plain version, idle rows and corpus unchanged, the "
+          f"split route's kernels bitwise equal; kernel {ms:.4f} ms a call "
+          f"by CUDA events, plain {plain:.4f} ms, index_add_ {lib:.4f} ms, "
+          f"bound {bms:.5f} ms ({by})", flush=True)
+    return topk_ms
+
+
+def run_projection_server(torch, res, labels, acc_tr, cfg):
+    """The projection server on the fit: ``ProjectionEngine(res,
+    slots=1024)`` with the fit's config, its step one CUDA graph replay
+    after one eager step.  The engine's kernels at its shapes; a warm-up
+    drain of N_CHECK queries (the eager step and the capture), then the
+    timed drain of all N_TRANSFORM held-out queries (submitted at once)
+    with the launch counts reset just before and read just after; 30
+    profiled steps of a full engine; the prefill of an admit block; then
+    the checks, each on a drain of the first N_CHECK queries: two engines
+    from one seed, the graph against every step eager, the split route
+    against the fused, poisoned and wrong-dimension queries quarantined,
+    and a retried step fault, each bitwise the first drain."""
+    import numpy as np
+
+    from repro_torch import RoutingConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_projection import (ProjectionEngine,
+                                                     ProjectRequest,
+                                                     _prefill_block)
+    from repro_torch.runtime.fault_tolerance import FaultInjector
+
+    dev = res.y.device
+    S, steps = SERVE_PROJ_SLOTS, cfg.transform_steps
+    k = min(cfg.n_neighbors, N_POINTS)
+    xq_np, lq_np = held_out(N_TRANSFORM, seed=1)
+    xb = torch.from_numpy(xq_np[:S]).to(dev)
+    topk_ms = check_engine_kernels(torch, res, cfg, xb)
+
+    eng = ProjectionEngine(res, slots=S, cfg=cfg, seed=5)
+    warm = [ProjectRequest(r, xq_np[r]) for r in range(N_CHECK)]
+    for r in warm:
+        eng.submit(r)
+    warm_steps = eng.run()
+    _served(torch, res, eng, warm, "the warm-up drain")
+    check(eng.graph_replays == warm_steps - 1, f"the warm-up drain replayed "
+          f"{eng.graph_replays} graphs in {warm_steps} steps")
+    reqs = [ProjectRequest(r, xq_np[r]) for r in range(N_TRANSFORM)]
+    replays0 = eng.graph_replays
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    n_steps = eng.run()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    replays = eng.graph_replays - replays0
+    y_served = _served(torch, res, eng, reqs, "the timed drain")
+    blocks = -(-N_TRANSFORM // S)
+    lat = np.array([r.latency for r in reqs]) * 1e3
+    p50, p99 = np.percentile(lat, [50, 99])
+    lab = torch.from_numpy(labels).to(dev)
+    acc = query_accuracy(torch, res.y, lab, torch.from_numpy(y_served).to(
+        dev), torch.from_numpy(lq_np).to(dev))
+    print(f"projection server: ProjectionEngine(slots={S}) over N={N_POINTS} "
+          f"d={DIM}, K={k}, M={cfg.n_negatives}, transform_steps={steps} "
+          f"({cfg.routing.layout_step} route), {N_TRANSFORM} queries "
+          f"submitted at once: {wall:.4f} s, {N_TRANSFORM / wall:.1f} "
+          f"queries/s, latency p50 {p50:.3f} ms, p99 {p99:.3f} ms; "
+          f"{n_steps} engine steps ({replays} CUDA graph replays), {blocks} "
+          f"admit blocks; host {wall / n_steps * 1e3:.4f} ms an engine step "
+          f"(wall / steps); 5-NN accuracy {acc:.4f} (transform "
+          f"{acc_tr:.4f}); launches {counts}", flush=True)
+    check(abs(acc - acc_tr) <= 0.05, f"served accuracy {acc} is not within "
+          f"0.05 of transform's {acc_tr}")
+    check(torch.equal(res.y, eng.y_full[:N_POINTS]), "the corpus moved")
+    check(n_steps == blocks * steps and replays == n_steps,
+          f"{n_steps} engine steps ({replays} replays) for {blocks} admit "
+          f"blocks of {steps} steps")
+    for name, want in (("topk_sqdist", blocks), ("fused_edge_step", n_steps)):
+        check(counts[name] == want > 0, f"the timed drain launched {name} "
+              f"{counts[name]} times, not {want}")
+
+    for r in range(S):
+        eng.submit(ProjectRequest(r, xq_np[r]))
+    prof = device_profile(torch, eng.step, n=30)
+    # the ages' host mirror: a step that neither admits nor retires never
+    # waits for the device
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            eng.step()
+    except RuntimeError as e:
+        fail(f"an engine step without admit or retire synchronised with "
+             f"the card: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng.run()
+    step_dev = sum(t for t, _ in prof.events.values()) / prof.n
+    print(f"  profiled engine steps (30, each a replay, all {S} slots "
+          f"active, no admit or retire): {busy_line(prof)}; device events a "
+          f"step {step_launches(prof)}; 5 more steps under "
+          f"torch.cuda.set_sync_debug_mode('error'): no synchronisation",
+          flush=True)
+
+    def prefill():
+        return _prefill_block(xb, res.x, res.y, k=k,
+                              perplexity=float(min(cfg.perplexity, k)),
+                              iters=cfg.perplexity_iters)
+    pre_ms = time_ms(torch, prefill, reps=10)
+    pprof = device_profile(torch, prefill, n=10)
+    pre_dev = sum(t for t, _ in pprof.events.values()) / pprof.n
+    busy = (n_steps * step_dev + blocks * pre_dev) / (wall * 1e3)
+    print(f"  prefill of an admit block ({S} rows): {pre_ms:.3f} ms by CUDA "
+          f"events, profiled {busy_line(pprof)}; topk_sqdist "
+          f"{topk_ms:.3f} ms of it; the timed drain's busy share "
+          f"from its parts: ({n_steps} steps x {step_dev:.5f} ms + {blocks} "
+          f"blocks x {pre_dev:.4f} ms of device time) / {wall:.4f} s = "
+          f"{busy:.3f}", flush=True)
+
+    xc = xq_np[:N_CHECK]
+    base_eng, base_reqs, base_steps = _engine_drain(res, xc, cfg=cfg)
+    base = _served(torch, res, base_eng, base_reqs, "the checks' drain")
+    done = ["corpus bitwise frozen, every drain"]
+    again_eng, again, _ = _engine_drain(res, xc, cfg=cfg)
+    check(np.array_equal(_served(torch, res, again_eng, again,
+                                 "a second engine"), base),
+          "two engines from one seed differ")
+    done.append("two engines from one seed bitwise equal")
+    eager_eng, eager, _ = _engine_drain(res, xc, cfg=cfg,
+                                        cuda_graph=False)
+    check(eager_eng.graph_replays == 0
+          and base_eng.graph_replays == base_steps - 1,
+          "the eager engine replayed a graph, or the graph engine did not")
+    check(np.array_equal(_served(torch, res, eager_eng, eager,
+                                 "the eager engine"), base),
+          "the graph engine differs from the eager engine")
+    done.append(f"graph ({base_eng.graph_replays} replays) == every step "
+                "eager")
+    scfg = dataclasses.replace(cfg, routing=RoutingConfig(layout_step="split"))
+    ops.reset_launch_counts()
+    split_eng, split, split_steps = _engine_drain(res, xc, cfg=scfg)
+    sc = ops.launch_counts()
+    check(sc["largevis_grads"] == split_steps == sc["scatter_add_ordered"]
+          and sc["fused_edge_step"] == 0, f"the split engine launched {sc}")
+    check(np.array_equal(_served(torch, res, split_eng, split,
+                                 "the split engine"), base),
+          "the split route differs from the fused")
+    done.append("split route == fused")
+
+    chaos = ProjectionEngine(res, slots=S, cfg=cfg, seed=7)
+    healthy = [ProjectRequest(r, xc[r]) for r in range(N_CHECK)]
+    bad = []
+    for r in healthy:
+        check(chaos.submit(r), f"healthy request {r.rid} refused")
+        if r.rid % 97 == 0:
+            bad.append(ProjectRequest(10_000 + r.rid,
+                                      np.full(DIM, np.nan, np.float32)))
+        elif r.rid % 101 == 0:
+            bad.append(ProjectRequest(10_000 + r.rid,
+                                      np.zeros(DIM + 3, np.float32)))
+        else:
+            continue
+        check(not chaos.submit(bad[-1]), "a poisoned query was queued")
+    chaos.run()
+    check(sorted(q.rid for q in chaos.quarantined) == [q.rid for q in bad]
+          and all(q.error and q.y is None for q in bad),
+          "the poisoned queries were not all quarantined")
+    check(np.array_equal(_served(torch, res, chaos, healthy, "the chaos "
+                                 "drain"), base),
+          "healthy requests beside poisoned ones differ from a clean run")
+    done.append(f"{len(bad)} NaN and wrong-dimension queries quarantined, "
+                "the healthy ones bitwise a clean run")
+    fi = FaultInjector({"step": {0: "exception",
+                                 base_steps // 2: "exception"}})
+    retry_eng, retry, _ = _engine_drain(res, xc, cfg=cfg, fault=fi)
+    check(retry_eng.faults_retried == 2, f"{retry_eng.faults_retried} step "
+          "faults retried, not 2")
+    check(np.array_equal(_served(torch, res, retry_eng, retry,
+                                 "the retried drain"), base),
+          "a retried step fault changed the results")
+    done.append("2 step faults retried, bitwise transparent")
+    print(f"  server checks ({N_CHECK} queries a drain, {base_steps} engine "
+          f"steps): {'; '.join(done)}", flush=True)
 
 
 def run_insert(torch, res, cfg):
@@ -1858,7 +2185,8 @@ def main() -> None:
                                          cfg)["largevis_grads"]
     kernels.append(grads)
     run_autodiff(torch, res, cfg)
-    run_transform(torch, res, labels, acc_fit, cfg)
+    acc_tr = run_transform(torch, res, labels, acc_fit, cfg)
+    run_projection_server(torch, res, labels, acc_tr, cfg)
     run_insert(torch, res, cfg)
     acc_auto, y_auto = run_fixture(torch)
     acc_split, y_split = run_fixture(torch, "split")

@@ -162,42 +162,67 @@ class StepChunks:
         h = lrs.shape[0]
         if not 0 < h <= self.H:
             raise ValueError(f"a chunk of {h} steps in a unit of {self.H}")
-        if self.y.device.type != "cuda":
+
+        def steps(gen, lr):
             for k in range(h):
-                self.step(self.y, generator, lr=lrs[k])
+                self.step(self.y, gen, lr=lr[k])
+
+        if self.y.device.type != "cuda":
+            steps(generator, lrs)
             return
         if not self._warm:
-            main = torch.cuda.current_stream(self.y.device)
-            side = torch.cuda.Stream(self.y.device)
-            side.wait_stream(main)
-            with torch.cuda.stream(side):
-                for k in range(h):
-                    self.step(self.y, generator, lr=lrs[k])
-            main.wait_stream(side)
+            warm_up(lambda: steps(generator, lrs), self.y.device)
             self._warm = True
             return
         if h not in self._graphs:
-            self._graphs[h] = self._capture(h)
-        graph, launches = self._graphs[h]
+            self._graphs[h] = capture(lambda: steps(self._gen, self._lr),
+                                      self._gen)
         self._lr[:h].copy_(lrs)
-        self._gen.set_state(generator.get_state())
-        graph.replay()
-        generator.set_state(self._gen.get_state())
-        ops.add_launches(launches)
+        replay(*self._graphs[h], self._gen, generator)
 
-    def _capture(self, h: int):
-        graph = torch.cuda.CUDAGraph()
-        register = getattr(graph, "register_generator_state", None)
-        if register is None:
-            raise RuntimeError(
-                f"torch {torch.__version__}: CUDAGraph has no "
-                "register_generator_state, so a captured step cannot draw "
-                "from the layout's generator")
-        register(self._gen)
 
-        def record():
-            with torch.cuda.graph(graph):
-                for k in range(h):
-                    self.step(self.y, self._gen, lr=self._lr[k])
+def warm_up(fn, device) -> None:
+    """Run ``fn()`` on a side stream, as PyTorch's graph recipe warms up
+    before a capture: the launchers' scratch and the cooperative launch's
+    occupancy query happen here, so a capture allocates only in its own
+    pool."""
+    main = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        fn()
+    main.wait_stream(side)
 
-        return graph, ops.capture_launches(record)
+
+def capture(fn, generator: torch.Generator):
+    """``fn()`` captured into a CUDA graph with ``generator`` registered,
+    so the graph's draws advance that generator's Philox state.  Returns
+    ``(graph, launches)``, the launches its wrappers counted in the
+    capture (``ops.capture_launches``); :func:`replay` runs it."""
+    graph = torch.cuda.CUDAGraph()
+    register = getattr(graph, "register_generator_state", None)
+    if register is None:
+        raise RuntimeError(
+            f"torch {torch.__version__}: CUDAGraph has no "
+            "register_generator_state, so a captured step cannot draw from "
+            "its generator")
+    register(generator)
+
+    def record():
+        with torch.cuda.graph(graph):
+            fn()
+
+    return graph, ops.capture_launches(record)
+
+
+def replay(graph, launches: dict, own: torch.Generator,
+           generator: torch.Generator) -> None:
+    """Replay a graph from :func:`capture` (``own`` its registered
+    generator) as a step drawing from ``generator``: ``own`` takes
+    ``generator``'s Philox state before the replay and hands it back
+    after, so the replay draws what the eager step would; the kernels'
+    launch counts grow by the capture's."""
+    own.set_state(generator.get_state())
+    graph.replay()
+    generator.set_state(own.get_state())
+    ops.add_launches(launches)
