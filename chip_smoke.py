@@ -38,7 +38,22 @@ in one process (``run_parent``), and requires the two packages'
    ``fused_edge_step``'s launches must equal its steps (244,140);
 5. the fit's edge and negative samplers built twice more on the card,
    bitwise equal to the fit's; a second fit from the same seed, bitwise
-   equal to the first at every stage;
+   equal to the first at every stage; then the crash-safe,
+   health-guarded fit (``run_robust_fit``, checkpoints in a temporary
+   directory): the full fit with ``checkpoint`` and ``health`` killed by
+   an injected fault at layout chunk 1,201 of 2,442 and run again, which
+   must restore the graph, weights and samplers from disk and end
+   bitwise on the main fit's y (its launches counted with the fit's);
+   graphs captured while another thread copies to the host, bitwise;
+   ``layout_s`` at the cut depth plain, with ``checkpoint``, with
+   ``health`` and with both, in turns, all eight bitwise equal; a NaN
+   payload rolled back once (finite, 5-NN accuracy within 0.05 of the
+   fit's, at the fit's depth); at the cut depth, the fused step failing
+   at its first call demoted to the split route (bitwise the split
+   route's layout, its launches counted with the split path's);
+   ``LargeVis.save`` and ``load(device="cuda")`` of the fit, every array
+   bitwise.  A ``DegradedModeWarning`` or ``DivergenceWarning`` anywhere
+   else is an error;
 6. from the fit's layout and samplers, 240 steps through the chunk unit
    (the first chunk eager, a 100-step and a 40-step graph replayed)
    against the per-step loop, on the fused, the split and the autograd
@@ -114,10 +129,13 @@ import argparse
 import dataclasses
 import functools
 import json
+import signal
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
@@ -1541,6 +1559,350 @@ def run_second_fit(torch, x, res, cfg):
           f"at every stage: {', '.join(n for n, _ in stages)}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the crash-safe, health-guarded fit
+# ---------------------------------------------------------------------------
+
+ROBUST_KILL_CHUNK = 1_200       # the layout_chunk hit that kills the fit
+ROBUST_NAN_CHUNK = 1_200        # the layout_chunk hit poisoned under health
+
+
+def relayout(torch, res, cfg, spn: int, **kw):
+    """The layout of the fit's graph from the fit's samplers at ``spn``
+    samples per node, through ``run_layout`` with the fit's layout seed;
+    ``kw`` replaces cfg fields (``fault`` goes to ``run_layout``).
+    Returns (LayoutResult, layout_s)."""
+    from repro_torch.core.layout import run_layout
+
+    fault = kw.pop("fault", None)
+    c = dataclasses.replace(cfg, samples_per_node=spn, **kw)
+    gen = torch.Generator(device=res.y.device).manual_seed(cfg.seed + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lay = run_layout(gen, res.edge_sampler, res.neg_sampler,
+                     res.y.shape[0], c, device=res.y.device, fault=fault)
+    torch.cuda.synchronize()
+    return lay, time.perf_counter() - t0
+
+
+def _only(log, cls, what: str):
+    """The one warning of ``cls`` in ``log``; fails on any other
+    degraded-mode or divergence warning there."""
+    from repro_torch.runtime.fault_tolerance import (DegradedModeWarning,
+                                                     DivergenceWarning)
+    got = [w.message for w in log if issubclass(w.category, cls)]
+    other = [w.message for w in log if issubclass(
+        w.category, (DegradedModeWarning, DivergenceWarning))
+        and not issubclass(w.category, cls)]
+    check(len(got) == 1 and not other, f"{what}: {len(got)} "
+          f"{cls.__name__}s and {other}")
+    return got[0]
+
+
+def check_capture_beside_copies(torch, res, cfg, steps: int = 240):
+    """``steps`` fused steps through ``StepChunks`` (the first chunk
+    eager, the 100-step and the remainder's graphs captured, then
+    replayed) while another thread copies a device tensor to the host in
+    a loop on a stream of its own, as the checkpoint writer does: every
+    capture must succeed, and y and the generator's state must equal a
+    run without the copies bitwise."""
+    import threading
+
+    from repro_torch.core import layout_engine
+
+    dev = res.y.device
+    step = functools.partial(layout_engine.sgd_edge_step,
+                             **{k: v for k, v in _step_kw(res, cfg).items()
+                                if k != "rho0"})
+    lrs = layout_engine.lr_table(cfg.rho0, steps, dev)
+    outs, copies = [], []
+    for beside in (False, True):
+        y = res.y.clone()
+        gen = torch.Generator(device=dev).manual_seed(33)
+        stop = threading.Event()
+        src = res.y.clone()
+        torch.cuda.synchronize()
+
+        def copier():
+            with torch.cuda.stream(torch.cuda.Stream(dev)):
+                while not stop.is_set():
+                    src.cpu()
+                    copies.append(1)
+
+        th = threading.Thread(target=copier)
+        if beside:
+            th.start()
+        try:
+            layout_engine.StepChunks(step, y, cfg.steps_per_dispatch
+                                     ).run_all(gen, lrs)
+            torch.cuda.synchronize()
+        finally:
+            stop.set()
+            if beside:
+                th.join()
+        outs.append((y, gen.get_state()))
+    check(torch.equal(outs[0][0], outs[1][0])
+          and torch.equal(outs[0][1], outs[1][1]),
+          "steps captured beside a copying thread differ")
+    check(len(copies) > 0, "the copying thread made no copy")
+    print(f"capture beside copies: {steps} chunked steps (two graphs "
+          f"captured) while another thread made {len(copies)} device-to-"
+          f"host copies: bitwise the run without them", flush=True)
+
+
+def run_robust_fit(torch, x, res, labels, acc_fit, cfg):
+    """The crash-safe, health-guarded fit (``cfg.checkpoint`` in a
+    temporary directory, deleted after, and ``cfg.health``):
+
+    1. the full fit killed by an injected fault at layout chunk
+       ROBUST_KILL_CHUNK, then the same call again: it must restore the
+       graph, weights and samplers (their build functions patched to
+       raise) and the newest layout checkpoint, and end bitwise on the
+       main fit's y;
+       the launch counts are read over both calls;
+    2. chunked steps whose graphs are captured while another thread
+       copies device memory to the host (``check_capture_beside_copies``),
+       then ``layout_s`` at the cut depth from the fit's samplers, plain,
+       with ``checkpoint``, with ``health`` and with both, in turns (the
+       eight layouts bitwise equal);
+    3. at the fit's depth, a NaN payload at one layout chunk under
+       ``health``: one rollback, finite, 5-NN accuracy within 0.05 of the
+       fit's;
+    4. at the cut depth, the fused step patched to raise at its first
+       call: one DegradedModeWarning, y bitwise the split route's;
+    5. ``LargeVis.save`` of the fit and ``LargeVis.load`` on the card:
+       every array bitwise.
+
+    Returns the launch counts of the killed and resumed fit and of the
+    demoted layout."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import LargeVis, RoutingConfig, largevis
+    from repro_torch.checkpoint import checkpointer as ck
+    from repro_torch.configs.largevis_default import (CheckpointConfig,
+                                                      HealthConfig)
+    from repro_torch.core import largevis as lv_mod
+    from repro_torch.core import metrics
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.fault_tolerance import (DegradedModeWarning,
+                                                     DivergenceWarning,
+                                                     FaultInjector,
+                                                     InjectedFault,
+                                                     PreemptionGuard)
+
+    H = cfg.steps_per_dispatch
+    steps = res.steps
+    every = CheckpointConfig("").every_chunks
+    k = ROBUST_KILL_CHUNK
+    check(k + 1 < steps // H, f"the kill chunk {k} is past the layout")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        # 1. killed and resumed
+        rcfg = dataclasses.replace(
+            cfg, checkpoint=CheckpointConfig(f"{tmp}/fit"),
+            health=HealthConfig())
+        marks = {}
+
+        def mark(payload):
+            torch.cuda.synchronize()
+            marks["layout_start"] = time.perf_counter()
+            return payload
+
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            largevis(x, cfg=rcfg, device="cuda", fault=FaultInjector(
+                {"stage:samplers": {0: mark},
+                 "layout_chunk": {k: "exception"}}))
+            fail("the injected layout_chunk fault did not stop the fit")
+        except InjectedFault:
+            pass
+        killed_s = time.perf_counter() - t0
+        killed_layout_s = time.perf_counter() - marks["layout_start"]
+        torch.cuda.synchronize()
+        killed = ops.launch_counts()
+
+        def boom(*a, **kw):
+            raise AssertionError("a stage was recomputed on resume")
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        patch = mock.patch.object
+        with patch(lv_mod.knn_lib, "build_knn_graph", boom), \
+                patch(lv_mod.perp_lib, "edge_weights", boom), \
+                patch(lv_mod.sampler_lib, "build_edge_sampler", boom), \
+                patch(lv_mod.sampler_lib, "build_negative_sampler", boom):
+            again = largevis(x, cfg=rcfg, device="cuda")
+        torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        resumed = {n: counts[n] - killed[n] for n in counts}
+        resumed_at = steps - again.steps
+        check(resumed_at == (k // every) * every * H,
+              f"resumed at step {resumed_at}, not at the last checkpoint "
+              f"before chunk {k + 1}")
+        check(torch.equal(again.y, res.y), "the resumed fit's y differs "
+              f"from the main fit's in {int((again.y != res.y).sum())} "
+              "entries")
+        check(killed["fused_edge_step"] == (k + 1) * H
+              and resumed["fused_edge_step"] == again.steps
+              and resumed["topk_sqdist"] == 0
+              and killed["topk_sqdist"] > 0,
+              f"launches: killed {killed}, resumed {resumed}")
+        t, tm = again.timings, res.timings
+        print(f"robust fit: checkpoint (every_chunks={every}) + health, "
+              f"killed by an injected fault at layout chunk {k + 1} of "
+              f"{-(-steps // H)} after {killed_s:.2f} s (layout "
+              f"{killed_layout_s:.3f} s for {(k + 1) * H} steps, "
+              f"{killed_layout_s / ((k + 1) * H) * 1e3:.4f} ms a step); "
+              f"the same call resumed at step {resumed_at} in "
+              f"{resumed_s:.2f} s: loads knn_s {t['knn_s']:.3f} s, "
+              f"weights_s {t['weights_s']:.3f} s, sampler_s "
+              f"{t['sampler_s']:.3f} s (main fit: computed {tm['knn_s']:.3f}"
+              f", {tm['weights_s']:.3f}, {tm['sampler_s']:.3f} s); layout "
+              f"{t['layout_s']:.3f} s for {again.steps} steps, "
+              f"{t['layout_s'] / again.steps * 1e3:.4f} ms a step (main "
+              f"fit {tm['layout_s'] / steps * 1e3:.4f}); y bitwise the main "
+              f"fit's; launches killed "
+              f"{killed}, resumed {resumed}", flush=True)
+
+        # 2. layout_s plain, with checkpoint, with checkpoint + health;
+        # first, the writer's copies must not break a capture
+        check_capture_beside_copies(torch, res, cfg)
+        spn = min(SPLIT_SAMPLES_PER_NODE, cfg.samples_per_node)
+        print(f"cut: the robustness layouts' samples_per_node "
+              f"{cfg.samples_per_node} -> {spn} (from the fit's samplers)",
+              flush=True)
+        # health alone splits checkpoint+health's cost between the
+        # per-chunk sync and probe and the synchronous saves
+        order = ("plain", "checkpoint", "health", "checkpoint+health")
+        times = {name: [] for name in order}
+        ys = []
+        for i, name in enumerate(order + order[::-1]):
+            kw = {"health": HealthConfig()} if "health" in name else {}
+            guard = None
+            if "checkpoint" in name:
+                # armed as largevis() arms it while checkpointing
+                kw["checkpoint"] = CheckpointConfig(f"{tmp}/turn{i}")
+                guard = PreemptionGuard(
+                    signals=(signal.SIGTERM, signal.SIGINT),
+                    exit_after_save=True).activate()
+            try:
+                lay, secs = relayout(torch, res, cfg, spn, **kw)
+            finally:
+                if guard is not None:
+                    guard.restore_handlers()
+            times[name].append(secs)
+            ys.append(lay.y)
+            if "checkpoint" in name:
+                # the last save (off-thread when health is off) holds
+                # the final y and the generator's state
+                tree, step = ck.restore(f"{tmp}/turn{i}/layout")
+                check(step == lay.steps and np.array_equal(
+                    tree["y"], lay.y.cpu().numpy())
+                    and tree["rng"].dtype == np.uint8,
+                    f"{name}: the last layout checkpoint (step {step}) "
+                    "is not the final layout")
+        check(all(torch.equal(y, ys[0]) for y in ys[1:]),
+              "the plain, checkpointed and health-guarded layouts differ")
+        plain_s = min(times["plain"])
+        print(f"robust layout_s ({lay.steps} steps, in turns "
+              f"{', '.join(order + order[::-1])}; every_chunks={every}, "
+              f"check_every_chunks=1): " + "; ".join(
+                  f"{n} {', '.join(f'{v:.3f}' for v in vs)} s "
+                  f"(min {min(vs) / plain_s:.4f}x plain)"
+                  for n, vs in times.items())
+              + f"; the {len(ys)} layouts bitwise equal", flush=True)
+
+        # 3. a NaN payload, one rollback (at the fit's depth: the
+        # accuracy is held to the fit's)
+        with warnings.catch_warnings(record=True) as log:
+            warnings.simplefilter("always")
+            lay, secs = relayout(
+                torch, res, cfg, cfg.samples_per_node, health=HealthConfig(),
+                fault=FaultInjector({"layout_chunk": {ROBUST_NAN_CHUNK:
+                                                      "nan"}}))
+        w = _only(log, DivergenceWarning, "the NaN fault")
+        acc = metrics.knn_classifier_accuracy(lay.y, labels)
+        print(f"rollback: NaN payload after layout chunk "
+              f"{ROBUST_NAN_CHUNK + 1} of "
+              f"{-(-lay.steps // H)}: {w}; rollbacks {lay.rollbacks}, "
+              f"rho0_scale {lay.rho0_scale}, {lay.dispatches} dispatches, "
+              f"layout_s {secs:.3f} s ({lay.steps} steps, the fit's "
+              f"depth), finite, knn_classifier_accuracy {acc:.4f} (main "
+              f"fit {acc_fit:.4f})", flush=True)
+        check(lay.rollbacks == 1 and bool(torch.isfinite(lay.y).all()),
+              f"rollbacks {lay.rollbacks}, finite "
+              f"{bool(torch.isfinite(lay.y).all())}")
+        check(abs(acc - acc_fit) <= 0.05,
+              f"rolled-back accuracy {acc} vs the fit's {acc_fit}")
+
+        # 4. the fused step fails at its first call: demoted to split
+        want, _ = relayout(torch, res, cfg, spn,
+                           routing=RoutingConfig(layout_step="split"))
+        real, calls = ops.largevis_edge_step, {"n": 0}
+
+        def fails_first(*a, **kw):
+            calls["n"] += 1
+            if calls["n"] == 1:
+                raise RuntimeError("fused edge step unavailable (a failure "
+                                   "injected by chip_smoke.py)")
+            return real(*a, **kw)
+
+        ops.reset_launch_counts()
+        with warnings.catch_warnings(record=True) as log, \
+                mock.patch.object(ops, "largevis_edge_step", fails_first):
+            warnings.simplefilter("always")
+            lay, secs = relayout(torch, res, cfg, spn)
+        torch.cuda.synchronize()
+        demoted = ops.launch_counts()
+        w = _only(log, DegradedModeWarning, "the demotion")
+        print(f"demotion: {w}; {lay.steps} steps, layout_s {secs:.3f} s, y "
+              f"bitwise the split route's: "
+              f"{torch.equal(lay.y, want.y)}; launches {demoted}",
+              flush=True)
+        check(torch.equal(lay.y, want.y),
+              "the demoted layout differs from the split route's")
+        check(calls["n"] == 1 and demoted["fused_edge_step"] == 0
+              and demoted["largevis_grads"] == lay.steps
+              and demoted["scatter_add_ordered"] == lay.steps,
+              f"the demoted run's launches {demoted}")
+
+        # 5. save and load
+        model = LargeVis(cfg, device="cuda")
+        model.result_ = res
+        path = Path(tmp) / "model"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.save(path)
+        save_s = time.perf_counter() - t0
+        n_bytes = sum(f.stat().st_size for f in path.rglob("*")
+                      if f.is_file())
+        t0 = time.perf_counter()
+        back = LargeVis.load(path, device="cuda").result_
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        arrays = {"y": lambda r: r.y, "x": lambda r: r.x,
+                  "knn_idx": lambda r: r.knn_idx,
+                  "knn_dist": lambda r: r.knn_dist,
+                  "weights": lambda r: r.weights}
+        for s_name in ("edge_sampler", "neg_sampler"):
+            for f in ("threshold", "alias") + (
+                    ("src", "dst") if s_name == "edge_sampler" else ()):
+                arrays[f"{s_name}.{f}"] = (
+                    lambda r, s=s_name, f=f: getattr(getattr(r, s), f))
+        for name, get in arrays.items():
+            a, b = get(res), get(back)
+            check(a.dtype == b.dtype and a.device == b.device
+                  and torch.equal(a, b), f"save/load changed {name}")
+        check(back.cfg == cfg, "save/load changed the config")
+        print(f"save/load: LargeVis.save {save_s:.3f} s, {n_bytes} bytes; "
+              f"LargeVis.load(device='cuda') {load_s:.3f} s; "
+              f"{', '.join(arrays)} bitwise", flush=True)
+    return {n: killed[n] + resumed[n] for n in counts}, demoted
+
+
 def check_chunked(torch, res, cfg, steps: int = 240, H: int = 100):
     """From the fit's layout and samplers, one generator seeded alike for
     each: ``steps`` SGD steps through ``StepChunks`` (H a dispatch: the
@@ -1760,7 +2122,6 @@ def check_prefill_plain(torch, eng, prompts):
     """The engine's model on the long prompts: last logits of the prefill
     through the kernel against the same prefill through the plain
     version (``ops.flash_attention`` swapped for it), on the card."""
-    from unittest import mock
 
     from repro_torch.kernels import ops, ref
     from repro_torch.models import lm
@@ -2147,6 +2508,13 @@ def main() -> None:
     from repro_torch.core.largevis import resolve_device
     from repro_torch.data.synthetic import gaussian_mixture
     from repro_torch.kernels import _build
+    from repro_torch.runtime.fault_tolerance import (DegradedModeWarning,
+                                                     DivergenceWarning)
+
+    # a fit that quietly demoted or rolled back fails the run; the two
+    # phases that provoke them record their own (run_robust_fit)
+    warnings.simplefilter("error", DegradedModeWarning)
+    warnings.simplefilter("error", DivergenceWarning)
 
     smi = nvidia_smi()
     print(smi, flush=True)
@@ -2177,12 +2545,17 @@ def main() -> None:
         rec["launches"] = counts[rec["name"]]
     check_samplers(torch, res, cfg)
     run_second_fit(torch, x, res, cfg)
+    robust, demoted = run_robust_fit(torch, x, res, labels, acc_fit, cfg)
+    for rec in kernels:
+        rec["launches"] += robust[rec["name"]]
     replays = check_chunked(torch, res, cfg)
     grads = check_split_kernels(torch, cfg)
     layout_busy(res, replays, run_routes(torch, res, cfg),
                 H=cfg.steps_per_dispatch)
-    grads["launches"] = run_split_layout(torch, res, labels,
-                                         cfg)["largevis_grads"]
+    grads["launches"] = (run_split_layout(torch, res, labels,
+                                          cfg)["largevis_grads"]
+                         + robust["largevis_grads"]
+                         + demoted["largevis_grads"])
     kernels.append(grads)
     run_autodiff(torch, res, cfg)
     acc_tr = run_transform(torch, res, labels, acc_fit, cfg)

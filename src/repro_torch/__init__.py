@@ -1,7 +1,9 @@
 """repro_torch: the PyTorch/CUDA port of the LargeVis reproduction.
 
-The port runs the single-device fit, with the fused or the split layout
-step, and the out-of-sample transform and insert on an NVIDIA H100
+The port runs the single-device fit (crash-safe with
+``LargeVisConfig.checkpoint``, health-guarded with ``.health``), with the
+fused or the split layout step, ``save``/``load`` in the JAX package's
+format, and the out-of-sample transform and insert on an NVIDIA H100
 through hand-written CUDA kernels (``csrc/``), built with ``nvcc`` at
 first use; on the CPU (``device="cpu"``) the same entry points run the
 kernels' plain PyTorch versions.  It imports neither JAX nor the ``repro`` package.
@@ -9,7 +11,7 @@ The LM serving path (``qwen1.5-0.5b``) is ``launch.serve.ServeEngine``
 over ``models/``; its long-prompt prefill runs the flash-attention kernel.
 
 * :class:`LargeVis` — the estimator (``fit`` / ``fit_transform`` /
-  ``transform`` / ``insert``).
+  ``transform`` / ``insert`` / ``save`` / ``load``).
 * :func:`largevis` / :class:`LargeVisResult` — the functional core.
 * :class:`LargeVisConfig` / :class:`RoutingConfig` — hyper-parameters.
 """

@@ -13,7 +13,9 @@ anything: ``LargeVis(cfg=c).fit(x).embedding_`` is bitwise
 ``largevis(x, cfg=c).y``.  ``transform`` never changes the fitted
 carrier ``result_``; ``insert`` appends rows and rebuilds the graph,
 weights and samplers, but never moves a fitted coordinate.  ``save`` and
-``load`` are not ported yet.
+``load`` write and read the JAX package's fitted-model format
+(``largevis-result-v1``): a model saved by either package loads in the
+other.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from repro_torch.core import perplexity as perp_lib
 from repro_torch.core import sampler as sampler_lib
 from repro_torch.core import transform as transform_lib
 from repro_torch.core.largevis import (LargeVisResult, as_tensor, largevis,
-                                       seeded_generator)
+                                       resolve_device, seeded_generator)
 
 # the JAX package's domain separators for the streams of transform and
 # insert; with cfg.seed they seed the default generators
@@ -109,6 +111,30 @@ class LargeVis:
                 "this LargeVis instance is not fitted yet; call fit() "
                 "or fit_transform() first")
         return self.result_
+
+    # -- persistence -----------------------------------------------------
+
+    def save(self, path) -> None:
+        """Persist the fitted model at ``path`` (a directory).
+
+        Versioned, CRC-verified, atomically committed (schema
+        ``largevis-result-v1`` over ``checkpoint/checkpointer.py``): a
+        kill mid-save never clobbers a previous good save, and a
+        bit-rotted file is detected at load.  Not a pickle: no code runs
+        at load."""
+        from repro_torch.checkpoint.largevis_state import save_result
+        save_result(path, self._fitted())
+
+    @classmethod
+    def load(cls, path, *, device="cuda") -> "LargeVis":
+        """Restore a model saved by :meth:`save` (or by the JAX package's
+        ``LargeVis.save``) onto ``device``; the inverse round trip."""
+        from repro_torch.checkpoint.largevis_state import load_result
+        dev = resolve_device(device)
+        result = load_result(path, dev)
+        model = cls(cfg=result.cfg, device=dev)
+        model.result_ = result
+        return model
 
     def _generator(self, r: LargeVisResult, tag: int) -> torch.Generator:
         cfg = r.cfg or self.cfg

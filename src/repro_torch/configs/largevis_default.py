@@ -3,20 +3,65 @@
 The same fields, names and defaults as the JAX package's config:
 perplexity 50, K=150 neighbors, M=5 negatives, gamma=7, rho0=1.0,
 f(x) = 1/(1+x^2), T proportional to N.  ``dtype`` is a torch dtype here.
+``checkpoint`` (:class:`CheckpointConfig`: stage checkpoints and a
+bitwise resume) and ``health`` (:class:`HealthConfig`: the layout's
+divergence guard and rollback) behave as in the JAX package.
 
 Not carried over: the deprecated flat routing aliases (``knn_impl``,
-``sampler_impl``, ``fused_step``, ``knn_distributed``) and the
-``checkpoint``/``health`` behaviour, which the port does not have yet.
-Routing in the port is by tensor device (see ``kernels/ops.py``); the
-``RoutingConfig`` fields are kept so configs read the same in both
-packages, and ``layout_step`` is checked by the layout engine.
+``sampler_impl``, ``fused_step``, ``knn_distributed``).  Routing in the
+port is by tensor device (see ``kernels/ops.py``); the ``RoutingConfig``
+fields are kept so configs read the same in both packages, and
+``layout_step`` is checked by the layout engine.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointConfig:
+    """Stage-checkpointed crash recovery for ``largevis()`` / ``fit()``.
+
+    When set on ``LargeVisConfig.checkpoint``, every stage boundary of the
+    pipeline — the KNN graph, the calibrated and symmetrized weights, the
+    alias samplers, and the layout ``(y, generator state, step)`` every
+    ``every_chunks`` dispatches — is written atomically (write, rename,
+    then commit; ``checkpoint/checkpointer.py``) under ``directory``.  A
+    killed fit rerun with the same ``(x, cfg)`` on the same device
+    resumes from the last committed stage or chunk and gives a
+    **bitwise-identical** embedding (``tests/test_torch_resume.py``); a
+    fingerprint of the data, the generators and the config refuses a
+    directory written by another run, with a warning, and starts fresh.
+    """
+    directory: str
+    # layout save cadence, in steps_per_dispatch chunks: a crash replays
+    # at most every_chunks * steps_per_dispatch steps
+    every_chunks: int = 4
+    keep: int = 2             # keep-last-k layout checkpoints
+    resume: bool = True       # False: checkpoint but never auto-resume
+
+
+@dataclasses.dataclass(frozen=True)
+class HealthConfig:
+    """Numerical-health guard + divergence rollback for the layout stage.
+
+    When set on ``LargeVisConfig.health``, every ``check_every_chunks``
+    dispatches a probe reduces the embedding to (non-finite count, max
+    |coordinate|).  A non-finite entry or a coordinate beyond ``max_abs``
+    is a divergence: ``run_layout`` rolls the layout (y and its generator)
+    back to the last healthy chunk, scales the learning rate by
+    ``lr_backoff``, and reruns from there (one ``DivergenceWarning``).
+    More than ``max_rollbacks`` rollbacks raises ``LayoutDivergedError``.
+    The probe syncs the device once a check, so runs with ``health=None``
+    keep the replays queued.
+    """
+    check_every_chunks: int = 1
+    max_abs: float = 1e6          # embedding-norm blowup bound
+    lr_backoff: float = 0.5       # rho0 multiplier per rollback
+    max_rollbacks: int = 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +113,9 @@ class LargeVisConfig:
     # --- out-of-sample transform / insert ---
     transform_steps: int = 48
     transform_rho0: float = 0.0
+    # --- robustness (crash recovery + numerical health) ---
+    checkpoint: Optional[CheckpointConfig] = None   # None: no persistence
+    health: Optional[HealthConfig] = None           # None: no per-chunk sync
     # --- implementation routing ---
     routing: RoutingConfig = dataclasses.field(default_factory=RoutingConfig)
     dtype: Any = torch.float32

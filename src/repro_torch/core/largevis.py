@@ -19,20 +19,33 @@ without that request they raise.  Randomness comes from
 ``cfg.seed``, the layout's with ``cfg.seed + 1``.  TF32 is switched off
 for matrix products and convolutions: a TF32 product in ``hash_codes``
 flips code bits.
+
+Crash safety, as in the JAX package: with ``cfg.checkpoint`` each stage
+boundary (``graph``, ``weights``, ``samplers``, and the layout every
+``every_chunks`` dispatches) is written atomically, and rerunning the
+same call after a crash restores each completed stage from disk and
+gives a bitwise-identical embedding.  ``fault`` takes a
+:class:`~repro_torch.runtime.fault_tolerance.FaultInjector`, fired after
+each stage boundary commits (``stage:graph``, ``stage:weights``,
+``stage:samplers``) and in the layout (``layout_chunk``,
+``layout_saved``).
 """
 from __future__ import annotations
 
 import dataclasses
+import signal
 import time
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import largevis_state as lvs
 from repro_torch.configs.largevis_default import LargeVisConfig
 from repro_torch.core import knn as knn_lib
 from repro_torch.core import layout as layout_lib
 from repro_torch.core import perplexity as perp_lib
 from repro_torch.core import sampler as sampler_lib
+from repro_torch.runtime.fault_tolerance import PreemptionGuard
 
 
 @dataclasses.dataclass
@@ -85,12 +98,32 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _stage_ckpt(data, generator, cfg: LargeVisConfig, proj=None):
+    """StageCheckpointer for the graph-prep stages, else None.
+
+    The fingerprint binds a strided sample of the stage's input data
+    (and of the forest's hyperplanes when they are given), the
+    generator's entry state and the cfg: resuming a stage against other
+    points would silently hand the next stage another dataset's graph."""
+    if cfg.checkpoint is None:
+        return None
+    fp = lvs.run_fingerprint(data, generator, cfg)
+    if proj is not None:
+        fp += "-" + lvs.run_fingerprint(proj, None, cfg)
+    return lvs.StageCheckpointer(cfg.checkpoint, fp)
+
+
 def build_graph(x, *, cfg: LargeVisConfig | None = None, device="cuda",
-                generator: torch.Generator | None = None, proj=None):
+                generator: torch.Generator | None = None, proj=None,
+                fault=None):
     """Stage 1: KNN graph + calibrated weights.
 
     Returns (idx, dist, weights, {"knn_s", "weights_s"}).  ``proj``
-    (d, n_trees*depth) fixes the forest's hyperplanes."""
+    (d, n_trees*depth) fixes the forest's hyperplanes.  With
+    ``cfg.checkpoint`` the graph and the weights are each written at
+    their boundary and restored on a rerun (inside the stage's timing);
+    ``fault`` fires ``stage:graph`` / ``stage:weights`` after each
+    boundary commits."""
     cfg = cfg if cfg is not None else LargeVisConfig()
     dev = resolve_device(device)
     x = as_tensor(x, dev, torch.float32)
@@ -98,14 +131,35 @@ def build_graph(x, *, cfg: LargeVisConfig | None = None, device="cuda",
         proj = as_tensor(proj, dev, torch.float32)
     if generator is None:
         generator = seeded_generator(dev, cfg.seed)
+    ckpt = _stage_ckpt(x, generator, cfg, proj)
+    topo = {"topology": lvs.topology_tag(cfg, x.shape[0])}
     _sync(dev)
     t0 = time.perf_counter()
-    idx, dist = knn_lib.build_knn_graph(x, cfg, generator=generator,
-                                        proj=proj)
+    cached = ckpt.restore("graph", dev) if ckpt is not None else None
+    if cached is not None:
+        idx, dist = cached[0]["idx"], cached[0]["dist"]
+    else:
+        idx, dist = knn_lib.build_knn_graph(x, cfg, generator=generator,
+                                            proj=proj)
+        _sync(dev)
+        if ckpt is not None:
+            ckpt.save("graph", {"idx": idx, "dist": dist}, extra=topo)
+        if fault is not None:
+            fault.fire("stage:graph")
     _sync(dev)
     t1 = time.perf_counter()
-    w = perp_lib.edge_weights(idx, dist, cfg.perplexity,
-                              iters=cfg.perplexity_iters)
+    cached = (ckpt.restore("weights", dev)
+              if ckpt is not None and cached is not None else None)
+    if cached is not None:
+        w = cached[0]["w"]
+    else:
+        w = perp_lib.edge_weights(idx, dist, cfg.perplexity,
+                                  iters=cfg.perplexity_iters)
+        _sync(dev)
+        if ckpt is not None:
+            ckpt.save("weights", {"w": w}, extra=topo)
+        if fault is not None:
+            fault.fire("stage:weights")
     _sync(dev)
     t2 = time.perf_counter()
     return idx, dist, w, {"knn_s": t1 - t0, "weights_s": t2 - t1}
@@ -113,26 +167,45 @@ def build_graph(x, *, cfg: LargeVisConfig | None = None, device="cuda",
 
 def layout_graph(knn_idx, weights, *, cfg: LargeVisConfig | None = None,
                  device="cuda", generator: torch.Generator | None = None,
-                 callback=None, return_samplers: bool = False):
+                 callback=None, return_samplers: bool = False, fault=None):
     """Stage 2: alias samplers + SGD layout of a weighted KNN graph.
 
     Returns (LayoutResult, timings), or (LayoutResult, (edge_sampler,
-    neg_sampler), timings) with ``return_samplers``."""
+    neg_sampler), timings) with ``return_samplers``.  With
+    ``cfg.checkpoint`` the alias tables are written at the stage boundary
+    (``samplers``) and restored on a rerun (inside ``sampler_s``), and
+    the layout checkpoints itself (see ``run_layout``); ``fault`` fires
+    ``stage:samplers`` after the boundary commits and goes on into the
+    layout."""
     cfg = cfg if cfg is not None else LargeVisConfig()
     dev = resolve_device(device)
     knn_idx = as_tensor(knn_idx, dev)
     weights = as_tensor(weights, dev, torch.float32)
     if generator is None:
         generator = seeded_generator(dev, cfg.seed + 1)
+    ckpt = _stage_ckpt(weights, generator, cfg)
     _sync(dev)
     t0 = time.perf_counter()
-    edge_s = sampler_lib.build_edge_sampler(knn_idx, weights)
-    neg_s = sampler_lib.build_negative_sampler(knn_idx, weights,
-                                               power=cfg.neg_power)
+    cached = ckpt.load("samplers") if ckpt is not None else None
+    if cached is not None:
+        tree, _, extra = cached
+        edge_s, neg_s = lvs._samplers_from_tree(
+            tree, extra["sampler_static"], dev)
+    else:
+        edge_s = sampler_lib.build_edge_sampler(knn_idx, weights)
+        neg_s = sampler_lib.build_negative_sampler(knn_idx, weights,
+                                                   power=cfg.neg_power)
+        _sync(dev)
+        if ckpt is not None:
+            tree, static = lvs._samplers_to_tree(edge_s, neg_s)
+            ckpt.save("samplers", tree, extra={"sampler_static": static})
+        if fault is not None:
+            fault.fire("stage:samplers")
     _sync(dev)
     t1 = time.perf_counter()
     res = layout_lib.run_layout(generator, edge_s, neg_s, knn_idx.shape[0],
-                                cfg, device=dev, callback=callback)
+                                cfg, device=dev, callback=callback,
+                                fault=fault)
     _sync(dev)
     t2 = time.perf_counter()
     timings = {"sampler_s": t1 - t0, "layout_s": t2 - t1}
@@ -142,15 +215,29 @@ def layout_graph(knn_idx, weights, *, cfg: LargeVisConfig | None = None,
 
 
 def largevis(x, *, cfg: LargeVisConfig | None = None, device="cuda",
-             proj=None, callback=None) -> LargeVisResult:
-    """Run the full pipeline on one device; see the module docstring."""
+             proj=None, callback=None, fault=None) -> LargeVisResult:
+    """Run the full pipeline on one device; see the module docstring.
+
+    While ``cfg.checkpoint`` is set a
+    :class:`~repro_torch.runtime.fault_tolerance.PreemptionGuard` is
+    armed: SIGTERM/SIGINT saves the newest layout chunk boundary, and
+    the process then exits by the signal."""
     cfg = cfg if cfg is not None else LargeVisConfig()
     dev = resolve_device(device)
     x = as_tensor(x, dev, torch.float32)
-    idx, dist, w, t_graph = build_graph(x, cfg=cfg, device=dev, proj=proj)
-    res, (edge_s, neg_s), t_layout = layout_graph(
-        idx, w, cfg=cfg, device=dev, callback=callback,
-        return_samplers=True)
+    guard = None
+    if cfg.checkpoint is not None and PreemptionGuard.active() is None:
+        guard = PreemptionGuard(signals=(signal.SIGTERM, signal.SIGINT),
+                                exit_after_save=True).activate()
+    try:
+        idx, dist, w, t_graph = build_graph(x, cfg=cfg, device=dev,
+                                            proj=proj, fault=fault)
+        res, (edge_s, neg_s), t_layout = layout_graph(
+            idx, w, cfg=cfg, device=dev, callback=callback,
+            return_samplers=True, fault=fault)
+    finally:
+        if guard is not None:
+            guard.restore_handlers()
     return LargeVisResult(y=res.y, knn_idx=idx, knn_dist=dist, weights=w,
                           timings={**t_graph, **t_layout},
                           edge_samples=res.edge_samples, x=x,

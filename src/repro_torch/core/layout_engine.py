@@ -209,7 +209,10 @@ def capture(fn, generator: torch.Generator):
     register(generator)
 
     def record():
-        with torch.cuda.graph(graph):
+        # thread-local: the checkpoint writer's thread copies snapshots to
+        # the host on a stream of its own while a chunk may be captured; in
+        # the default global mode that copy would invalidate the capture
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             fn()
 
     return graph, ops.capture_launches(record)

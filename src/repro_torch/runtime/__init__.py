@@ -1,1 +1,2 @@
-"""Runtime support: deterministic fault injection (``fault_tolerance``)."""
+"""Runtime support: fault injection, health and straggler signals, and
+preemption (``fault_tolerance``)."""

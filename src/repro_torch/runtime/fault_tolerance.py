@@ -1,23 +1,91 @@
-"""Deterministic fault injection at named sites.
+"""Fault injection, the layout's health and straggler signals, and
+preemption.
 
-The JAX package's ``runtime/fault_tolerance.py``, as far as the port's
-projection server (``launch/serve_projection.py``) uses it:
-:class:`FaultInjector` fires NaN corruption, exceptions or ``SIGKILL`` at
-the sites the server fires, and :class:`InjectedFault` is the exception
-it raises, which the server's ``run`` retries.
+The JAX package's ``runtime/fault_tolerance.py`` for one device:
 
-:data:`FAULT_SITES` lists only the sites the port fires.  A plan naming
-any other site raises at construction, so a chaos test cannot name a site
-that never fires and pass without testing anything.
+* :class:`FaultInjector` fires NaN corruption, exceptions, ``SIGKILL`` or
+  a callable at the named sites of :data:`FAULT_SITES`: the pipeline's
+  stage boundaries (``core/largevis.py``), the layout's chunks
+  (``core/layout.py``) and the projection server
+  (``launch/serve_projection.py``); :class:`InjectedFault` is the
+  exception it raises;
+* :class:`Watchdog` flags straggler dispatches;
+* :class:`DegradedModeWarning` (the fused layout step demoted to the
+  split route), :class:`DivergenceWarning` (a layout rollback) and
+  :class:`LayoutDivergedError` (rollbacks exhausted);
+* :class:`PreemptionGuard`: SIGTERM/SIGINT -> save the newest layout
+  state, then exit by the signal.
+
+The mesh's pieces (``TopologyChangeWarning``, ``ShardFailedError``,
+``fire_per_shard`` and the per-shard sites) come with the distributed
+pipeline.
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
 import os
 import signal
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+
+@dataclasses.dataclass
+class Watchdog:
+    """Step-time outlier detection (straggler flagging)."""
+    window: int = 50
+    threshold: float = 3.0          # x median
+    _times: collections.deque = dataclasses.field(
+        default_factory=lambda: collections.deque(maxlen=200), init=False)
+    stragglers: list = dataclasses.field(default_factory=list, init=False)
+
+    def observe(self, step: int, dt: float) -> bool:
+        """Returns True if this step is a straggler."""
+        self._times.append(dt)
+        if len(self._times) < 10:
+            return False
+        med = sorted(self._times)[len(self._times) // 2]
+        if dt > self.threshold * med:
+            self.stragglers.append((step, dt, med))
+            return True
+        return False
+
+
+class DegradedModeWarning(UserWarning):
+    """A pipeline stage demoted its implementation after a backend
+    failure (the layout's ``fused -> split`` edge step).  Emitted exactly
+    once per demotion with the stage, the route taken, and the original
+    error."""
+
+    def __init__(self, stage: str, from_impl: str, to_impl: str, cause):
+        self.stage, self.from_impl, self.to_impl = stage, from_impl, to_impl
+        self.cause = cause
+        super().__init__(
+            f"degraded mode: {stage} demoted {from_impl!r} -> {to_impl!r} "
+            f"after {type(cause).__name__}: {cause}")
+
+
+class DivergenceWarning(UserWarning):
+    """The layout health probe detected non-finite coordinates or a norm
+    blowup; the layout rolled back to the last healthy chunk with the
+    learning rate backed off."""
+
+    def __init__(self, step: int, rollback_to: int, nonfinite: int,
+                 max_abs: float, rho0_scale: float):
+        self.step, self.rollback_to = step, rollback_to
+        self.nonfinite, self.max_abs = nonfinite, max_abs
+        self.rho0_scale = rho0_scale
+        super().__init__(
+            f"layout diverged at step {step} (nonfinite={nonfinite}, "
+            f"max|y|={max_abs:.3g}): rolled back to step {rollback_to}, "
+            f"lr scale now {rho0_scale:g}")
+
+
+class LayoutDivergedError(RuntimeError):
+    """The layout kept diverging after ``HealthConfig.max_rollbacks``
+    rollback/backoff attempts."""
 
 
 class InjectedFault(RuntimeError):
@@ -29,9 +97,17 @@ class InjectedFault(RuntimeError):
         super().__init__(f"injected fault at site {site!r} (hit #{hit})")
 
 
-# Every site the port fires: the projection server's
-# (launch/serve_projection.py).
-FAULT_SITES = frozenset({"submit", "prefill", "retire", "step"})
+# Every site the port fires.  A FaultInjector plan naming anything else
+# raises ValueError at construction: a typo'd site would otherwise never
+# fire and let a chaos test pass without testing anything.
+FAULT_SITES = frozenset({
+    # largevis() pipeline stage boundaries (core/largevis.py)
+    "stage:graph", "stage:weights", "stage:samplers",
+    # the layout's chunk loop (core/layout.py)
+    "layout_chunk", "layout_saved",
+    # projection server (launch/serve_projection.py)
+    "submit", "prefill", "retire", "step",
+})
 
 
 class FaultInjector:
@@ -96,3 +172,77 @@ def _poison(payload):
     if isinstance(payload, dict):
         return {k: _poison(v) for k, v in payload.items()}
     return payload
+
+
+class PreemptionGuard:
+    """SIGTERM/SIGINT -> checkpoint-now-then-exit hook (cluster preemption).
+
+    ``largevis()`` installs one (SIGTERM + SIGINT) whenever checkpointing
+    is enabled and registers it as the process-wide *active* guard.  On a
+    signal the guard runs ``save_fn`` (:meth:`set_save_fn`), restores the
+    previous handlers, and — with ``exit_after_save`` — re-raises the
+    signal so the process still dies by it (what a preempting scheduler
+    expects).  ``restore_handlers`` on normal completion puts the prior
+    handlers back untouched.
+
+    A Python handler runs between any two bytecodes of the main thread:
+    inside a CUDA graph capture, or beside a checkpoint writer thread.
+    So a loop that holds state worth saving calls :meth:`defer`; a signal
+    is then only recorded in :attr:`pending`, and the loop saves at its
+    next chunk boundary and calls :meth:`finish`."""
+
+    _active: Optional["PreemptionGuard"] = None
+
+    def __init__(self, save_fn: Optional[Callable[[], None]] = None, *,
+                 signals=(signal.SIGTERM,), exit_after_save: bool = False):
+        self._save_fn = save_fn
+        self._exit = exit_after_save
+        self.triggered = False
+        self.deferred = False
+        self.pending: Optional[int] = None    # a signal held by defer()
+        self._prev = {}
+        for sig in signals:
+            self._prev[sig] = signal.signal(sig, self._handle)
+
+    @classmethod
+    def active(cls) -> Optional["PreemptionGuard"]:
+        return cls._active
+
+    def activate(self):
+        """Make this the guard ``active()`` returns (one per process)."""
+        PreemptionGuard._active = self
+        return self
+
+    def set_save_fn(self, fn: Optional[Callable[[], None]]):
+        self._save_fn = fn
+
+    def defer(self, on: bool = True):
+        """While on, a signal only sets :attr:`pending`; the deferring
+        loop acts on it with :meth:`finish` at a point where it is safe
+        to save."""
+        self.deferred = on
+
+    def _handle(self, signum, frame):
+        self.triggered = True
+        if self.deferred:
+            self.pending = signum
+            return
+        self._act(signum)
+
+    def finish(self):
+        """Act on the pending signal: run ``save_fn``, then exit by it."""
+        signum, self.pending = self.pending, None
+        self._act(signum)
+
+    def _act(self, signum):
+        if self._save_fn is not None:
+            self._save_fn()
+        if self._exit:
+            self.restore_handlers()
+            os.kill(os.getpid(), signum)
+
+    def restore_handlers(self):
+        for sig, prev in self._prev.items():
+            signal.signal(sig, prev)
+        if PreemptionGuard._active is self:
+            PreemptionGuard._active = None

@@ -490,22 +490,26 @@ def test_split_route_engine_equals_fused(port_fit, jax_fit):
 # (g): the fault injector
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("site", ["bogus", "stage:graph", "layout_chunk",
-                                  "knn_ring_step:0"])
+@pytest.mark.parametrize("site", ["bogus", "layout_round",
+                                  "calibrate_shard:0", "knn_ring_step:0"])
 def test_fault_injector_rejects_sites_the_port_never_fires(site):
     with pytest.raises(ValueError, match="unknown fault site"):
         FaultInjector({site: {0: "exception"}})
 
 
 def test_every_planned_site_fires(model):
-    """A plan on all four sites: each fires, with the hit it names."""
-    assert ft.FAULT_SITES == {"submit", "prefill", "retire", "step"}
-    plan = {site: {1: (lambda payload: payload)} for site in ft.FAULT_SITES}
+    """A plan on the server's four sites: each fires, with the hit it
+    names."""
+    assert ft.FAULT_SITES == {"submit", "prefill", "retire", "step",
+                              "stage:graph", "stage:weights",
+                              "stage:samplers", "layout_chunk",
+                              "layout_saved"}
+    sites = {"submit", "prefill", "retire", "step"}
+    plan = {site: {1: (lambda payload: payload)} for site in sites}
     fi = FaultInjector(plan)
     eng = _drain(model, [ProjectRequest(rid=i, x=x)
                          for i, x in enumerate(_queries(12))], fault=fi)
-    assert sorted(fi.log) == sorted((s, 1, "callable")
-                                    for s in ft.FAULT_SITES)
+    assert sorted(fi.log) == sorted((s, 1, "callable") for s in sites)
     assert len(eng.completed) == 12
 
 
