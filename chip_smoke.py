@@ -100,11 +100,30 @@ in one process (``run_parent``), and requires the two packages'
    bitwise transparently (line ``server checks:``); every drain keeps
    the corpus rows bitwise and serves all its queries with finite
    coordinates, and the served accuracy is within 0.05 of
-   ``transform``'s; then ``LargeVis.insert`` of 2,000 more points, each
-   phase with its launch counts read;
-9. runs the 2000-point quality fixture (accuracy >= 0.95), by the fused
+   ``transform``'s;
+9. the tree fit (``rp_mode="tree"``: 8 trees of depth 11, its layout cut
+   to 2,000 samples per node, a printed cut): the card's tree codes
+   against the CPU's from one draw of pairs (a point may differ only
+   within the f32 bound of its plane; the count printed), then the fit's
+   ``knn_s``, graph_recall and 5-NN accuracy beside the hash fit's, with
+   ``topk_sqdist`` launched once a tree; the tile tuner:
+   ``symmetrize`` and ``neighbor_explore`` swept at the fit's shapes into
+   a temporary cache (winner and time beside the legacy tile's), and a
+   fit under ``routing.autotune="cache"`` (the committed table: the run
+   points the user cache at an empty directory) bitwise one under
+   ``"off"``, both at the cut depth; the baselines: LINE from the fit's
+   samplers at 1,000 samples per node, twice from one seed, bitwise, one
+   ordered scatter a step; exact t-SNE and symmetric SNE on the first
+   10,000 points' KNN graph, 1,000 iterations (ms an iteration, the KL,
+   5-NN accuracy); NN-Descent at full width, 4 exploring rounds,
+   graph_recall beside the forest's; the VP-tree on the host over the
+   10,000 points, 200 queries, recall against brute force and queries/s;
+   then ``LargeVis.insert`` of 2,000 more points (it grows the fit's
+   carrier, so it runs last on it); each phase with its launch counts
+   read;
+10. runs the 2000-point quality fixture (accuracy >= 0.95), by the fused
    and by the split route: the two layouts bitwise equal;
-10. the LM serving path: ``flash_attention`` against its plain version at
+11. the LM serving path: ``flash_attention`` against its plain version at
    the serve path's shape (1, 4096, 16, 64) in bf16 and f32, and at
    ragged shapes, S = T = 4095 and 4097 and head dims 16 and 32, timed
    by CUDA events and by the profiler's device time, then
@@ -129,9 +148,12 @@ import argparse
 import dataclasses
 import functools
 import json
+import math
+import os
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -2305,6 +2327,318 @@ def check_decode_matches_prefill(torch, n_layers: int = 2, S: int = 1000):
 
 
 # ---------------------------------------------------------------------------
+# the tree forest, the tuner and the baselines
+# ---------------------------------------------------------------------------
+
+TREE_SAMPLES_PER_NODE = 2_000   # the tree fit's layout (printed cut)
+LINE_SAMPLES_PER_NODE = 1_000   # the JAX package's line_layout default
+N_SUBSET = 10_000               # exact t-SNE / SNE and the VP-tree
+TSNE_ITERS = 1_000              # the JAX package's tsne_layout default
+SNE_LR = 20.0                   # fig5's symmetric-SNE lr (t-SNE: 200)
+NND_ITERS = 4                   # the JAX package's nn_descent default
+VP_QUERIES = 200                # VP-tree queries on the host
+
+
+def _counted(torch, fn):
+    """``fn()`` with every kernel's launch count set to 0 just before and
+    read just after (the card synchronised): (result, counts)."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, ops.launch_counts()
+
+
+def _add_counts(total: dict, counts: dict) -> dict:
+    for name, c in counts.items():
+        total[name] = total.get(name, 0) + c
+    return total
+
+
+def check_tree_codes(torch, x, cfg, depth: int):
+    """The card's tree codes against the CPU's from one draw of pairs: a
+    point may differ only within the f32 bound of the plane that split
+    it (``knn.tree_code_flips``)."""
+    from repro_torch.core import knn
+
+    gen = torch.Generator(device=x.device).manual_seed(5)
+    pairs = torch.randint(0, x.shape[0], (cfg.n_trees, (1 << depth) - 1, 2),
+                          generator=gen, device=x.device)
+    card = knn.tree_codes(x, cfg.n_trees, depth, pairs=pairs)
+    ms = time_ms(torch, lambda: knn.tree_codes(x, cfg.n_trees, depth,
+                                                pairs=pairs), reps=3)
+    hash_ms = time_ms(torch, lambda: knn.hash_codes(
+        x, cfg.n_trees, depth, generator=gen), reps=3)
+    cpu = knn.tree_codes(x.cpu(), cfg.n_trees, depth, pairs=pairs.cpu())
+    pt, tr, margin, bound = knn.tree_code_flips(x, pairs, card, cpu, depth)
+    check(bool((margin <= bound).all()), f"tree codes: points "
+          f"{pt[margin > bound].tolist()[:10]} differ from the CPU's beyond "
+          f"the f32 bound of their plane")
+    print(f"tree codes: {cfg.n_trees} trees x depth {depth} on (N="
+          f"{x.shape[0]}, d={x.shape[1]}): {ms:.3f} ms on the card "
+          f"(hash_codes {hash_ms:.3f} ms); equal to the CPU's from the same "
+          f"pairs except {len(pt)} point-tree codes, each within the f32 "
+          f"bound of its plane (largest margin / bound "
+          f"{float((margin / bound).max(initial=0.0)):.3g})", flush=True)
+
+
+def run_tree_fit(torch, x, labels, res, acc_fit, cfg):
+    """``largevis`` with ``rp_mode="tree"`` at full width, its layout cut;
+    its forest folds through ``topk_sqdist`` once a tree.  Returns its
+    launch counts."""
+    from repro_torch import largevis
+    from repro_torch.core import knn, metrics
+
+    spn = min(TREE_SAMPLES_PER_NODE, cfg.samples_per_node)
+    tcfg = dataclasses.replace(cfg, rp_mode="tree", samples_per_node=spn)
+    print(f"cut: the tree fit's layout samples_per_node "
+          f"{PAPER_SAMPLES_PER_NODE} -> {spn} (its graph stage is the "
+          f"point; the hash fit ran at {cfg.samples_per_node})", flush=True)
+    depth = cfg.tree_depth or knn._auto_depth(x.shape[0], cfg.leaf_target)
+    check_tree_codes(torch, x, cfg, depth)
+
+    def fit():
+        tree = largevis(x, cfg=tcfg, device=x.device)
+        return (tree, metrics.graph_recall(tree.x, tree.knn_idx),
+                metrics.knn_classifier_accuracy(tree.y, labels))
+
+    (tree, recall, acc), counts = _counted(torch, fit)
+    recall_hash = metrics.graph_recall(res.x, res.knn_idx)
+    t = tree.timings
+    print(f"tree fit: rp_mode='tree', {cfg.n_trees} trees of depth {depth}, "
+          f"samples_per_node={spn}: knn_s {t['knn_s']:.3f} s (hash "
+          f"{res.timings['knn_s']:.3f} s), graph_recall {recall:.4f} (hash "
+          f"{recall_hash:.4f}), knn_classifier_accuracy {acc:.4f} (hash fit "
+          f"{acc_fit:.4f}, at {cfg.samples_per_node}); layout_s "
+          f"{t['layout_s']:.3f} s for {tree.steps} steps; topk_sqdist "
+          f"launches {counts['topk_sqdist']}; launches {counts}", flush=True)
+    check(bool(torch.isfinite(tree.y).all()), "the tree fit is not finite")
+    check(bool(((tree.knn_idx >= 0) & (tree.knn_idx < x.shape[0])).all()),
+          "the tree graph holds an empty or out-of-range slot")
+    check(counts["topk_sqdist"] == cfg.n_trees, f"the tree forest launched "
+          f"topk_sqdist {counts['topk_sqdist']} times for {cfg.n_trees} trees")
+    check(counts["fused_edge_step"] == tree.steps,
+          f"fused_edge_step launched {counts['fused_edge_step']} times in a "
+          f"layout of {tree.steps} steps")
+    # floors against a collapse, as the hash fit's: the tree forest on
+    # these isotropic clusters leaves exploring less to start from than
+    # the hash forest (recall 0.4805 against 0.7661 on the card; the port
+    # holds JAX's tree graph slot for slot on the CPU), while a forest of
+    # random buckets plus one round would stay near (K^2 + K) / N = 0.23
+    check(recall >= 0.4, f"tree graph_recall {recall} < 0.4")
+    check(acc >= 0.8, f"tree fit accuracy {acc} < 0.8")
+    return counts
+
+
+def run_autotuner(torch, x, res, cfg):
+    """Sweeps of ``symmetrize`` and ``neighbor_explore`` at the fit's
+    shapes, in ``sweep`` mode into a temporary cache (winner and time
+    beside the legacy tile's); then, with the user cache empty, a fit under
+    ``routing.autotune="cache"`` (the committed table), bitwise one under
+    ``"off"`` (the layout cut as the tree fit's).  Returns the two fits'
+    launch counts."""
+    from repro_torch import RoutingConfig, largevis
+    from repro_torch.runtime import autotune
+
+    backend = x.device.type
+    N, K = res.knn_idx.shape
+    cells = (("symmetrize", dict(n=N, k=K)),
+             ("neighbor_explore", dict(n=N, k=K, d=x.shape[1])))
+    empty = os.environ["REPRO_AUTOTUNE_CACHE"]
+    parts = []
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["REPRO_AUTOTUNE_CACHE"] = tmp
+        autotune.set_mode("sweep")
+        try:
+            for kernel, shape in cells:
+                # the committed table holds these cells, so a lookup
+                # would not miss: sweep them outright
+                t0 = time.perf_counter()
+                got = autotune.sweep(kernel, shape, backend=backend)
+                secs = time.perf_counter() - t0
+                entry = autotune._read_entries(autotune._cache_path(
+                    backend))[autotune.bucket_key(kernel, shape, backend)]
+                parts.append(
+                    f"{kernel} {shape} (bucket {entry['shape']}): {got} "
+                    f"{entry['us']:.1f} us, legacy "
+                    f"{autotune.legacy_default(kernel)} "
+                    f"{entry['us_default']:.1f} us, swept in {secs:.2f} s")
+        finally:
+            autotune.set_mode(None)
+            os.environ["REPRO_AUTOTUNE_CACHE"] = empty
+    print("autotune sweep: " + "; ".join(parts), flush=True)
+    spn = min(TREE_SAMPLES_PER_NODE, cfg.samples_per_node)
+    table = autotune._read_entries(autotune._defaults_path(backend))
+    check(bool(table), f"the committed {backend} table is missing or empty")
+    fits, counts = {}, {}
+    for m in ("cache", "off"):
+        mcfg = dataclasses.replace(cfg, samples_per_node=spn,
+                                   routing=RoutingConfig(autotune=m))
+        autotune._mem.clear()
+        fits[m], c = _counted(torch, lambda: largevis(x, cfg=mcfg,
+                                                      device=x.device))
+        _add_counts(counts, c)
+        if m == "cache":
+            used = sorted(k for k in autotune._mem if k in table)
+            check(bool(used), "the cache fit used no committed entry")
+            print(f"autotune cache fit: committed entries used "
+                  f"{ {k: table[k]['config'] for k in used} }", flush=True)
+    autotune.set_mode(None)
+    for name in ("knn_idx", "knn_dist", "weights", "y"):
+        a, b = getattr(fits["cache"], name), getattr(fits["off"], name)
+        check(torch.equal(a, b), f"the tuned and the untuned fit differ in "
+              f"{name} ({int((a != b).sum())} entries)")
+    tc, to = fits["cache"].timings, fits["off"].timings
+    print(f"autotune: the fit under routing.autotune='cache' (committed "
+          f"table) bitwise equal to 'off' at samples_per_node={spn} "
+          f"(graph, distances, weights, layout); cache / off: knn_s "
+          f"{tc['knn_s']:.3f} / {to['knn_s']:.3f} s, weights_s "
+          f"{tc['weights_s']:.3f} / {to['weights_s']:.3f} s", flush=True)
+    return counts
+
+
+def _subset_graph(torch, x, labels, cfg):
+    """The first N_SUBSET points, their KNN graph and weights (the fit's
+    graph stage at the fit's settings)."""
+    from repro_torch.core.largevis import build_graph
+    xs = x[:N_SUBSET].contiguous()
+    idx, _, w, _ = build_graph(xs, cfg=cfg, device=xs.device)
+    return xs, labels[:N_SUBSET], idx, w
+
+
+def run_line(torch, res, labels, acc_fit, cfg):
+    """LINE from the fit's samplers at the JAX default depth, twice from
+    one seed (bitwise); one ordered scatter a step."""
+    from repro_torch.core import metrics
+    from repro_torch.core.baselines.line import line_layout
+    from repro_torch.core.largevis import seeded_generator
+
+    def run():
+        t0 = time.perf_counter()
+        y, steps = line_layout(seeded_generator(res.y.device, 21),
+                               res.edge_sampler,
+                               res.neg_sampler, res.y.shape[0],
+                               samples_per_node=LINE_SAMPLES_PER_NODE,
+                               n_negatives=cfg.n_negatives,
+                               batch=cfg.batch_size)
+        torch.cuda.synchronize()
+        return y, steps, time.perf_counter() - t0
+
+    (y, steps, secs), counts = _counted(torch, run)
+    (y2, _, secs2), _ = _counted(torch, run)
+    acc = metrics.knn_classifier_accuracy(y, labels)
+    print(f"LINE (2-D, first order): samples_per_node="
+          f"{LINE_SAMPLES_PER_NODE}, {steps} steps, {secs:.3f} s "
+          f"({secs / steps * 1e3:.4f} ms a step; again {secs2:.3f} s), "
+          f"bitwise equal twice from one seed; scatter_add_ordered launches "
+          f"{counts['scatter_add_ordered']}; knn_classifier_accuracy "
+          f"{acc:.4f} (the LargeVis fit {acc_fit:.4f})", flush=True)
+    check(torch.equal(y, y2), "two LINE runs from one seed differ")
+    check(bool(torch.isfinite(y).all()), "the LINE layout is not finite")
+    check(counts["scatter_add_ordered"] == steps, f"LINE launched the "
+          f"ordered scatter {counts['scatter_add_ordered']} times in "
+          f"{steps} steps")
+    return counts
+
+
+def run_tsne(torch, sub):
+    """Exact t-SNE and symmetric SNE on the subset's KNN graph."""
+    from repro_torch.core import metrics
+    from repro_torch.core.baselines.tsne import tsne_layout
+    from repro_torch.core.largevis import seeded_generator
+
+    xs, ls, idx, w = sub
+    parts, total = [], {}
+    for name, kw in (("t-SNE", dict(student_t=True)),
+                     ("symmetric SNE", dict(student_t=False, lr=SNE_LR))):
+        def run():
+            t0 = time.perf_counter()
+            out = tsne_layout(idx, w, n_iter=TSNE_ITERS,
+                              generator=seeded_generator(w.device, 22), **kw)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        ((y, kls), secs), counts = _counted(torch, run)
+        _add_counts(total, counts)
+        acc = metrics.knn_classifier_accuracy(y, ls)
+        check(bool(torch.isfinite(y).all()) and all(
+            math.isfinite(k) for k in kls), f"{name}: not finite")
+        parts.append(f"{name} {secs:.3f} s ({secs / TSNE_ITERS * 1e3:.3f} ms "
+                     f"an iteration), KL at iteration "
+                     f"{(len(kls) - 1) * 100} {kls[-1]:.4f}, "
+                     f"knn_classifier_accuracy {acc:.4f}")
+    print(f"exact SNE on the first {N_SUBSET} points' KNN graph (K="
+          f"{idx.shape[1]}), {TSNE_ITERS} iterations: " + "; ".join(parts),
+          flush=True)
+    return total
+
+
+def run_nn_descent(torch, x, res, cfg):
+    """NN-Descent (random init + exploring) at full width: recall against
+    brute force on the sampled rows, beside the forest's."""
+    from repro_torch.core import metrics
+    from repro_torch.core.baselines.nn_descent import nn_descent
+    from repro_torch.core.largevis import seeded_generator
+
+    def run():
+        t0 = time.perf_counter()
+        out = nn_descent(x, cfg.n_neighbors, iters=NND_ITERS,
+                         generator=seeded_generator(x.device, 23))
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    ((idx, _), secs), counts = _counted(torch, run)
+    recall = metrics.graph_recall(x, idx)
+    print(f"NN-Descent: random init + {NND_ITERS} exploring rounds, K="
+          f"{cfg.n_neighbors}: {secs:.3f} s, graph_recall {recall:.4f} (the "
+          f"fit's forest + {cfg.n_explore_iters} round: knn_s "
+          f"{res.timings['knn_s']:.3f} s, graph_recall "
+          f"{metrics.graph_recall(res.x, res.knn_idx):.4f})", flush=True)
+    check(recall > 0.05, f"NN-Descent graph_recall {recall}")
+    return counts
+
+
+def run_vptree(torch, sub, k: int):
+    """The VP-tree on the host over the subset: recall of VP_QUERIES
+    queries against brute force on the card, and queries/s (the tree's
+    build included, as ``vptree_knn`` builds it)."""
+    import numpy as np
+
+    from repro_torch.core.baselines.vptree import vptree_knn
+    from repro_torch.kernels import ops
+
+    xs = sub[0]
+    xh = xs.cpu().numpy()
+    t0 = time.perf_counter()
+    got = vptree_knn(xh, k, n_query=VP_QUERIES)
+    secs = time.perf_counter() - t0
+    d = ops.pairwise_sqdist(xs[:VP_QUERIES], xs)
+    rows = torch.arange(VP_QUERIES, device=xs.device)
+    d[rows, rows] = 3.4e38
+    true = torch.sort(d, dim=1, stable=True).indices[:, :k].cpu().numpy()
+    recall = float(np.mean([len(set(a) & set(b)) / k
+                            for a, b in zip(got, true)]))
+    print(f"VP-tree (host, numpy): {xh.shape[0]} points in d={xh.shape[1]}, "
+          f"K={k}, eps=0: {VP_QUERIES} queries in {secs:.3f} s with the "
+          f"build, {VP_QUERIES / secs:.2f} queries/s; recall {recall:.4f} "
+          f"against brute force on the card", flush=True)
+    check(recall >= 0.99, f"VP-tree recall {recall} < 0.99")
+
+
+def run_baselines(torch, x, labels, res, acc_fit, cfg):
+    """LINE, exact t-SNE and SNE, NN-Descent and the VP-tree; returns the
+    launch counts of the paths on the card."""
+    counts = {}
+    _add_counts(counts, run_line(torch, res, labels, acc_fit, cfg))
+    sub, c = _counted(torch, lambda: _subset_graph(torch, x, labels, cfg))
+    _add_counts(counts, c)
+    _add_counts(counts, run_tsne(torch, sub))
+    _add_counts(counts, run_nn_descent(torch, x, res, cfg))
+    run_vptree(torch, sub, cfg.n_neighbors)
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # before and after: a parent checkout's package and this one, in turns
 # ---------------------------------------------------------------------------
 
@@ -2516,6 +2850,10 @@ def main() -> None:
     warnings.simplefilter("error", DegradedModeWarning)
     warnings.simplefilter("error", DivergenceWarning)
 
+    # the tuner reads the committed table and no user cache
+    tune_cache = tempfile.TemporaryDirectory()
+    os.environ["REPRO_AUTOTUNE_CACHE"] = tune_cache.name
+
     smi = nvidia_smi()
     print(smi, flush=True)
     dev = resolve_device("cuda")           # also switches TF32 off
@@ -2560,7 +2898,18 @@ def main() -> None:
     run_autodiff(torch, res, cfg)
     acc_tr = run_transform(torch, res, labels, acc_fit, cfg)
     run_projection_server(torch, res, labels, acc_tr, cfg)
-    run_insert(torch, res, cfg)
+    paths = _add_counts({}, run_tree_fit(torch, x, labels, res, acc_fit,
+                                         cfg))
+    _add_counts(paths, run_autotuner(torch, x, res, cfg))
+    base = run_baselines(torch, x, labels, res, acc_fit, cfg)
+    _add_counts(paths, base)
+    for rec in kernels:
+        rec["launches"] += paths[rec["name"]]
+    # LINE's gradient scatter is the ordered-scatter launch of
+    # csrc/largevis_step.cu, fused_edge_step's source
+    next(rec for rec in kernels if rec["name"] == "fused_edge_step")[
+        "launches"] += base["scatter_add_ordered"]
+    run_insert(torch, res, cfg)          # grows res: the last on the fit
     acc_auto, y_auto = run_fixture(torch)
     acc_split, y_split = run_fixture(torch, "split")
     check(torch.equal(y_auto, y_split),
@@ -2578,6 +2927,7 @@ def main() -> None:
     print(smi)
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}
                                   for rec in kernels]}))
+    tune_cache.cleanup()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,9 @@
 """repro_torch: the PyTorch/CUDA port of the LargeVis reproduction.
 
 The port runs the single-device fit (crash-safe with
-``LargeVisConfig.checkpoint``, health-guarded with ``.health``), with the
-fused or the split layout step, ``save``/``load`` in the JAX package's
+``LargeVisConfig.checkpoint``, health-guarded with ``.health``; the hash
+or the random-projection tree forest, ``.rp_mode``), with the fused or
+the split layout step, ``save``/``load`` in the JAX package's
 format, and the out-of-sample transform and insert on an NVIDIA H100
 through hand-written CUDA kernels (``csrc/``), built with ``nvcc`` at
 first use; on the CPU (``device="cpu"``) the same entry points run the

@@ -71,7 +71,10 @@ class RoutingConfig:
     The port honours ``layout_step`` ("auto" and "fused" run the fused
     edge-step kernel for ``prob_fn="inv_quadratic"``; "split", and any
     other ``prob_fn``, run the gather / forces / ordered-scatter path) and
-    ignores the rest: kernels are chosen by the device of the tensors.
+    ``autotune`` ("auto" leaves the mode to the ``AUTOTUNE`` variable,
+    default "cache"; "off", "cache" or "sweep" pins it for the process:
+    ``runtime/autotune.py``), and ignores the rest: kernels are chosen by
+    the device of the tensors.
     """
     knn: str = "auto"
     sampler: str = "auto"
@@ -90,7 +93,7 @@ class LargeVisConfig:
     leaf_target: int = 64           # target points per bucket
     window: int = 64                # sorted-window candidate half-width
     explore_sample: int = 0         # 0 -> all K^2 + K candidates
-    rp_mode: str = "hash"           # only "hash" is ported
+    rp_mode: str = "hash"           # "hash" | "tree" (the paper's RP tree)
     perplexity: float = 50.0        # u in Eqn (1)
     perplexity_iters: int = 64      # bisection steps for sigma_i
     # --- distributed pipeline (not ported; must stay False) ---

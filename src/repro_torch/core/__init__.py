@@ -1,2 +1,2 @@
 """The port's pipeline stages: KNN graph, edge weights, samplers, layout,
-metrics."""
+metrics; and the methods the paper compares with (``baselines``)."""

@@ -1,12 +1,20 @@
 """Approximate KNN graph construction (paper §3.1, Algo 1), one device.
 
-The projection forest is ``rp_mode="hash"``: per tree, ``depth``
-sign-projections (one matmul) give each point a bucket code; points sort
-by code, and each block of W sorted points is compared with its ±W
-neighbourhood (3W candidates) by the streaming distance -> top-k kernel,
-seeded with the running top-k of the block's rows.  All ``ceil(N/W)``
-blocks of one tree are one kernel launch (a leading group dimension).
-Neighbor exploring (``core/neighbor_explore.py``) then repairs the graph.
+The projection forest gives each point a bucket code per tree, in one of
+two modes:
+
+* ``rp_mode="hash"``: ``depth`` sign-projections (one matmul);
+* ``rp_mode="tree"``: the paper's random-projection tree, descended level
+  by level for all points at once: every node's hyperplane is
+  equidistant to a sampled pair of points, and each point takes the
+  hyperplane of the node its code addresses (``tree_codes``).
+
+Points sort by code, and each block of W sorted points is compared with
+its ±W neighbourhood (3W candidates) by the streaming distance -> top-k
+kernel, seeded with the running top-k of the block's rows.  All
+``ceil(N/W)`` blocks of one tree are one kernel launch (a leading group
+dimension).  Neighbor exploring (``core/neighbor_explore.py``) then
+repairs the graph.
 
 Every argsort here is stable, as ``jnp.argsort`` is, so ties between
 equal codes or ids order the same way in both packages.
@@ -74,6 +82,73 @@ def hash_codes(x: torch.Tensor, n_trees: int, depth: int, *,
     return (bits * weights).sum(-1).to(torch.int32)
 
 
+def tree_codes(x: torch.Tensor, n_trees: int, depth: int, *,
+               pairs: torch.Tensor | None = None,
+               generator: torch.Generator | None = None) -> torch.Tensor:
+    """Random-projection tree codes: (N, n_trees) int32.
+
+    ``pairs`` (n_trees, 2**depth - 1, 2) holds each node's sampled pair
+    of point ids in heap order (level l's nodes start at 2**l - 1);
+    without it they are drawn from ``generator``.  Node (a, b) splits at
+    the hyperplane equidistant to x_a and x_b: h = x_a - x_b, offset
+    b = h.(x_a + x_b)/2, and a point goes right when x.h > b.  A pair
+    with a == b gives h = 0, so every point goes left.  The dot products
+    are row products summed in f32 (no TF32, no batched matmul); their
+    summation order is not XLA's, so a point within rounding of its
+    plane can take the other side than in the JAX package.
+    """
+    N, d = x.shape
+    xf = x.float()
+    if pairs is None:
+        pairs = torch.randint(0, N, (n_trees, (1 << depth) - 1, 2),
+                              generator=generator, device=x.device)
+    pairs = pairs.to(x.device, torch.int64)
+    codes = torch.empty((N, n_trees), dtype=torch.int32, device=x.device)
+    for t in range(n_trees):
+        code = torch.zeros(N, dtype=torch.int64, device=x.device)
+        for level in range(depth):
+            node = pairs[t, (1 << level) - 1:(1 << (level + 1)) - 1]
+            xa, xb = xf[node[:, 0]], xf[node[:, 1]]
+            h = xa - xb                                    # (2^level, d)
+            b = (h * (xa + xb) * 0.5).sum(1)
+            side = (xf * h[code]).sum(1) > b[code]
+            code = code * 2 + side
+        codes[:, t] = code
+    return codes
+
+
+def tree_code_flips(x, pairs, codes, other, depth: int):
+    """Where two tree codings of x differ, the plane that split them.
+
+    For each point whose ``codes`` and ``other`` (both (N, n_trees))
+    differ in some tree, the first level that differs names one node both
+    codings reached; returns (point, tree, margin, bound) as f64 numpy
+    arrays, with margin = |x.h - b| in f64 from the f32 h = x_a - x_b
+    and bound = 4 d 2^-23 (|x| |h| + |b|): a flip is f32 rounding only
+    while margin <= bound.
+    """
+    xs = np.array(torch.as_tensor(x).cpu(), np.float32)
+    pr = np.asarray(torch.as_tensor(pairs).cpu(), np.int64)
+    a = np.asarray(torch.as_tensor(codes).cpu(), np.int64)
+    o = np.asarray(torch.as_tensor(other).cpu(), np.int64)
+    pt, tr = np.nonzero(a != o)
+    diff = a[pt, tr] ^ o[pt, tr]
+    top = np.floor(np.log2(diff)).astype(np.int64)        # first bit apart
+    level = depth - 1 - top
+    prefix = a[pt, tr] >> (top + 1)                        # shared node
+    node = pr[tr, (1 << level) - 1 + prefix]               # (F, 2)
+    xa, xb = xs[node[:, 0]], xs[node[:, 1]]
+    h = (xa - xb).astype(np.float64)
+    mid = (xa + xb).astype(np.float64)
+    b = (h * mid * 0.5).sum(1)
+    xp = xs[pt].astype(np.float64)
+    margin = np.abs((xp * h).sum(1) - b)
+    d = xs.shape[1]
+    bound = 4 * d * 2.0 ** -23 * (np.linalg.norm(xp, axis=1)
+                                  * np.linalg.norm(h, axis=1) + np.abs(b))
+    return pt, tr, margin, bound
+
+
 def window_fold_args(x, code, k: int, window: int, run_ids, run_d):
     """The grouped ``topk_sqdist`` arguments of one tree's window fold.
 
@@ -123,16 +198,26 @@ def _window_fold_one_tree(x, code, k: int, window: int, run_ids, run_d):
 
 
 def forest_knn(x: torch.Tensor, *, n_trees: int, depth: int, k: int,
-               window: int, proj: torch.Tensor | None = None,
+               window: int, rp_mode: str = "hash",
+               proj: torch.Tensor | None = None,
+               pairs: torch.Tensor | None = None,
                generator: torch.Generator | None = None):
     """Initial approximate KNN from the projection forest.
 
-    The running (N, k) top-k folds one tree after another; a candidate
-    already held is never offered again (dedup), so the result is the
-    top-k of the union of all trees' windows.
+    ``rp_mode`` "hash" codes points by ``hash_codes`` (``proj`` fixes the
+    hyperplanes), "tree" by ``tree_codes`` (``pairs`` fixes the nodes'
+    pairs).  The running (N, k) top-k folds one tree after another; a
+    candidate already held is never offered again (dedup), so the result
+    is the top-k of the union of all trees' windows.
     """
     N = x.shape[0]
-    codes = hash_codes(x, n_trees, depth, proj=proj, generator=generator)
+    if rp_mode == "hash":
+        codes = hash_codes(x, n_trees, depth, proj=proj, generator=generator)
+    elif rp_mode == "tree":
+        codes = tree_codes(x, n_trees, depth, pairs=pairs,
+                           generator=generator)
+    else:
+        raise ValueError(f"rp_mode={rp_mode!r}: expected 'hash' or 'tree'")
     run_ids = torch.full((N, k), -1, dtype=torch.int32, device=x.device)
     run_d = torch.full((N, k), ref_lib.INVALID_DIST, device=x.device)
     for t in range(n_trees):
@@ -143,25 +228,24 @@ def forest_knn(x: torch.Tensor, *, n_trees: int, depth: int, k: int,
 
 def build_knn_graph(x: torch.Tensor, cfg, *,
                     generator: torch.Generator | None = None,
-                    proj: torch.Tensor | None = None):
+                    proj: torch.Tensor | None = None,
+                    pairs: torch.Tensor | None = None):
     """Forest + neighbor exploring: (idx (N, K) int32, sqdist (N, K) f32).
 
-    Single device, ``rp_mode="hash"`` only.
+    Single device; ``cfg.rp_mode`` picks the forest's codes (``proj`` or
+    ``pairs`` fix its randomness, see ``forest_knn``).
     """
     from repro_torch.core.neighbor_explore import neighbor_explore
     if cfg.distributed:
         raise NotImplementedError(
             "distributed=True is not ported yet (ROADMAP, Queue 1: "
             "distributed)")
-    if cfg.rp_mode != "hash":
-        raise NotImplementedError(
-            f"rp_mode={cfg.rp_mode!r} is not ported yet (ROADMAP, Queue 1: "
-            "rp_mode='tree')")
     N = x.shape[0]
     k = min(cfg.n_neighbors, N - 1)
     depth = cfg.tree_depth or _auto_depth(N, cfg.leaf_target)
     idx, dist = forest_knn(x, n_trees=cfg.n_trees, depth=depth, k=k,
-                           window=cfg.window, proj=proj, generator=generator)
+                           window=cfg.window, rp_mode=cfg.rp_mode,
+                           proj=proj, pairs=pairs, generator=generator)
     if cfg.n_explore_iters:
         idx, dist = neighbor_explore(x, idx, dist, iters=cfg.n_explore_iters,
                                      sample=cfg.explore_sample,

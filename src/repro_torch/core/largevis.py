@@ -18,7 +18,10 @@ without that request they raise.  Randomness comes from
 ``torch.Generator``s on the device: the graph stage's seeded with
 ``cfg.seed``, the layout's with ``cfg.seed + 1``.  TF32 is switched off
 for matrix products and convolutions: a TF32 product in ``hash_codes``
-flips code bits.
+flips code bits.  That is the port's one environment pin: the JAX
+package's ``runtime/platform.py`` sets XLA flags and has no counterpart.
+``cfg.routing.autotune`` sets the tile tuner's mode
+(``runtime/autotune.py``) at each entry point, as in the JAX package.
 
 Crash safety, as in the JAX package: with ``cfg.checkpoint`` each stage
 boundary (``graph``, ``weights``, ``samplers``, and the layout every
@@ -45,6 +48,7 @@ from repro_torch.core import knn as knn_lib
 from repro_torch.core import layout as layout_lib
 from repro_torch.core import perplexity as perp_lib
 from repro_torch.core import sampler as sampler_lib
+from repro_torch.runtime import autotune
 from repro_torch.runtime.fault_tolerance import PreemptionGuard
 
 
@@ -93,6 +97,14 @@ def seeded_generator(device, seed: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
+def _apply_autotune_mode(cfg: LargeVisConfig) -> None:
+    """Honour ``cfg.routing.autotune`` for this process: "auto" leaves
+    the mode to the ``AUTOTUNE`` variable (default "cache"), anything
+    else pins it (``runtime/autotune.py``)."""
+    m = cfg.routing.autotune
+    autotune.set_mode(None if m in ("auto", None) else m)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -125,6 +137,7 @@ def build_graph(x, *, cfg: LargeVisConfig | None = None, device="cuda",
     ``fault`` fires ``stage:graph`` / ``stage:weights`` after each
     boundary commits."""
     cfg = cfg if cfg is not None else LargeVisConfig()
+    _apply_autotune_mode(cfg)
     dev = resolve_device(device)
     x = as_tensor(x, dev, torch.float32)
     if proj is not None:
@@ -178,6 +191,7 @@ def layout_graph(knn_idx, weights, *, cfg: LargeVisConfig | None = None,
     ``stage:samplers`` after the boundary commits and goes on into the
     layout."""
     cfg = cfg if cfg is not None else LargeVisConfig()
+    _apply_autotune_mode(cfg)
     dev = resolve_device(device)
     knn_idx = as_tensor(knn_idx, dev)
     weights = as_tensor(weights, dev, torch.float32)
@@ -223,6 +237,7 @@ def largevis(x, *, cfg: LargeVisConfig | None = None, device="cuda",
     armed: SIGTERM/SIGINT saves the newest layout chunk boundary, and
     the process then exits by the signal."""
     cfg = cfg if cfg is not None else LargeVisConfig()
+    _apply_autotune_mode(cfg)
     dev = resolve_device(device)
     x = as_tensor(x, dev, torch.float32)
     guard = None

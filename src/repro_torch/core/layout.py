@@ -197,7 +197,8 @@ def run_layout(generator, edge_sampler, neg_sampler, n_nodes: int, cfg, *,
         layout_step=cfg.routing.layout_step)
     lrs = layout_engine.lr_table(cfg.rho0 * rho0_scale, steps, device)
     H = layout_engine.dispatch_steps(int(cfg.steps_per_dispatch),
-                                     n_nodes=n_nodes, batch=batch)
+                                     n_nodes=n_nodes, batch=batch,
+                                     backend=torch.device(device).type)
     watchdog = None
     if callback is None and H > 1:
         # sync each chunk only when something needs it anyway; a

@@ -36,13 +36,19 @@ from repro_torch.kernels import ops, ref
 LAYOUT_STEPS = ("auto", "fused", "split")
 
 
-def dispatch_steps(requested: int, *, n_nodes: int, batch: int) -> int:
+def dispatch_steps(requested: int, *, n_nodes: int, batch: int,
+                   backend: str | None = None) -> int:
     """Steps per dispatch: ``requested`` (``cfg.steps_per_dispatch``)
-    wins when set; 0 means "no opinion", which in the JAX package asks
-    its autotuner.  The port has no autotuner yet, so 0 stays 0 and the
-    callers run the per-step loop."""
-    del n_nodes, batch      # the autotuner's cell, when there is one
-    return int(requested) if requested else 0
+    wins when set; 0 asks the tuner's ``layout_chunk`` cell (cache or
+    committed table only, no sweep).  Chunking is results-neutral: a
+    chunk replays the loop's steps bitwise.  Returns 0, and the callers
+    run the per-step loop, when neither picks."""
+    if requested:
+        return int(requested)
+    from repro_torch.runtime import autotune
+    return int(autotune.get("layout_chunk", dict(n=n_nodes, b=batch),
+                            autotune.legacy_default("layout_chunk"),
+                            backend=backend)["steps"])
 
 
 def chunk_schedule(steps: int, H: int) -> list:

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import knn as knn_lib
-from repro_torch.kernels import ops
+from repro_torch.runtime import autotune
 
 
 def reverse_neighbors(knn_idx: torch.Tensor, r_cap: int) -> torch.Tensor:
@@ -77,17 +77,26 @@ def _explore_round(x, knn_idx, knn_dist, rows, *, sample: int, tile: int,
     return out_i, out_d
 
 
+def capped_tile(tile: int, n_rows: int, K: int, d: int) -> int:
+    """The row tile exploring runs: ``tile`` capped by the rows and so
+    that the (tile, K^2 + K, d) gather stays under ~256 MB of f32."""
+    budget = 64 * (1 << 20)
+    return max(16, min(tile, n_rows, budget // max(1, (K * K + K) * d)))
+
+
 def neighbor_explore(x, knn_idx, knn_dist, *, iters: int = 1,
                      sample: int = 0, generator=None,
                      tile: int | None = None, rows=None):
     """Refine (knn_idx, knn_dist) for ``iters`` rounds.
 
     Reverse neighbors are capped at K per row.  ``tile`` bounds the
-    (tile, K^2 + K, d) gather; it is further capped so that gather stays
-    under ~256 MB of f32.  ``rows`` (row indices) restricts
-    exploring to those rows, the repair mode of ``transform.knn_insert``:
-    candidates still come from the full graph, forward and reverse, but
-    only ``rows`` are recomputed and written back.
+    (tile, K^2 + K, d) gather (``capped_tile``); None asks the tuner,
+    but only when ``sample == 0``: a sampled round draws its candidate
+    columns tile by tile, so there the tile is part of the result and
+    the legacy 1024 runs.  ``rows`` (row indices) restricts exploring to
+    those rows, the repair mode of ``transform.knn_insert``: candidates
+    still come from the full graph, forward and reverse, but only
+    ``rows`` are recomputed and written back.
     """
     N, K = knn_idx.shape
     if rows is None:
@@ -96,10 +105,14 @@ def neighbor_explore(x, knn_idx, knn_dist, *, iters: int = 1,
     n_rows = rows.shape[0]
     if n_rows == 0:
         return knn_idx, knn_dist
-    tile = tile or ops.EXPLORE_TILE
-    budget = 64 * (1 << 20)
-    tile = max(16, min(tile, n_rows,
-                       budget // max(1, (K * K + K) * x.shape[1])))
+    if tile is None:
+        tile = autotune.legacy_default("neighbor_explore")["tile"]
+        if sample == 0:
+            tile = autotune.get("neighbor_explore",
+                                dict(n=n_rows, k=K, d=x.shape[1]),
+                                dict(tile=tile),
+                                backend=x.device.type)["tile"]
+    tile = capped_tile(tile, n_rows, K, x.shape[1])
     for _ in range(iters):
         knn_idx, knn_dist = _explore_round(x, knn_idx, knn_dist, rows,
                                            sample=sample, tile=tile,

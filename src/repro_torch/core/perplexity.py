@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.runtime import autotune
 
 
 def calibrate_p(knn_sqdist: torch.Tensor, perplexity: float,
@@ -38,9 +38,17 @@ def calibrate_p(knn_sqdist: torch.Tensor, perplexity: float,
 
 
 def symmetrize(knn_idx: torch.Tensor, p: torch.Tensor, *,
-               tile: int = ops.SYMMETRIZE_TILE) -> torch.Tensor:
-    """w_ij = (p_{j|i} + p_{i|j}) / (2N) per directed edge slot (Eqn 2)."""
-    N = knn_idx.shape[0]
+               tile: int | None = None) -> torch.Tensor:
+    """w_ij = (p_{j|i} + p_{i|j}) / (2N) per directed edge slot (Eqn 2).
+
+    ``tile`` rows are looked up at a time; each row's sum is its own, so
+    the tile moves only memory and speed, and None asks the tuner
+    (legacy 4096)."""
+    N, K = knn_idx.shape
+    if tile is None:
+        tile = autotune.get("symmetrize", dict(n=N, k=K),
+                            autotune.legacy_default("symmetrize"),
+                            backend=knn_idx.device.type)["tile"]
     rev = torch.empty_like(p)
     for t0 in range(0, N, tile):
         rows = torch.arange(t0, min(t0 + tile, N), device=p.device)

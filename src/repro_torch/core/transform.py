@@ -118,7 +118,8 @@ def project(x_new, *, x, y, generator=None, cfg: LargeVisConfig | None = None,
     steps = int(cfg.transform_steps)
     lrs = layout_engine.lr_table(cfg.transform_rho0 or cfg.rho0, steps, dev)
     H = layout_engine.dispatch_steps(int(cfg.steps_per_dispatch),
-                                     n_nodes=n + q, batch=q)
+                                     n_nodes=n + q, batch=q,
+                                     backend=dev.type)
     unit = _query_unit(n, q, k, y_full.shape[1], dev, cfg, H)
     unit.y.copy_(y_full)
     unit.p.copy_(p)

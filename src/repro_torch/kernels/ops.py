@@ -2,18 +2,13 @@
 
 A CUDA tensor goes to the hand-written kernel, which launches or raises;
 a CPU tensor goes to the plain version in ``kernels/ref.py``.  Nothing
-falls back from one to the other.  The tile constants are the JAX
-package's ``AUTOTUNE=off`` defaults; the port has no autotuner yet.
+falls back from one to the other.  The kernels choose their own tiles;
+the tuned tiles of the plain stages are ``runtime/autotune.py``'s.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import (flash_attention as flash, knn_topk,
                                  largevis_grad, largevis_step, ref)
-
-# the JAX package's legacy (autotune "off") tiles; results do not depend
-# on them, only memory and speed do
-SYMMETRIZE_TILE = 4096
-EXPLORE_TILE = 1024
 
 
 def _route(t) -> bool:

@@ -1,2 +1,3 @@
 """Runtime support: fault injection, health and straggler signals, and
-preemption (``fault_tolerance``)."""
+preemption (``fault_tolerance``); the tile tuner (``autotune``) and the
+interleaved timing it measures with (``timing``)."""

@@ -142,8 +142,7 @@ def test_unported_routes_raise():
         with pytest.raises(ValueError):
             layout_engine.apply_edge_batch(z, i, j, n, n.float(), 0.1, **kw)
     x = torch.zeros((8, 3))
-    for cfg in (LargeVisConfig(rp_mode="tree"),
-                LargeVisConfig(distributed=True)):
+    for cfg in (LargeVisConfig(distributed=True),):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tknn.build_knn_graph(x, cfg)
 
