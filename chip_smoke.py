@@ -121,9 +121,33 @@ in one process (``run_parent``), and requires the two packages'
    then ``LargeVis.insert`` of 2,000 more points (it grows the fit's
    carrier, so it runs last on it); each phase with its launch counts
    read;
-10. runs the 2000-point quality fixture (accuracy >= 0.95), by the fused
+10. the distributed fit (``run_distributed``): the ring's
+   ``topk_sqdist`` fold at world 1 (``ring_fold`` on a world of one,
+   100000 x 100000, 8 trees' codes) and world 2 (a rank's own 50000 x
+   50000 slab, and the slab-order merge of a rank's two lists, its ms
+   and memory), timed beside ``torch.cdist`` + ``topk`` over 10,000-row
+   blocks and its bound (operations counted over the pairs that share a
+   bucket, the pair count printed), ids and distances exactly the plain
+   version's on the first 2,000 rows; then
+   ``LargeVisConfig(distributed=True)`` at full width on a world of one
+   over NCCL (the launch counts reset just before and read just after:
+   one ``topk_sqdist``, one ``fused_edge_step`` a step; ``knn_s`` split
+   into ring and exploring, 5-NN accuracy >= 0.95, peak memory), its
+   sharded tables bitwise the flat tables of its graph, a second fit
+   bitwise the first; then world 2 over gloo, two spawned processes on
+   the one card (the kernels built here first): the ring graph before
+   exploring, the graph, distances and weights bitwise world 1's, the
+   sharded edge marginals within ``MARGINAL_TOL`` of world 1's, the
+   local-SGD layout at a printed cut of its depth, syncing every step
+   (accuracy >= 0.95; one sync's ms; world 1's layout of world 1's
+   graph at the same depth printed beside it), a shard fault
+   at ``knn_ring_step:1`` degraded 2 -> 1 with one
+   ``DegradedModeWarning`` on each rank and completed, and a layout
+   checkpoint of world 2 (killed after its second save) resumed here at
+   world 1 with one ``TopologyChangeWarning``;
+11. runs the 2000-point quality fixture (accuracy >= 0.95), by the fused
    and by the split route: the two layouts bitwise equal;
-11. the LM serving path: ``flash_attention`` against its plain version at
+12. the LM serving path: ``flash_attention`` against its plain version at
    the serve path's shape (1, 4096, 16, 64) in bf16 and f32, and at
    ragged shapes, S = T = 4095 and 4097 and head dims 16 and 32, timed
    by CUDA events and by the profiler's device time, then
@@ -2645,6 +2669,470 @@ def run_baselines(torch, x, labels, res, acc_fit, cfg):
 PARENT_STEPS = 2_000
 
 
+# ---------------------------------------------------------------------------
+# the distributed fit: world 1 over NCCL, world 2 over gloo on one card
+# ---------------------------------------------------------------------------
+
+DIST_CUT_SPN = 2_000          # world 2's local-SGD layout (a printed cut)
+DIST_SMALL_N = 20_000         # the fault and elastic phases' points
+MARGINAL_TOL = 1e-4           # |m_P - m_1| * E: of one uniform slot's mass
+
+
+def ring_fold_inputs(torch, x, cfg):
+    """The ring's slab codes and ids at the fit's shapes: the 8 trees'
+    codes of all N points at the depth the fit takes for N."""
+    from repro_torch.core import knn as knn_lib
+    from repro_torch.core.knn_sharded import slab_codes
+
+    N, d = x.shape
+    depth = cfg.tree_depth or knn_lib._auto_depth(N, cfg.leaf_target)
+    gen = torch.Generator(device=x.device).manual_seed(5)
+    proj = torch.randn((d, cfg.n_trees * depth), generator=gen,
+                       device=x.device)
+    codes = slab_codes(x, proj, cfg.n_trees, depth)
+    ids = torch.arange(N, dtype=torch.int32, device=x.device)
+    return codes, ids
+
+
+def bucket_pairs(torch, ca, cb, a_ids, b_ids, rows: int = 1024) -> int:
+    """The (row, column) pairs the fold's output depends on: those that
+    share a bucket code in at least one tree, self pairs left out."""
+    n = 0
+    for r0 in range(0, ca.shape[0], rows):
+        share = (ca[r0:r0 + rows, None, :] == cb[None, :, :]).any(-1)
+        share &= a_ids[r0:r0 + rows, None] != b_ids[None, :]
+        n += int(share.sum())
+    return n
+
+
+def check_ring_fold(torch, x, cfg):
+    """The ring fold's ``topk_sqdist`` at world 1 (N x N, the call
+    ``knn_sharded.ring_fold`` makes on a world of one) and world 2 (a
+    rank's fold of its own N/2 slab, launched as ``ring_fold`` launches
+    it, and the slab-order merge of a rank's two lists): ms by CUDA
+    events, ids and distances exactly the plain version's on the first
+    2,000 rows (the plain version at N x N would sort 10^10 candidates),
+    the library's time (``torch.cdist`` + ``topk`` over 10,000-row
+    blocks: the full cdist does not fit), and the bound, whose operations
+    are 2d a pair that shares a bucket with its row in a tree (the only
+    pairs the output depends on), counted from this run's codes."""
+    from repro_torch.core import knn_sharded
+    from repro_torch.kernels import knn_topk, ref
+    from repro_torch.launch.mesh import make_data_mesh
+
+    out = {}
+    N, d = x.shape
+    k = cfg.n_neighbors
+    codes, ids = ring_fold_inputs(torch, x, cfg)
+    T = codes.shape[1]
+    mesh = make_data_mesh(0, device="cuda")
+    check(mesh.size == 1, "the ring fold's check runs on a world of one")
+    for world in (1, 2):
+        n = N // world
+        xs, cs, si = x[:n], codes[:n], ids[:n]
+        if world == 1:
+            def fold():
+                return knn_sharded.ring_fold(mesh, xs, si, cs, k, N)
+        else:
+            def fold():
+                return knn_topk.topk_sqdist(xs, xs, k, a_ids=si, b_ids=si,
+                                            codes_a=cs, codes_b=cs)
+        ms = time_ms(torch, fold, reps=3, warmup=1)
+        ki, kd = fold()
+        kw2 = dict(a_ids=si[:2000], b_ids=si, codes_a=cs[:2000], codes_b=cs)
+        want = ref.topk_sqdist_ref(xs[:2000], xs, k, **kw2)
+        exact_topk(torch, (ki[:2000], kd[:2000]), want,
+                   f"the ring fold at world {world}")
+        plain = time_ms(
+            torch, lambda: ref.topk_sqdist_ref(xs[:2000], xs, k, **kw2),
+            reps=2, warmup=1)
+
+        def library():
+            for r0 in range(0, n, 10_000):
+                torch.cdist(xs[r0:r0 + 10_000], xs).topk(
+                    k, dim=1, largest=False)
+        lib = time_ms(torch, library, reps=2, warmup=1)
+        pairs = bucket_pairs(torch, cs, cs, si, si)
+        sq = sum(int((torch.bincount(cs[:, t].long()) ** 2).sum())
+                 for t in range(T))
+        n_bytes = 4 * (2 * n * d + 2 * n * T + n) + 2 * 8 * n * k
+        bound, by = bound_ms(n_bytes, 2.0 * pairs * d)
+        rec = dict(ms=ms, plain_2000_ms=plain, library_ms=lib,
+                   bound_ms=bound, bound_by=by, pairs=pairs)
+        merge = ""
+        if world == 2:
+            other = knn_topk.topk_sqdist(xs, x[n:2 * n], k, a_ids=si,
+                                         b_ids=ids[n:2 * n], codes_a=cs,
+                                         codes_b=codes[n:2 * n])
+            parts = [(ki, kd), other]
+            mi, md = knn_sharded.merge_slab_lists(parts, k)
+            check(torch.equal(mi, knn_sharded.ring_fold(
+                mesh, x[:2 * n], ids[:2 * n], codes[:2 * n], k, N)[0][:n]),
+                "the merged world-2 lists are not world 1's fold")
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            knn_sharded.merge_slab_lists(parts, k)
+            torch.cuda.synchronize()
+            mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+            mms = time_ms(torch, lambda: knn_sharded.merge_slab_lists(
+                parts, k), reps=5, warmup=1)
+            rec.update(merge_ms=mms, merge_mib=mib)
+            merge = (f"; the merge of a rank's two ({n}, {k}) lists in "
+                     f"slab order (torch.sort) {mms:.3f} ms, {mib:.1f} MiB "
+                     f"at its peak, its ids world 1's fold's")
+        out[world] = rec
+        print(f"ring fold, world {world}: topk_sqdist ({n}, {d}) x ({n}, "
+              f"{d}), k={k}, {T} trees' codes, no initial state: "
+              f"{ms:.3f} ms a launch (CUDA events); {pairs} pairs share a "
+              f"bucket ({pairs / n / n:.3e} of n^2; the sum over trees of "
+              f"bucket sizes squared {sq}), bound {bound:.4f} ms ({by}); "
+              f"plain version on the first 2,000 rows {plain:.3f} ms (ids "
+              f"and distances exactly its), torch.cdist + topk over "
+              f"10,000-row blocks {lib:.3f} ms{merge}", flush=True)
+        check(pairs <= sq, f"{pairs} pairs share a bucket, more than {sq}")
+    return out
+
+
+def _counts_and_peak(torch):
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def run_distributed_fit(torch, x, labels, cfg):
+    """The distributed fit at world 1 over NCCL, at full width, twice
+    (bitwise), its sharded tables against the flat tables of its graph,
+    and its timings, quality, peak memory and launches."""
+    from repro_torch import largevis
+    from repro_torch.core import metrics, sampler
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_data_mesh
+
+    _counts_and_peak(torch)
+    t0 = time.perf_counter()
+    res = largevis(x, cfg=cfg, device="cuda")
+    fit_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    mesh = make_data_mesh(cfg.data_shards, device="cuda")
+    check(mesh.size == 1 and mesh.backend == "nccl",
+          f"the world-1 mesh is {mesh.size} ranks over {mesh.backend}")
+    recall = metrics.graph_recall(res.x, res.knn_idx)
+    acc = metrics.knn_classifier_accuracy(res.y, labels)
+    t = res.timings
+    N = x.shape[0]
+    print(f"distributed fit, world 1 over {mesh.backend}: N={N} "
+          f"d={x.shape[1]} K={cfg.n_neighbors} trees={cfg.n_trees} "
+          f"perplexity={cfg.perplexity} M={cfg.n_negatives} batch="
+          f"{cfg.batch_size} samples_per_node={cfg.samples_per_node} "
+          f"sync_every={cfg.sync_every}: {fit_s:.2f} s (knn_s "
+          f"{t['knn_s']:.3f} = ring {t['knn_ring_s']:.3f} + explore "
+          f"{t['knn_explore_s']:.3f}, weights_s {t['weights_s']:.3f}, "
+          f"sampler_s {t['sampler_s']:.3f}, layout_s {t['layout_s']:.3f}; "
+          f"{res.steps} steps in {res.dispatches} dispatches of "
+          f"{res.steps_per_dispatch}); graph_recall {recall:.4f}, "
+          f"knn_classifier_accuracy {acc:.4f}; peak memory {peak:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated); launches {counts}",
+          flush=True)
+    check(tuple(res.y.shape) == (N, cfg.out_dim)
+          and bool(torch.isfinite(res.y).all()), "distributed layout")
+    check(bool(((res.knn_idx >= 0) & (res.knn_idx < N)).all()),
+          "the distributed graph holds an empty or out-of-range slot")
+    check(bool((res.knn_dist.diff(dim=1) >= 0).all()),
+          "distributed graph distances are not ascending")
+    check(acc >= 0.95, f"distributed accuracy {acc} < 0.95")
+    check(recall >= 0.4, f"distributed graph_recall {recall} < 0.4")
+    check(counts["topk_sqdist"] == 1, f"the world-1 ring made "
+          f"{counts['topk_sqdist']} topk_sqdist launches, not 1")
+    check(counts["fused_edge_step"] == res.steps,
+          f"fused_edge_step launched {counts['fused_edge_step']} times in "
+          f"{res.steps} local steps")
+    es, ns = sampler.build_samplers_sharded(res.knn_idx, res.weights,
+                                            power=cfg.neg_power, mesh=mesh)
+    ef = sampler.build_edge_sampler(res.knn_idx, res.weights)
+    nf = sampler.build_negative_sampler(res.knn_idx, res.weights,
+                                        power=cfg.neg_power)
+    loc = es.local(0)
+    for name, a, b in (("src", loc.src, ef.src), ("dst", loc.dst, ef.dst),
+                       ("edge threshold", loc.threshold, ef.threshold),
+                       ("edge alias", loc.alias, ef.alias),
+                       ("node threshold", ns.threshold[0], nf.threshold),
+                       ("node alias", ns.alias[0], nf.alias)):
+        check(torch.equal(a, b), f"the world-1 sharded {name} table is not "
+              "the flat table's")
+    _counts_and_peak(torch)
+    res2 = largevis(x, cfg=cfg, device="cuda")
+    more = ops.launch_counts()
+    for f in ("knn_idx", "knn_dist", "weights", "y"):
+        check(torch.equal(getattr(res, f), getattr(res2, f)),
+              f"two distributed fits from one seed differ in {f}")
+    print(f"distributed fit, world 1: the sharded tables ({N * cfg.n_neighbors}"
+          f" edges, {N} nodes) bitwise the flat tables of its graph; a "
+          f"second fit from the same seed bitwise the first (graph, "
+          f"distances, weights, layout), {sum(res2.timings.values()):.2f} s",
+          flush=True)
+    return res, acc, _add_counts(dict(counts), more), peak
+
+
+def _world2_rank(rank, store, out_dir, xn, labels, cfg_fields, small):
+    """One rank of the world-2 phase (a spawned process)."""
+    import datetime
+    import warnings as w
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import LargeVisConfig, largevis
+    from repro_torch.configs.largevis_default import CheckpointConfig
+    from repro_torch.core import metrics, sampler
+    from repro_torch.core.largevis import build_graph, layout_graph
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.runtime.fault_tolerance import (DegradedModeWarning,
+                                                     FaultInjector,
+                                                     InjectedFault)
+
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=900))
+    out = {}
+    try:
+        cfg = LargeVisConfig(**cfg_fields)
+        mesh = make_data_mesh(0, device="cuda")
+        assert mesh.size == 2 and mesh.backend == "gloo", mesh
+        x = torch.from_numpy(xn).cuda()
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        idx, dist_, wts, t_graph = build_graph(x, cfg=cfg, device="cuda")
+        graph_topk = ops.launch_counts()["topk_sqdist"]
+        from repro_torch.core.knn_sharded import build_knn_graph_sharded
+        ring_cfg = dataclasses.replace(cfg, n_explore_iters=0)
+        ring_i, ring_d = build_knn_graph_sharded(
+            x, ring_cfg, mesh=mesh,
+            generator=torch.Generator(device="cuda").manual_seed(cfg.seed))
+        out.update(ring_idx=ring_i.cpu().numpy(),
+                   ring_dist=ring_d.cpu().numpy())
+        es, _ = sampler.build_samplers_sharded(idx, wts, power=cfg.neg_power,
+                                               mesh=mesh)
+        marg = sampler.edge_marginals(es)
+        out.update(idx=idx.cpu().numpy(), dist=dist_.cpu().numpy(),
+                   w=wts.cpu().numpy(), marg=marg,
+                   graph_s=np.array([t_graph["knn_s"], t_graph["knn_ring_s"],
+                                     t_graph["knn_explore_s"],
+                                     t_graph["weights_s"]]),
+                   graph_topk=np.array(graph_topk),
+                   peak=np.array(torch.cuda.max_memory_allocated()))
+        # the local-SGD layout at the cut depth
+        cut = LargeVisConfig(**{**cfg_fields, "samples_per_node":
+                                DIST_CUT_SPN})
+        ops.reset_launch_counts()
+        res, _, timings = layout_graph(idx, wts, cfg=cut, device="cuda",
+                                       return_samplers=True)
+        fused = ops.launch_counts()["fused_edge_step"]
+        move = torch.ones_like(res.y)
+        mesh.all_reduce_sum(move)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            mesh.all_reduce_sum(move)
+        torch.cuda.synchronize()
+        out.update(acc=np.array(metrics.knn_classifier_accuracy(
+            res.y, labels)), layout_s=np.array(timings["layout_s"]),
+            sampler_s=np.array(timings["sampler_s"]),
+            layout_steps=np.array(res.steps),
+            sync_ms=np.array((time.perf_counter() - t0) / 50 * 1e3),
+            layout_fused=np.array(fused), y=res.y.cpu().numpy())
+        # a shard fault in the ring: 2 -> 1 with one DegradedModeWarning
+        xs, ls = small
+        scfg = LargeVisConfig(**{**cfg_fields,
+                                 "samples_per_node": DIST_CUT_SPN})
+        with w.catch_warnings(record=True) as log:
+            w.simplefilter("always")
+            sres = largevis(xs, cfg=scfg, device="cuda",
+                            fault=FaultInjector(
+                                {"knn_ring_step:1": {0: "exception"}}))
+        degraded = [m for m in log
+                    if issubclass(m.category, DegradedModeWarning)]
+        out.update(degraded=np.array(len(degraded)),
+                   degraded_msg=np.array(str(degraded[0].message)
+                                         if degraded else ""),
+                   fault_acc=np.array(metrics.knn_classifier_accuracy(
+                       sres.y, ls)),
+                   fault_finite=np.array(bool(torch.isfinite(sres.y).all())))
+        # a layout checkpoint written here (killed after its second save),
+        # resumed at world 1 by the parent
+        ckpt = LargeVisConfig(**{**cfg_fields,
+                                 "samples_per_node": DIST_CUT_SPN,
+                                 "checkpoint": CheckpointConfig(
+                                     str(Path(out_dir) / "ckpt"),
+                                     every_chunks=100)})
+        sidx, _, sw, _ = build_graph(xs, cfg=ckpt, device="cuda")
+        try:
+            layout_graph(sidx, sw, cfg=ckpt, device="cuda",
+                         fault=FaultInjector({"layout_saved":
+                                              {1: "exception"}}))
+            killed = False
+        except InjectedFault:
+            killed = True
+        out.update(killed=np.array(killed), small_idx=sidx.cpu().numpy(),
+                   small_w=sw.cpu().numpy())
+    finally:
+        np.savez(Path(out_dir) / f"rank{rank}.npz", **out)
+        dist.destroy_process_group()
+
+
+def run_world2(torch, xn, labels, cfg, world1, small):
+    """World 2 over gloo, two processes on the one card (the kernels
+    built by this process first): the ring graph, the weights and the
+    sharded tables' marginals against world 1's; the local-SGD layout at
+    a cut depth; a shard fault degrading 2 -> 1; a layout checkpoint of
+    world 2 resumed here at world 1.  Returns the ranks' launches."""
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs.largevis_default import CheckpointConfig
+    from repro_torch.core import metrics
+    from repro_torch.core.largevis import layout_graph
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.runtime.fault_tolerance import TopologyChangeWarning
+
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+              if f.name in ("distributed", "sync_every")}
+    tmp = tempfile.TemporaryDirectory()
+    print(f"cut: world 2's local-SGD layout at samples_per_node "
+          f"{cfg.samples_per_node} -> {DIST_CUT_SPN} (sync_every "
+          f"{cfg.sync_every}, the default), beside world 1's layout of "
+          f"world 1's graph at that depth; the fault and checkpoint phases "
+          f"on the first {DIST_SMALL_N} points at that depth", flush=True)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(
+        _world2_rank, args=(str(Path(tmp.name) / "store"), tmp.name, xn,
+                            labels, fields, small),
+        nprocs=2, join=False, start_method="spawn")
+    deadline = time.perf_counter() + 900
+    try:
+        while not ctx.join(timeout=10):
+            check(time.perf_counter() < deadline,
+                  "the world-2 ranks did not finish in 900 s")
+    except Exception as e:            # a rank's exception or exit code
+        fail(f"a world-2 rank failed: {type(e).__name__}: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    wall = time.perf_counter() - t0
+    r = [dict(np.load(Path(tmp.name) / f"rank{i}.npz")) for i in (0, 1)]
+    for key in ("idx", "dist", "w", "marg", "y", "small_idx", "small_w"):
+        check(np.array_equal(r[0][key], r[1][key]),
+              f"the world-2 ranks' {key} differ")
+    res1 = world1["res"]
+    for key, ref_ in (("ring_idx", world1["ring"][0]),
+                      ("ring_dist", world1["ring"][1])):
+        diff = int((r[0][key] != ref_.cpu().numpy()).sum())
+        print(f"world 2's ring graph before exploring: {key} differs from "
+              f"world 1's in {diff} entries", flush=True)
+        check(diff == 0, f"world 2's {key} differs from world 1's")
+    for key, ref_ in (("idx", res1.knn_idx), ("dist", res1.knn_dist),
+                      ("w", res1.weights)):
+        diff = int((r[0][key] != ref_.cpu().numpy()).sum())
+        check(diff == 0, f"world 2's {key} differs from world 1's in "
+              f"{diff} entries")
+    E = r[0]["marg"].shape[0]
+    m_err = float(np.abs(r[0]["marg"] - world1["marg"]).max()) * E
+    check(m_err <= MARGINAL_TOL, f"world 2's edge marginals are "
+          f"{m_err} of a slot from world 1's (> {MARGINAL_TOL})")
+    acc = float(r[0]["acc"])
+    gs = r[0]["graph_s"]
+    print(f"world 2 over gloo, two processes on one card ({wall:.1f} s "
+          f"with their start): ring graph and weights bitwise world 1's "
+          f"(ids, distances, weights); edge marginals within "
+          f"{m_err:.3e} of a slot of world 1's (limit {MARGINAL_TOL}); "
+          f"knn_s {gs[0]:.3f} = ring {gs[1]:.3f} + explore {gs[2]:.3f}, "
+          f"weights_s {gs[3]:.3f}, topk_sqdist launches a rank "
+          f"{int(r[0]['graph_topk'])}, peak memory a rank "
+          f"{int(r[0]['peak']) / 2**30:.2f} GiB; local SGD at "
+          f"{DIST_CUT_SPN} samples per node, sync every {cfg.sync_every} "
+          f"step(s): sampler_s "
+          f"{float(r[0]['sampler_s']):.3f}, layout_s "
+          f"{float(r[0]['layout_s']):.3f} ({int(r[0]['layout_steps'])} "
+          f"steps a rank, the replicas bitwise equal; one sync of y, "
+          f"DataMesh.all_reduce_sum over gloo, {float(r[0]['sync_ms']):.3f}"
+          f" ms), knn_classifier_accuracy {acc:.4f}", flush=True)
+    flat, flat_counts = _counted(torch, lambda: layout_graph(
+        res1.knn_idx, res1.weights, cfg=dataclasses.replace(
+            cfg, samples_per_node=DIST_CUT_SPN), device="cuda")[0])
+    acc_flat = metrics.knn_classifier_accuracy(flat.y, labels)
+    print(f"world 1 at the same cut: layout of world 1's graph at "
+          f"{DIST_CUT_SPN} samples per node ({flat.steps} steps of "
+          f"{cfg.batch_size}, no sync), knn_classifier_accuracy "
+          f"{acc_flat:.4f}, against world 2's {acc:.4f}", flush=True)
+    check(int(r[0]["graph_topk"]) == 2, "the world-2 ring made "
+          f"{int(r[0]['graph_topk'])} topk_sqdist launches a rank, not 2")
+    check(acc >= 0.95, f"world 2 local-SGD accuracy {acc} < 0.95")
+    for i in (0, 1):
+        check(int(r[i]["degraded"]) == 1, f"rank {i} saw "
+              f"{int(r[i]['degraded'])} DegradedModeWarnings, not 1")
+        check(bool(r[i]["fault_finite"]), "the degraded fit is not finite")
+        check(bool(r[i]["killed"]), "the world-2 layout was not killed")
+    print(f"shard fault: knn_ring_step:1 at world 2 -> one "
+          f"DegradedModeWarning on each rank ({r[0]['degraded_msg']}), "
+          f"the fit completed on one shard and was handed to the other "
+          f"rank: knn_classifier_accuracy {float(r[0]['fault_acc']):.4f} "
+          f"on {DIST_SMALL_N} points", flush=True)
+    check(float(r[0]["fault_acc"]) >= 0.95, "the degraded fit's accuracy "
+          f"{float(r[0]['fault_acc'])} < 0.95")
+    # the world-2 layout checkpoint resumed here, at world 1
+    mesh = make_data_mesh(0, device="cuda")
+    check(mesh.size == 1, "the resume runs at world 1")
+    ckpt = dataclasses.replace(
+        cfg, samples_per_node=DIST_CUT_SPN,
+        checkpoint=CheckpointConfig(str(Path(tmp.name) / "ckpt"),
+                                    every_chunks=100))
+    sidx = torch.from_numpy(r[0]["small_idx"]).cuda()
+    sw = torch.from_numpy(r[0]["small_w"]).cuda()
+    with warnings.catch_warnings(record=True) as log:
+        warnings.simplefilter("always")
+        res, _ = layout_graph(sidx, sw, cfg=ckpt, device="cuda")
+    topo = [m for m in log if issubclass(m.category, TopologyChangeWarning)]
+    acc_r = metrics.knn_classifier_accuracy(res.y, small[1])
+    print(f"elastic resume: a layout checkpoint written at world 2 "
+          f"(killed after its second save) resumed at world 1 with "
+          f"{len(topo)} TopologyChangeWarning ({topo[0].message if topo else ''}"
+          f"); {res.steps} steps run here, knn_classifier_accuracy "
+          f"{acc_r:.4f}", flush=True)
+    check(len(topo) == 1, f"{len(topo)} TopologyChangeWarnings, not 1")
+    check(bool(torch.isfinite(res.y).all()), "the resumed layout")
+    tmp.cleanup()
+    return _add_counts({"fused_edge_step": int(r[0]["layout_fused"])
+                        + int(r[1]["layout_fused"]),
+                        "topk_sqdist": 2 * int(r[0]["graph_topk"])},
+                       flat_counts)
+
+
+def run_distributed(torch, x, xn, labels, cfg):
+    """Both distributed phases; returns their launches by kernel."""
+    from repro_torch.core import sampler
+    from repro_torch.launch.mesh import make_data_mesh
+
+    dcfg = dataclasses.replace(cfg, distributed=True)
+    res, acc, counts, peak = run_distributed_fit(torch, x, labels, dcfg)
+    mesh = make_data_mesh(0, device="cuda")
+    es, _ = sampler.build_samplers_sharded(res.knn_idx, res.weights,
+                                           power=cfg.neg_power, mesh=mesh)
+    from repro_torch.core.knn_sharded import build_knn_graph_sharded
+    ring = build_knn_graph_sharded(
+        x, dataclasses.replace(dcfg, n_explore_iters=0), mesh=mesh,
+        generator=torch.Generator(device="cuda").manual_seed(cfg.seed))
+    world1 = {"res": res, "marg": sampler.edge_marginals(es), "ring": ring}
+    small = (xn[:DIST_SMALL_N], labels[:DIST_SMALL_N])
+    more = run_world2(torch, xn, labels, dcfg, world1, small)
+    return _add_counts(counts, more)
+
+
 def _drop_package() -> None:
     for name in [n for n in sys.modules
                  if n == "repro_torch" or n.startswith("repro_torch.")]:
@@ -2874,7 +3362,6 @@ def main() -> None:
               f"layout's own cut is printed with it)", flush=True)
     xn, labels = gaussian_mixture(0, N_POINTS, DIM, CLUSTERS)
     x = torch.from_numpy(xn).to(dev)
-
     kernels = [check_topk(torch, x, cfg),
                check_edge_step(torch, N_POINTS, cfg),
                check_pairwise(torch, x)]
@@ -2910,6 +3397,11 @@ def main() -> None:
     next(rec for rec in kernels if rec["name"] == "fused_edge_step")[
         "launches"] += base["scatter_add_ordered"]
     run_insert(torch, res, cfg)          # grows res: the last on the fit
+    check_ring_fold(torch, x, cfg)
+    torch.cuda.empty_cache()             # room for the world-2 ranks
+    dist_counts = run_distributed(torch, x, xn, labels, cfg)
+    for rec in kernels:
+        rec["launches"] += dist_counts.get(rec["name"], 0)
     acc_auto, y_auto = run_fixture(torch)
     acc_split, y_split = run_fixture(torch, "split")
     check(torch.equal(y_auto, y_split),
@@ -2921,6 +3413,9 @@ def main() -> None:
     flash["launches"] = run_serve(torch)
     kernels.append(flash)
     check_decode_matches_prefill(torch)
+
+    import torch.distributed as dist
+    dist.destroy_process_group()         # the distributed fit's world of one
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

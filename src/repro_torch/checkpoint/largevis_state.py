@@ -120,12 +120,17 @@ def run_fingerprint(x, generators, cfg: LargeVisConfig) -> str:
     return f"{h:08x}"
 
 
-def topology_tag(cfg: LargeVisConfig, n_rows: int) -> dict:
+def topology_tag(cfg: LargeVisConfig, n_rows: int, mesh=None) -> dict:
     """Which mesh wrote a stage checkpoint and how many real rows its
-    arrays hold, stored under ``extra["topology"]``.  The port runs on
-    one device, so its tag names one shard."""
-    del cfg         # its data_shards, once the port has a mesh
-    return {"distributed": False, "data_shards": 1, "n_rows": int(n_rows)}
+    arrays hold, stored under ``extra["topology"]``: ``data_shards`` is
+    the mesh's real shard count (never the 0 = "all" of the config), one
+    without ``cfg.distributed``.  A restore compares it with its own mesh:
+    a mismatch is no error (the arrays are global), it only decides
+    whether a layout resume announces a ``TopologyChangeWarning``."""
+    distributed = bool(cfg.distributed)
+    shards = int(mesh.size) if distributed and mesh is not None else 1
+    return {"distributed": distributed, "data_shards": shards,
+            "n_rows": int(n_rows)}
 
 
 def _topology_compatible(meta: dict) -> None:
@@ -228,8 +233,10 @@ class StageCheckpointer:
     step 0; ``layout`` at its global step with keep-last-k rotation).
     ``load`` returns ``None`` — never raises — when the stage is absent,
     corrupt, or fingerprinted by a different run, so the pipeline falls
-    back to recomputing the stage.  Trees are stored as host arrays, with
-    the writing device count as a topology tag."""
+    back to recomputing the stage.  Trees are stored global, as host
+    arrays, with the writing mesh as a topology tag (never part of the
+    fingerprint), so a checkpoint written on P shards resumes on any
+    P'."""
 
     def __init__(self, ckpt_cfg: CheckpointConfig, fingerprint: str):
         self.cfg = ckpt_cfg
@@ -270,9 +277,17 @@ class StageCheckpointer:
             return None
         return tree, step, extra
 
-    def restore(self, stage: str, device):
-        """:meth:`load`, with every leaf a tensor on ``device``: ``(tree,
-        step, extra)`` or None."""
+    def restore(self, stage: str, device=None, *, mesh=None):
+        """:meth:`load`, with every leaf a tensor on ``device`` (or on the
+        ``mesh``'s device): ``(tree, step, extra)`` or None.
+
+        The elastic path: the stored arrays are global, and every rank of
+        a data mesh holds the global arrays and takes its own row block
+        where a stage needs it (``runtime/sharding.py``), so placing
+        them on the rank's device is the whole re-shard, for any shard
+        count that wrote them."""
+        if mesh is not None:
+            device = mesh.device
         loaded = self.load(stage)
         if loaded is None:
             return None

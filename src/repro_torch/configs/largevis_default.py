@@ -7,11 +7,16 @@ f(x) = 1/(1+x^2), T proportional to N.  ``dtype`` is a torch dtype here.
 bitwise resume) and ``health`` (:class:`HealthConfig`: the layout's
 divergence guard and rollback) behave as in the JAX package.
 
+``distributed`` runs every stage on the data mesh of ``data_shards``
+ranks of a ``torch.distributed`` process group (0 = all of them; a world
+of one when there is no group), with the local-SGD layout syncing every
+``sync_every`` steps (``core/largevis.py``).
+
 Not carried over: the deprecated flat routing aliases (``knn_impl``,
-``sampler_impl``, ``fused_step``, ``knn_distributed``).  Routing in the
-port is by tensor device (see ``kernels/ops.py``); the ``RoutingConfig``
-fields are kept so configs read the same in both packages, and
-``layout_step`` is checked by the layout engine.
+``sampler_impl``, ``fused_step``, ``knn_distributed``; the last one's
+``routing.knn_stage`` is honoured).  Kernels are routed by tensor device
+(see ``kernels/ops.py``); the ``RoutingConfig`` fields are kept so
+configs read the same in both packages.
 """
 from __future__ import annotations
 
@@ -70,11 +75,13 @@ class RoutingConfig:
 
     The port honours ``layout_step`` ("auto" and "fused" run the fused
     edge-step kernel for ``prob_fn="inv_quadratic"``; "split", and any
-    other ``prob_fn``, run the gather / forces / ordered-scatter path) and
-    ``autotune`` ("auto" leaves the mode to the ``AUTOTUNE`` variable,
-    default "cache"; "off", "cache" or "sweep" pins it for the process:
-    ``runtime/autotune.py``), and ignores the rest: kernels are chosen by
-    the device of the tensors.
+    other ``prob_fn``, run the gather / forces / ordered-scatter path),
+    ``knn_stage`` (under ``distributed``: "auto" and "ring" build the
+    graph on the ring, "forest" keeps the single-device forest for that
+    stage) and ``autotune`` ("auto" leaves the mode to the ``AUTOTUNE``
+    variable, default "cache"; "off", "cache" or "sweep" pins it for the
+    process: ``runtime/autotune.py``), and ignores the rest: kernels are
+    chosen by the device of the tensors.
     """
     knn: str = "auto"
     sampler: str = "auto"
@@ -96,9 +103,9 @@ class LargeVisConfig:
     rp_mode: str = "hash"           # "hash" | "tree" (the paper's RP tree)
     perplexity: float = 50.0        # u in Eqn (1)
     perplexity_iters: int = 64      # bisection steps for sigma_i
-    # --- distributed pipeline (not ported; must stay False) ---
-    distributed: bool = False
-    data_shards: int = 0
+    # --- distributed pipeline (core/knn_sharded.py, launch/mesh.py) ---
+    distributed: bool = False       # every stage on the data mesh
+    data_shards: int = 0            # ranks in the data mesh (0 = all)
     # --- layout (paper §3.2) ---
     out_dim: int = 2                # s
     n_negatives: int = 5            # M
@@ -110,7 +117,7 @@ class LargeVisConfig:
     grad_clip: float = 5.0          # reference-impl per-coordinate clip
     batch_size: int = 4096          # edge samples per SGD step
     steps_per_dispatch: int = 100   # SGD steps a dispatch (CUDA graph)
-    sync_every: int = 1             # local-SGD period (not ported)
+    sync_every: int = 1             # H: local-SGD sync period
     init_scale: float = 1e-4        # initial layout ~ N(0, init_scale)
     neg_power: float = 0.75         # P_n(j) ∝ d_j^0.75
     # --- out-of-sample transform / insert ---

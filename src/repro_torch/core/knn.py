@@ -232,14 +232,16 @@ def build_knn_graph(x: torch.Tensor, cfg, *,
                     pairs: torch.Tensor | None = None):
     """Forest + neighbor exploring: (idx (N, K) int32, sqdist (N, K) f32).
 
-    Single device; ``cfg.rp_mode`` picks the forest's codes (``proj`` or
-    ``pairs`` fix its randomness, see ``forest_knn``).
+    ``cfg.rp_mode`` picks the forest's codes (``proj`` or ``pairs`` fix
+    its randomness, see ``forest_knn``).  With ``cfg.distributed`` (and
+    ``routing.knn_stage`` other than "forest") the graph is built on the
+    data mesh instead: the ring of ``core/knn_sharded.py``.
     """
     from repro_torch.core.neighbor_explore import neighbor_explore
-    if cfg.distributed:
-        raise NotImplementedError(
-            "distributed=True is not ported yet (ROADMAP, Queue 1: "
-            "distributed)")
+    if cfg.distributed and cfg.routing.knn_stage != "forest":
+        from repro_torch.core.knn_sharded import build_knn_graph_sharded
+        return build_knn_graph_sharded(x, cfg, generator=generator,
+                                       proj=proj)
     N = x.shape[0]
     k = min(cfg.n_neighbors, N - 1)
     depth = cfg.tree_depth or _auto_depth(N, cfg.leaf_target)

@@ -21,6 +21,13 @@ the ``layout_chunk``/``layout_saved`` fault sites.  The CUDA graphs read
 the unit's ``y`` and lr buffers in place, so a resume, a rollback and a
 fault's payload are copied into ``y``, never rebound, and the layout
 generator's Philox state is restored with ``set_state``.
+
+``run_layout_local_sgd`` is the data mesh's layout (the JAX package's
+local SGD, its form of the paper's asynchronous SGD): every rank keeps a
+full replica of y, draws from its own shard of the edge table, runs
+``sync_every`` steps and then adds up the replicas' moves.  A world of
+one has nothing to add up and runs ``run_layout``; the two layout loops share
+the preemption guard's deferral and the fused -> split demotion.
 """
 from __future__ import annotations
 
@@ -36,11 +43,14 @@ from repro_torch.checkpoint.largevis_state import (AsyncStageWriter,
                                                    StageCheckpointer,
                                                    run_fingerprint)
 from repro_torch.core import layout_engine
+from repro_torch.core.sampler import ShardedEdgeSampler
 from repro_torch.runtime.fault_tolerance import (DegradedModeWarning,
                                                  DivergenceWarning,
                                                  InjectedFault,
                                                  LayoutDivergedError,
-                                                 PreemptionGuard, Watchdog)
+                                                 PreemptionGuard,
+                                                 TopologyChangeWarning,
+                                                 Watchdog, fire_per_shard)
 
 
 @dataclasses.dataclass
@@ -65,17 +75,23 @@ def layout_health(y: torch.Tensor):
     return (~finite).sum(), torch.where(finite, y, 0.0).abs().amax()
 
 
-def _layout_stage_ckpt(generator, n_nodes: int, cfg, edge_sampler=None):
+def _layout_stage_ckpt(generator, n_nodes: int, cfg, edge_sampler=None,
+                       table=None):
     """StageCheckpointer for the layout stage, else None.
 
     The layout trajectory is a function of (samplers, generator, cfg,
     N), so the fingerprint binds all four: the sampler by a strided
     sample of its alias threshold table, the generator by its state at
-    the layout's entry."""
+    the layout's entry.  ``table`` replaces the sampler's table: the
+    local-SGD layout passes the global edge weights, which are the same
+    on every mesh (a sharded sampler's tables are laid out by shard, and
+    would bind the checkpoint to the shard count)."""
     if cfg.checkpoint is None:
         return None
-    table = (edge_sampler.threshold.reshape(-1, 1)
-             if edge_sampler is not None else None)
+    if table is not None:
+        table = table.reshape(-1, 1)
+    elif edge_sampler is not None:
+        table = edge_sampler.threshold.reshape(-1, 1)
     fp = run_fingerprint(table, generator, cfg) + f"-n{n_nodes}"
     return StageCheckpointer(cfg.checkpoint, fp)
 
@@ -121,10 +137,40 @@ def _first_fused_chunk(unit, generator, lrs, split_step):
         return unit
 
 
+def _defer_signals(stage_ckpt):
+    """The active :class:`PreemptionGuard` (armed by ``largevis()``),
+    deferring signals, when the layout checkpoints; else None.  The
+    handler then only records a signal (it may land inside a capture, or
+    beside the writer thread): the loop saves at its next boundary and
+    calls ``finish()``."""
+    guard = PreemptionGuard.active() if stage_ckpt is not None else None
+    if guard is not None:
+        guard.defer()
+    return guard
+
+
+def _release_signals(guard) -> None:
+    """End the deferral; a signal after the last boundary's check leaves
+    now (that boundary was saved by the cadence)."""
+    if guard is not None:
+        guard.defer(False)
+        if guard.pending is not None:
+            guard.finish()
+
+
+def _topology(P: int, n_nodes: int) -> dict:
+    return {"distributed": True, "data_shards": P, "n_rows": int(n_nodes)}
+
+
+def _saved_shards(extra: dict, default: int) -> int:
+    """The shard count a layout checkpoint was written on."""
+    return int((extra.get("topology") or {}).get("data_shards", default))
+
+
 def run_layout(generator, edge_sampler, neg_sampler, n_nodes: int, cfg, *,
                device, callback: Optional[Callable] = None, y0=None,
                start_step: int = 0, on_chunk: Optional[Callable] = None,
-               fault=None) -> LayoutResult:
+               fault=None, weights=None) -> LayoutResult:
     """Drive the layout for T = samples_per_node * N edge samples;
     ``generator`` (on ``device``) draws the N(0, init_scale) start and
     every edge and negative sample.
@@ -167,16 +213,36 @@ def run_layout(generator, edge_sampler, neg_sampler, n_nodes: int, cfg, *,
       (after the writer's queued saves) before the process exits by it.
     * ``fault`` — a FaultInjector fired at ``layout_chunk`` (payload y,
       inside the timed window) and ``layout_saved`` (after a commit).
+
+    ``weights`` (the global edge weights) makes this the data mesh's
+    layout at one shard (:func:`run_layout_local_sgd` hands its world of
+    one here): the checkpoint's fingerprint binds the weights in place of
+    the sampler's table, its ``extra`` records the topology and the edge
+    samples done, and a checkpoint another shard count wrote resumes
+    from the step covering its samples, with one
+    :class:`TopologyChangeWarning`.
     """
     health = cfg.health
-    stage_ckpt = _layout_stage_ckpt(generator, n_nodes, cfg, edge_sampler)
+    stage_ckpt = _layout_stage_ckpt(generator, n_nodes, cfg, edge_sampler,
+                                    table=weights)
+    total = int(cfg.samples_per_node) * n_nodes
+    batch = _collision_capped_batch(cfg.batch_size, n_nodes, total)
+    steps = max(1, total // batch)
     rho0_scale, rollbacks = 1.0, 0
     if stage_ckpt is not None and y0 is None and start_step == 0:
         loaded = stage_ckpt.load("layout")
         if loaded is not None:
             tree, start_step, extra = loaded
             y0 = tree["y"]
-            generator.set_state(torch.from_numpy(tree["rng"]))
+            saved = _saved_shards(extra, 1)
+            if saved == 1:
+                generator.set_state(torch.from_numpy(tree["rng"]))
+            else:       # its streams were the replicas': start afresh
+                start_step = min(int(extra.get("samples_done", 0)) // batch,
+                                 steps)
+                warnings.warn(TopologyChangeWarning("layout", saved, 1,
+                                                    start_step),
+                              stacklevel=2)
             rho0_scale = float(extra.get("rho0_scale", 1.0))
             rollbacks = int(extra.get("rollbacks", 0))
     if y0 is None:
@@ -185,9 +251,6 @@ def run_layout(generator, edge_sampler, neg_sampler, n_nodes: int, cfg, *,
     else:
         y = torch.as_tensor(y0).to(device=device, dtype=torch.float32,
                                    copy=True)
-    total = int(cfg.samples_per_node) * n_nodes
-    batch = _collision_capped_batch(cfg.batch_size, n_nodes, total)
-    steps = max(1, total // batch)
     start = min(int(start_step), steps)
     step = functools.partial(
         layout_engine.sgd_edge_step, edge_sampler=edge_sampler,
@@ -213,8 +276,12 @@ def run_layout(generator, edge_sampler, neg_sampler, n_nodes: int, cfg, *,
         ckpt_cfg = cfg.checkpoint
         keep = max(1, ckpt_cfg.keep) if ckpt_cfg is not None else 1
 
-        def extras():
-            return {"rho0_scale": rho0_scale, "rollbacks": rollbacks}
+        def extras(t):
+            out = {"rho0_scale": rho0_scale, "rollbacks": rollbacks}
+            if weights is not None:
+                out.update(topology=_topology(1, n_nodes),
+                           samples_done=t * batch)
+            return out
 
         unit = layout_engine.StepChunks(step, y, H)
         fused = (cfg.prob_fn == "inv_quadratic"
@@ -222,13 +289,8 @@ def run_layout(generator, edge_sampler, neg_sampler, n_nodes: int, cfg, *,
         last_good = None
         if health is not None:
             last_good = (y.clone(), start, generator.get_state())
-        # preemption: the active guard's handler only records a signal
-        # (it may land inside a capture, or beside the writer thread);
-        # the loop saves at the next chunk boundary and exits by it
-        guard = PreemptionGuard.active() if stage_ckpt is not None else None
-        if guard is not None:
-            guard.defer()
         t, chunk_i, dispatches = start, 0, 0
+        guard = _defer_signals(stage_ckpt)
         try:
             while t < steps:
                 h = min(H, steps - t)
@@ -282,10 +344,10 @@ def run_layout(generator, edge_sampler, neg_sampler, n_nodes: int, cfg, *,
                     tree = {"y": y, "rng": generator.get_state()}
                     if writer is not None:
                         writer.submit("layout", tree, step=t, keep=keep,
-                                      extra=extras())
+                                      extra=extras(t))
                     else:
                         stage_ckpt.save("layout", tree, step=t, keep=keep,
-                                        extra=extras())
+                                        extra=extras(t))
                         if fault is not None:
                             fault.fire("layout_saved")
                     saved = True
@@ -298,19 +360,14 @@ def run_layout(generator, edge_sampler, neg_sampler, n_nodes: int, cfg, *,
                     if not saved:
                         stage_ckpt.save(
                             "layout", {"y": y, "rng": generator.get_state()},
-                            step=t, keep=keep, extra=extras())
+                            step=t, keep=keep, extra=extras(t))
                     guard.finish()
         finally:
             try:
                 if writer is not None:
                     writer.close()
             finally:
-                if guard is not None:
-                    # a signal after the last boundary's check: that
-                    # boundary was saved by the cadence, the exit is left
-                    guard.defer(False)
-                    if guard.pending is not None:
-                        guard.finish()
+                _release_signals(guard)
     else:
         H, dispatches = 1, steps - start
         for t in range(start, steps):
@@ -330,4 +387,172 @@ def run_layout(generator, edge_sampler, neg_sampler, n_nodes: int, cfg, *,
     return LayoutResult(y=y, steps=done, edge_samples=done * batch,
                         steps_per_dispatch=H, dispatches=dispatches,
                         rollbacks=rollbacks, rho0_scale=rho0_scale,
+                        stragglers=stragglers)
+
+
+def _rank_generator(device, seed: int, rank: int, round_: int = 0):
+    """The stream of one replica of the local-SGD layout."""
+    mixed = ((int(seed) * 1_000_003 + rank) * 1_000_003 + round_) % 2**63
+    return torch.Generator(device=device).manual_seed(mixed)
+
+
+def run_layout_local_sgd(generator, edge_sampler, neg_sampler, n_nodes: int,
+                         cfg, mesh, *, fault=None,
+                         weights=None) -> LayoutResult:
+    """The data mesh's layout: local SGD, the JAX package's form of the
+    paper's asynchronous SGD.
+
+    Every rank keeps a full replica of y (the same N(0, init_scale)
+    start from ``generator``) and a stream of its own.  A round is
+    ``cfg.sync_every`` (H) steps on the replica, one ``StepChunks``
+    dispatch (a CUDA graph replay on the card); then the replicas sync by
+    a sum of their moves, ``y0 + sum_r (y_r - y0)`` (``DataMesh.
+    all_reduce_sum``, outside the graph), not a mean: every sampled
+    edge's update lands at the full lr, as in the paper's Hogwild.  The
+    global concurrent batch ``batch * P`` is capped at about N/2 (the
+    collision argument), split evenly over the replicas.
+
+    A world of one has nothing to sync: it is :func:`run_layout` (with
+    ``weights``, so its checkpoints carry the topology), on the shard's
+    samplers, which are the flat ones bitwise, with every hook of the
+    single-device layout (``cfg.health`` included).
+
+    Samplers: a :class:`~repro_torch.core.sampler.ShardedEdgeSampler`
+    gives rank s its shard ``local(s)`` (stratified edge sampling); a
+    flat one is drawn whole by every rank.  The negative sampler is drawn
+    whole (a sharded one by its two levels).
+
+    ``cfg.checkpoint``: round-granular saves of ``{"y", "rng"}`` (every
+    rank's stream state), written by rank 0 and read by every rank, with
+    the topology and the committed edge samples in ``extra``.  The
+    fingerprint binds the global ``weights`` (the same on every mesh).  A
+    checkpoint of the same shard count resumes bitwise; one of another
+    count resumes from the round boundary covering its committed samples,
+    with fresh streams, and one :class:`TopologyChangeWarning`.
+
+    ``fault`` fires ``layout_round`` and the per-shard
+    ``local_sgd_round:<s>`` sites after every round (a shard fault raises
+    ``ShardFailedError``, stage ``"layout"``; a callable spec may inflate
+    a shard's round time, which its :class:`Watchdog` flags as
+    ``(shard, round, dt, median)`` in ``result.stragglers``), and
+    ``layout_saved`` after each save.  ``cfg.health`` does not apply at
+    P > 1, as in the JAX package.  The first dispatch of the fused route
+    demotes to the split route on a backend failure, as in
+    :func:`run_layout`.
+    """
+    P, rank, dev = mesh.size, mesh.rank, mesh.device
+    es = (edge_sampler.local(rank)
+          if isinstance(edge_sampler, ShardedEdgeSampler) else edge_sampler)
+    if P == 1:
+        return run_layout(generator, es, neg_sampler, n_nodes, cfg,
+                          device=dev, fault=fault, weights=weights)
+    stage_ckpt = _layout_stage_ckpt(generator, n_nodes, cfg, edge_sampler,
+                                    table=weights)
+    y = torch.randn((n_nodes, cfg.out_dim), generator=generator,
+                    device=dev) * cfg.init_scale
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator,
+                             device=dev))
+    y = mesh.broadcast(y)
+    batch = max(1, _collision_capped_batch(cfg.batch_size * P, n_nodes)
+                // P)
+    total = int(cfg.samples_per_node) * n_nodes
+    steps = max(1, total // (batch * P))
+    H = max(1, int(cfg.sync_every))
+    n_rounds = max(1, steps // H)
+    rank_gen = _rank_generator(dev, seed, rank)
+    start = 0
+    if stage_ckpt is not None:
+        loaded = stage_ckpt.load("layout")
+        if loaded is not None:
+            tree, saved_step, extra = loaded
+            y = torch.as_tensor(tree["y"]).to(dev, torch.float32)
+            saved = _saved_shards(extra, P)
+            if saved == P:
+                start = int(saved_step)
+                rank_gen.set_state(torch.from_numpy(tree["rng"][rank]))
+            else:
+                done = int(extra.get("samples_done", 0))
+                start = min(done // (H * batch * P), n_rounds)
+                rank_gen = _rank_generator(dev, seed, rank, start)
+                warnings.warn(TopologyChangeWarning("layout", saved, P,
+                                                    start), stacklevel=2)
+    start = min(start, n_rounds)
+    step = functools.partial(
+        layout_engine.sgd_edge_step, edge_sampler=es,
+        neg_sampler=neg_sampler, n_negatives=cfg.n_negatives,
+        prob_fn=cfg.prob_fn, a=cfg.prob_a, gamma=cfg.gamma,
+        clip=cfg.grad_clip, batch=batch, layout_step=cfg.routing.layout_step)
+    lrs = layout_engine.lr_table(cfg.rho0, steps, dev)
+    unit = layout_engine.StepChunks(step, y, H)
+    fused = (cfg.prob_fn == "inv_quadratic"
+             and cfg.routing.layout_step != "split")
+    y0 = torch.empty_like(y)
+    ckpt_cfg = cfg.checkpoint
+    keep = max(1, ckpt_cfg.keep) if ckpt_cfg is not None else 1
+
+    def save(rounds_done: int) -> None:
+        states = rank_gen.get_state()
+        wire = states.to(dev) if mesh.backend == "nccl" else states
+        states = torch.stack(mesh.all_gather_list(wire)).cpu()
+        if rank == 0:
+            stage_ckpt.save("layout", {"y": y, "rng": states},
+                            step=rounds_done, keep=keep, extra={
+                                "topology": _topology(P, n_nodes),
+                                "samples_done": rounds_done * H * batch * P})
+        mesh.barrier()
+        if fault is not None:
+            fault.fire("layout_saved")
+
+    monitored = fault is not None
+    watchdogs = [Watchdog() for _ in range(P)] if monitored else []
+    stragglers: list = []
+    r = start
+    guard = _defer_signals(stage_ckpt)
+    try:
+        while r < n_rounds:
+            chunk = lrs[r * H:(r + 1) * H]
+            t0 = time.perf_counter()
+            y0.copy_(y)
+            if fused and r == start:
+                unit = _first_fused_chunk(
+                    unit, rank_gen, chunk,
+                    functools.partial(step, layout_step="split"))
+            else:
+                unit.run(rank_gen, chunk)
+            y.copy_(y0 + mesh.all_reduce_sum(y - y0))  # the Hogwild sum
+            r += 1
+            if monitored:
+                if y.is_cuda:
+                    torch.cuda.synchronize(y.device)
+                fault.fire("layout_round")
+                dt = time.perf_counter() - t0
+                dts = fire_per_shard(fault, "local_sgd_round", P,
+                                     stage="layout", payloads=[dt] * P)
+                for s, wd in enumerate(watchdogs):
+                    if wd.observe(r - 1, float(dts[s])):
+                        _, dtv, med = wd.stragglers[-1]
+                        stragglers.append((s, r - 1, dtv, med))
+            saved = False
+            if stage_ckpt is not None and (
+                    (r - start) % max(1, ckpt_cfg.every_chunks) == 0
+                    or r >= n_rounds):
+                save(r)
+                saved = True
+            if guard is not None and guard.pending is not None:
+                if not saved:
+                    save(r)
+                guard.finish()
+    finally:
+        _release_signals(guard)
+    if stragglers:
+        worst = max(stragglers, key=lambda t: t[2])
+        warnings.warn(
+            f"local-SGD: shard {worst[0]} straggling: round {worst[1]} "
+            f"took {worst[2]:.3f}s vs median {worst[3]:.3f}s "
+            f"({len(stragglers)} flagged round(s); see "
+            f"LayoutResult.stragglers)", RuntimeWarning, stacklevel=2)
+    done = n_rounds - start
+    return LayoutResult(y=y, steps=done * H,
+                        edge_samples=done * H * batch * P,
+                        steps_per_dispatch=H, dispatches=done,
                         stragglers=stragglers)

@@ -7,6 +7,12 @@ directly and merged with the current list by ``knn.merge_candidates``,
 which suppresses duplicate ids.  Rows are processed in tiles so the
 (tile, C, d) candidate gather stays near 256 MB.  ``sample`` caps the
 candidate columns (0 = all K^2 + K, the paper-faithful default).
+
+``sharded_explore_round`` is the data mesh's round: every rank gathers
+the (N, K) graph (output-sized, which is how a rank learns its rows'
+reverse neighbors), forms its own rows' candidates, and fills their
+distances by streaming the point slabs round the ring, so no rank holds
+more than its own slab of points and one in flight.
 """
 from __future__ import annotations
 
@@ -118,3 +124,83 @@ def neighbor_explore(x, knn_idx, knn_dist, *, iters: int = 1,
                                            sample=sample, tile=tile,
                                            r_cap=K, generator=generator)
     return knn_idx, knn_dist
+
+
+def sharded_explore_round(mesh, x_loc, ids_loc, knn_idx_loc, knn_dist_loc,
+                          *, n_real: int, generator=None, sample: int = 0,
+                          r_cap: int = 0, tile: int = 0):
+    """One exploring round for this rank's rows of the data mesh.
+
+    x_loc        (n_loc, d)   this rank's point slab (padded rows zero)
+    ids_loc      (n_loc,)     the slab's global ids, a contiguous range
+    knn_idx_loc  (n_loc, K)   its rows of the graph (global ids)
+    knn_dist_loc (n_loc, K)
+
+    The JAX package's ``sharded_explore_round``, op for op: the graph is
+    all-gathered and its reverse adjacency built whole (padding rows
+    included); a row's candidates are its neighbors' neighbors and its
+    reverse neighbors, a padding id replaced by the row's own (then
+    suppressed), optionally ``sample`` columns of them drawn from
+    ``generator``; their distances fill over P ring steps, each reading
+    only the slab held; ``knn.merge_candidates`` merges them with the
+    row's list.  Candidates and distances are made ``tile`` rows at a
+    time (0: the (tile, C, d) gather under ~256 MB of f32), and a row's
+    merge runs with its last ring step, so beside the one-step (n_loc, C)
+    distance table (only for P > 1) nothing of size (n_loc, C) exists;
+    the merge is per row, so the tile moves memory, never the result.
+    Returns the merged (idx, dist) of the local rows.
+    """
+    n_loc, K = knn_idx_loc.shape
+    d = x_loc.shape[1]
+    dev = x_loc.device
+    r_cap = r_cap or K
+    lo = mesh.rank * n_loc
+    g_idx = mesh.all_gather(knn_idx_loc)                   # (Np, K)
+    rev = reverse_neighbors(g_idx, r_cap)[lo:lo + n_loc]
+    C = K * K + r_cap
+    cols = None
+    if sample and sample < C:
+        cols = torch.randint(0, C, (n_loc, sample), generator=generator,
+                             device=dev)
+        C = sample
+    budget = 64 * (1 << 20)
+    T = int(tile) or max(16, min(n_loc, budget // max(1, C * d)))
+    T = min(T, n_loc)
+
+    def candidates(r0, r1):
+        fwd = g_idx[knn_idx_loc[r0:r1].long()].reshape(r1 - r0, K * K)
+        cand = torch.cat([fwd, rev[r0:r1]], dim=1)
+        if cols is not None:
+            cand = torch.gather(cand, 1, cols[r0:r1])
+        own = ids_loc[r0:r1, None].to(cand.dtype)
+        return torch.where(cand >= n_real, own, cand)
+
+    out_i = torch.empty_like(knn_idx_loc)
+    out_d = torch.empty_like(knn_dist_loc)
+    cd = None
+    rx = x_loc
+    for s in range(mesh.size):
+        roff = ((mesh.rank - s) % mesh.size) * n_loc       # slab held
+        last = s == mesh.size - 1
+        if not last and cd is None:
+            cd = torch.full((n_loc, C), knn_lib.INF, device=dev)
+        for r0 in range(0, n_loc, T):
+            r1 = min(r0 + T, n_loc)
+            cand = candidates(r0, r1)
+            rel = cand.long() - roff
+            in_rng = (rel >= 0) & (rel < n_loc)
+            xc = rx[rel.clamp(0, n_loc - 1)]               # (T, C, d)
+            diff = (xc - x_loc[r0:r1][:, None, :]).float()
+            prev = (cd[r0:r1] if cd is not None
+                    else torch.full(cand.shape, knn_lib.INF, device=dev))
+            filled = torch.where(in_rng, (diff * diff).sum(-1), prev)
+            if not last:
+                cd[r0:r1] = filled
+                continue
+            ids = torch.cat([knn_idx_loc[r0:r1], cand], dim=1)
+            ds = torch.cat([knn_dist_loc[r0:r1], filled], dim=1)
+            out_i[r0:r1], out_d[r0:r1] = knn_lib.merge_candidates(
+                ids, ds, K, self_idx=ids_loc[r0:r1])
+        if not last:
+            rx = mesh.ring_shift(rx)
+    return out_i, out_d

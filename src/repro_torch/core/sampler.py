@@ -16,6 +16,11 @@ of ``_alias_pairing`` go through :func:`ordered_cumsum`, whose float
 grouping is fixed by the length alone (a 1-D ``torch.cumsum`` on CUDA
 groups by timing).  On the CPU ``torch.cumsum`` adds left to right, as
 the JAX package does, and stays.
+
+On the data mesh (``build_samplers_sharded``) each rank pairs its own
+rows' edges and nodes; a (P,)-entry shard table over the shards' total
+masses sits on top, so a two-level draw is exactly proportional to the
+global weights (``ShardedEdgeSampler``, ``ShardedNodeSampler``).
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.runtime import sharding as sh
 
 
 def build_alias(probs: np.ndarray):
@@ -183,6 +189,76 @@ class NodeSampler:
         return sample_alias(generator, self.threshold, self.alias, shape)
 
 
+@dataclasses.dataclass
+class ShardedEdgeSampler:
+    """Per-shard edge alias tables with a shard-selection table on top.
+
+    The per-shard tables are stacked ``(P, E_loc)``, the same on every
+    rank: ``alias`` holds LOCAL edge indices (each shard's table covers
+    its own edges), ``src``/``dst`` GLOBAL node ids.  ``shard_threshold``
+    / ``shard_alias`` is the (P,)-entry table over the shards' total
+    masses, so a two-level draw is exactly proportional to the global
+    w_ij.  At one shard :meth:`sample` is the flat sampler of row 0, the
+    same stream."""
+    src: torch.Tensor              # (P, E_loc) int32, global node ids
+    dst: torch.Tensor              # (P, E_loc) int32
+    threshold: torch.Tensor        # (P, E_loc) f32
+    alias: torch.Tensor            # (P, E_loc) int32, local edge indices
+    shard_threshold: torch.Tensor  # (P,) f32
+    shard_alias: torch.Tensor      # (P,) int32
+    n_shards: int
+    n_edges: int                   # real (unpadded) directed edges
+
+    def local(self, i: int = 0) -> EdgeSampler:
+        """Shard ``i``'s flat sampler: what rank ``i`` of the local-SGD
+        layout draws from (stratified edge sampling)."""
+        return EdgeSampler(self.src[i], self.dst[i], self.threshold[i],
+                           self.alias[i], int(self.src.shape[1]))
+
+    def sample(self, generator, batch: int):
+        if self.n_shards == 1:
+            return self.local().sample(generator, batch)
+        s = sample_alias(generator, self.shard_threshold, self.shard_alias,
+                         (batch,)).long()
+        e = _second_level(generator, self.threshold, self.alias, s,
+                          (batch,))
+        return self.src[s, e], self.dst[s, e]
+
+
+@dataclasses.dataclass
+class ShardedNodeSampler:
+    """Per-shard noise distribution P_n(j) ∝ deg_j^power over the row
+    layout of ``runtime/sharding.py``: local node l of shard s is global
+    node ``s * n_loc + l``.  Padded rows carry exactly zero mass, so a
+    padded id is never drawn."""
+    threshold: torch.Tensor        # (P, n_loc) f32
+    alias: torch.Tensor            # (P, n_loc) int32, local node indices
+    shard_threshold: torch.Tensor  # (P,) f32
+    shard_alias: torch.Tensor      # (P,) int32
+    n_shards: int
+    n_nodes: int                   # real (unpadded) nodes
+
+    def sample(self, generator, shape):
+        if self.n_shards == 1:
+            return sample_alias(generator, self.threshold[0], self.alias[0],
+                                shape)
+        s = sample_alias(generator, self.shard_threshold, self.shard_alias,
+                         shape).long()
+        n_loc = self.threshold.shape[1]
+        l = _second_level(generator, self.threshold, self.alias, s, shape)
+        return (s * n_loc + l).to(torch.int32)
+
+
+def _second_level(generator, threshold, alias, s, shape) -> torch.Tensor:
+    """Alias draws from the stacked tables' rows ``s`` (int64 of
+    ``shape``): a uniform slot, a uniform number, compare, gather."""
+    n = threshold.shape[1]
+    idx = torch.randint(0, n, shape, generator=generator,
+                        device=threshold.device)
+    u = torch.rand(shape, generator=generator, device=threshold.device)
+    return torch.where(u < threshold[s, idx], idx, alias[s, idx].long())
+
+
 def build_edge_sampler(knn_idx, weights) -> EdgeSampler:
     """(N, K) directed graph -> edge sampler, built on the graph's device.
 
@@ -224,3 +300,73 @@ def alias_marginals(threshold, alias) -> np.ndarray:
     m = thr.copy()
     np.add.at(m, ali, 1.0 - thr)
     return m / thr.shape[0]
+
+
+def edge_marginals(sampler) -> np.ndarray:
+    """The per-directed-edge draw probabilities, row-major ``(E,)``, of an
+    :class:`EdgeSampler` or a :class:`ShardedEdgeSampler` (the shard
+    table's marginal times the shard's own; the shards' blocks in order
+    are the global row order, padding last and sliced off).  Tables built
+    from one graph on any mesh agree up to the pairing's rounding (w_e /
+    W in exact arithmetic)."""
+    if isinstance(sampler, ShardedEdgeSampler):
+        if sampler.n_shards == 1:
+            return alias_marginals(sampler.threshold[0],
+                                   sampler.alias[0])[:sampler.n_edges]
+        shard_p = alias_marginals(sampler.shard_threshold,
+                                  sampler.shard_alias)
+        per = [shard_p[s] * alias_marginals(sampler.threshold[s],
+                                            sampler.alias[s])
+               for s in range(sampler.n_shards)]
+        return np.concatenate(per)[:sampler.n_edges]
+    return alias_marginals(sampler.threshold,
+                           sampler.alias)[:sampler.n_edges]
+
+
+def _total(mass: torch.Tensor) -> torch.Tensor:
+    """The f64 total of a nonnegative mass vector, summed as
+    ``_alias_pairing`` sums it (in a fixed order on the card)."""
+    p = mass.float().reshape(-1).double().clamp_min(0.0)
+    return ordered_cumsum(p)[-1] if p.is_cuda else p.sum()
+
+
+def build_samplers_sharded(knn_idx, weights, *, power: float = 0.75, mesh):
+    """(ShardedEdgeSampler, ShardedNodeSampler) built on the data mesh,
+    the same on every rank.
+
+    Every rank holds the global (N, K) graph and weights; rank s pairs
+    the edges and the node masses of its own row block (padded rows:
+    zero weight, exactly zero mass), and the blocks' tables are
+    all-gathered into the stacked samplers, with the (P,) shard tables
+    paired from the gathered totals.  A node's mass is its weighted
+    degree :func:`weighted_degree` of the global graph, the flat
+    sampler's bits at every shard count (the in-degree added to the
+    out-degree in stream order; the JAX package sums each shard's
+    in-degree part from zero and adds it after, which differs in the
+    last bit unless the weights are integers).  So at one shard both
+    tables are bitwise the flat samplers', and at any P the node masses
+    are."""
+    N, K = knn_idx.shape
+    P = mesh.size
+    n_loc = sh.rows_per_shard(N, P)
+    lo = mesh.rank * n_loc
+    dev = knn_idx.device
+    idx_loc = sh.shard_rows(knn_idx, mesh)
+    w_loc = sh.shard_rows(weights.float(), mesh)
+    src = torch.arange(lo, lo + n_loc, dtype=torch.int32,
+                       device=dev).repeat_interleave(K)
+    dst = idx_loc.reshape(-1).remainder(N).to(torch.int32)
+    ethr, eali = _alias_pairing(w_loc.reshape(-1))
+    mass = sh.shard_rows(weighted_degree(knn_idx, weights).clamp_min(1e-12)
+                         ** power, mesh)
+    nthr, nali = _alias_pairing(mass)
+    totals = torch.stack([_total(w_loc), _total(mass)])
+    parts = [torch.stack(mesh.all_gather_list(t)) for t in
+             (src, dst, ethr, eali, nthr, nali, totals)]
+    src_s, dst_s, ethr_s, eali_s, nthr_s, nali_s, tot = parts
+    sthr_e, sali_e = _alias_pairing(tot[:, 0])
+    sthr_n, sali_n = _alias_pairing(tot[:, 1])
+    edge_s = ShardedEdgeSampler(src_s, dst_s, ethr_s, eali_s, sthr_e, sali_e,
+                                P, N * K)
+    node_s = ShardedNodeSampler(nthr_s, nali_s, sthr_n, sali_n, P, N)
+    return edge_s, node_s

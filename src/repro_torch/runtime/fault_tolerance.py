@@ -1,7 +1,7 @@
 """Fault injection, the layout's health and straggler signals, and
 preemption.
 
-The JAX package's ``runtime/fault_tolerance.py`` for one device:
+The JAX package's ``runtime/fault_tolerance.py``:
 
 * :class:`FaultInjector` fires NaN corruption, exceptions, ``SIGKILL`` or
   a callable at the named sites of :data:`FAULT_SITES`: the pipeline's
@@ -11,14 +11,16 @@ The JAX package's ``runtime/fault_tolerance.py`` for one device:
   exception it raises;
 * :class:`Watchdog` flags straggler dispatches;
 * :class:`DegradedModeWarning` (the fused layout step demoted to the
-  split route), :class:`DivergenceWarning` (a layout rollback) and
+  split route, a data mesh halved after a shard failure),
+  :class:`DivergenceWarning` (a layout rollback) and
   :class:`LayoutDivergedError` (rollbacks exhausted);
 * :class:`PreemptionGuard`: SIGTERM/SIGINT -> save the newest layout
-  state, then exit by the signal.
-
-The mesh's pieces (``TopologyChangeWarning``, ``ShardFailedError``,
-``fire_per_shard`` and the per-shard sites) come with the distributed
-pipeline.
+  state, then exit by the signal;
+* the data mesh's pieces: the per-shard sites of
+  :data:`SHARDED_FAULT_SITES`, fired by :func:`fire_per_shard`, whose
+  injected exceptions become :class:`ShardFailedError` for the mesh
+  retry of ``largevis()``, and :class:`TopologyChangeWarning` (a layout
+  checkpoint of another shard count resumed).
 """
 from __future__ import annotations
 
@@ -54,10 +56,10 @@ class Watchdog:
 
 
 class DegradedModeWarning(UserWarning):
-    """A pipeline stage demoted its implementation after a backend
-    failure (the layout's ``fused -> split`` edge step).  Emitted exactly
-    once per demotion with the stage, the route taken, and the original
-    error."""
+    """A pipeline stage demoted its implementation after a failure (the
+    layout's ``fused -> split`` edge step, ``mesh[P] -> mesh[P/2]`` after
+    a shard failure).  Emitted exactly once per demotion with the stage,
+    the route taken, and the original error."""
 
     def __init__(self, stage: str, from_impl: str, to_impl: str, cause):
         self.stage, self.from_impl, self.to_impl = stage, from_impl, to_impl
@@ -65,6 +67,41 @@ class DegradedModeWarning(UserWarning):
         super().__init__(
             f"degraded mode: {stage} demoted {from_impl!r} -> {to_impl!r} "
             f"after {type(cause).__name__}: {cause}")
+
+
+class TopologyChangeWarning(UserWarning):
+    """A stage checkpoint written on another shard count resumed here.
+
+    The graph stages hold global arrays and are bitwise the same at
+    every shard count, so they resume silently; the local-SGD layout's
+    trajectory depends on the shard count (a stream a replica), so a
+    layout resumed on another mesh continues from the last committed
+    round boundary, with the new mesh's streams, and says so once with
+    this warning."""
+
+    def __init__(self, stage: str, saved_shards: int, new_shards: int,
+                 resumed_at: int):
+        self.stage, self.resumed_at = stage, resumed_at
+        self.saved_shards, self.new_shards = saved_shards, new_shards
+        super().__init__(
+            f"{stage} checkpoint written on a {saved_shards}-shard mesh "
+            f"resumed on {new_shards} shard(s): continuing from the last "
+            f"committed boundary (round {resumed_at}); the trajectory "
+            f"from here follows the new mesh's streams")
+
+
+class ShardFailedError(RuntimeError):
+    """One shard of a sharded stage failed.
+
+    Raised by the per-shard fault sites (:func:`fire_per_shard`);
+    ``largevis()`` catches it, emits one :class:`DegradedModeWarning`,
+    halves the mesh and re-enters from the last committed stage."""
+
+    def __init__(self, stage: str, shard: int, cause=None):
+        self.stage, self.shard, self.cause = stage, shard, cause
+        super().__init__(
+            f"shard {shard} failed in stage {stage!r}"
+            + (f" ({type(cause).__name__}: {cause})" if cause else ""))
 
 
 class DivergenceWarning(UserWarning):
@@ -103,11 +140,28 @@ class InjectedFault(RuntimeError):
 FAULT_SITES = frozenset({
     # largevis() pipeline stage boundaries (core/largevis.py)
     "stage:graph", "stage:weights", "stage:samplers",
-    # the layout's chunk loop (core/layout.py)
-    "layout_chunk", "layout_saved",
+    # the layouts' loops (core/layout.py)
+    "layout_chunk", "layout_saved", "layout_round",
     # projection server (launch/serve_projection.py)
     "submit", "prefill", "retire", "step",
 })
+
+# Per-shard sites of the sharded stages: a plan names them
+# ``"<site>:<shard>"`` (e.g. ``"knn_ring_step:1"``), and they fire once a
+# shard a pass through the stage (:func:`fire_per_shard`).
+SHARDED_FAULT_SITES = frozenset({
+    "knn_ring_step",        # core/knn_sharded.py, before the ring
+    "calibrate_shard",      # core/perplexity.py calibrate_p_sharded
+    "symmetrize_exchange",  # core/perplexity.py symmetrize_sharded
+    "local_sgd_round",      # core/layout.py run_layout_local_sgd
+})
+
+
+def _valid_site(site: str) -> bool:
+    if site in FAULT_SITES:
+        return True
+    base, _, shard = site.rpartition(":")
+    return base in SHARDED_FAULT_SITES and shard.isdigit()
 
 
 class FaultInjector:
@@ -115,8 +169,9 @@ class FaultInjector:
 
     ``plan`` maps a site name to ``{hit_index: spec}``: the spec fires on
     the ``hit_index``-th time (0-based) that site is reached.  Site names
-    are checked against :data:`FAULT_SITES` at construction
-    (``ValueError`` on an unknown name).  Specs:
+    are checked against :data:`FAULT_SITES` and, as ``"<site>:<shard>"``,
+    :data:`SHARDED_FAULT_SITES` at construction (``ValueError`` on an
+    unknown name).  Specs:
 
     * ``"nan"``       — every float tensor or array in the site's payload
       is returned filled with NaN;
@@ -131,10 +186,12 @@ class FaultInjector:
 
     def __init__(self, plan: Optional[dict] = None):
         self.plan = dict(plan or {})
-        unknown = sorted(s for s in self.plan if s not in FAULT_SITES)
+        unknown = sorted(s for s in self.plan if not _valid_site(s))
         if unknown:
-            raise ValueError(f"unknown fault site(s) {unknown}: the port "
-                             f"fires {sorted(FAULT_SITES)}")
+            raise ValueError(
+                f"unknown fault site(s) {unknown}: the port fires "
+                f"{sorted(FAULT_SITES)} plus per-shard "
+                f"{sorted(SHARDED_FAULT_SITES)} as '<site>:<shard>'")
         self.counts: dict = {}
         self.log: list = []
 
@@ -155,6 +212,27 @@ class FaultInjector:
         if spec == "kill":
             os.kill(os.getpid(), signal.SIGKILL)
         raise ValueError(f"unknown fault spec {spec!r} at site {site!r}")
+
+
+def fire_per_shard(fault, site: str, n_shards: int, *, stage: str,
+                   payloads=None):
+    """Fire ``"<site>:<s>"`` for every shard ``s`` in order; an injected
+    exception becomes :class:`ShardFailedError` (``stage``, ``s``).
+
+    Every rank holds the same plan and fires every shard's site in the
+    same order, so the ranks raise together and enter the mesh retry
+    together.  A callable spec may transform its shard's entry of
+    ``payloads`` (e.g. inflate one shard's round time to make it a
+    straggler).  Returns the payload list."""
+    if fault is None:
+        return payloads
+    out = list(payloads) if payloads is not None else [None] * n_shards
+    for s in range(n_shards):
+        try:
+            out[s] = fault.fire(f"{site}:{s}", out[s])
+        except InjectedFault as e:
+            raise ShardFailedError(stage, s, e) from e
+    return out
 
 
 def _poison(payload):

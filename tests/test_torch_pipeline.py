@@ -127,8 +127,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 def test_unported_routes_raise():
     """The split route and the autograd prob_fn run; unknown names raise
-    ValueError, as in the JAX package; the routes still to port raise
-    NotImplementedError naming the ROADMAP."""
+    ValueError, as in the JAX package; ``distributed=True``, once a route
+    still to port, runs: with no process group, on a world of one (gloo
+    on the CPU), its exact ring is the brute-force graph."""
     from repro_torch.core import layout_engine
     z = torch.arange(8.0).reshape(4, 2)
     i = torch.tensor([0, 1], dtype=torch.int32)
@@ -141,10 +142,19 @@ def test_unported_routes_raise():
     for kw in (dict(prob_fn="inv_exp"), dict(layout_step="tiled")):
         with pytest.raises(ValueError):
             layout_engine.apply_edge_batch(z, i, j, n, n.float(), 0.1, **kw)
-    x = torch.zeros((8, 3))
-    for cfg in (LargeVisConfig(distributed=True),):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tknn.build_knn_graph(x, cfg)
+    import torch.distributed as dist
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(40, 3)).astype(np.float32))
+    cfg = LargeVisConfig(distributed=True, n_neighbors=5, n_trees=0,
+                         n_explore_iters=0)
+    assert not dist.is_initialized()
+    try:
+        got = tknn.build_knn_graph(x, cfg)
+        want = tknn.brute_force_knn(x, 5)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_import_leaves_jax_out():

@@ -490,8 +490,8 @@ def test_split_route_engine_equals_fused(port_fit, jax_fit):
 # (g): the fault injector
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("site", ["bogus", "layout_round",
-                                  "calibrate_shard:0", "knn_ring_step:0"])
+@pytest.mark.parametrize("site", ["bogus", "layout_rounds",
+                                  "calibrate_shard", "knn_ring_step:x"])
 def test_fault_injector_rejects_sites_the_port_never_fires(site):
     with pytest.raises(ValueError, match="unknown fault site"):
         FaultInjector({site: {0: "exception"}})
@@ -503,7 +503,7 @@ def test_every_planned_site_fires(model):
     assert ft.FAULT_SITES == {"submit", "prefill", "retire", "step",
                               "stage:graph", "stage:weights",
                               "stage:samplers", "layout_chunk",
-                              "layout_saved"}
+                              "layout_saved", "layout_round"}
     sites = {"submit", "prefill", "retire", "step"}
     plan = {site: {1: (lambda payload: payload)} for site in sites}
     fi = FaultInjector(plan)

@@ -1,0 +1,225 @@
+"""The distributed fit on P cards of one host over NCCL, held against a
+world of one.
+
+    python3 tools/distributed_check.py --world 4
+
+Spawns P ranks, one a card, joined over NCCL (``tcp://localhost`` on a
+free port, a timeout on the group and on the joins); each calls
+``largevis(x, cfg=LargeVisConfig(distributed=True))`` at the defaults
+(K = 150, 8 trees, perplexity 50, M = 5, batch 4096, sync every step)
+on the smoke run's data (a 10-cluster Gaussian mixture, N = 100,000,
+d = 100), then times one ``DataMesh.all_reduce_sum`` of y (the
+local-SGD sync) and one ``ring_shift`` of its slab.  This process then
+fits the same data on a world of one (card 0) and requires the ranks'
+graph, distances and weights to be bitwise its, every rank's y to be
+the same, and the 5-NN accuracy of both layouts to be >= 0.95.  The
+kernels are built here before the ranks start.  It prints the cards'
+names and power limits, a line a world, and last one JSON object of
+the numbers.  ``--samples-per-node`` cuts the layout's depth (printed
+as ``cut:``).  Exits non-zero if a rank fails or a check does not hold.
+"""
+from __future__ import annotations
+
+import argparse
+import datetime
+import json
+import os
+import socket
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+N_POINTS, DIM, CLUSTERS = 100_000, 100, 10
+TIMEOUT_S = 600
+SYNC_REPS = 50
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _timed(torch, fn, reps: int) -> float:
+    """ms a call of ``fn``, the card synchronised around the loop."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _rank(rank: int, world: int, port: int, out_dir: str, spn: int):
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.cuda.set_device(rank)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    try:
+        from repro_torch import LargeVisConfig, largevis
+        from repro_torch.core import metrics
+        from repro_torch.data.synthetic import gaussian_mixture
+        from repro_torch.kernels import ops
+        from repro_torch.launch.mesh import make_data_mesh
+        from repro_torch.runtime import sharding as sh
+
+        xn, labels = gaussian_mixture(0, N_POINTS, DIM, CLUSTERS)
+        x = torch.from_numpy(xn).cuda()
+        cfg = LargeVisConfig(distributed=True, samples_per_node=spn)
+        mesh = make_data_mesh(0, device="cuda")
+        assert mesh.size == world and mesh.backend == "nccl", mesh
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = largevis(x, cfg=cfg, device="cuda")
+        fit_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        sync_ms = _timed(torch, lambda: mesh.all_reduce_sum(res.y),
+                         SYNC_REPS)
+        slab = sh.shard_rows(x, mesh)
+        shift_ms = _timed(torch, lambda: mesh.ring_shift(slab), SYNC_REPS)
+        t = res.timings
+        out = dict(y=res.y.cpu().numpy(), fit_s=fit_s, peak=peak,
+                   sync_ms=sync_ms, shift_ms=shift_ms, steps=res.steps,
+                   dispatches=res.dispatches,
+                   topk=counts["topk_sqdist"],
+                   fused=counts["fused_edge_step"],
+                   acc=metrics.knn_classifier_accuracy(res.y, labels),
+                   **{k: t[k] for k in ("knn_s", "knn_ring_s",
+                                        "knn_explore_s", "weights_s",
+                                        "sampler_s", "layout_s")})
+        if rank == 0:
+            out.update(idx=res.knn_idx.cpu().numpy(),
+                       dist=res.knn_dist.cpu().numpy(),
+                       w=res.weights.cpu().numpy(),
+                       recall=metrics.graph_recall(res.x, res.knn_idx))
+        np.savez(Path(out_dir) / f"rank{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _line(what: str, r: dict) -> str:
+    return (f"{what}: {float(r['fit_s']):.2f} s (knn_s "
+            f"{float(r['knn_s']):.3f} = ring {float(r['knn_ring_s']):.3f} "
+            f"+ explore {float(r['knn_explore_s']):.3f}, weights_s "
+            f"{float(r['weights_s']):.3f}, sampler_s "
+            f"{float(r['sampler_s']):.3f}, layout_s "
+            f"{float(r['layout_s']):.3f}; {int(r['steps'])} steps a rank in "
+            f"{int(r['dispatches'])} dispatches), knn_classifier_accuracy "
+            f"{float(r['acc']):.4f}, peak memory a rank "
+            f"{int(r['peak']) / 2**30:.2f} GiB, launches a rank: "
+            f"topk_sqdist {int(r['topk'])}, fused_edge_step "
+            f"{int(r['fused'])}")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--world", type=int, default=4)
+    ap.add_argument("--samples-per-node", type=int, default=10_000)
+    args = ap.parse_args()
+    import torch
+    import torch.multiprocessing as mp
+
+    if not torch.cuda.is_available():
+        sys.exit("CUDA is not available")
+    P = args.world
+    if torch.cuda.device_count() < P:
+        sys.exit(f"{P} ranks need {P} cards; {torch.cuda.device_count()} "
+                 "found")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    if args.samples_per_node != 10_000:
+        print(f"cut: samples_per_node 10000 -> {args.samples_per_node}",
+              flush=True)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import LargeVisConfig, largevis
+    from repro_torch.core import metrics
+    from repro_torch.core.largevis import resolve_device
+    from repro_torch.data.synthetic import gaussian_mixture
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch.mesh import make_data_mesh
+
+    t0 = time.perf_counter()
+    _build.build("knn_topk", "largevis_step", "largevis_grad")
+    print(f"kernel build: {time.perf_counter() - t0:.2f} s", flush=True)
+    tmp = tempfile.TemporaryDirectory()
+    ctx = mp.start_processes(
+        _rank, args=(P, _free_port(), tmp.name, args.samples_per_node),
+        nprocs=P, join=False, start_method="spawn")
+    deadline = time.monotonic() + 2 * TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                sys.exit(f"the {P} ranks did not finish in {2 * TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [dict(np.load(Path(tmp.name) / f"rank{r}.npz"))
+             for r in range(P)]
+    tmp.cleanup()
+    for r in ranks[1:]:
+        assert np.array_equal(r["y"], ranks[0]["y"]), "the replicas differ"
+    print(_line(f"world {P} over NCCL", ranks[0]) + f"; graph_recall "
+          f"{float(ranks[0]['recall']):.4f}; one sync of y (DataMesh."
+          f"all_reduce_sum) {float(ranks[0]['sync_ms']):.3f} ms, one ring "
+          f"shift of a slab {float(ranks[0]['shift_ms']):.3f} ms; every "
+          f"rank's y the same", flush=True)
+
+    dev = resolve_device("cuda")
+    xn, labels = gaussian_mixture(0, N_POINTS, DIM, CLUSTERS)
+    x = torch.from_numpy(xn).to(dev)
+    cfg = LargeVisConfig(distributed=True,
+                         samples_per_node=args.samples_per_node)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    one = largevis(x, cfg=cfg, device="cuda")
+    fit_s = time.perf_counter() - t0
+    mesh = make_data_mesh(0, device="cuda")
+    counts = ops.launch_counts()
+    r1 = dict(fit_s=fit_s, peak=torch.cuda.max_memory_allocated(),
+              steps=one.steps, dispatches=one.dispatches,
+              topk=counts["topk_sqdist"], fused=counts["fused_edge_step"],
+              acc=metrics.knn_classifier_accuracy(one.y, labels),
+              **one.timings)
+    print(_line(f"world 1 over {mesh.backend}", r1), flush=True)
+    diffs = {k: int((ranks[0][k] != getattr(one, f).cpu().numpy()).sum())
+             for k, f in (("idx", "knn_idx"), ("dist", "knn_dist"),
+                          ("w", "weights"))}
+    print(f"world {P} against world 1: entries that differ {diffs}",
+          flush=True)
+    torch.distributed.destroy_process_group()
+    ok = (not any(diffs.values()) and float(ranks[0]["acc"]) >= 0.95
+          and r1["acc"] >= 0.95)
+    keys = ("fit_s", "knn_s", "knn_ring_s", "knn_explore_s", "weights_s",
+            "sampler_s", "layout_s", "acc", "peak", "steps", "topk",
+            "fused")
+    print(json.dumps({
+        "world": P, "ok": ok, "graph_diffs": diffs,
+        "sync_ms": float(ranks[0]["sync_ms"]),
+        "shift_ms": float(ranks[0]["shift_ms"]),
+        "recall": float(ranks[0]["recall"]),
+        "ranks": {k: float(ranks[0][k]) for k in keys},
+        "one": {k: float(r1[k]) for k in keys}}))
+    if not ok:
+        sys.exit(1)
+
+
+if __name__ == "__main__":
+    main()
