@@ -147,18 +147,38 @@ in one process (``run_parent``), and requires the two packages'
    world 1 with one ``TopologyChangeWarning``;
 11. runs the 2000-point quality fixture (accuracy >= 0.95), by the fused
    and by the split route: the two layouts bitwise equal;
-12. the LM serving path: ``flash_attention`` against its plain version at
-   the serve path's shape (1, 4096, 16, 64) in bf16 and f32, and at
-   ragged shapes, S = T = 4095 and 4097 and head dims 16 and 32, timed
-   by CUDA events and by the profiler's device time, then
-   ``ServeEngine`` with ``qwen1.5-0.5b`` at full width (random weights
-   from a seed, bf16) serving 8 requests, 4 of 4096 tokens (prefill
-   through the flash kernel) and 4 of 16-512 tokens (``mha_full``), with
-   the launch counts read just before and just after; the kernel's
-   4096-token prefill logits against the same prefill through the plain
-   version; one timed prefill of a 16,384-token prompt (wall and device
-   time, busy share, flash launches; no plain comparison at that
-   length); decode against prefill at reduced depth in f32;
+12. the LM serving path, the fit's state released first:
+   ``flash_attention`` against its plain version in bf16 and f32 at the
+   serve paths' shapes, (1, 8192, 16, 256) causal and with gemma3's
+   window 1024, (1, 8192, 32, 128) with mixtral's window 4096 and
+   causal, (1, 4096, 16, 64) causal, and at ragged shapes (S = T = 4095
+   and 4097, S < T, S > T, non-causal, head dims 16 to 256, S < W, S = W,
+   S = W + 1, W = 1), each main shape timed by CUDA events and by the
+   profiler's device time beside the plain version, SDPA (``is_causal``,
+   or the window's boolean mask) and its bound (operations over the pairs
+   under the mask); then ``ServeEngine`` with ``qwen1.5-0.5b`` at full
+   width (random weights from a seed, bf16) serving 8 requests, 4 of 4096
+   tokens (prefill through the flash kernel) and 4 of 16-512 tokens
+   (``mha_full``), with the launch counts read just before and just
+   after; the kernel's 4096-token prefill logits against the same prefill
+   through the plain version; one timed prefill of a 16,384-token prompt
+   (wall and device time, busy share, flash launches; no plain
+   comparison at that length); decode against prefill at reduced depth
+   in f32; then ``gemma3-12b`` at full width and depth through
+   ``ServeEngine`` (4 slots, max_len 8224, prompts of 8192, 700, 8192 and
+   1000 tokens, 16 new tokens each: the flash kernel windowed on the 40
+   local layers and causal on the 8 global ones, 96 launches; the local
+   layers' 1024-slot rings wrap while decoding), the long prompts' last
+   logits against the plain version, prefill and decode ms, tokens/s,
+   busy shares and peak memory, and decode against prefill in f32 at one
+   period of 6 layers (a printed cut), prefill(2048) through the kernel
+   (past the window, its cache a ring) and prefill(2049) through
+   ``mha_full``;
+   then ``mixtral-8x7b`` at full width and 2 of its 32 layers (a printed
+   cut): decode against prefill in f32 with total routing, a decode on
+   an int8 cache (``kv_quant``) within 0.15, and one 8192-token bf16
+   prefill (the kernel at hd 128, W 4096, then top-2 MoE at capacity
+   2560) against the plain version;
 
 then prints a JSON line of the kernel records and, last, the device line.
 Any failed check exits with status 1 and prints no result.  Device times
@@ -204,9 +224,21 @@ FLASH_F32_TOL, FLASH_BF16_ULPS = 2e-5, 2
 # outputs carried through 24 layers of bf16 activations
 PREFILL_REL_TOL = 5e-2
 DECODE_REL_TOL = 2e-3             # the JAX package's own bound (test_models)
+KV_QUANT_REL_TOL = 0.15           # the JAX package's int8-cache bound
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_MAX_NEW = 4, 4128, 16
 LONG_PROMPT, N_LONG, N_SHORT = 4096, 4, 4
 TIMED_PROMPT = 16_384             # one timed prefill, batch 1
+GEMMA_ARCH, GEMMA_WINDOW, GEMMA_LONG = "gemma3-12b", 1024, 8192
+GEMMA_LENGTHS = [GEMMA_LONG, 700, GEMMA_LONG, 1000]   # 2 long, 2 short
+MIXTRAL_ARCH, MIXTRAL_WINDOW = "mixtral-8x7b", 4096
+MIXTRAL_LAYERS, MIXTRAL_PROMPT = 2, 8192
+# the serve paths' prefill shapes (B, S, H, hd) and windows, timed
+FLASH_MAIN = {((1, 8192, 16, 256), 0): "gemma3-12b global layers",
+              ((1, 8192, 16, 256), 1024): "gemma3-12b local layers",
+              ((1, 8192, 32, 128), 4096): "mixtral-8x7b layers",
+              ((1, 8192, 32, 128), 0): "a global layer at hd 128",
+              (FLASH_SHAPE, 0): "qwen1.5-0.5b layers"}
+FLASH_RECORD = ((1, 8192, 16, 256), 0)   # the kernels line's shape
 
 
 def fail(msg: str) -> None:
@@ -2085,13 +2117,35 @@ def run_fixture(torch, layout_step: str = "auto"):
 # the LM serving path
 # ---------------------------------------------------------------------------
 
+def flash_pairs(S: int, W: int) -> int:
+    """(q, k) pairs under the top-left causal mask of S rows and S keys,
+    with a window W > 0: sum over rows i of min(i + 1, W)."""
+    if W <= 0 or W >= S:
+        return S * (S + 1) // 2
+    return W * (W + 1) // 2 + (S - W) * W
+
+
+def flash_bound(B, S, H, hd, W):
+    """The least time of one causal call: 4 * hd operations a pair under
+    the mask at the bf16 tensor-core peak, against q, k, v read and out
+    written once at the memory rate."""
+    n_ops = 4 * B * H * flash_pairs(S, W) * hd
+    n_bytes = 4 * B * S * H * hd * 2
+    return bound_ms(n_bytes, n_ops, PEAK_BF16_PER_S)
+
+
 def check_flash(torch):
-    """``flash_attention`` against its plain version at the serve path's
-    shape in bf16 and f32, and at ragged shapes (S and T not multiples of
-    the kernels' 128-row and 64-row tiles, S < T and S > T, non-causal,
-    head dims 16 and 32); timed in bf16, the path's dtype, beside the
-    plain version and SDPA, by CUDA events and by the profiler's device
-    time of the kernel alone."""
+    """``flash_attention`` against its plain version: at the serve paths'
+    shapes in bf16 and f32 (gemma3-12b's global and local layers at hd
+    256, mixtral-8x7b's windowed layers and a global one at hd 128,
+    qwen1.5-0.5b's at hd 64), and at ragged shapes (S and T off the
+    kernels' tiles, S < T and S > T, non-causal, head dims 16 to 256; the
+    window's edges: S < W, S = W, S = W + 1, W = 1, a window before a
+    row block's first tile); each main shape timed in bf16, the path's
+    dtype, beside the plain version and SDPA (``is_causal``, or the
+    window's boolean mask, which SDPA takes as a general mask), by CUDA
+    events and by the profiler's device time of the kernel alone.
+    Returns the record of gemma3's global shape."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -2100,96 +2154,132 @@ def check_flash(torch):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(17)
     B, S, H, hd = FLASH_SHAPE
-    shapes = [(FLASH_SHAPE, S, True), ((2, 1000, 3, 64), 1037, True),
-              ((1, 300, 2, 64), 77, True), ((1, 130, 4, 64), 130, False),
-              ((1, S - 1, H, hd), S - 1, True),
-              ((1, S + 1, H, hd), S + 1, True),
-              ((1, S, 4, 32), S, True), ((2, 1000, 3, 32), 1037, True),
-              ((1, 130, 4, 32), 130, False), ((1, S, 4, 16), S, True),
-              ((1, 300, 2, 16), 77, True), ((1, 130, 4, 16), 130, False)]
+    shapes = [(FLASH_SHAPE, S, True, 0), ((2, 1000, 3, 64), 1037, True, 0),
+              ((1, 300, 2, 64), 77, True, 0), ((1, 130, 4, 64), 130, False, 0),
+              ((1, S - 1, H, hd), S - 1, True, 0),
+              ((1, S + 1, H, hd), S + 1, True, 0),
+              ((1, S, 4, 32), S, True, 0), ((2, 1000, 3, 32), 1037, True, 0),
+              ((1, 130, 4, 32), 130, False, 0), ((1, S, 4, 16), S, True, 0),
+              ((1, 300, 2, 16), 77, True, 0), ((1, 130, 4, 16), 130, False, 0)]
+    shapes += [(shape, shape[1], True, w) for shape, w in FLASH_MAIN
+               if shape[3] > 64]
+    for d, w in ((256, GEMMA_WINDOW), (128, MIXTRAL_WINDOW)):
+        shapes += [((1, w - 24, 4, d), w - 24, True, w),        # S < W
+                   ((1, w, 4, d), w, True, w),                  # S = W
+                   ((1, w + 1, 4, d), w + 1, True, w),          # S = W + 1
+                   ((2, 1000, 3, d), 1037, True, 0),            # S < T
+                   ((1, 300, 2, d), 77, True, 0),               # S > T
+                   ((1, 130, 4, d), 130, False, 0),
+                   ((1, 1000, 2, d), 1037, True, 100),          # S < T, W
+                   ((1, 257, 2, d), 257, True, 1),              # W = 1
+                   ((1, 300, 2, d), 300, True, 64)]
     max_err, errs, main = 0.0, [], {}
-    for (b, s, h, d), t, causal in shapes:
+    for (b, s, h, d), t, causal, w in shapes:
         for name in ("bfloat16", "float32"):
             dt = getattr(torch, name)
             q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dt)
             k, v = (torch.randn((b, t, h, d), generator=gen, device=dev)
                     .to(dt) for _ in range(2))
-            got = fa.flash_attention(q, k, v, causal=causal)
-            want = ref.flash_attention_ref(q, k, v, causal=causal)
+            got = fa.flash_attention(q, k, v, causal=causal, window=w)
+            want = ref.flash_attention_ref(q, k, v, causal=causal, window=w)
             diff = (got.float() - want.float()).abs()
             limit = torch.full_like(diff, FLASH_F32_TOL)
             if dt == torch.bfloat16:
                 limit += FLASH_BF16_ULPS * bf16_ulp(torch, want)
             err = float(diff.max())
             worst = float((diff / limit).max())
+            what = (f"({b},{s},{h},{d})xT={t}{'' if causal else ' nc'}"
+                    f"{f' W={w}' if w else ''} {name}")
             check(got.dtype == dt and bool(torch.isfinite(got).all())
                   and worst <= 1.0,
-                  f"flash_attention: ({b}, {s}, {h}, {d}) x T={t} {name} "
-                  f"causal={causal}: max |err| {err}, {worst:.3g} x its "
-                  "limit")
+                  f"flash_attention: {what}: max |err| {err}, {worst:.3g} x "
+                  "its limit")
             max_err = max(max_err, err)
-            errs.append(f"({b},{s},{h},{d})xT={t}{'' if causal else ' nc'} "
-                        f"{name} {err:.3g} ({worst:.3g} x limit, median "
-                        f"limit {float(limit.median()):.3g})")
-            if (b, s, h, d) == FLASH_SHAPE and t == S and causal:
-                main[name] = (q, k, v)
-    q, k, v = main["bfloat16"]
-    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v))
-    n_prof = 20
-    kern_ms, seen, _ = device_profile(
-        torch, lambda: fa.flash_attention(q, k, v), n=n_prof).kernel(
-            "flash_attention")
-    ms32 = time_ms(torch, lambda: fa.flash_attention(*main["float32"]))
-    plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v), reps=3)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
-    pairs = B * H * S * (S + 1) // 2        # (q, k) pairs under the mask
-    n_ops = 4 * pairs * hd
-    n_bytes = 4 * B * S * H * hd * 2        # q, k, v read, out written
-    bms, by = bound_ms(n_bytes, n_ops, PEAK_BF16_PER_S)
-    print(f"flash_attention: (B={B}, S=T={S}, H={H}, hd={hd}) causal, max "
-          f"|err| against the plain version (limit f32 {FLASH_F32_TOL}; "
-          f"bf16 {FLASH_BF16_ULPS} bf16 ulps of |plain| + {FLASH_F32_TOL}, "
-          f"per element): "
-          f"{'; '.join(errs)}; kernel bf16 {ms:.4f} ms by CUDA events, "
-          f"{kern_ms:.4f} ms of device time a launch by the profiler "
-          f"({seen} of {n_prof} launches seen) (f32 "
-          f"{ms32:.4f} ms), plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound "
-          f"{bms:.5f} ms ({by}, bf16 tensor-core peak)", flush=True)
+            errs.append(f"{what} {err:.3g} ({worst:.3g} x limit)")
+            if name == "bfloat16" and causal and t == s and \
+                    ((b, s, h, d), w) in FLASH_MAIN:
+                main[(b, s, h, d), w] = (q, k, v)
+            del q, k, v, got, want, diff, limit
+    print(f"flash_attention: max |err| against the plain version (limit "
+          f"f32 {FLASH_F32_TOL}; bf16 {FLASH_BF16_ULPS} bf16 ulps of "
+          f"|plain| + {FLASH_F32_TOL}, per element), {len(errs)} cases: "
+          f"{'; '.join(errs)}", flush=True)
+    torch.cuda.empty_cache()
+    recs = {}
+    for shape, w in FLASH_MAIN:
+        q, k, v = main[shape, w]
+        b, s, h, d = shape
+        ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, window=w))
+        n_prof = 20
+        kern_ms, seen, _ = device_profile(
+            torch, lambda: fa.flash_attention(q, k, v, window=w),
+            n=n_prof).kernel("flash_attention")
+        qf, kf, vf = (x.float() for x in (q, k, v))
+        ms32 = time_ms(torch, lambda: fa.flash_attention(qf, kf, vf,
+                                                         window=w), reps=3)
+        del qf, kf, vf
+        plain = time_ms(torch, lambda: ref.flash_attention_ref(
+            q, k, v, window=w), reps=2, warmup=1)
+        torch.cuda.empty_cache()
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if w:
+            i = torch.arange(s, device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask))
+            lib_what = "SDPA with the window's boolean mask"
+            del mask
+        else:
+            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True))
+            lib_what = "SDPA is_causal"
+        bms, by = flash_bound(b, s, h, d, w)
+        print(f"flash_attention {shape}{f' W={w}' if w else ''} causal "
+              f"({FLASH_MAIN[shape, w]}): kernel bf16 {ms:.4f} ms by CUDA "
+              f"events, {kern_ms:.4f} ms of device time a launch by the "
+              f"profiler ({seen} of {n_prof} launches seen); f32 kernel "
+              f"{ms32:.4f} ms; plain {plain:.4f} ms; {lib_what} {lib:.4f} "
+              f"ms; bound {bms:.5f} ms ({by}, bf16 tensor-core peak; "
+              f"{flash_pairs(s, w) * b * h} pairs under the mask)",
+              flush=True)
+        recs[shape, w] = dict(ms=ms, plain_ms=plain, bound_ms=bms,
+                              bound_by=by, library_ms=lib)
+    main.clear()
+    torch.cuda.empty_cache()
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:72",
-                max_abs_err=max_err, ms=ms, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=lib)
+                max_abs_err=max_err, **recs[FLASH_RECORD])
 
 
-def check_prefill_plain(torch, eng, prompts):
-    """The engine's model on the long prompts: last logits of the prefill
-    through the kernel against the same prefill through the plain
-    version (``ops.flash_attention`` swapped for it), on the card."""
+def check_prefill_plain(torch, params, cfg, prompts):
+    """The model on the long prompts: last logits of the prefill through
+    the kernel against the same prefill through the plain version
+    (``ops.flash_attention`` swapped for it), on the card."""
 
     from repro_torch.kernels import ops, ref
     from repro_torch.models import lm
 
     worst, agree = 0.0, 0
     for p in prompts:
-        toks = torch.tensor([p], dtype=torch.long, device=eng.device)
-        got, _ = lm.lm_prefill(eng.params, eng.cfg, toks)
+        toks = torch.tensor([p], dtype=torch.long, device="cuda")
+        got, _ = lm.lm_prefill(params, cfg, toks)
         with mock.patch.object(ops, "flash_attention",
                                ref.flash_attention_ref):
-            want, _ = lm.lm_prefill(eng.params, eng.cfg, toks)
+            want, _ = lm.lm_prefill(params, cfg, toks)
         rel = float((got - want).abs().max() / want.abs().max())
         check(bool(torch.isfinite(got).all()) and rel <= PREFILL_REL_TOL,
-              f"prefill logits through the kernel vs the plain version: "
-              f"rel {rel} > {PREFILL_REL_TOL}")
+              f"{cfg.name}: prefill logits through the kernel vs the plain "
+              f"version: rel {rel} > {PREFILL_REL_TOL}")
         worst = max(worst, rel)
         agree += int(torch.equal(got.argmax(-1), want.argmax(-1)))
-    print(f"prefill ({len(prompts)} prompts of {len(prompts[0])} tokens, "
-          f"{str(eng.cfg.dtype).removeprefix('torch.')}): last logits through the kernel vs through the plain "
-          f"version max |diff| / max |logit| {worst:.3g} (tol "
-          f"{PREFILL_REL_TOL}); greedy token equal on {agree} of "
-          f"{len(prompts)} (printed, not required in bf16)", flush=True)
+    print(f"prefill, {cfg.name} ({cfg.n_layers} layers, {len(prompts)} "
+          f"prompts of {len(prompts[0])} tokens, "
+          f"{str(cfg.dtype).removeprefix('torch.')}): last logits through "
+          f"the kernel vs through the plain version max |diff| / max "
+          f"|logit| {worst:.3g} (tol {PREFILL_REL_TOL}); greedy token equal "
+          f"on {agree} of {len(prompts)} (printed, not required in bf16)",
+          flush=True)
 
 
 def time_prefill(torch, params, cfg, n_tokens: int = TIMED_PROMPT):
@@ -2229,10 +2319,14 @@ def time_prefill(torch, params, cfg, n_tokens: int = TIMED_PROMPT):
     return launches
 
 
-def run_serve(torch):
-    """``ServeEngine`` at full width: 4 slots, 8 requests (4 long prompts
-    through the flash kernel, 4 short through ``mha_full``), 16 new
-    tokens each; launch counts reset just before and read just after."""
+def run_serve(torch, arch: str, lengths: list, max_len: int,
+              max_new: int = SERVE_MAX_NEW):
+    """``ServeEngine`` at full width: ``SERVE_SLOTS`` slots, one request a
+    prompt length (those of 2048 tokens or more prefill through the flash
+    kernel, the others through ``mha_full``), ``max_new`` new tokens
+    each; launch counts reset just before and read just after, which must
+    show ``flash_attention`` once a layer of each long prompt.  Returns
+    the engine and the flash launches."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -2240,18 +2334,17 @@ def run_serve(torch):
     from repro_torch.launch.serve import Request, ServeEngine
     from repro_torch.models import lm
 
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng = ServeEngine(cfg, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, seed=0)
+    eng = ServeEngine(cfg, slots=SERVE_SLOTS, max_len=max_len, seed=0)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in eng.params.parameters())
     rng = np.random.default_rng(0)
-    lengths = [LONG_PROMPT] * N_LONG + \
-        rng.integers(16, 513, N_SHORT).tolist()
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
-    check_prefill_plain(torch, eng, prompts[:N_LONG])   # also warms up
+    long = [p for p in prompts if len(p) >= 2048]
+    check_prefill_plain(torch, eng.params, cfg, long)   # also warms up
 
     prefill_ms, decode_ms = [], []
 
@@ -2267,8 +2360,7 @@ def run_serve(torch):
 
     eng._prefill = timed(eng._prefill, prefill_ms)
     eng._decode = timed(eng._decode, decode_ms)
-    reqs = [Request(i, p, max_new=SERVE_MAX_NEW) for i, p in
-            enumerate(prompts)]
+    reqs = [Request(i, p, max_new=max_new) for i, p in enumerate(prompts)]
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     for r in reqs:
@@ -2284,70 +2376,202 @@ def run_serve(torch):
         by_len.setdefault(shape[1], []).append(ms)
     pre = ", ".join(f"{n}: {sum(v) / len(v):.2f}" for n, v in
                     sorted(by_len.items()))
-    print(f"serve: {LM_ARCH} ({n_params / 1e6:.1f}M parameters, matrices "
+    print(f"serve: {arch} ({n_params / 1e6:.1f}M parameters, matrices "
           f"{str(cfg.dtype).removeprefix('torch.')}, engine built in "
-          f"{build_s:.2f} s), {SERVE_SLOTS} slots x "
-          f"max_len {SERVE_MAX_LEN}, {len(reqs)} requests ({N_LONG} of "
-          f"{LONG_PROMPT} tokens, {N_SHORT} of {lengths[N_LONG:]}), "
-          f"max_new {SERVE_MAX_NEW}: {steps} engine steps, {n_tok} tokens "
-          f"in {wall:.3f} s ({n_tok / wall:.1f} tokens/s end to end); "
-          f"prefill ms by prompt length {{{pre}}}; decode "
-          f"{sum(dec) / len(dec):.3f} ms per engine step over {len(dec)} "
-          f"steps (min {min(dec):.3f}, max {max(dec):.3f}); launches "
-          f"{counts}", flush=True)
-    for p in (prompts[0], prompts[N_LONG]):
+          f"{build_s:.2f} s), {SERVE_SLOTS} slots x max_len {max_len}, "
+          f"{len(reqs)} requests (prompts of {lengths} tokens), max_new "
+          f"{max_new}: {steps} engine steps, {n_tok} tokens in {wall:.3f} s "
+          f"({n_tok / wall:.1f} tokens/s end to end); prefill ms by prompt "
+          f"length {{{pre}}}; decode {sum(dec) / len(dec):.3f} ms per "
+          f"engine step over {len(dec)} steps (min {min(dec):.3f}, max "
+          f"{max(dec):.3f}); launches {counts}", flush=True)
+    for p in (long[0], min(prompts, key=len)):
         toks = torch.tensor([p], dtype=torch.long, device=eng.device)
         prof = device_profile(torch, lambda: lm.lm_prefill(
             eng.params, cfg, toks), n=3)
         print(f"  profiled {len(p)}-token prefill (3 calls): "
               f"{busy_line(prof)}", flush=True)
     last = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long, device=eng.device)
-    pos = torch.full((SERVE_SLOTS,), SERVE_MAX_LEN - 2, device=eng.device)
+    pos = torch.full((SERVE_SLOTS,), max_len - 2, device=eng.device)
     prof = device_profile(torch, lambda: lm.lm_decode(
         eng.params, cfg, last, eng.cache, pos), n=10)
     print(f"  profiled decode step ({SERVE_SLOTS} slots at position "
-          f"{SERVE_MAX_LEN - 2}): {busy_line(prof)}", flush=True)
-    want = cfg.n_layers * N_LONG
+          f"{max_len - 2}): {busy_line(prof)}", flush=True)
+    want = cfg.n_layers * len(long)
     check(counts["flash_attention"] == want,
           f"flash_attention launched {counts['flash_attention']} times on "
-          f"the serve path, expected {cfg.n_layers} layers x {N_LONG} long "
-          f"prompts = {want}")
-    check(all(r.done and len(r.out) == SERVE_MAX_NEW for r in reqs),
+          f"the {arch} serve path, expected {cfg.n_layers} layers x "
+          f"{len(long)} long prompts = {want}")
+    check(all(r.done and len(r.out) == max_new for r in reqs),
           "a request did not finish with max_new tokens")
     check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out),
           "a token outside the vocabulary")
-    time_prefill(torch, eng.params, cfg)
-    return counts["flash_attention"]
+    return eng, counts["flash_attention"]
 
 
-def check_decode_matches_prefill(torch, n_layers: int = 2, S: int = 1000):
-    """At full width and reduced depth in f32: prefill(S) + decode(token
-    S) against prefill(S + 1), both prefills through the flash kernel
-    (``attn_impl="chunked"``), as the JAX package's test_models checks."""
-    from repro_torch.configs import get_config
+def decode_vs_prefill(torch, params, cfg, S: int, *, kv_quant=False,
+                      seed: int = 6, ref_impl: str = "chunked"):
+    """prefill(S) + decode(token S) against prefill(S + 1), B = 2, as the
+    JAX package's test_models checks; prefill(S) through the flash kernel
+    (``attn_impl="chunked"``), prefill(S + 1) through ``ref_impl`` (the
+    chunked contract of both packages takes S + 1 only below 1024 or at a
+    multiple of it, so past gemma3's window of 1024 the reference is
+    ``mha_full``); the prefill cache spliced into ``init_cache``'s (local
+    layers past their window as rings).  Returns (max |diff| / max
+    |logit|, the cache after the decode)."""
     from repro_torch.core.largevis import seeded_generator
     from repro_torch.models import lm
     from repro_torch.models.factory import init_cache
 
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=n_layers,
-                              dtype=torch.float32)
-    params = lm.init_lm(seeded_generator(dev, 5), cfg)
     toks = torch.randint(0, cfg.vocab_size, (2, S + 1),
-                         generator=seeded_generator(dev, 6), device=dev)
-    want, _ = lm.lm_prefill(params, cfg, toks, attn_impl="chunked")
-    _, one = lm.lm_prefill(params, cfg, toks[:, :S], attn_impl="chunked")
-    cache = init_cache(cfg, 2, S + 1, dev)
-    for name in ("k", "v"):
-        cache[name][:, :, :S] = one[name]
-    got, _ = lm.lm_decode(params, cfg, toks[:, S:], cache,
-                          torch.full((2,), S, device=dev))
-    rel = float((got - want).abs().max() / want.abs().max())
-    print(f"decode vs prefill: {LM_ARCH} at full width, {n_layers} layers "
-          f"(cut from {get_config(LM_ARCH).n_layers}), f32, B=2: "
-          f"prefill({S}) + decode(token {S}) vs prefill({S + 1}) max |diff| "
-          f"/ max |logit| {rel:.3g} (tol {DECODE_REL_TOL})", flush=True)
-    check(rel <= DECODE_REL_TOL, f"decode vs prefill rel {rel}")
+                         generator=seeded_generator(dev, seed), device=dev)
+    want, _ = lm.lm_prefill(params, cfg, toks, attn_impl=ref_impl)
+    _, one = lm.lm_prefill(params, cfg, toks[:, :S], attn_impl="chunked",
+                           kv_quant=kv_quant)
+    cache = init_cache(cfg, 2, S + 1, dev, kv_quant=kv_quant)
+    for p, entry in one.items():
+        for name, t in entry.items():
+            cache[p][name][:, :, :t.shape[2]] = t
+    del one
+    got, cache = lm.lm_decode(params, cfg, toks[:, S:], cache,
+                              torch.full((2,), S, device=dev))
+    return float((got - want).abs().max() / want.abs().max()), cache
+
+
+def check_decode_matches_prefill(torch, arch: str = LM_ARCH,
+                                 n_layers: int = 2, S: int = 1000,
+                                 ref_impl: str = "chunked"):
+    """At full width and reduced depth in f32 (a printed cut):
+    :func:`decode_vs_prefill` within the JAX package's bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.largevis import seeded_generator
+    from repro_torch.models import lm
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers, dtype=torch.float32)
+    params = lm.init_lm(seeded_generator(torch.device("cuda"), 5), cfg)
+    rel, _ = decode_vs_prefill(torch, params, cfg, S, ref_impl=ref_impl)
+    print(f"cut: {arch} decode vs prefill at {n_layers} of {full.n_layers} "
+          f"layers", flush=True)
+    print(f"decode vs prefill: {arch} at full width, {n_layers} layers "
+          f"(pattern {cfg.block_pattern}), f32, B=2: prefill({S}) through "
+          f"the kernel + decode(token {S}) vs prefill({S + 1}) through "
+          f"{ref_impl} max |diff| / max |logit| {rel:.3g} (tol "
+          f"{DECODE_REL_TOL})", flush=True)
+    check(rel <= DECODE_REL_TOL, f"{arch} decode vs prefill rel {rel}")
+
+
+def free_card(torch) -> None:
+    """Return what earlier phases left to the allocator's cache."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def run_gemma3(torch):
+    """gemma3-12b at full width and depth through ``ServeEngine``, random
+    bf16 weights from a seed: 2 prompts of ``GEMMA_LONG`` tokens (flash at
+    hd 256: windowed on the 40 local layers, causal on the 8 global ones)
+    and 2 under its window, ``max_len`` long enough to decode past the
+    prompts, which wraps the local layers' 1024-slot rings.  Then decode
+    vs prefill at full width in f32, one period of 6 layers (5 local, 1
+    global; a printed cut), S = 2048 through the kernel: past the window
+    and through the ring.  Returns the flash launches of the serve run."""
+    t0 = time.perf_counter()
+    free_card(torch)
+    base = torch.cuda.memory_allocated() / 2**30
+    eng, launches = run_serve(torch, GEMMA_ARCH, GEMMA_LENGTHS,
+                              GEMMA_LONG + 32)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cfg = eng.cfg
+    rings = {p: tuple(e["k"].shape) for p, e in eng.cache.items()}
+    print(f"gemma3 serve: cache leaves (n_periods, slots, T, KVH, hd) "
+          f"{rings}; device memory {base:.2f} GiB held before the engine, "
+          f"peak {peak:.2f} GiB (max_memory_allocated)", flush=True)
+    check(launches == cfg.n_layers * 2, f"gemma3: {launches} flash "
+          f"launches, expected {cfg.n_layers} x 2")
+    del eng
+    free_card(torch)
+    check_decode_matches_prefill(torch, GEMMA_ARCH, n_layers=6, S=2048,
+                                 ref_impl="full")
+    free_card(torch)
+    print(f"gemma3 phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def run_mixtral(torch):
+    """mixtral-8x7b at full width, 2 of its 32 layers (a printed cut: 47B
+    parameters do not fit one card), random weights from a seed.  In f32
+    with total routing (``topk_experts = n_experts``, as the JAX
+    package's test): decode vs prefill (S = 1000, through the kernel at hd
+    128 with G = 4), and a decode on an int8 cache (``kv_quant=True``)
+    within the JAX package's int8 bound, the cache still int8 after it.
+    Then the weights cast to bf16 and one 8192-token prefill with top-2
+    routing (the kernel windowed at W = 4096, then MoE over T = 8192 at
+    capacity 2560) against the same prefill through the plain version,
+    with its flash launches counted.  Returns them."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.largevis import seeded_generator
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm, moe
+    from repro_torch.models.factory import cast_for_inference
+
+    t0 = time.perf_counter()
+    free_card(torch)
+    full = get_config(MIXTRAL_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MIXTRAL_LAYERS)
+    print(f"cut: {MIXTRAL_ARCH} at {MIXTRAL_LAYERS} of {full.n_layers} "
+          f"layers (full width)", flush=True)
+    dev = torch.device("cuda")
+    params = lm.init_lm(seeded_generator(dev, 7), cfg)
+    n_params = sum(p.numel() for p in params.parameters())
+    total = dataclasses.replace(cfg, dtype=torch.float32,
+                                topk_experts=cfg.n_experts)
+    S = 1000
+    rel, _ = decode_vs_prefill(torch, params, total, S)
+    check(rel <= DECODE_REL_TOL, f"mixtral decode vs prefill rel {rel}")
+    relq, cache = decode_vs_prefill(torch, params, total, S, kv_quant=True)
+    kinds = {str(t.dtype) for e in cache.values() for t in e.values()}
+    check(relq < KV_QUANT_REL_TOL and all(
+        e["k"].dtype == torch.int8 and e["v"].dtype == torch.int8
+        for e in cache.values()),
+        f"mixtral int8-cache decode: rel {relq}, leaves {kinds}")
+    del cache
+    print(f"decode vs prefill: {MIXTRAL_ARCH} at full width, "
+          f"{MIXTRAL_LAYERS} layers ({n_params / 1e9:.2f}B parameters), "
+          f"f32, total routing, B=2: prefill({S}) + decode(token {S}) vs "
+          f"prefill({S + 1}) max |diff| / max |logit| {rel:.3g} (tol "
+          f"{DECODE_REL_TOL}); on an int8 cache (kv_quant) {relq:.3g} (tol "
+          f"{KV_QUANT_REL_TOL}), leaves after the decode {sorted(kinds)}",
+          flush=True)
+    cast_for_inference(params, cfg)
+    free_card(torch)
+    toks = torch.randint(0, cfg.vocab_size, (1, MIXTRAL_PROMPT),
+                         generator=seeded_generator(dev, 8), device=dev)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    logits, _ = lm.lm_prefill(params, cfg, toks)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t1) * 1e3
+    launches = ops.launch_counts()["flash_attention"]
+    check(launches == cfg.n_layers, f"mixtral prefill: {launches} flash "
+          f"launches, expected {cfg.n_layers}")
+    check_prefill_plain(torch, params, cfg, [toks[0].tolist()])
+    prof = device_profile(torch, lambda: lm.lm_prefill(params, cfg, toks),
+                          n=2)
+    C = moe.capacity(MIXTRAL_PROMPT, cfg.n_experts, cfg.topk_experts)
+    print(f"mixtral prefill: {MIXTRAL_PROMPT} tokens, bf16, top-"
+          f"{cfg.topk_experts} of {cfg.n_experts} experts at capacity {C}: "
+          f"wall {wall:.2f} ms (the first call); profiled {busy_line(prof)}; "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"phase {time.perf_counter() - t0:.1f} s", flush=True)
+    del params
+    free_card(torch)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3409,10 +3633,23 @@ def main() -> None:
     print(f"fixture: fused {acc_auto:.4f}, split {acc_split:.4f}: the two "
           f"fits' layouts bitwise equal", flush=True)
 
+    # the LM phases hold large models: release the fit's state first
+    del res, x, xn, labels, y_auto, y_split
+    free_card(torch)
+    t0 = time.perf_counter()
     flash = check_flash(torch)
-    flash["launches"] = run_serve(torch)
-    kernels.append(flash)
+    print(f"flash checks: {time.perf_counter() - t0:.1f} s", flush=True)
+    free_card(torch)
+    import numpy as np
+    long = [LONG_PROMPT] * N_LONG + \
+        np.random.default_rng(0).integers(16, 513, N_SHORT).tolist()
+    eng, flash["launches"] = run_serve(torch, LM_ARCH, long, SERVE_MAX_LEN)
+    time_prefill(torch, eng.params, eng.cfg)
+    del eng
     check_decode_matches_prefill(torch)
+    flash["launches"] += run_gemma3(torch)
+    flash["launches"] += run_mixtral(torch)
+    kernels.append(flash)
 
     import torch.distributed as dist
     dist.destroy_process_group()         # the distributed fit's world of one

@@ -15,7 +15,10 @@ port's result on a device.  A round trip is bitwise.
 parameter pytree as numpy, and :func:`lm_params_to_numpy` gives it back.
 JAX stacks each block position ``p`` of the pattern over the periods
 along axis 0 (``blocks/pos{p}``); the port keeps the blocks in layer
-order, layer ``period * P + p``.  A round trip is bitwise.
+order, layer ``period * P + p``.  Each block's tree is JAX's, whatever it
+holds: ``attn`` (with ``qnorm``/``knorm`` under QK-norm), and ``mlp`` or
+``moe`` (``router`` (d, E), expert arrays ``w_gate``/``w_up`` (E, d, f)
+and ``w_down`` (E, f, d)).  A round trip is bitwise.
 """
 from __future__ import annotations
 
@@ -96,9 +99,8 @@ def lm_params_to_numpy(params, cfg) -> dict:
     P = len(cfg.block_pattern)
 
     def tree(m):
-        if isinstance(m, torch.nn.ParameterDict):
-            return {k: v.detach().float().cpu().numpy()
-                    for k, v in m.items()}
+        if torch.is_tensor(m):
+            return m.detach().float().cpu().numpy()
         return {k: tree(v) for k, v in m.items()}
 
     out = {k: tree(v) for k, v in params.items() if k != "blocks"}

@@ -3,10 +3,12 @@
 
 q (B, S, H, hd), k and v (B, T, H, hd) with the heads already broadcast
 (GQA callers repeat the kv heads first); the causal mask is top-left
-(``kpos <= qpos``), as the JAX package's Pallas kernel has it.  bf16
-inputs go to the wgmma kernel (128 query rows by 128 key rows, read by
-TMA), f32 inputs to the f32 FMA kernel (64 by 64); the tiles change no
-result.  CUDA tensors only; the launcher counts its calls in
+(``kpos <= qpos``), as the JAX package's Pallas kernel has it, and a
+``window`` W > 0 keeps only the keys with ``qpos - W < kpos``, the JAX
+package's sliding-window mask.  bf16 inputs go to the wgmma kernel (128
+query rows by key tiles of 128 rows at hd <= 64 and 64 at hd 128 and 256,
+read by TMA), f32 inputs to the f32 FMA kernel (64 by 64); the tiles
+change no result.  CUDA tensors only; the launcher counts its calls in
 ``flash_attention.launches``.  The plain version is
 ``ref.flash_attention_ref``.
 """
@@ -17,23 +19,23 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (16, 32, 64)   # reduced configs, tests, qwen1.5-0.5b
+HEAD_DIMS = (16, 32, 64, 128, 256)   # reduced configs .. gemma3
 MAX_BH = 65535              # B * H rides on grid.y (f32)
 MAX_LEN = 2**31 - 1         # S and T are C ints
 BQ_BF16 = 128               # query rows of a bf16 block
 MAX_BLOCKS = 2**31 - 1      # bf16: ceil(S / BQ_BF16) * B * H on grid.x
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P] * 4 + [_I] * 7 + [_F, _P]
+_ARGTYPES = [_P] * 4 + [_I] * 8 + [_F, _P]
 
 
 def _lib() -> ctypes.CDLL:
     return _build.load("flash_attention", {"flash_attention_launch": _ARGTYPES})
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """softmax(q k^T / sqrt(hd) + mask) v on the card, scores and
     accumulation in f32, the output in q's dtype (bf16 or f32)."""
     dev = q.device
@@ -57,6 +59,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
                          "the heads pre-broadcast")
     B, S, H, hd = q.shape
     T = k.shape[1]
+    window = ref.check_window(S, T, causal, window)
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {hd} not in "
                          f"{HEAD_DIMS}")
@@ -77,7 +80,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
     p = _build.ptr
     rc = _lib().flash_attention_launch(
         p(q), p(k), p(v), p(out), B, S, T, H, hd,
-        int(q.dtype == torch.bfloat16), int(bool(causal)),
+        int(q.dtype == torch.bfloat16), int(bool(causal)), window,
         1.0 / math.sqrt(hd), _build.stream(dev))
     _build.check(rc, "flash_attention")
     flash_attention.launches += 1

@@ -76,12 +76,12 @@ def scatter_add_ordered(y, idx, upd):
     return ref.scatter_add_ordered_ref(y, idx, upd)
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
-    """Forward attention, heads pre-broadcast, top-left causal mask; see
-    ``ref.flash_attention_ref``."""
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Forward attention, heads pre-broadcast, top-left causal mask and
+    an optional sliding window; see ``ref.flash_attention_ref``."""
     if _route(q):
-        return flash.flash_attention(q, k, v, causal=causal)
-    return ref.flash_attention_ref(q, k, v, causal=causal)
+        return flash.flash_attention(q, k, v, causal=causal, window=window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
 
 
 _LAUNCHERS = {

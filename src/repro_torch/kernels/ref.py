@@ -286,7 +286,22 @@ def fused_edge_step_ref(y, i, j, negs, neg_mask, lr, *, gamma: float = 7.0,
 FLASH_NEG_INF = -1e30
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True):
+def check_window(S: int, T: int, causal: bool, window: int) -> int:
+    """The flash kernel's window contract: ``window`` >= 0, and > 0 only
+    under the causal mask with S <= T, so that every row keeps its own key
+    (no row of a prefill is empty).  Returns the window as an int."""
+    window = int(window)
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0")
+    if window and not causal:
+        raise ValueError("flash_attention: a window needs causal=True")
+    if window and S > T:
+        raise ValueError(f"flash_attention: a window needs S <= T (every "
+                         f"row keeps its own key), got S={S}, T={T}")
+    return window
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     """q (B, S, H, hd), k and v (B, T, H, hd), heads pre-broadcast.
 
     One f32 softmax over the whole (S, T) score matrix, ``(q.k) * scale``
@@ -294,12 +309,18 @@ def flash_attention_ref(q, k, v, *, causal: bool = True):
     -1e30.  The causal mask is top-left, ``kpos <= qpos`` with both counted
     from 0, as the JAX package's Pallas kernel has it (its plain version
     ``flash_attention_ref`` aligns bottom-right, ``tril(k=T-S)``; the two
-    agree only at S == T).  The output is cast to q's dtype."""
+    agree only at S == T).  ``window`` W > 0 also masks ``kpos <= qpos -
+    W``, the JAX package's ``_mask_bias`` on its sliding-window layers
+    (``check_window`` gives the contract).  The output is cast to q's
+    dtype."""
     S, T, hd = q.shape[1], k.shape[1], q.shape[3]
+    window = check_window(S, T, causal, window)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * \
         (1.0 / math.sqrt(hd))
     if causal:
         keep = torch.ones((S, T), dtype=torch.bool, device=q.device).tril()
+        if window:
+            keep = keep.triu(1 - window)
         s = s.masked_fill(~keep, FLASH_NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)

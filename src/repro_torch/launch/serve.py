@@ -85,12 +85,15 @@ class ServeEngine:
             toks = torch.tensor([req.prompt], dtype=torch.long,
                                 device=self.device)
             logits, cache1 = self._prefill(self.params, toks)
-            P = len(req.prompt)
-            for name in ("k", "v"):
-                self.cache[name][:, slot, :P] = cache1[name][:, 0]
+            # each leaf (n_periods, 1, L, ...) into the slot's rows at
+            # [0:L]: L is the prompt's length, or a local layer's window W
+            # (its ring buffer, slot = position mod W) once it reaches W
+            for p, entry in cache1.items():
+                for name, one in entry.items():
+                    self.cache[p][name][:, slot, :one.shape[2]] = one[:, 0]
             req.out.append(int(self._sample(logits)[0]))
             self.active[slot] = req
-            self.positions[slot] = P
+            self.positions[slot] = len(req.prompt)
 
     def _sample(self, logits):
         if self.temperature <= 0:

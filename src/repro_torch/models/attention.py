@@ -1,21 +1,22 @@
-"""Attention: GQA, RoPE, QK-norm, KV cache — the JAX package's
-``models/attention.py`` for the global (full-length) cache.
+"""Attention: GQA, RoPE, sliding-window / local:global, QK-norm, KV cache
+— the JAX package's ``models/attention.py`` for serving.
 
 Two prefill paths, chosen by ``attend`` with the JAX package's rule:
   * ``full``    — one einsum + masked softmax (short prompts);
   * ``chunked`` — the forward flash kernel, ``ops.flash_attention``: the
                   hand-written CUDA kernel on the card, its plain version
-                  on the CPU.  In the JAX package this path is the
-                  ``lax.scan`` flash algorithm, for which its Pallas
-                  kernel is the drop-in.
+                  on the CPU, with the sliding window in the kernel.  In
+                  the JAX package this path is the ``lax.scan`` flash
+                  algorithm (its Pallas kernel is the drop-in for the
+                  unwindowed case).
 Decode is one new token against the filled cache, a plain softmax as in
-the JAX package.
+the JAX package: a global layer's cache is indexed by position, a local
+layer's by position mod W when it holds the window's W slots (the ring
+buffer ``attention_prefill`` leaves behind).  KV heads may be replicated
+(``kv_repeat``) and the cache stored in int8 with per-(token, head)
+scales (``kv_quant``); decode infers both from the cache it is given.
 
-Not ported yet (each raises, ROADMAP Queue 1): sliding-window and
-local:global attention (the ring-buffer cache, and a window in the flash
-kernel, which the Pallas kernel lacks too), KV-head replication
-(``kv_repeat``), int8 KV caches (``kv_quant``), and the chunked path's
-backward (training).
+Not ported yet: the chunked path's backward (training, ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -31,7 +32,6 @@ NEG_INF = -1e30
 # mha_chunked's blocks in the JAX package: its shape contract (results
 # do not depend on them; the flash kernel has its own tiles)
 Q_BLOCK, KV_BLOCK = 2048, 1024
-_TODO = "not ported yet (ROADMAP Queue 1)"
 
 
 # ---------------------------------------------------------------------------
@@ -141,13 +141,10 @@ def mha_chunked(q, k, v, *, causal=True, window=0):
     ``repeat_interleave``).  q: (B,Sq,H,hd); k/v: (B,Sk,KVH,hd).
 
     The kernel's causal mask is top-left: the rows sit at positions
-    0..Sq-1 and 0..Sk-1, as every prefill's do, so it takes no positions.
+    0..Sq-1 and 0..Sk-1, as every prefill's do, so it takes no positions;
+    ``window`` > 0 (with ``causal``) is the sliding window, in the kernel.
     The JAX package's shape contract holds: Sq a multiple of min(2048, Sq)
     and Sk of min(1024, Sk).  Forward only."""
-    if window > 0:
-        raise NotImplementedError(
-            f"mha_chunked: sliding window {window} {_TODO}; the flash "
-            "kernel, like the Pallas one, has no window")
     B, Sq, H, hd = q.shape
     KVH, Sk = k.shape[2], k.shape[1]
     if Sq % min(Q_BLOCK, Sq) or Sk % min(KV_BLOCK, Sk):
@@ -159,7 +156,7 @@ def mha_chunked(q, k, v, *, causal=True, window=0):
         k = k.repeat_interleave(G, dim=2)
         v = v.repeat_interleave(G, dim=2)
     return ops.flash_attention(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal=causal)
+                               v.contiguous(), causal=causal, window=window)
 
 
 def attend(q, k, v, *, causal=True, window=0, impl="auto"):
@@ -178,55 +175,130 @@ def attend(q, k, v, *, causal=True, window=0, impl="auto"):
 
 
 # ---------------------------------------------------------------------------
+# KV-cache storage: head replication and int8
+# ---------------------------------------------------------------------------
+
+def kv_tp_repeat(cfg, model_axis: int) -> int:
+    """KV-head replication factor for a tensor-parallel degree
+    ``model_axis``: pad the KV heads to it when the group structure
+    allows, so a head-sharded decode cache splits evenly; 1 when not
+    applicable (e.g. phi3's kv=10)."""
+    kvh, h = cfg.n_kv_heads, cfg.n_heads
+    if model_axis % kvh != 0:
+        return 1
+    r = model_axis // kvh
+    if r <= 1 or (kvh * r) > h or h % (kvh * r) != 0:
+        return 1
+    return r
+
+
+def quantize_kv(t):
+    """Per-(token, head) symmetric int8 quantization.  t: (B,T,KVH,hd) ->
+    (int8 values, f32 scales (B,T,KVH,1)); ``round`` is half to even, and
+    every division has a tensor numerator, as in the JAX package."""
+    tf = t.float()
+    scale = tf.abs().amax(dim=-1, keepdim=True) / 127.0
+    scale = scale.clamp_min(1e-8)
+    q = torch.round(tf / scale).clamp(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q, scale, dtype):
+    return (q.float() * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
 # Block-level entry points
 # ---------------------------------------------------------------------------
 
-def _check_kind(cfg, kind: str) -> None:
-    if kind == "local" and cfg.sliding_window:
-        raise NotImplementedError(f"sliding-window attention {_TODO}")
+def _window_for(cfg, kind: str) -> int:
+    return cfg.sliding_window if kind == "local" else 0
 
 
 def attention_prefill(params, x, cfg, *, kind="attn", impl="auto",
                       kv_repeat: int = 1, kv_quant: bool = False):
     """Prefill: returns (out, cache_entry) — the cache holds the roped K
-    and V, (B, S, KVH, hd)."""
-    if kv_repeat > 1 or kv_quant:
-        raise NotImplementedError(f"kv_repeat and kv_quant {_TODO}")
-    _check_kind(cfg, kind)
-    positions = torch.arange(x.shape[1], device=x.device)
+    and V, (B, S, KVH * kv_repeat, hd), int8 with f32 ``k_scale`` and
+    ``v_scale`` (B, S, KVH * kv_repeat, 1) under ``kv_quant``.  A local
+    layer with S >= W keeps the last W positions as a ring buffer, rolled
+    so that slot = position mod W."""
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)
     theta = _theta_for(cfg, kind)
     q, k, v = _project_qkv(params, x, cfg, positions, theta)
-    o = attend(q, k, v, causal=True, impl=impl)
-    return _out_proj(o, params["wo"]), {"k": k, "v": v}
+    window = _window_for(cfg, kind)
+    o = attend(q, k, v, causal=True, window=window, impl=impl)
+    out = _out_proj(o, params["wo"])
+    if kv_repeat > 1:
+        k = k.repeat_interleave(kv_repeat, dim=2)
+        v = v.repeat_interleave(kv_repeat, dim=2)
+    if window and S >= window:
+        start = S - window
+        shift = start % window
+        k = torch.roll(k[:, start:], shift, dims=1)
+        v = torch.roll(v[:, start:], shift, dims=1)
+    if kv_quant:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        return out, {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    return out, {"k": k, "v": v}
 
 
 def attention_decode(params, x, cfg, cache, position, *, kind="attn"):
-    """One-token decode.  x: (B,1,d); cache k/v: (B,T,KVH,hd); position:
-    (B,) index of the NEW token.  Writes the new K and V into the cache in
-    place (the JAX package returns an updated copy) and returns
-    (out, cache).  A position at or past T writes nothing, as JAX's
-    out-of-range scatter drops the update; the engine's retired slots
-    decode there."""
-    _check_kind(cfg, kind)
+    """One-token decode.  x: (B,1,d); cache k/v: (B,T,KVH*r,hd); position:
+    (B,) index of the NEW token.  The replication factor r and int8
+    storage (``k_scale`` in the cache) are inferred from the cache.  A
+    local layer whose cache holds exactly its window's W slots is a ring
+    buffer (slot = position mod W), as in the JAX package.  Writes the new
+    K and V (quantized under int8) into the cache in place (the JAX
+    package returns an updated copy) and returns (out, cache).  In a
+    position-indexed cache a position at or past T writes nothing, as
+    JAX's out-of-range scatter drops the update; the engine's retired
+    slots decode there."""
     B = x.shape[0]
     theta = _theta_for(cfg, kind)
     q, k, v = _project_qkv(params, x, cfg, position[:, None], theta)
-    ck, cv = cache["k"], cache["v"]
-    T, KVH, hd = ck.shape[1], ck.shape[2], ck.shape[3]
-    if KVH != cfg.n_kv_heads:
-        raise NotImplementedError(f"a replicated KV cache {_TODO}")
+    T = cache["k"].shape[1]
+    rep = cache["k"].shape[2] // cfg.n_kv_heads
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    window = _window_for(cfg, kind)
+    ring = bool(window) and T == window
+    slot = position % window if ring else position
+    quant = "k_scale" in cache
+    if quant:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        new = {"k": k, "v": v}
     bidx = torch.arange(B, device=x.device)
-    slot = position.clamp(0, T - 1)
-    inside = (position < T)[:, None, None]
-    ck[bidx, slot] = torch.where(inside, k[:, 0], ck[bidx, slot])
-    cv[bidx, slot] = torch.where(inside, v[:, 0], cv[bidx, slot])
+    at = slot.clamp(0, T - 1)
+    inside = (slot < T)[:, None, None]
+    for name, t in new.items():
+        c = cache[name]
+        c[bidx, at] = torch.where(inside, t[:, 0], c[bidx, at])
+    if quant:
+        ck = dequantize_kv(cache["k"], cache["k_scale"], x.dtype)
+        cv = dequantize_kv(cache["v"], cache["v_scale"], x.dtype)
+    else:
+        ck, cv = cache["k"], cache["v"]
 
+    KVH, hd = ck.shape[2], ck.shape[3]
     H = q.shape[2]
     G = H // KVH
     qg = q.reshape(B, KVH, G, hd)
     s = torch.einsum("bhgk,bthk->bhgt", qg.float(), ck.float()) / \
         math.sqrt(hd)
-    valid = torch.arange(T, device=x.device)[None, :] <= position[:, None]
+    # validity: a position-indexed slot at or before the position; a ring
+    # slot whose reconstructed position is >= 0
+    tpos = torch.arange(T, device=x.device)[None, :]
+    if ring:
+        recon = position[:, None] - ((position[:, None] - tpos) % window)
+        valid = recon >= 0
+    else:
+        valid = tpos <= position[:, None]
     s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1).to(x.dtype)
     o = torch.einsum("bhgt,bthk->bhgk", p, cv).reshape(B, 1, H, hd)

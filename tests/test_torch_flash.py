@@ -19,10 +19,13 @@ ulps where the two f32 results straddle a rounding boundary).
 The bf16 CUDA kernel's arithmetic is emulated here in plain torch
 (``_kernel_emulation``: its tiles, f32 scores of bf16 q and k, the online
 softmax in base 2, P split into bf16 ``hi + lo`` for two products with
-the bf16 V, f32 accumulation) and held to the plain version under
-``chip_smoke.py``'s per-element limit for the kernel: 2 bf16 ulps of
-|plain| + 2e-5.  A single bf16 P breaks that limit, which is why the
-kernel splits it.
+the bf16 V, f32 accumulation, the sliding window and its all-masked
+first tiles) and held to the plain version under ``chip_smoke.py``'s
+per-element limit for the kernel: 2 bf16 ulps of |plain| + 2e-5.  A
+single bf16 P breaks that limit, which is why the kernel splits it.
+
+The windowed plain version against the JAX package's attention is in
+``tests/test_torch_lm_families.py``.
 """
 import math
 
@@ -56,7 +59,7 @@ def _np(x):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("S,T", [(128, 128), (64, 128)])
-@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 def test_plain_version_matches_pallas_kernel(hd, S, T, causal, dtype):
     q, k, v = _qkv(1, S, T, 2, 2, hd, seed=hd + S + T)
     jd, td = getattr(jnp, dtype), getattr(torch, dtype)
@@ -101,13 +104,19 @@ def test_gqa_heads_repeat_interleave():
 
 
 def test_mha_chunked_contract():
-    """What the flash path refuses, as the JAX package does or cannot."""
+    """What the flash path refuses, as the JAX package does or cannot: a
+    window only under the causal mask, with S <= T and W >= 0 (no caller
+    needs another; every row keeps its own key)."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 3000, 3000, 2, 2, 16, 0))
     with pytest.raises(ValueError, match="multiple"):
         tattn.mha_chunked(q, k, v)                 # JAX asserts the same
     q, k, v = q[:, :64], k[:, :64], v[:, :64]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.mha_chunked(q, k, v, window=16)
+    with pytest.raises(ValueError, match="causal"):
+        tattn.mha_chunked(q, k, v, causal=False, window=16)
+    with pytest.raises(ValueError, match="S <= T"):
+        ops.flash_attention(q, k[:, :32], v[:, :32], window=16)
+    with pytest.raises(ValueError, match="< 0"):
+        ops.flash_attention(q, k, v, window=-1)
     with pytest.raises(ValueError, match="impl"):
         tattn.attend(q, k, v, impl="pallas")
 
@@ -138,20 +147,27 @@ def test_attend_auto_rule_matches_jax():
 # ---------------------------------------------------------------------------
 
 BQ = 128                   # the kernel's query rows a block
-BK = 128                   # its key rows a tile (static_assert(BK == BQ))
 LOG2E = 1.4426950408889634
 
 
-def _kernel_emulation(q, k, v, *, causal=True, split=True):
+def _bk(hd):
+    """The kernel's key rows a tile: 128 up to hd 64, 64 at hd 128, 256."""
+    return 128 if hd <= 64 else 64
+
+
+def _kernel_emulation(q, k, v, *, causal=True, window=0, split=True):
     """The bf16 kernel's arithmetic on CPU tensors: blocks of BQ query
-    rows walk key tiles of BK rows; scores are f32 sums of the exact
-    bf16 products; the online softmax works in base 2 on the raw scores
-    (``exp2(s * c - m * c)``, c = log2(e) / sqrt(hd)) with masked scores
-    -1e30; P.V is ``hi V + lo V`` with ``hi = bf16(P)``, ``lo = bf16(P -
-    hi)`` (``split=False``: ``hi V`` alone) accumulated in f32; the output
-    is ``acc / max(l, 1e-30)`` rounded once to bf16."""
+    rows walk key tiles of ``_bk(hd)`` rows, from the tile of the first
+    row's window; scores are f32 sums of the exact bf16 products; the
+    online softmax works in base 2 on the raw scores (``exp2(s * c - m *
+    c)``, c = log2(e) / sqrt(hd)) with masked scores -1e30, the exponent's
+    base 0 for a row whose keys so far were all masked; P.V is ``hi V +
+    lo V`` with ``hi = bf16(P)``, ``lo = bf16(P - hi)`` (``split=False``:
+    ``hi V`` alone) accumulated in f32; the output is ``acc / max(l,
+    1e-30)`` rounded once to bf16."""
     B, S, H, hd = q.shape
     T = k.shape[1]
+    BK = _bk(hd)
     c = LOG2E / math.sqrt(hd)
     qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))  # (B,H,.,hd)
     out = torch.empty((B, H, S, hd))
@@ -162,15 +178,20 @@ def _kernel_emulation(q, k, v, *, causal=True, split=True):
         l = torch.zeros_like(m)
         acc = torch.zeros((B, H, len(rows), hd))
         kv_end = min(T, q0 + BQ) if causal else T
-        for k0 in range(0, kv_end, BK):
+        kv_begin = max(0, q0 - window + 1) // BK * BK if window else 0
+        for k0 in range(kv_begin, kv_end, BK):
             cols = torch.arange(k0, min(k0 + BK, T))
             s = qt @ kf[:, :, cols].transpose(-1, -2)
             if causal:
                 s = s.masked_fill(cols[None, :] > rows[:, None],
                                   ref.FLASH_NEG_INF)
+            if window:
+                s = s.masked_fill(cols[None, :] <= rows[:, None] - window,
+                                  ref.FLASH_NEG_INF)
             m_new = torch.maximum(m, s.amax(-1, keepdim=True))
             corr = torch.exp2((m - m_new) * c)
-            p = torch.exp2(s * c - m_new * c)
+            base = torch.where(m_new == ref.FLASH_NEG_INF, 0.0, m_new * c)
+            p = torch.exp2(s * c - base)
             l = l * corr + p.sum(-1, keepdim=True)
             hi = p.bfloat16().float()
             pv = hi @ vf[:, :, cols]
@@ -207,7 +228,7 @@ RAGGED = [(127, 127, True), (129, 129, True), (77, 300, True),
 
 
 @pytest.mark.parametrize("S,T,causal", SHAPES + RAGGED)
-@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 def test_kernel_arithmetic_matches_plain_version(hd, S, T, causal):
     q, k, v = _bf16_qkv(S, T, hd, seed=hd + S + T)
     got = _kernel_emulation(q, k, v, causal=causal)
@@ -217,7 +238,7 @@ def test_kernel_arithmetic_matches_plain_version(hd, S, T, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 def test_kernel_arithmetic_matches_pallas_kernel(hd, causal):
     """S = T = 256, two of the Pallas kernel's 128-row blocks each way."""
     q, k, v = _bf16_qkv(256, 256, hd, seed=3 * hd)
@@ -226,6 +247,23 @@ def test_kernel_arithmetic_matches_pallas_kernel(hd, causal):
                   causal=causal, q_block=128, kv_block=128, interpret=True)
     want = torch.from_numpy(_np(want)).bfloat16()
     assert _ratio(got, want) <= 1.0
+
+
+# the window's edges: W = 1 (a row's own key alone), W at and past the
+# tiles, a window wider than the prompt, S < T, and a row block whose first
+# tiles are all masked for its last rows
+WINDOWED = [(300, 300, 64), (257, 257, 1), (1000, 1037, 100),
+            (129, 129, 128), (129, 129, 129), (200, 200, 1024),
+            (63, 300, 16)]
+
+
+@pytest.mark.parametrize("S,T,window", WINDOWED)
+@pytest.mark.parametrize("hd", [16, 64, 128, 256])
+def test_windowed_kernel_arithmetic_matches_plain_version(hd, S, T, window):
+    q, k, v = _bf16_qkv(S, T, hd, seed=hd + S + window)
+    got = _kernel_emulation(q, k, v, window=window)
+    plain = ref.flash_attention_ref(q, k, v, window=window)
+    assert _ratio(got, plain) <= 1.0
 
 
 @pytest.mark.parametrize("S,T,causal", SHAPES)
