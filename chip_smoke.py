@@ -151,7 +151,8 @@ in one process (``run_parent``), and requires the two packages'
    ``flash_attention`` against its plain version in bf16 and f32 at the
    serve paths' shapes, (1, 8192, 16, 256) causal and with gemma3's
    window 1024, (1, 8192, 32, 128) with mixtral's window 4096 and
-   causal, (1, 4096, 16, 64) causal, and at ragged shapes (S = T = 4095
+   causal, (1, 4096, 16, 64) causal, jamba's (1, 4096, 32, 128) and
+   whisper's (1, 4096, 6, 64) causal, and at ragged shapes (S = T = 4095
    and 4097, S < T, S > T, non-causal, head dims 16 to 256, S < W, S = W,
    S = W + 1, W = 1), each main shape timed by CUDA events and by the
    profiler's device time beside the plain version, SDPA (``is_causal``,
@@ -178,7 +179,24 @@ in one process (``run_parent``), and requires the two packages'
    cut): decode against prefill in f32 with total routing, a decode on
    an int8 cache (``kv_quant``) within 0.15, and one 8192-token bf16
    prefill (the kernel at hd 128, W 4096, then top-2 MoE at capacity
-   2560) against the plain version;
+   2560) against the plain version; then ``jamba-v0.1-52b`` at full
+   width and one period of 8 of its 32 layers (a printed cut; 7 mamba
+   layers and one attention layer, MoE on every other): the f32 master
+   made once, decode against prefill on it (S = 200, inside one mamba
+   chunk, total routing), then cast in place and served by
+   ``ServeEngine`` (prompts of 4096, 256, 4096 and 200 tokens: the flash
+   kernel at (1, 4096, 32, 128) once a long prompt, 2 launches);
+   ``xlstm-125m`` at full width and depth: decode against prefill in f32
+   (S = 256) and ``ServeEngine`` with prompts of 1024, 300, 1024 and 64
+   tokens (token-by-token recurrences, no attention; the profiled
+   prefill's device events a token); ``whisper-tiny`` at full width and
+   depth (4 encoder and 4 decoder layers, 1500 frames): on random frames
+   in f32, prefill(2048) through the kernel against the plain version and
+   decode against prefill(2049), then ``ServeEngine`` (zero frames;
+   prompts of 4096, 700, 4096 and 100 tokens: the kernel at (1, 4096, 6,
+   64) in each of 4 decoder layers a long prompt, 8 launches); each serve
+   run with its prefill and decode ms, tokens/s, profiled busy shares and
+   peak memory;
 
 then prints a JSON line of the kernel records and, last, the device line.
 Any failed check exits with status 1 and prints no result.  Device times
@@ -232,11 +250,23 @@ GEMMA_ARCH, GEMMA_WINDOW, GEMMA_LONG = "gemma3-12b", 1024, 8192
 GEMMA_LENGTHS = [GEMMA_LONG, 700, GEMMA_LONG, 1000]   # 2 long, 2 short
 MIXTRAL_ARCH, MIXTRAL_WINDOW = "mixtral-8x7b", 4096
 MIXTRAL_LAYERS, MIXTRAL_PROMPT = 2, 8192
+JAMBA_ARCH, JAMBA_PERIODS, JAMBA_LONG = "jamba-v0.1-52b", 1, 4096
+# multiples of mamba's chunk of 256, or at most one chunk
+JAMBA_LENGTHS = [JAMBA_LONG, 256, JAMBA_LONG, 200]
+JAMBA_DECODE_S = 200              # prefill(200) + decode vs prefill(201)
+XLSTM_ARCH, XLSTM_LENGTHS = "xlstm-125m", [1024, 300, 1024, 64]
+XLSTM_DECODE_S = 256
+WHISPER_ARCH, WHISPER_LONG = "whisper-tiny", 4096
+WHISPER_LENGTHS = [WHISPER_LONG, 700, WHISPER_LONG, 100]
+WHISPER_DECODE_S = 2048           # through the kernel; S + 1 through mha_full
 # the serve paths' prefill shapes (B, S, H, hd) and windows, timed
 FLASH_MAIN = {((1, 8192, 16, 256), 0): "gemma3-12b global layers",
               ((1, 8192, 16, 256), 1024): "gemma3-12b local layers",
               ((1, 8192, 32, 128), 4096): "mixtral-8x7b layers",
               ((1, 8192, 32, 128), 0): "a global layer at hd 128",
+              ((1, 4096, 32, 128), 0): "jamba-v0.1-52b's attention layer, "
+                                       "32 query heads over 8 kv heads",
+              ((1, 4096, 6, 64), 0): "whisper-tiny decoder self-attention",
               (FLASH_SHAPE, 0): "qwen1.5-0.5b layers"}
 FLASH_RECORD = ((1, 8192, 16, 256), 0)   # the kernels line's shape
 
@@ -2162,7 +2192,7 @@ def check_flash(torch):
               ((1, 130, 4, 32), 130, False, 0), ((1, S, 4, 16), S, True, 0),
               ((1, 300, 2, 16), 77, True, 0), ((1, 130, 4, 16), 130, False, 0)]
     shapes += [(shape, shape[1], True, w) for shape, w in FLASH_MAIN
-               if shape[3] > 64]
+               if (shape, w) != (FLASH_SHAPE, 0)]
     for d, w in ((256, GEMMA_WINDOW), (128, MIXTRAL_WINDOW)):
         shapes += [((1, w - 24, 4, d), w - 24, True, w),        # S < W
                    ((1, w, 4, d), w, True, w),                  # S = W
@@ -2252,21 +2282,20 @@ def check_flash(torch):
                 max_abs_err=max_err, **recs[FLASH_RECORD])
 
 
-def check_prefill_plain(torch, params, cfg, prompts):
-    """The model on the long prompts: last logits of the prefill through
-    the kernel against the same prefill through the plain version
+def check_prefill_plain(torch, prefill, cfg, prompts):
+    """The model on the long prompts: last logits of ``prefill(tokens)``
+    through the kernel against the same prefill through the plain version
     (``ops.flash_attention`` swapped for it), on the card."""
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.models import lm
 
     worst, agree = 0.0, 0
     for p in prompts:
         toks = torch.tensor([p], dtype=torch.long, device="cuda")
-        got, _ = lm.lm_prefill(params, cfg, toks)
+        got, _ = prefill(toks)
         with mock.patch.object(ops, "flash_attention",
                                ref.flash_attention_ref):
-            want, _ = lm.lm_prefill(params, cfg, toks)
+            want, _ = prefill(toks)
         rel = float((got - want).abs().max() / want.abs().max())
         check(bool(torch.isfinite(got).all()) and rel <= PREFILL_REL_TOL,
               f"{cfg.name}: prefill logits through the kernel vs the plain "
@@ -2319,32 +2348,50 @@ def time_prefill(torch, params, cfg, n_tokens: int = TIMED_PROMPT):
     return launches
 
 
-def run_serve(torch, arch: str, lengths: list, max_len: int,
-              max_new: int = SERVE_MAX_NEW):
+def attention_layers(cfg) -> int:
+    """The layers whose prefill runs self-attention: a decoder's attention
+    blocks, or an encoder-decoder's decoder layers (its encoder and the
+    cross-attention run ``mha_full``)."""
+    from repro_torch.models import lm
+
+    if cfg.is_encoder_decoder:
+        return cfg.n_layers
+    return cfg.n_periods * sum(k in lm.ATTN_KINDS for k in cfg.block_pattern)
+
+
+def run_serve(torch, cfg, lengths: list, max_len: int,
+              max_new: int = SERVE_MAX_NEW, params=None, profiled=None,
+              prof_n: int = 3):
     """``ServeEngine`` at full width: ``SERVE_SLOTS`` slots, one request a
     prompt length (those of 2048 tokens or more prefill through the flash
     kernel, the others through ``mha_full``), ``max_new`` new tokens
-    each; launch counts reset just before and read just after, which must
-    show ``flash_attention`` once a layer of each long prompt.  Returns
-    the engine and the flash launches."""
+    each, on ``params`` (cast in place) or random weights from a seed;
+    launch counts reset just before and read just after, which must show
+    ``flash_attention`` once an attention layer of each long prompt.  The
+    prefills of the prompt lengths ``profiled`` (the longest and the
+    shortest by default) and a decode step are then profiled, ``prof_n``
+    calls each.  Returns the engine and the flash launches."""
     import numpy as np
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import Request, ServeEngine
-    from repro_torch.models import lm
 
-    cfg = get_config(arch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng = ServeEngine(cfg, slots=SERVE_SLOTS, max_len=max_len, seed=0)
+    eng = ServeEngine(cfg, slots=SERVE_SLOTS, max_len=max_len, seed=0,
+                      params=params)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in eng.params.parameters())
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
     long = [p for p in prompts if len(p) >= 2048]
-    check_prefill_plain(torch, eng.params, cfg, long)   # also warms up
+
+    def prefill(toks):
+        return eng.model["prefill"](eng.params, toks, *eng.frames)
+
+    if long:
+        check_prefill_plain(torch, prefill, cfg, long)   # also warms up
 
     prefill_ms, decode_ms = [], []
 
@@ -2376,7 +2423,7 @@ def run_serve(torch, arch: str, lengths: list, max_len: int,
         by_len.setdefault(shape[1], []).append(ms)
     pre = ", ".join(f"{n}: {sum(v) / len(v):.2f}" for n, v in
                     sorted(by_len.items()))
-    print(f"serve: {arch} ({n_params / 1e6:.1f}M parameters, matrices "
+    print(f"serve: {cfg.name} ({n_params / 1e6:.1f}M parameters, matrices "
           f"{str(cfg.dtype).removeprefix('torch.')}, engine built in "
           f"{build_s:.2f} s), {SERVE_SLOTS} slots x max_len {max_len}, "
           f"{len(reqs)} requests (prompts of {lengths} tokens), max_new "
@@ -2385,23 +2432,25 @@ def run_serve(torch, arch: str, lengths: list, max_len: int,
           f"length {{{pre}}}; decode {sum(dec) / len(dec):.3f} ms per "
           f"engine step over {len(dec)} steps (min {min(dec):.3f}, max "
           f"{max(dec):.3f}); launches {counts}", flush=True)
-    for p in (long[0], min(prompts, key=len)):
-        toks = torch.tensor([p], dtype=torch.long, device=eng.device)
-        prof = device_profile(torch, lambda: lm.lm_prefill(
-            eng.params, cfg, toks), n=3)
-        print(f"  profiled {len(p)}-token prefill (3 calls): "
+    for n in profiled or (max(lengths), min(lengths)):
+        toks = torch.tensor([prompts[lengths.index(n)]], dtype=torch.long,
+                            device=eng.device)
+        prof = device_profile(torch, lambda: prefill(toks), n=prof_n)
+        events = sum(c for _, c in prof.events.values()) / prof.n
+        print(f"  profiled {n}-token prefill ({prof_n} calls, "
+              f"{events / n:.1f} device events a token): "
               f"{busy_line(prof)}", flush=True)
     last = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long, device=eng.device)
     pos = torch.full((SERVE_SLOTS,), max_len - 2, device=eng.device)
-    prof = device_profile(torch, lambda: lm.lm_decode(
-        eng.params, cfg, last, eng.cache, pos), n=10)
+    prof = device_profile(torch, lambda: eng.model["decode"](
+        eng.params, last, eng.cache, pos), n=10)
     print(f"  profiled decode step ({SERVE_SLOTS} slots at position "
           f"{max_len - 2}): {busy_line(prof)}", flush=True)
-    want = cfg.n_layers * len(long)
+    want = attention_layers(cfg) * len(long)
     check(counts["flash_attention"] == want,
           f"flash_attention launched {counts['flash_attention']} times on "
-          f"the {arch} serve path, expected {cfg.n_layers} layers x "
-          f"{len(long)} long prompts = {want}")
+          f"the {cfg.name} serve path, expected {attention_layers(cfg)} "
+          f"attention layers x {len(long)} long prompts = {want}")
     check(all(r.done and len(r.out) == max_new for r in reqs),
           "a request did not finish with max_new tokens")
     check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out),
@@ -2442,8 +2491,9 @@ def decode_vs_prefill(torch, params, cfg, S: int, *, kv_quant=False,
 def check_decode_matches_prefill(torch, arch: str = LM_ARCH,
                                  n_layers: int = 2, S: int = 1000,
                                  ref_impl: str = "chunked"):
-    """At full width and reduced depth in f32 (a printed cut):
-    :func:`decode_vs_prefill` within the JAX package's bound."""
+    """At full width in f32, at ``n_layers`` (a printed cut below the
+    architecture's depth): :func:`decode_vs_prefill` within the JAX
+    package's bound."""
     from repro_torch.configs import get_config
     from repro_torch.core.largevis import seeded_generator
     from repro_torch.models import lm
@@ -2452,13 +2502,16 @@ def check_decode_matches_prefill(torch, arch: str = LM_ARCH,
     cfg = dataclasses.replace(full, n_layers=n_layers, dtype=torch.float32)
     params = lm.init_lm(seeded_generator(torch.device("cuda"), 5), cfg)
     rel, _ = decode_vs_prefill(torch, params, cfg, S, ref_impl=ref_impl)
-    print(f"cut: {arch} decode vs prefill at {n_layers} of {full.n_layers} "
-          f"layers", flush=True)
+    if n_layers < full.n_layers:
+        print(f"cut: {arch} decode vs prefill at {n_layers} of "
+              f"{full.n_layers} layers", flush=True)
+    paths = (f" through the kernel + decode(token {S}) vs prefill({S + 1})"
+             f" through {ref_impl}" if attention_layers(cfg) else
+             f" + decode(token {S}) vs prefill({S + 1}) (no attention)")
     print(f"decode vs prefill: {arch} at full width, {n_layers} layers "
-          f"(pattern {cfg.block_pattern}), f32, B=2: prefill({S}) through "
-          f"the kernel + decode(token {S}) vs prefill({S + 1}) through "
-          f"{ref_impl} max |diff| / max |logit| {rel:.3g} (tol "
-          f"{DECODE_REL_TOL})", flush=True)
+          f"(pattern {cfg.block_pattern}), f32, B=2: prefill({S}){paths} "
+          f"max |diff| / max |logit| {rel:.3g} (tol {DECODE_REL_TOL})",
+          flush=True)
     check(rel <= DECODE_REL_TOL, f"{arch} decode vs prefill rel {rel}")
 
 
@@ -2483,7 +2536,9 @@ def run_gemma3(torch):
     t0 = time.perf_counter()
     free_card(torch)
     base = torch.cuda.memory_allocated() / 2**30
-    eng, launches = run_serve(torch, GEMMA_ARCH, GEMMA_LENGTHS,
+    from repro_torch.configs import get_config
+
+    eng, launches = run_serve(torch, get_config(GEMMA_ARCH), GEMMA_LENGTHS,
                               GEMMA_LONG + 32)
     peak = torch.cuda.max_memory_allocated() / 2**30
     cfg = eng.cfg
@@ -2560,7 +2615,8 @@ def run_mixtral(torch):
     launches = ops.launch_counts()["flash_attention"]
     check(launches == cfg.n_layers, f"mixtral prefill: {launches} flash "
           f"launches, expected {cfg.n_layers}")
-    check_prefill_plain(torch, params, cfg, [toks[0].tolist()])
+    check_prefill_plain(torch, lambda t: lm.lm_prefill(params, cfg, t), cfg,
+                        [toks[0].tolist()])
     prof = device_profile(torch, lambda: lm.lm_prefill(params, cfg, toks),
                           n=2)
     C = moe.capacity(MIXTRAL_PROMPT, cfg.n_experts, cfg.topk_experts)
@@ -2571,6 +2627,162 @@ def run_mixtral(torch):
           f"phase {time.perf_counter() - t0:.1f} s", flush=True)
     del params
     free_card(torch)
+    return launches
+
+
+def serve_phase_end(torch, eng, what: str, t0: float) -> None:
+    """The serve run's cache leaves and peak memory, then the card freed."""
+    def shapes(tree):
+        return {k: shapes(v) if isinstance(v, dict) else tuple(v.shape)
+                for k, v in tree.items()}
+    print(f"{what} serve: cache leaves {shapes(eng.cache)}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"(max_memory_allocated, since the phase freed the card)",
+          flush=True)
+    del eng
+    free_card(torch)
+    print(f"{what} phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def run_jamba(torch):
+    """jamba-v0.1-52b at full width and one period of its 1:7 attention:
+    mamba pattern, 8 of its 32 layers (a printed cut: its 51.5B parameters
+    do not fit one card in bf16), random weights from a seed.  The f32
+    master made once: decode vs prefill on it with total routing (S = 200,
+    inside one mamba chunk; both prefills through the kernel, f32 at hd
+    128 with 32 query heads over 8 kv heads), then cast in place and
+    served by ``ServeEngine`` (prompts of 4096, 256, 4096 and 200 tokens:
+    the two long ones take ``flash_attention`` at (1, 4096, 32, 128) once
+    each, the mamba layers their chunked scan).  Returns the flash
+    launches of the serve run."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.largevis import seeded_generator
+    from repro_torch.models import lm
+    from repro_torch.models.factory import cast_for_inference
+
+    t0 = time.perf_counter()
+    free_card(torch)
+    full = get_config(JAMBA_ARCH)
+    cfg = dataclasses.replace(
+        full, n_layers=len(full.block_pattern) * JAMBA_PERIODS)
+    params = lm.init_lm(seeded_generator(torch.device("cuda"), 9), cfg)
+    n = sum(p.numel() for p in params.parameters())
+    tables = sum(p.numel() for name, p in params.named_parameters()
+                 if not name.startswith("blocks."))
+    n_full = (n - tables) * full.n_periods + tables
+    print(f"cut: {JAMBA_ARCH} at {cfg.n_layers} of {full.n_layers} layers "
+          f"(one period, full width): {n_full / 1e9:.2f}B parameters are "
+          f"{2 * n_full / 1e9:.0f} GB in bf16; one period is {n / 1e9:.2f}B, "
+          f"{4 * n / 1e9:.0f} GB as the f32 master at init", flush=True)
+    total = dataclasses.replace(cfg, dtype=torch.float32,
+                                topk_experts=cfg.n_experts)
+    S = JAMBA_DECODE_S
+    rel, _ = decode_vs_prefill(torch, params, total, S)
+    check(rel <= DECODE_REL_TOL, f"jamba decode vs prefill rel {rel}")
+    print(f"decode vs prefill: {JAMBA_ARCH} at full width, {cfg.n_layers} "
+          f"layers (pattern {cfg.block_pattern}), f32, total routing, B=2: "
+          f"prefill({S}) + decode(token {S}) vs prefill({S + 1}) max |diff| "
+          f"/ max |logit| {rel:.3g} (tol {DECODE_REL_TOL}); peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    cast_for_inference(params, cfg)
+    free_card(torch)
+    eng, launches = run_serve(torch, cfg, JAMBA_LENGTHS, JAMBA_LONG + 32,
+                              params=params)
+    del params
+    check(launches == 2, f"jamba: {launches} flash launches, expected 2")
+    serve_phase_end(torch, eng, "jamba", t0)
+    return launches
+
+
+def run_xlstm(torch):
+    """xlstm-125m at full width and depth (12 layers, alternating mLSTM
+    and sLSTM), random weights from a seed: decode vs prefill in f32 (S =
+    256), then ``ServeEngine`` in bf16 with prompts of 1024, 300, 1024 and
+    64 tokens.  No attention: the recurrences run token by token, and the
+    profiled prefill prints the device events a token (the shortest
+    prompt alone: profiling the 300-token prefill as well, about 90,000
+    device events, made the phase about 50 s longer on an H100).  Returns
+    the flash launches of the serve run (none)."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    free_card(torch)
+    cfg = get_config(XLSTM_ARCH)
+    check_decode_matches_prefill(torch, XLSTM_ARCH, n_layers=cfg.n_layers,
+                                 S=XLSTM_DECODE_S)
+    free_card(torch)
+    eng, launches = run_serve(torch, cfg, XLSTM_LENGTHS,
+                              max(XLSTM_LENGTHS) + 32, profiled=(64,),
+                              prof_n=1)
+    check(launches == 0, f"xlstm: {launches} flash launches, expected 0")
+    serve_phase_end(torch, eng, "xlstm", t0)
+    return launches
+
+
+def check_encdec(torch, cfg, S: int = WHISPER_DECODE_S):
+    """whisper at full width in f32 on random frames, B = 2: prefill(S)
+    through the kernel against the same prefill through the plain version,
+    and prefill(S) + decode(token S) against prefill(S + 1) through
+    ``mha_full`` (the chunked contract takes S + 1 only below 2048)."""
+    from repro_torch.core.largevis import seeded_generator
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import encdec
+    from repro_torch.models.factory import init_cache
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    gen = seeded_generator(dev, 11)
+    params = encdec.init_encdec(gen, cfg)
+    frames = torch.randn((2, cfg.enc_positions, cfg.d_model),
+                         generator=gen, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, S + 1), generator=gen,
+                         device=dev)
+    got, one = encdec.encdec_prefill(params, cfg, toks[:, :S], frames,
+                                     attn_impl="chunked")
+    with mock.patch.object(ops, "flash_attention", ref.flash_attention_ref):
+        plain, _ = encdec.encdec_prefill(params, cfg, toks[:, :S], frames,
+                                         attn_impl="chunked")
+    rel_plain = float((got - plain).abs().max() / plain.abs().max())
+    want, _ = encdec.encdec_prefill(params, cfg, toks, frames,
+                                    attn_impl="full")
+    cache = init_cache(cfg, 2, S + 1, dev)
+    for name, t in one["self"].items():
+        cache["self"][name][:, :, :S] = t
+    cache["encoder_out"].copy_(one["encoder_out"])
+    dec, _ = encdec.encdec_decode(params, cfg, toks[:, S:], cache,
+                                  torch.full((2,), S, device=dev))
+    rel = float((dec - want).abs().max() / want.abs().max())
+    print(f"decode vs prefill: {cfg.name} at full width and depth, f32, "
+          f"random frames (2, {cfg.enc_positions}, {cfg.d_model}): "
+          f"prefill({S}) through the kernel vs through the plain version "
+          f"max |diff| / max |logit| {rel_plain:.3g} (tol {PREFILL_REL_TOL});"
+          f" prefill({S}) + decode(token {S}) vs prefill({S + 1}) through "
+          f"mha_full {rel:.3g} (tol {DECODE_REL_TOL})", flush=True)
+    check(rel_plain <= PREFILL_REL_TOL, f"whisper prefill vs the plain "
+          f"version rel {rel_plain}")
+    check(rel <= DECODE_REL_TOL, f"whisper decode vs prefill rel {rel}")
+
+
+def run_whisper(torch):
+    """whisper-tiny at full width and depth (4 encoder and 4 decoder
+    layers over 1500 frames), random weights from a seed:
+    :func:`check_encdec` in f32, then ``ServeEngine`` in bf16 (zero
+    frames, as the JAX engine feeds them; prompts of 4096, 700, 4096 and
+    100 tokens: the long ones take ``flash_attention`` at (1, 4096, 6, 64)
+    in each decoder layer).  Returns the flash launches of the serve
+    run."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    free_card(torch)
+    cfg = get_config(WHISPER_ARCH)
+    check_encdec(torch, cfg)
+    free_card(torch)
+    eng, launches = run_serve(torch, cfg, WHISPER_LENGTHS, WHISPER_LONG + 32)
+    want = 2 * cfg.n_layers
+    check(launches == want, f"whisper: {launches} flash launches, expected "
+          f"{want}")
+    serve_phase_end(torch, eng, "whisper", t0)
     return launches
 
 
@@ -3643,12 +3855,17 @@ def main() -> None:
     import numpy as np
     long = [LONG_PROMPT] * N_LONG + \
         np.random.default_rng(0).integers(16, 513, N_SHORT).tolist()
-    eng, flash["launches"] = run_serve(torch, LM_ARCH, long, SERVE_MAX_LEN)
+    from repro_torch.configs import get_config
+    eng, flash["launches"] = run_serve(torch, get_config(LM_ARCH), long,
+                                       SERVE_MAX_LEN)
     time_prefill(torch, eng.params, eng.cfg)
     del eng
     check_decode_matches_prefill(torch)
     flash["launches"] += run_gemma3(torch)
     flash["launches"] += run_mixtral(torch)
+    flash["launches"] += run_jamba(torch)
+    flash["launches"] += run_xlstm(torch)
+    flash["launches"] += run_whisper(torch)
     kernels.append(flash)
 
     import torch.distributed as dist

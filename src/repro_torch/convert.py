@@ -16,9 +16,12 @@ parameter pytree as numpy, and :func:`lm_params_to_numpy` gives it back.
 JAX stacks each block position ``p`` of the pattern over the periods
 along axis 0 (``blocks/pos{p}``); the port keeps the blocks in layer
 order, layer ``period * P + p``.  Each block's tree is JAX's, whatever it
-holds: ``attn`` (with ``qnorm``/``knorm`` under QK-norm), and ``mlp`` or
-``moe`` (``router`` (d, E), expert arrays ``w_gate``/``w_up`` (E, d, f)
-and ``w_down`` (E, f, d)).  A round trip is bitwise.
+holds: ``attn`` (with ``qnorm``/``knorm`` under QK-norm) or ``mamba``,
+and ``mlp`` or ``moe`` (``router`` (d, E), expert arrays
+``w_gate``/``w_up`` (E, d, f) and ``w_down`` (E, f, d)); or an mLSTM or
+sLSTM ``core``.  The encoder-decoder's ``enc_layers`` and ``dec_layers``
+are stacked over the layers in JAX and lists in layer order in the port.
+A round trip is bitwise.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from repro_torch.models import lm
 _FIELDS = ("y", "knn_idx", "knn_dist", "weights", "x")
 _EDGE = ("src", "dst", "threshold", "alias")
 _NODE = ("threshold", "alias")
+_LAYER_LISTS = ("enc_layers", "dec_layers")     # the encoder-decoder's
 
 
 def _np(v) -> np.ndarray:
@@ -86,11 +90,17 @@ def lm_params_from_numpy(tree: dict, cfg, device="cuda"):
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
 
-    out = {k: _map(v, t) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [_map(tree["blocks"][f"pos{li % P}"],
-                          lambda a, i=li // P: t(np.asarray(a)[i]))
-                     for li in range(cfg.n_layers)]
-    return lm.as_module(out)
+    def layer(stacked, i):
+        return _map(stacked, lambda a: t(np.asarray(a)[i]))
+
+    if cfg.is_encoder_decoder:          # stacked over the layers
+        lists = {k: [layer(tree[k], i) for i in range(n)] for k, n in
+                 zip(_LAYER_LISTS, (cfg.n_enc_layers, cfg.n_layers))}
+    else:                               # per position, over the periods
+        lists = {"blocks": [layer(tree["blocks"][f"pos{li % P}"], li // P)
+                            for li in range(cfg.n_layers)]}
+    out = {k: _map(v, t) for k, v in tree.items() if k not in lists}
+    return lm.as_module({**out, **lists})
 
 
 def lm_params_to_numpy(params, cfg) -> dict:
@@ -103,6 +113,9 @@ def lm_params_to_numpy(params, cfg) -> dict:
             return m.detach().float().cpu().numpy()
         return {k: tree(v) for k, v in m.items()}
 
+    if cfg.is_encoder_decoder:
+        return {k: _stack([tree(b) for b in v]) if k in _LAYER_LISTS
+                else tree(v) for k, v in params.items()}
     out = {k: tree(v) for k, v in params.items() if k != "blocks"}
     layers = [tree(b) for b in params["blocks"]]
     out["blocks"] = {

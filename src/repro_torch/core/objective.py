@@ -10,13 +10,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models.layers import softplus as _softplus
+
 PROB_FNS = ("inv_quadratic", "exp_quadratic")
-
-
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """log(1 + e^x) as ``jax.nn.softplus`` computes it, ``logaddexp(x, 0)``
-    (``F.softplus`` turns into the identity above its threshold)."""
-    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 def log_f(d2: torch.Tensor, prob_fn: str, a: float) -> torch.Tensor:

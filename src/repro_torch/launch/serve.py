@@ -2,10 +2,14 @@
 
 The JAX package's ``launch/serve.py`` engine.  Requests arrive with
 prompts; the engine prefills each prompt at batch 1 and splices its cache
-into a free slot at ``[0:P]``, then decodes all active slots in lockstep,
-retiring finished sequences and admitting queued requests into freed
-slots (continuous batching).  Greedy (argmax) or temperature sampling
-(Gumbel-max from a seeded ``torch.Generator``).
+into a free slot (a K/V leaf at ``[0:P]``, a recurrent state whole, the
+encoder output on its batch axis), then decodes all active slots in
+lockstep, retiring finished sequences and admitting queued requests into
+freed slots (continuous batching).  Greedy (argmax) or temperature
+sampling (Gumbel-max from a seeded ``torch.Generator``).  An
+encoder-decoder's prefill takes zero encoder frames (1, enc_positions,
+d), as the JAX engine feeds it; the JAX engine cannot splice the encoder
+output (ROADMAP Queue 3), this one can.
 
 It runs on the card unless the caller passes ``device="cpu"``, and raises
 without CUDA; there is no fallback from one to the other.  On the card a
@@ -20,6 +24,7 @@ from typing import List, Optional
 import torch
 
 from repro_torch.core.largevis import resolve_device, seeded_generator
+from repro_torch.models import ssm
 from repro_torch.models.factory import (cast_for_inference, init_cache,
                                         make_model)
 
@@ -56,6 +61,11 @@ class ServeEngine:
         self.generator = seeded_generator(self.device, seed + 1)
         self._prefill = self.model["prefill"]
         self._decode = self.model["decode"]
+        # what the prefill takes after the tokens: an encoder-decoder's
+        # encoder frames, zeros as the JAX engine feeds them
+        self.frames = (torch.zeros((1, cfg.enc_positions, cfg.d_model),
+                                   dtype=cfg.dtype, device=self.device),
+                       ) if cfg.is_encoder_decoder else ()
         # slot state
         self.active: List[Optional[Request]] = [None] * slots
         self.positions = [0] * slots
@@ -65,7 +75,8 @@ class ServeEngine:
     # ------------------------------------------------------------------
     def submit(self, req: Request):
         """Queue a request; its prompt must be 1..max_len tokens in
-        [0, vocab_size)."""
+        [0, vocab_size), and fit the mamba layers' chunked scan where the
+        model has them."""
         if not 1 <= len(req.prompt) <= self.max_len:
             raise ValueError(f"request {req.rid}: prompt of "
                              f"{len(req.prompt)} tokens, the cache holds "
@@ -73,6 +84,8 @@ class ServeEngine:
         if not all(0 <= t < self.cfg.vocab_size for t in req.prompt):
             raise ValueError(f"request {req.rid}: a token outside "
                              f"[0, {self.cfg.vocab_size})")
+        if "mamba" in self.cfg.block_pattern:
+            ssm.check_chunks(len(req.prompt))
         self.queue.append(req)
 
     def _admit(self):
@@ -84,13 +97,8 @@ class ServeEngine:
             req = self.queue.pop(0)
             toks = torch.tensor([req.prompt], dtype=torch.long,
                                 device=self.device)
-            logits, cache1 = self._prefill(self.params, toks)
-            # each leaf (n_periods, 1, L, ...) into the slot's rows at
-            # [0:L]: L is the prompt's length, or a local layer's window W
-            # (its ring buffer, slot = position mod W) once it reaches W
-            for p, entry in cache1.items():
-                for name, one in entry.items():
-                    self.cache[p][name][:, slot, :one.shape[2]] = one[:, 0]
+            logits, cache1 = self._prefill(self.params, toks, *self.frames)
+            _splice(self.cache, cache1, slot)
             req.out.append(int(self._sample(logits)[0]))
             self.active[slot] = req
             self.positions[slot] = len(req.prompt)
@@ -136,3 +144,19 @@ class ServeEngine:
             self.step()
             steps += 1
         return steps
+
+
+def _splice(full: dict, one: dict, slot: int) -> None:
+    """A batch-1 prefill cache into ``slot`` of the batch cache, in place.
+    ``encoder_out`` (1, F, d) into row ``slot``; every other leaf (L, 1,
+    T, ...), stacked over periods or layers, into ``[:, slot, :T]``: T is
+    the prompt's length, a local layer's window W once the prompt reaches
+    it (its ring buffer, slot = position mod W), or a recurrent state's
+    full extent (the state whole)."""
+    for name, leaf in one.items():
+        if isinstance(leaf, dict):
+            _splice(full[name], leaf, slot)
+        elif name == "encoder_out":
+            full[name][slot] = leaf[0]
+        else:
+            full[name][:, slot, :leaf.shape[2]] = leaf[:, 0]

@@ -1,2 +1,2 @@
-"""The LM substrate: layers, attention, the decoder-only stack and the
-model factory."""
+"""The LM substrate: layers, attention, the mamba and xLSTM blocks, the
+decoder-only stack, the encoder-decoder and the model factory."""

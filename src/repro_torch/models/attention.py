@@ -215,6 +215,18 @@ def _window_for(cfg, kind: str) -> int:
     return cfg.sliding_window if kind == "local" else 0
 
 
+def attention_fwd(params, x, cfg, *, kind="attn", causal=True, impl="auto"):
+    """Self-attention over a whole sequence, no cache (the
+    encoder-decoder's encoder runs it non-causal, ``impl="full"``).
+    x: (B,S,d) -> (B,S,d)."""
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)
+    q, k, v = _project_qkv(params, x, cfg, positions, _theta_for(cfg, kind))
+    o = attend(q, k, v, causal=causal, window=_window_for(cfg, kind),
+               impl=impl)
+    return _out_proj(o, params["wo"])
+
+
 def attention_prefill(params, x, cfg, *, kind="attn", impl="auto",
                       kv_repeat: int = 1, kv_quant: bool = False):
     """Prefill: returns (out, cache_entry) — the cache holds the roped K

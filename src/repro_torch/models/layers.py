@@ -30,6 +30,37 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (x * params["scale"]).to(dtype)
 
 
+def init_layernorm(dim: int, device) -> dict:
+    return {"scale": torch.ones((dim,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((dim,), dtype=torch.float32, device=device)}
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """In f32: the mean, the biased variance as the mean of squared
+    deviations (``jnp.var``), scale and bias."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * params["scale"] + params["bias"]).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activations the JAX package computes its own way
+# ---------------------------------------------------------------------------
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` (``F.softplus`` turns into
+    the identity above its threshold)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: ``-softplus(-x)``."""
+    return -softplus(-x)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embedding
 # ---------------------------------------------------------------------------
@@ -68,9 +99,10 @@ def dense_init(generator: torch.Generator, shape, scale: float = None):
                        device=generator.device) * scale
 
 
-def init_mlp(generator, d_model: int, d_ff: int, mlp_type: str) -> dict:
-    """The decoder MLPs (the JAX package's biased gelu MLP serves its
-    encoder-decoder, which is not ported)."""
+def init_mlp(generator, d_model: int, d_ff: int, mlp_type: str,
+             bias: bool = False) -> dict:
+    """The gated MLPs, or the gelu MLP, with zero biases under ``bias``
+    (the encoder-decoder's)."""
     p = {}
     if mlp_type in ("swiglu", "geglu"):
         p["w_gate"] = dense_init(generator, (d_model, d_ff))
@@ -79,6 +111,11 @@ def init_mlp(generator, d_model: int, d_ff: int, mlp_type: str) -> dict:
     elif mlp_type == "gelu":
         p["w_up"] = dense_init(generator, (d_model, d_ff))
         p["w_down"] = dense_init(generator, (d_ff, d_model))
+        if bias:
+            dev = generator.device
+            p["b_up"] = torch.zeros((d_ff,), dtype=torch.float32, device=dev)
+            p["b_down"] = torch.zeros((d_model,), dtype=torch.float32,
+                                      device=dev)
     else:
         raise ValueError(mlp_type)
     return p
@@ -92,8 +129,13 @@ def mlp(params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
         act = F.silu(gate) if mlp_type == "swiglu" else \
             F.gelu(gate, approximate="tanh")
         return (act * up) @ params["w_down"].to(dtype)
-    h = F.gelu(x @ params["w_up"].to(dtype), approximate="tanh")
-    return h @ params["w_down"].to(dtype)
+    h = x @ params["w_up"].to(dtype)
+    if "b_up" in params:
+        h = h + params["b_up"].to(dtype)
+    out = F.gelu(h, approximate="tanh") @ params["w_down"].to(dtype)
+    if "b_down" in params:
+        out = out + params["b_down"].to(dtype)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -5,18 +5,23 @@ The JAX package's ``models/lm.py`` for serving.  The parameters are an
 ``final_norm``, ``blocks``, ``lm_head`` when untied), except that
 ``blocks`` is an ``nn.ModuleList`` of the ``n_layers`` blocks in order
 where JAX stacks each block position of the pattern over the periods
-(``convert.py`` carries one into the other).  A block holds an ``mlp``
-or, at the pattern's MoE positions, a ``moe``.  No gradients: training
-(``lm_loss``/``lm_backbone``) waits, as do the mamba and xLSTM blocks and
-the encoder-decoder (ROADMAP Queue 1); each raises.
+(``convert.py`` carries one into the other).  A block is attention
+(``attn``), a mamba layer (``mamba``), each followed by ``ln2`` and an
+``mlp`` or, at the pattern's MoE positions, a ``moe``; or an mLSTM or
+sLSTM ``core``, which carries its own projections and has no ``ln2`` and
+no MLP.  No gradients: training (``lm_loss``/``lm_backbone``) waits
+(ROADMAP Queue 1).  The encoder-decoder is ``models/encdec.py``.
 
 Modes: ``lm_prefill`` (full sequence -> last logits + cache) and
 ``lm_decode`` (one token per row against the cache, updated in place).
-The cache is JAX's: ``{"pos{p}": {"k", "v"[, "k_scale", "v_scale"]}}``
-for each block position p of the pattern, each leaf (n_periods, B, T_p,
-KVH * kv_repeat, hd) (scales (..., 1)); layer ``li`` is period ``li //
-P`` of position ``li % P``.  A local layer's T_p is its window once the
-sequence reaches it.
+The cache is JAX's: ``{"pos{p}": {...}}`` for each block position p of
+the pattern, each leaf stacked over the periods (layer ``li`` is period
+``li // P`` of position ``li % P``): attention ``"k", "v"[, "k_scale",
+"v_scale"]`` (n_periods, B, T_p, KVH * kv_repeat, hd) (scales (..., 1)),
+a local layer's T_p its window once the sequence reaches it; mamba
+``"ssm"`` (n_periods, B, inner, state) f32 and ``"conv"`` (n_periods, B,
+K-1, inner); mLSTM ``"C"``, ``"n"``, ``"m"`` and sLSTM ``"h"``, ``"c"``,
+``"n"``, ``"m"`` in f32.
 """
 from __future__ import annotations
 
@@ -25,20 +30,24 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm, xlstm
 from repro_torch.models.layers import (embed, init_embedding, init_mlp,
                                        init_rmsnorm, mlp, rmsnorm, unembed)
 
 ATTN_KINDS = ("attn", "local", "global")
-_TODO = "not ported yet (ROADMAP Queue 1)"
+# the recurrent cores: (prefill, decode), each returning (out, state)
+RECURRENT = {"mlstm": (xlstm.mlstm_prefill, xlstm.mlstm_decode),
+             "slstm": (xlstm.slstm_prefill, xlstm.slstm_decode)}
+BLOCK_KINDS = ATTN_KINDS + ("mamba",) + tuple(RECURRENT)
 
 
 def check_supported(cfg) -> None:
-    """Raise for what the port cannot run yet."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"encoder-decoder models {_TODO}")
+    """Raise for a block kind the model code does not know (every kind of
+    the JAX package's architectures serves)."""
     for kind in cfg.block_pattern:
-        if kind not in ATTN_KINDS:
-            raise NotImplementedError(f"{kind!r} blocks {_TODO}")
+        if kind not in BLOCK_KINDS:
+            raise ValueError(f"{cfg.name}: block kind {kind!r}, expected "
+                             f"one of {BLOCK_KINDS}")
 
 
 def _position_is_moe(cfg, p: int) -> bool:
@@ -99,12 +108,23 @@ def as_module(tree) -> nn.Module:
 # ---------------------------------------------------------------------------
 
 def init_block(generator, cfg, p: int) -> dict:
-    """Block position ``p`` of the pattern: attention, then an MLP or,
-    at the MoE positions, a mixture of experts."""
+    """Block position ``p`` of the pattern: attention or mamba, then an
+    MLP or, at the MoE positions, a mixture of experts; or an mLSTM or
+    sLSTM core alone."""
+    kind = cfg.block_pattern[p]
     dev = generator.device
-    params = {"ln1": init_rmsnorm(cfg.d_model, dev),
-              "attn": attn.init_attention(generator, cfg),
-              "ln2": init_rmsnorm(cfg.d_model, dev)}
+    params = {"ln1": init_rmsnorm(cfg.d_model, dev)}
+    if kind == "mlstm":
+        params["core"] = xlstm.init_mlstm(generator, cfg)
+        return params
+    if kind == "slstm":
+        params["core"] = xlstm.init_slstm(generator, cfg)
+        return params
+    if kind == "mamba":
+        params["mamba"] = ssm.init_mamba(generator, cfg)
+    else:
+        params["attn"] = attn.init_attention(generator, cfg)
+    params["ln2"] = init_rmsnorm(cfg.d_model, dev)
     if _position_is_moe(cfg, p):
         params["moe"] = moe_lib.init_moe(generator, cfg)
     else:
@@ -135,19 +155,30 @@ def init_lm(generator: torch.Generator, cfg) -> nn.ModuleDict:
 def apply_block(cfg, p: int, params, x, *, mode: str, cache=None,
                 position=None, attn_impl: str = "auto", kv_repeat: int = 1,
                 kv_quant: bool = False):
-    """Block position ``p`` of the pattern; returns (x, cache entry)."""
+    """Block position ``p`` of the pattern; returns (x, cache entry).  An
+    attention decode writes the cache in place and returns it; a
+    recurrent decode returns new states (``lm_decode`` copies them in)."""
     kind = cfg.block_pattern[p]
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"apply_block: mode {mode!r}, expected prefill|"
+                         "decode (training waits)")
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
-    if mode == "prefill":
+    if kind in RECURRENT:
+        prefill, decode = RECURRENT[kind]
+        a, new_cache = (prefill(params["core"], h, cfg) if mode == "prefill"
+                        else decode(params["core"], h, cfg, cache))
+        return x + a, new_cache
+    if kind == "mamba":
+        a, new_cache = (ssm.mamba_prefill(params["mamba"], h, cfg)
+                        if mode == "prefill" else
+                        ssm.mamba_decode(params["mamba"], h, cfg, cache))
+    elif mode == "prefill":
         a, new_cache = attn.attention_prefill(
             params["attn"], h, cfg, kind=kind, impl=attn_impl,
             kv_repeat=kv_repeat, kv_quant=kv_quant)
-    elif mode == "decode":
+    else:
         a, new_cache = attn.attention_decode(params["attn"], h, cfg, cache,
                                              position, kind=kind)
-    else:
-        raise ValueError(f"apply_block: mode {mode!r}, expected prefill|"
-                         "decode (training waits)")
     x = x + a
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
     if "moe" in params:
@@ -197,16 +228,19 @@ def lm_prefill(params, cfg, tokens, *, attn_impl: str = "auto",
 
 @torch.no_grad()
 def lm_decode(params, cfg, tokens, cache, position):
-    """tokens (B, 1); position (B,) index of the new token.  Writes the
-    new token's K and V into ``cache`` in place; returns (logits (B, V),
-    cache)."""
+    """tokens (B, 1); position (B,) index of the new token.  Updates
+    ``cache`` in place (the new token's K and V, each recurrent layer's
+    states); returns (logits (B, V), cache)."""
     check_supported(cfg)
     x = _embed_in(params, cfg, tokens)
     P = len(cfg.block_pattern)
     for li, block in enumerate(params["blocks"]):
         layer = {name: t[li // P]
                  for name, t in cache[f"pos{li % P}"].items()}
-        x, _ = apply_block(cfg, li % P, block, x, mode="decode",
-                           cache=layer, position=position)
+        x, new = apply_block(cfg, li % P, block, x, mode="decode",
+                             cache=layer, position=position)
+        for name, t in new.items():
+            if t is not layer[name]:
+                layer[name].copy_(t)
     x = rmsnorm(params["final_norm"], x[:, -1], cfg.norm_eps)
     return _logits(params, cfg, x), cache

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_NAMES as JARCH_NAMES
 from repro.configs import get_config as jget_config
 from repro.launch.serve import Request as JRequest
 from repro.launch.serve import ServeEngine as JServeEngine
@@ -31,7 +32,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch.serve import Request, ServeEngine
 from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
-from repro_torch.models.factory import init_cache
+from repro_torch.models.factory import init_cache, make_model
 
 NAME = "qwen1.5-0.5b"
 
@@ -252,31 +253,33 @@ def test_bf16_prefill_close_to_jax():
         assert _rel(tlog, jlog) < 3e-2, impl
 
 
+# the JAX package's architectures, in its registry's order
 REGISTERED = ("qwen1.5-0.5b", "gemma3-12b", "llama3-8b", "phi3-medium-14b",
-              "mixtral-8x7b", "dbrx-132b", "chameleon-34b")
-# the JAX package's architectures whose block kinds the port lacks
-MISSING = ("jamba-v0.1-52b", "xlstm-125m", "whisper-tiny")
+              "whisper-tiny", "mixtral-8x7b", "dbrx-132b", "jamba-v0.1-52b",
+              "chameleon-34b", "xlstm-125m")
 
 
-@pytest.mark.parametrize("name", REGISTERED + MISSING)
+@pytest.mark.parametrize("name", REGISTERED)
 def test_registry(name):
-    """The registered architectures carry the JAX package's fields (dtype
-    as a torch dtype; the reduced forms f32); the mamba, mLSTM/sLSTM and
-    encoder-decoder ones are not registered, and their configs raise in
-    the model code."""
+    """Every architecture of the JAX package is registered, in its order,
+    with its fields (dtype as a torch dtype; the reduced forms f32), and
+    its reduced form serves: ``make_model``, ``init_cache`` and one short
+    request through ``ServeEngine`` on the CPU."""
     jcfg = jget_config(name)
     fields = {f.name: getattr(jcfg, f.name)
               for f in dataclasses.fields(jcfg) if f.name != "dtype"}
-    if name in MISSING:
-        assert name not in ARCH_NAMES
-        with pytest.raises(KeyError, match="ROADMAP"):
-            get_config(name)
-        cfg = dataclasses.replace(get_config(NAME), **fields)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlm.init_lm(torch.Generator(), cfg.reduced())
-        return
-    assert ARCH_NAMES == REGISTERED
+    assert ARCH_NAMES == REGISTERED == JARCH_NAMES
     cfg = get_config(name)
     assert {f: getattr(cfg, f) for f in fields} == fields
     assert cfg.dtype == torch.bfloat16
-    assert get_config(name + "-reduced").dtype == torch.float32
+    small = get_config(name + "-reduced")
+    assert small.dtype == torch.float32
+    tlm.check_supported(cfg)
+    model = make_model(small)
+    assert sorted(model) == ["decode", "init", "prefill"]
+    assert init_cache(small, 2, 16, "cpu")
+    eng = ServeEngine(small, slots=1, max_len=16, device="cpu")
+    req = Request(0, [1, 2, 3], max_new=2)
+    eng.submit(req)
+    eng.run()
+    assert req.done and len(req.out) == 2

@@ -1,0 +1,67 @@
+"""Chosen LM phases of ``chip_smoke.py`` alone, on one CUDA card: the
+flash checks and the serve phases of the architectures named, each with
+its own checks, after building the flash kernel.  Quicker than the whole
+smoke (which runs the LargeVis fit first) for a card check of the LM
+path; exits 1 at the first failed check, as the smoke does.
+
+    python3 tools/lm_phases.py                        # flash,jamba,xlstm,whisper
+    python3 tools/lm_phases.py --phases xlstm
+    python3 tools/lm_phases.py --phases flash,gemma3,mixtral
+
+Phases: ``flash`` (``check_flash``), ``gemma3``, ``mixtral``, ``jamba``,
+``xlstm``, ``whisper`` (``run_<phase>``).  Prints each phase's lines and
+seconds, then the flash launches each serve phase made, as JSON.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+PHASES = ("flash", "gemma3", "mixtral", "jamba", "xlstm", "whisper")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default="flash,jamba,xlstm,whisper",
+                    help=f"comma-separated, of {', '.join(PHASES)}")
+    args = ap.parse_args()
+    phases = args.phases.split(",")
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phases {unknown}")
+
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.core.largevis import resolve_device
+    from repro_torch.kernels import _build
+
+    if not torch.cuda.is_available():
+        cs.fail("CUDA is not available")
+    print(cs.nvidia_smi(), flush=True)
+    resolve_device("cuda")                 # also switches TF32 off
+    t0 = time.perf_counter()
+    _build.build("flash_attention")
+    print(f"kernel build: {time.perf_counter() - t0:.2f} s", flush=True)
+    launches = {}
+    for name in phases:
+        t0 = time.perf_counter()
+        if name == "flash":
+            cs.check_flash(torch)
+        else:
+            launches[name] = getattr(cs, f"run_{name}")(torch)
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        cs.free_card(torch)
+    print(json.dumps({"flash_attention_launches": launches}))
+    print(cs.nvidia_smi(), flush=True)
+
+
+if __name__ == "__main__":
+    main()
