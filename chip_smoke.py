@@ -197,6 +197,24 @@ in one process (``run_parent``), and requires the two packages'
    64) in each of 4 decoder layers a long prompt, 8 launches); each serve
    run with its prefill and decode ms, tokens/s, profiled busy shares and
    peak memory;
+13. the LM training path, the serving phases' state released first
+   (``run_training``): ``flash_attention_bwd`` against its plain version
+   on the forward kernel's own out and lse (that lse against the plain
+   version's) at the architectures' training shapes in bf16, qwen's
+   microbatch (2, 4096, 16, 64), mixtral's (1, 8192, 32, 128) with W
+   4096, gemma3's (1, 8192, 16, 256) causal and with W 1024, whisper's
+   (1, 4096, 6, 64), one f32 shape and ragged ones in both types, every
+   case twice, bitwise; the main shapes timed beside the plain version,
+   SDPA's backward and the bound; then ``launch.train.train`` on
+   qwen1.5-0.5b at full width and depth, batch 4 x 4096 in 2
+   microbatches, 8 steps (AdamW at lr 3e-4 from the first step), with
+   the launch counts reset just before and read just after (flash forward
+   96 and backward 48 a step), the loss by step, a held-out batch's loss
+   before and after (it must fall), ms a step, tokens/s, peak memory and
+   a profiled step; the resume check at 2 layers (a printed cut): 8
+   steps against 5 resumed to 8, the losses after step 4 bitwise equal;
+   every architecture's reduced f32 step on the card against the CPU's
+   from one state, twice on the card, bitwise;
 
 then prints a JSON line of the kernel records and, last, the device line.
 Any failed check exits with status 1 and prints no result.  Device times
@@ -354,7 +372,10 @@ KERNEL_EVENTS = {
     "topk_sqdist": ("topk_kernel",),
     "pairwise_sqdist": ("pairwise_kernel",),
     "flash_attention": ("flash_attention",),
+    "flash_attention_bwd": ("dkdv_kernel",),     # one of its three a call
 }
+# the backward flash launcher's three kernels
+BWD_EVENTS = ("delta_kernel", "dkdv_kernel", "dq_kernel")
 
 
 def _is_event_of(launcher: str, key: str) -> bool:
@@ -378,11 +399,16 @@ class Profile:
     made: dict
 
     def kernel(self, launcher: str):
-        """(device ms a launch seen, launches seen, launches made)."""
+        """(device ms a launch seen, launches seen, launches made).  The
+        backward flash launcher makes three kernels a call: its time is
+        theirs, its launches seen its dk/dv kernel's."""
         hits = [v for key, v in self.events.items()
                 if _is_event_of(launcher, key)]
         seen = sum(c for _, c in hits)
         total = sum(t for t, _ in hits)
+        if launcher == "flash_attention_bwd":
+            total = sum(t for key, (t, _) in self.events.items()
+                        if any(e in key for e in BWD_EVENTS))
         return total / max(seen, 1), seen, self.made.get(launcher, 0)
 
 
@@ -2787,6 +2813,480 @@ def run_whisper(torch):
 
 
 # ---------------------------------------------------------------------------
+# the LM training path
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen1.5-0.5b", 4, 4096, 8
+# the trainer's optimizer: JAX's AdamW (lr 3e-4) with a 1-step warmup: its
+# default 100-step warmup moves a full-width model's held-out loss by about
+# 1e-3 in 8 steps, below the batches' spread, and lr 1e-3 from the first
+# step diverges by the eighth (tools/train_lr_probe.py)
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 1
+TRAIN_EVAL_BATCH = 10_000          # a held-out batch of the stream
+# the resume check: 2 of qwen's 24 layers at full width (a printed cut; a
+# full-depth train state is 5.6 GB a checkpoint, four of them here)
+RESUME_LAYERS, RESUME_CUT, RESUME_EVERY = 2, 5, 4
+# every architecture's reduced step at B 1, S 256 (mha_full), and three at
+# S 4096 (attend's rule takes the flash path above 2048 x 2048 pairs): a
+# causal decoder, a windowed one and the encoder-decoder; the others' CPU
+# steps at that length take up to a minute (gemma3's 10 local layers
+# through the dense plain version)
+ARCH_BATCH = 1
+ARCH_CASES = [(name, 256) for name in (
+    "qwen1.5-0.5b", "gemma3-12b", "llama3-8b", "phi3-medium-14b",
+    "whisper-tiny", "mixtral-8x7b", "dbrx-132b", "jamba-v0.1-52b",
+    "chameleon-34b", "xlstm-125m")] + [
+    ("qwen1.5-0.5b", 4096), ("mixtral-8x7b", 4096), ("whisper-tiny", 4096)]
+# a card step against the CPU step from one state (f32): the loss, and
+# every updated parameter relative to the largest |parameter|
+STEP_LOSS_TOL, STEP_PARAM_TOL = 1e-5, 1e-4
+# the backward kernel against its plain version on the same out and lse,
+# max |err| / max |plain| of each gradient: f32, the same arithmetic
+# summed in other orders; bf16, dq, dk and dv rounded once to 8 bits (2^-8
+# of the largest where the two f32 sums straddle a rounding boundary) and
+# p and ds rounded to 8 bits where their f32 values straddle one.  bf16
+# main shapes also: the kernel's distance from the f32 gradient of the
+# same inputs at most BWD_VS_F32 times the plain version's
+BWD_F32_TOL, BWD_BF16_TOL, BWD_VS_F32 = 1e-5, 1e-2, 2.0
+LSE_TOL = 2e-5            # forward lse vs plain, x max(1, |lse|)
+BWD_MAIN = {((2, 4096, 16, 64), 0, "bfloat16"):
+            "qwen1.5-0.5b's training microbatch",
+            ((1, 8192, 32, 128), 4096, "bfloat16"): "mixtral-8x7b layers",
+            ((1, 8192, 16, 256), 0, "bfloat16"): "gemma3-12b global layers",
+            ((1, 8192, 16, 256), 1024, "bfloat16"):
+            "gemma3-12b local layers",
+            ((1, 4096, 6, 64), 0, "bfloat16"): "whisper-tiny decoder",
+            ((1, 2048, 4, 128), 0, "float32"): "an f32 shape"}
+BWD_RECORD = ((2, 4096, 16, 64), 0, "bfloat16")   # the kernels line's
+
+
+def flash_bwd_bound(B, S, H, hd, W, dtype: str):
+    """The least time of one backward: 5 products of 2 hd operations a
+    pair under the mask at the tensor-core bf16 (or f32) peak, against
+    q, k, v, out and dout read, dq, dk and dv written and lse read once."""
+    size, peak = (2, PEAK_BF16_PER_S) if dtype == "bfloat16" else \
+        (4, PEAK_F32_PER_S)
+    n_ops = 5 * 2 * hd * B * H * flash_pairs(S, W)
+    n_bytes = 8 * B * S * H * hd * size + B * H * S * 4
+    return bound_ms(n_bytes, n_ops, peak)
+
+
+def _bwd_errs(got, want):
+    return [float((g.float() - w.float()).abs().max() /
+                  w.float().abs().max()) for g, w in zip(got, want)]
+
+
+def check_flash_bwd(torch):
+    """``flash_attention_bwd`` against its plain version, on the forward
+    kernel's own out and lse (the forward's lse held to the plain
+    version's first): at the training shapes of the architectures in
+    bf16 (qwen's microbatch, mixtral's windowed, gemma3's global and local
+    layers at hd 256, whisper's decoder) and one f32 shape, and at ragged
+    shapes in both types (S and T off the tiles, S > T, non-causal, head
+    dims 16 to 256, windows of 2, 64 and 100; a window of 1 leaves each
+    row its own key alone, so ds is 0 up to rounding and dq and dk are
+    noise); every case called twice, bitwise
+    equal; each main shape timed by CUDA events beside the plain version,
+    SDPA's backward (``is_causal``, or the window's boolean mask; the
+    backward alone) and its bound, with the device time of its three
+    kernels.  Returns the record of qwen's shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    cases = [(shape, shape[1], True, w, dt) for shape, w, dt in BWD_MAIN]
+    for dt in ("bfloat16", "float32"):
+        cases += [((2, 1000, 3, 64), 1037, True, 0, dt),
+                  ((1, 300, 2, 64), 77, True, 0, dt),
+                  ((1, 130, 4, 64), 130, False, 0, dt),
+                  ((1, 257, 2, 16), 257, True, 2, dt),
+                  ((1, 300, 2, 32), 300, True, 64, dt),
+                  ((1, 1000, 2, 128), 1037, True, 100, dt),
+                  ((1, 500, 2, 256), 500, True, 0, dt),
+                  ((1, 130, 2, 256), 130, False, 0, dt)]
+    max_err, errs, recs = 0.0, [], {}
+    for (b, s, h, d), t, causal, w, name in cases:
+        dt = getattr(torch, name)
+        q, dout = (torch.randn((b, s, h, d), generator=gen, device=dev)
+                   .to(dt) for _ in range(2))
+        k, v = (torch.randn((b, t, h, d), generator=gen, device=dev).to(dt)
+                for _ in range(2))
+        kw = dict(causal=causal, window=w)
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        _, want_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
+        lse_err = float(((lse - want_lse).abs() /
+                         want_lse.abs().clamp_min(1.0)).max())
+        got = fa.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+        again = fa.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+        want = ref.flash_attention_bwd_ref(q, k, v, out, dout, lse, **kw)
+        rel = _bwd_errs(got, want)
+        tol = BWD_BF16_TOL if dt == torch.bfloat16 else BWD_F32_TOL
+        what = (f"({b},{s},{h},{d})xT={t}{'' if causal else ' nc'}"
+                f"{f' W={w}' if w else ''} {name}")
+        check(all(g.dtype == dt and bool(torch.isfinite(g).all())
+                  for g in got), f"flash_attention_bwd: {what}: not finite")
+        check(lse_err <= LSE_TOL, f"flash_attention lse: {what}: "
+              f"{lse_err:.3g} > {LSE_TOL}")
+        check(max(rel) <= tol, f"flash_attention_bwd: {what}: dq, dk, dv "
+              f"max |err| / max |plain| {rel} > {tol} (earlier cases: "
+              f"{'; '.join(errs)})")
+        check(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
+              f"flash_attention_bwd: {what}: two calls differ")
+        note = ""
+        if ((b, s, h, d), w, name) in BWD_MAIN and dt == torch.bfloat16:
+            f32 = [x.float() for x in (q, k, v, dout)]
+            out32, lse32 = ref.flash_attention_fwd_ref(*f32[:3], **kw)
+            exact = ref.flash_attention_bwd_ref(*f32[:3], out32, f32[3],
+                                                lse32, **kw)
+            k_err, p_err = _bwd_errs(got, exact), _bwd_errs(want, exact)
+            del f32, out32, exact
+            check(all(a <= BWD_VS_F32 * b_ for a, b_ in zip(k_err, p_err)),
+                  f"flash_attention_bwd: {what}: distance from the f32 "
+                  f"gradient {k_err} > {BWD_VS_F32} x the plain version's "
+                  f"{p_err}")
+            note = (f", from the f32 gradient {max(k_err):.3g} (plain "
+                    f"{max(p_err):.3g})")
+        max_err = max(max_err, max(float((g.float() - w_.float()).abs()
+                                         .max()) for g, w_ in zip(got, want)))
+        errs.append(f"{what} {max(rel):.3g}{note}")
+        if ((b, s, h, d), w, name) in BWD_MAIN:
+            recs[(b, s, h, d), w, name] = (q, k, v, out, dout, lse)
+        del q, k, v, dout, out, lse, got, again, want
+    print(f"flash_attention_bwd: dq, dk, dv max |err| / max |plain| (limit "
+          f"f32 {BWD_F32_TOL}, bf16 {BWD_BF16_TOL}; bf16 main shapes also "
+          f"at most {BWD_VS_F32} x the plain version's distance from the "
+          f"f32 gradient), the forward's lse within {LSE_TOL}, two calls "
+          f"bitwise equal, {len(errs)} cases: {'; '.join(errs)}",
+          flush=True)
+    torch.cuda.empty_cache()
+    record = None
+    for key, what in BWD_MAIN.items():
+        (b, s, h, d), w, name = key
+        q, k, v, out, dout, lse = recs.pop(key)
+        kw = dict(causal=True, window=w)
+        ms = time_ms(torch, lambda: fa.flash_attention_bwd(
+            q, k, v, out, dout, lse, **kw))
+        prof = device_profile(torch, lambda: fa.flash_attention_bwd(
+            q, k, v, out, dout, lse, **kw), n=5)
+        dev_ms, seen, made = prof.kernel("flash_attention_bwd")
+        parts = {e: sum(t for key_, (t, _) in prof.events.items()
+                        if e in key_) / max(seen, 1) for e in BWD_EVENTS}
+        plain = time_ms(torch, lambda: ref.flash_attention_bwd_ref(
+            q, k, v, out, dout, lse, **kw), reps=2, warmup=1)
+        torch.cuda.empty_cache()
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        if w:
+            i = torch.arange(s, device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+            o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+            lib_what = "SDPA backward with the window's boolean mask"
+        else:
+            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            lib_what = "SDPA backward is_causal"
+        g = dout.transpose(1, 2)
+        lib = time_ms(torch, lambda: torch.autograd.grad(
+            o, (qt, kt, vt), g, retain_graph=True))
+        del o, qt, kt, vt, g
+        bms, by = flash_bwd_bound(b, s, h, d, w, name)
+        print(f"flash_attention_bwd {(b, s, h, d)}{f' W={w}' if w else ''} "
+              f"causal {name} ({what}): kernel {ms:.4f} ms by CUDA events "
+              f"({dev_ms:.4f} ms of device time a call by the profiler, "
+              f"{seen} of {made} calls seen: "
+              + ", ".join(f"{e} {t:.4f}" for e, t in parts.items())
+              + f" ms); plain {plain:.4f} ms; {lib_what} {lib:.4f} ms; "
+              f"bound {bms:.5f} ms ({by}; {flash_pairs(s, w) * b * h} pairs "
+              f"under the mask)", flush=True)
+        if key == BWD_RECORD:
+            record = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                          library_ms=lib)
+        del q, k, v, out, dout, lse
+        torch.cuda.empty_cache()
+    return dict(name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                replaces="src/repro/models/attention.py:175 (_mha_bwd_rule;"
+                " no Pallas kernel)", max_abs_err=max_err, **record)
+
+
+def _timed_steps(torch, train_mod, step_ms: list):
+    """``train_mod.make_train_step`` wrapped so that each step's wall time
+    (host clock around a synchronize) lands in ``step_ms``."""
+    real = train_mod.make_train_step
+
+    def builder(*args, **kw):
+        fn = real(*args, **kw)
+
+        def call(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn(*a)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            return res
+        call.microbatches = fn.microbatches
+        return call
+    return mock.patch.object(train_mod, "make_train_step", builder)
+
+
+def run_trainer(torch, ckpt_dir: str):
+    """``launch.train.train`` on qwen1.5-0.5b at full width and depth (24
+    layers, d 1024, vocab 151,936): batch 4 x 4096 tokens, which
+    ``pick_microbatches`` cuts into 2 microbatches of (2, 4096), for 8
+    steps of the Markov stream from random weights (AdamW at lr
+    ``TRAIN_LR`` from the first step), with the launch counts reset just
+    before and read just after: the loss by step, starting at about
+    ln(vocab), and the loss of a held-out batch at the initial weights
+    (the same seed's init) and after the 8 steps, which must fall; ms a
+    step, tokens/s, peak memory, the flash launches a step (forward 24
+    layers x 2 microbatches x 2, the period recomputed in the backward;
+    backward 24 x 2); then one profiled step.  Returns (the launch counts,
+    the parameter count)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.largevis import seeded_generator
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import pick_microbatches
+    from repro_torch.models import lm
+    from repro_torch.models.factory import make_model
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = get_config(TRAIN_ARCH)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+    held = token_batch(1, TRAIN_EVAL_BATCH, 2, TRAIN_SEQ, cfg.vocab_size,
+                       device="cuda")
+
+    def held_loss(params):
+        with torch.no_grad():
+            return float(lm.lm_loss(params, cfg, held["tokens"],
+                                    held["labels"], remat=False))
+
+    free_card(torch)
+    init = make_model(cfg)["init"](seeded_generator(torch.device("cuda"), 0))
+    before = held_loss(init)
+    del init
+    free_card(torch)
+    step_ms = []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _timed_steps(torch, train_mod, step_ms):
+        params, opt, losses = train_mod.train(
+            TRAIN_ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            reduced=False, microbatches=0, ckpt_dir=ckpt_dir, resume=False,
+            log_every=1, opt_cfg=opt_cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    after = held_loss(params)
+    loss = [x for _, x in losses]
+    n_micro = pick_microbatches(ShapeConfig("c", "train", TRAIN_SEQ,
+                                            TRAIN_BATCH))
+    per_step = {"flash_attention": cfg.n_layers * n_micro * 2,
+                "flash_attention_bwd": cfg.n_layers * n_micro}
+    steady = step_ms[1:]
+    ms = sum(steady) / len(steady)
+    by_step = [round(x, 1) for x in step_ms]
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"train: {TRAIN_ARCH} at full width and depth ({n_params / 1e6:.1f}"
+          f"M parameters, f32 master weights, bf16 compute), batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {n_micro} microbatches, "
+          f"{TRAIN_STEPS} steps of the Markov stream (AdamW lr {TRAIN_LR}, "
+          f"warmup {TRAIN_WARMUP}) in {wall:.1f} s: loss by step "
+          f"{[round(x, 4) for x in loss]} (ln vocab "
+          f"{math.log(cfg.vocab_size):.4f}); a held-out batch's loss "
+          f"{before:.5f} at the initial weights, {after:.5f} after; step ms "
+          f"{by_step}, {ms:.1f} ms a step after the first, "
+          f"{TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} tokens/s; peak "
+          f"{peak:.2f} GiB; launches {counts} ({per_step} a step expected)",
+          flush=True)
+    check(len(loss) == TRAIN_STEPS and all(math.isfinite(x) for x in loss),
+          f"train: losses {loss}")
+    check(abs(loss[0] - math.log(cfg.vocab_size)) < 1.0,
+          f"train: first loss {loss[0]}, not about ln(vocab)")
+    check(after < before, f"train: the held-out loss did not fall: "
+          f"{before} -> {after}")
+    for name, n in per_step.items():
+        check(counts[name] == n * TRAIN_STEPS, f"train: {name} launched "
+              f"{counts[name]} times, expected {n} x {TRAIN_STEPS}")
+    step_fn = train_mod.make_train_step(
+        cfg, ShapeConfig("c", "train", TRAIN_SEQ, TRAIN_BATCH),
+        opt_cfg=opt_cfg, microbatches=0)
+    batch = token_batch(1, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+                        cfg.vocab_size, device="cuda")
+    prof = device_profile(torch, lambda: step_fn(params, opt, batch), n=1)
+    attn_ms = sum(ms * seen for ms, seen, _ in (
+        prof.kernel(k) for k in ("flash_attention", "flash_attention_bwd")))
+    print(f"  profiled train step: {busy_line(prof, top=8)}; the flash "
+          f"kernels {attn_ms:.3f} ms of it", flush=True)
+    del params, opt, step_fn, batch
+    free_card(torch)
+    return counts, n_params
+
+
+def run_resume(torch, ckpt_root: str, full_params: int) -> dict:
+    """JAX's ``test_restart_bit_identical`` on the card, at full width and
+    ``RESUME_LAYERS`` layers (a printed cut): an 8-step run against a
+    5-step run resumed to 8, both saving every 4 steps; the resumed run
+    restarts at step 4 and its losses from there are bitwise the
+    uninterrupted run's.  Returns the launch counts of the three runs."""
+    from repro_torch.checkpoint import checkpointer as ck
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim.adamw import AdamWConfig
+
+    full = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=RESUME_LAYERS)
+    print(f"cut: the resume check at {RESUME_LAYERS} of {full.n_layers} "
+          f"layers (full width; a full-depth train state, parameters and "
+          f"two moments in f32, is {12 * full_params / 1e9:.2f} GB a "
+          "checkpoint)", flush=True)
+
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+
+    def run(steps, d, resume):
+        return dict(train_mod.train(
+            TRAIN_ARCH, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            reduced=False, microbatches=0, ckpt_dir=d,
+            save_every=RESUME_EVERY, resume=resume, log_every=10**6,
+            opt_cfg=opt_cfg)[2])
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(train_mod, "get_config", lambda name: cfg):
+        ref = run(TRAIN_STEPS, os.path.join(ckpt_root, "ref"), False)
+        d = os.path.join(ckpt_root, "int")
+        run(RESUME_CUT, d, False)
+        resumed = run(TRAIN_STEPS, d, True)
+    counts = ops.launch_counts()
+    after = list(range(RESUME_EVERY, TRAIN_STEPS))
+    same = all(resumed.get(s) == ref[s] for s in after)
+    got, want = [resumed.get(s) for s in after], [ref[s] for s in after]
+    print(f"resume: {TRAIN_ARCH} at {RESUME_LAYERS} layers, {TRAIN_STEPS} "
+          f"steps against {RESUME_CUT} resumed to {TRAIN_STEPS} (saves every "
+          f"{RESUME_EVERY}) in {time.perf_counter() - t0:.1f} s: resumed "
+          f"steps {sorted(resumed)}, losses {got} against {want}: "
+          f"{'bitwise equal' if same else 'DIFFER'}; checkpoints "
+          f"{ck.all_steps(d)}", flush=True)
+    check(sorted(resumed) == after, f"resume: ran steps {sorted(resumed)}")
+    check(all(resumed[s] == ref[s] for s in after),
+          "resume: the resumed losses are not bitwise the uninterrupted "
+          "run's")
+    free_card(torch)
+    return counts
+
+
+def run_arch_steps(torch) -> dict:
+    """Every architecture at ``cfg.reduced()`` (f32): one ``make_train_step``
+    step on the card against the same step on the CPU (the plain versions)
+    from one state, routers scaled by 100 (stable top-2 membership, as the
+    CPU tests hold MoE), at the lengths of ``ARCH_CASES`` (S 4096 through
+    the f32 flash kernels); the loss within ``STEP_LOSS_TOL`` relative, every updated
+    parameter within ``STEP_PARAM_TOL`` of the largest |parameter|; a
+    second card step from the same state bitwise the first.  Returns the
+    launch counts of the card steps."""
+    import numpy as np
+
+    from repro_torch.configs import ARCH_NAMES, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.core.largevis import seeded_generator
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.factory import make_model
+    from repro_torch.optim.adamw import adamw_init
+
+    total, lines = {}, []
+    t0 = time.perf_counter()
+    check({n for n, _ in ARCH_CASES} == set(ARCH_NAMES),
+          "ARCH_CASES must hold every architecture")
+    for name, S in ARCH_CASES:
+        cfg = get_config(name).reduced()
+        init = make_model(cfg)["init"](seeded_generator("cpu", 3))
+        tree = lm_params_to_numpy(init, cfg)
+        del init
+
+        def routers(t):
+            return {k: (v * np.float32(100) if k == "router" else
+                        routers(v) if isinstance(v, dict) else v)
+                    for k, v in t.items()}
+        tree = routers(tree)
+        batch = token_batch(7, 0, ARCH_BATCH, S, cfg.vocab_size)
+        if cfg.is_encoder_decoder:
+            batch["encoder_frames"] = torch.from_numpy(
+                np.random.default_rng(8).standard_normal(
+                    (ARCH_BATCH, cfg.enc_positions, cfg.d_model))
+                .astype(np.float32))
+        step = make_train_step(cfg, ShapeConfig("c", "train", S,
+                                                ARCH_BATCH), microbatches=1)
+
+        def run(device):
+            p = lm_params_from_numpy(tree, cfg, device)
+            b = {k: v.to(device) for k, v in batch.items()}
+            p, _, loss = step(p, adamw_init(p), b)
+            return lm_params_to_numpy(p, cfg), float(loss)
+
+        before = ops.launch_counts()
+        got, loss = run("cuda")
+        total = _add_counts(total, {k: c - before[k] for k, c in
+                                    ops.launch_counts().items()})
+        again, loss2 = run("cuda")
+        want, want_loss = run("cpu")
+
+        def flat(t):
+            return [x for v in t.values() for x in (
+                flat(v) if isinstance(v, dict) else [v])]
+        scale = max(float(np.abs(x).max()) for x in flat(want))
+        p_err = max(float(np.abs(a - b).max()) for a, b in
+                    zip(flat(got), flat(want))) / scale
+        l_err = abs(loss - want_loss) / abs(want_loss)
+        same = loss2 == loss and all(np.array_equal(a, b) for a, b in
+                                     zip(flat(again), flat(got)))
+        lines.append(f"{name} S={S} loss {loss:.6f} (cpu {want_loss:.6f}, "
+                     f"rel {l_err:.2g}) params {p_err:.2g}"
+                     f"{'' if same else ' NOT BITWISE'}")
+        check(l_err <= STEP_LOSS_TOL and p_err <= STEP_PARAM_TOL,
+              f"train step {name}: card vs CPU loss rel {l_err}, parameters "
+              f"{p_err} of max |param|")
+        check(same, f"train step {name}: two card steps from one state "
+              "differ")
+    print(f"train steps, reduced f32, card vs CPU from one state (loss tol "
+          f"{STEP_LOSS_TOL} relative, parameters {STEP_PARAM_TOL} of max "
+          f"|param|; two card steps bitwise) in {time.perf_counter() - t0:.1f}"
+          f" s: {'; '.join(lines)}; launches {total}", flush=True)
+    free_card(torch)
+    return total
+
+
+def run_training(torch) -> tuple[dict, dict]:
+    """The LM training phase (the serving phases' state released first):
+    the backward kernel's checks, the full-width trainer, the resume check
+    and every architecture's step.  Returns (the backward kernel's record,
+    the launch counts of the training paths)."""
+    free_card(torch)
+    t0 = time.perf_counter()
+    record = check_flash_bwd(torch)
+    print(f"flash backward checks: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    free_card(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        counts, n_params = run_trainer(torch, os.path.join(tmp, "main"))
+        print(f"trainer: {time.perf_counter() - t1:.1f} s", flush=True)
+        counts = _add_counts(counts, run_resume(torch, tmp, n_params))
+    counts = _add_counts(counts, run_arch_steps(torch))
+    record["launches"] = counts["flash_attention_bwd"]
+    print(f"training phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return record, counts
+
+
+# ---------------------------------------------------------------------------
 # the tree forest, the tuner and the baselines
 # ---------------------------------------------------------------------------
 
@@ -3783,7 +4283,7 @@ def main() -> None:
     dev = resolve_device("cuda")           # also switches TF32 off
     t0 = time.perf_counter()
     reports = _build.build("knn_topk", "largevis_step", "largevis_grad",
-                           "flash_attention")
+                           "flash_attention", "flash_attention_bwd")
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(sorted(reports)) or 'cached'})", flush=True)
     for name, rep in sorted(reports.items()):
@@ -3866,7 +4366,9 @@ def main() -> None:
     flash["launches"] += run_jamba(torch)
     flash["launches"] += run_xlstm(torch)
     flash["launches"] += run_whisper(torch)
-    kernels.append(flash)
+    bwd, train_counts = run_training(torch)
+    flash["launches"] += train_counts["flash_attention"]
+    kernels += [flash, bwd]
 
     import torch.distributed as dist
     dist.destroy_process_group()         # the distributed fit's world of one

@@ -11,7 +11,8 @@ Contract (``tests/test_torch_checkpoint.py``):
   * save is atomic: a checkpoint without ``_COMMITTED`` is ignored on
     restore, so a process killed mid-save never corrupts a run;
   * ``restore`` gives the saved leaves bit for bit, as numpy arrays (the
-    caller puts them on its device);
+    caller puts them on its device), or cast to the leaves of ``like``
+    (dtype, and device for a tensor) after its structure is checked;
   * corruption detection: every shard file's CRC32 is recorded in
     ``meta.json``; a committed but damaged checkpoint fails verification
     and ``restore()`` falls back to the newest older checkpoint that loads
@@ -146,6 +147,32 @@ def all_steps(ckpt_dir) -> list:
     return sorted(out)
 
 
+def latest_step(ckpt_dir) -> Optional[int]:
+    """The newest committed step in ``ckpt_dir``, or None."""
+    steps = all_steps(ckpt_dir)
+    return steps[-1] if steps else None
+
+
+def _like(like, got, where=()):
+    """``got`` (numpy leaves) in the structure of ``like``: the same keys
+    at every level, each leaf cast to the like leaf's dtype, and a tensor
+    leaf's device (a numpy like leaf stays numpy)."""
+    if isinstance(like, dict):
+        if not isinstance(got, dict) or sorted(like) != sorted(got):
+            at = "/".join(where) or "<root>"
+            have = sorted(got) if isinstance(got, dict) else "a leaf"
+            raise ValueError(f"restore(like=): the checkpoint has {have} "
+                             f"at {at}, like has {sorted(like)}")
+        return {k: _like(like[k], got[k], where + (k,)) for k in like}
+    if isinstance(got, dict):
+        raise ValueError(f"restore(like=): a dict at {'/'.join(where)} "
+                         "where like has a leaf")
+    if torch.is_tensor(like):
+        return torch.from_numpy(np.array(got)).to(device=like.device,
+                                                  dtype=like.dtype)
+    return np.asarray(got).astype(np.asarray(like).dtype)
+
+
 def _load_step(path: pathlib.Path, *, expect_schema: Optional[str] = None):
     """Load + verify one committed checkpoint directory.
 
@@ -188,10 +215,12 @@ def _load_step(path: pathlib.Path, *, expect_schema: Optional[str] = None):
     return treedef.unflatten(bytes.fromhex(meta["treedef"]), leaves), meta
 
 
-def restore(ckpt_dir, step: Optional[int] = None, *,
+def restore(ckpt_dir, step: Optional[int] = None, *, like=None,
             expect_schema: Optional[str] = None,
             return_meta: bool = False, validate=None):
-    """Load a checkpoint; the leaves are numpy arrays.
+    """Load a checkpoint; the leaves are numpy arrays, or with ``like`` (a
+    tree of arrays or tensors of the same structure, which is checked)
+    cast to each like leaf's dtype and, for a tensor, its device.
 
     ``step=None`` loads the NEWEST committed checkpoint that passes
     verification — a committed-but-corrupt directory (CRC mismatch,
@@ -240,6 +269,8 @@ def restore(ckpt_dir, step: Optional[int] = None, *,
         raise CheckpointCorruptError(
             f"every committed checkpoint in {ckpt_dir} failed verification "
             f"(last error: {last_err})")
+    if like is not None:
+        tree = _like(like, tree)
     if return_meta:
         return tree, meta["step"], meta
     return tree, meta["step"]

@@ -1,9 +1,10 @@
 """Architecture configuration of the LM substrate.
 
 ``ArchConfig`` carries the JAX package's fields, names and defaults
-(``repro/configs/base.py``), with ``dtype`` a torch dtype.  The shape
-cells, ``input_specs`` and ``cell_applicable`` belong to the multi-pod
-dry-run, which the port does not have.
+(``repro/configs/base.py``), with ``dtype`` a torch dtype;
+``ShapeConfig`` names a step's shape (the trainer's batch and sequence).
+The shape cells, ``input_specs`` and ``cell_applicable`` belong to the
+multi-pod dry-run, which the port does not have.
 """
 from __future__ import annotations
 
@@ -105,3 +106,11 @@ class ArchConfig:
             else 0,
             dtype=torch.float32,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int

@@ -128,3 +128,28 @@ def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     return np.stack(trees)
+
+
+def opt_state_to_numpy(state: dict, cfg) -> dict:
+    """The JAX package's AdamW state ``{"m", "v", "step"}`` (numpy
+    leaves) of the port's."""
+    return {"m": lm_params_to_numpy(state["m"], cfg),
+            "v": lm_params_to_numpy(state["v"], cfg),
+            "step": np.asarray(_np(state["step"]), dtype=np.int32)}
+
+
+def opt_state_from_numpy(tree: dict, cfg, device="cuda") -> dict:
+    """The port's AdamW state from the JAX package's (numpy leaves): the
+    moments frozen f32 module trees, ``step`` an int32 0-d tensor."""
+    dev = resolve_device(device)
+    return {"m": lm_params_from_numpy(tree["m"], cfg, dev),
+            "v": lm_params_from_numpy(tree["v"], cfg, dev),
+            "step": torch.tensor(int(np.asarray(tree["step"])),
+                                 dtype=torch.int32, device=dev)}
+
+
+def train_state_to_numpy(params, opt_state: dict, cfg) -> dict:
+    """The trainer's checkpoint tree, the JAX trainer's: ``{"params":
+    <JAX layout>, "opt": {"m", "v", "step"}}`` with numpy leaves."""
+    return {"params": lm_params_to_numpy(params, cfg),
+            "opt": opt_state_to_numpy(opt_state, cfg)}

@@ -14,7 +14,10 @@
 // the input type.
 // A masked score is NEG_INF = -1e30 and the denominator is floored at
 // 1e-30, as there.  On the LM serving path this is the prefill attention
-// of prompts longer than 2048 tokens (models/attention.py mha_chunked).
+// of prompts longer than 2048 tokens (models/attention.py mha_chunked); in
+// training it is the forward of attention.FlashAttention, and then also
+// writes each row's log-sum-exp, lse = m scale + log(l) in (B, H, S) f32,
+// the backward kernel's input (csrc/flash_attention_bwd.cu).
 //
 // Bound: the bf16 tensor-core rate.  At (1, 4096, 16, 64) causal the call
 // does 4*B*H*D*S(S+1)/2 = 34.4 GFLOP on 16.8 MB of q, k, v and out:
@@ -129,8 +132,9 @@ constexpr int smem_floats() {
 template <int D>
 __global__ void __launch_bounds__(NT) flash_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ out, int S, int Tk,
-    int H, float scale, int causal, int window) {
+    const float* __restrict__ v, float* __restrict__ out,
+    float* __restrict__ lse, int S, int Tk, int H, float scale, int causal,
+    int window) {
   constexpr int DJ = D / 16;                   // output columns a thread
   extern __shared__ float smem[];
   float* Qs = smem;                            // BQ x (D + 1)
@@ -243,13 +247,16 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
     float* o = out + ((size_t)b * S + s) * pitch + (size_t)h * D;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) o[tx + 16 * j] = acc[i][j] / den;
+    // m and l are the row's own across the 16 threads of its group
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * H + h) * S + s] = m[i] + logf(den);
   }
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int S, int Tk, int H, float scale, int causal,
-                   int window, cudaStream_t st) {
+                   float* lse, int B, int S, int Tk, int H, float scale,
+                   int causal, int window, cudaStream_t st) {
   // above 48 KB from D = 64 on: opted into here, and a launch it does not
   // cover is refused (cudaGetLastError below), never run
   const int bytes = smem_floats<D>() * (int)sizeof(float);
@@ -259,8 +266,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, B * H);
   kern<<<grid, NT, bytes, st>>>((const float*)q, (const float*)k,
-                                (const float*)v, (float*)out, S, Tk, H,
-                                scale, causal, window);
+                                (const float*)v, (float*)out, lse, S, Tk,
+                                H, scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -564,8 +571,8 @@ __global__ void __launch_bounds__(Tiles<D>::NT, 1) flash_attention_wgmma(
     const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
-    int S, int Tk, int H, int BH, int nq, float scale_log2, int causal,
-    int window) {
+    float* __restrict__ lse, int S, int Tk, int H, int BH, int nq,
+    float scale, float scale_log2, int causal, int window) {
   using Tl = Tiles<D>;
   constexpr int BK = Tl::BK, SW = Tl::SW;
   constexpr int KVBYTES = Tl::KVBYTES, KVSLAB = Tl::KVSLAB;
@@ -739,6 +746,9 @@ __global__ void __launch_bounds__(Tiles<D>::NT, 1) flash_attention_wgmma(
       den = fmaxf(den, 1e-30f);
       const int row = r + 8 * x;
       if (row >= S) continue;
+      // m is the row's raw max, reduced across the quad at every tile
+      if (lse != nullptr && t == 0)
+        lse[((size_t)b * H + h) * S + row] = m[x] * scale + logf(den);
       __nv_bfloat16* dst = out + (((size_t)b * S + row) * H + h) * D + 2 * t;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
@@ -782,8 +792,8 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int L, int H,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int S, int Tk, int H, float scale, int causal,
-                   int window, cudaStream_t st) {
+                   float* lse, int B, int S, int Tk, int H, float scale,
+                   int causal, int window, cudaStream_t st) {
   CUtensorMap mq, mk, mv;
   constexpr int BK = Tiles<D>::BK;
   if (!make_map<D>(&mq, q, B, S, H, BQ) || !make_map<D>(&mk, k, B, Tk, H, BK)
@@ -808,7 +818,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       return cudaErrorInvalidConfiguration;
   }
   kern<<<(unsigned)blocks, Tiles<D>::NT, bytes, st>>>(
-      mq, mk, mv, (__nv_bfloat16*)out, S, Tk, H, B * H, nq,
+      mq, mk, mv, (__nv_bfloat16*)out, lse, S, Tk, H, B * H, nq, scale,
       scale * 1.4426950408889634f, causal, window);
   return cudaGetLastError();
 }
@@ -817,22 +827,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // q (B, S, H, D), k and v (B, T, H, D), out (B, S, H, D), all contiguous
-// and of one type: bf16 when is_bf16, else f32.  D is 16, 32, 64, 128 or
+// and of one type: bf16 when is_bf16, else f32.  lse, when not null, is
+// (B, H, S) f32 and takes each row's log-sum-exp of its scaled scores,
+// m + log(l) (the backward's input, models/attention.py's _chunk_fwd);
+// the serving path passes null and writes nothing there.  D is 16, 32, 64, 128 or
 // 256; window >= 0, and > 0 only with causal and S <= T (every row keeps
 // its own key).  bf16: 16-byte aligned pointers, ceil(S / 128) * B * H at
 // most INT_MAX blocks; f32: B * H at most 65535 (grid.y).  The launcher
 // checks all of it.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int S,
-                                      int T, int H, int D, int is_bf16,
-                                      int causal, int window, float scale,
-                                      void* stream) {
+                                      const void* v, void* out, float* lse,
+                                      int B, int S, int T, int H, int D,
+                                      int is_bf16, int causal, int window,
+                                      float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define LAUNCH(D_)                                                        \
-  return is_bf16 ? wg::launch<D_>(q, k, v, out, B, S, T, H, scale, causal, \
-                                  window, st)                             \
-                 : fma::launch<D_>(q, k, v, out, B, S, T, H, scale, causal, \
-                                   window, st)
+#define LAUNCH(D_)                                                         \
+  return is_bf16 ? wg::launch<D_>(q, k, v, out, lse, B, S, T, H, scale,    \
+                                  causal, window, st)                      \
+                 : fma::launch<D_>(q, k, v, out, lse, B, S, T, H, scale,   \
+                                   causal, window, st)
   switch (D) {
     case 16: LAUNCH(16);
     case 32: LAUNCH(32);

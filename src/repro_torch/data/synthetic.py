@@ -1,9 +1,11 @@
 """Synthetic datasets for tests and the smoke run: clustered high-dim data
 with labels, drawn from a numpy ``Generator`` (the JAX package draws the
-same shapes from threefry keys; the two streams differ)."""
+same shapes from threefry keys; the two streams differ), and the
+trainer's Markov token stream, drawn by torch generators."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def gaussian_mixture(seed, n: int, d: int, n_clusters: int,
@@ -54,3 +56,50 @@ def mnist_like(seed, n: int = 4096, d: int = 784, n_classes: int = 10):
     x = templates[labels] + np.einsum("nk,nkd->nd", coeff, basis[labels])
     x = x + 0.3 * rng.standard_normal((n, d))
     return x.astype(np.float32), labels.astype(np.int64)
+
+
+def _generator(*seed: int) -> torch.Generator:
+    """A CPU generator seeded from the tuple ``seed`` (numpy's
+    ``SeedSequence`` mixes it into one 63-bit seed)."""
+    state = np.random.SeedSequence(list(seed)).generate_state(2, np.uint32)
+    return torch.Generator().manual_seed(
+        int(state[0]) << 31 | int(state[1]) >> 1)
+
+
+def token_batch(seed: int, i: int, batch: int, seq: int, vocab: int,
+                markov: float = 0.9, device="cpu") -> dict:
+    """Batch ``i`` of :func:`token_stream`, which depends only on (seed,
+    i): ``{"tokens": (batch, seq), "labels": (batch, seq)}`` int64 on
+    ``device``, the labels the tokens shifted by one."""
+    g = _generator(seed, i)
+    if markov <= 0:
+        toks = torch.randint(0, vocab, (batch, seq + 1), generator=g)
+    else:
+        perm = torch.randperm(vocab, generator=_generator(seed, 10**6))
+        start = torch.randint(0, vocab, (batch,), generator=g)
+        noise = torch.randint(0, vocab, (batch, seq), generator=g)
+        use_noise = torch.rand((batch, seq), generator=g) > markov
+        # the chain in numpy: a step is a few element operations
+        perm, noise, use_noise = perm.numpy(), noise.numpy(), use_noise.numpy()
+        out = np.empty((batch, seq + 1), dtype=np.int64)
+        out[:, 0] = prev = start.numpy()
+        for t in range(seq):
+            prev = np.where(use_noise[:, t], noise[:, t], perm[prev])
+            out[:, t + 1] = prev
+        toks = torch.from_numpy(out)
+    toks = toks.to(device)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def token_stream(seed: int, n_batches: int, batch: int, seq: int,
+                 vocab: int, markov: float = 0.9, device="cpu"):
+    """Deterministic synthetic token batches with learnable structure,
+    the JAX package's ``token_stream``: a fixed permutation of the vocab,
+    and ``next = perm[prev]`` with probability ``markov``, else uniform,
+    so the cross-entropy floor ~= H(markov) << ln(vocab) and a training
+    loss visibly drops; ``markov=0`` gives uniform tokens.  Batch i
+    depends only on (seed, i) (:func:`token_batch`), so a resumed run
+    sees the batches it would have seen.  JAX's threefry draws are not
+    reproduced: the streams differ."""
+    for i in range(n_batches):
+        yield token_batch(seed, i, batch, seq, vocab, markov, device)

@@ -84,6 +84,27 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
 
 
+def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0):
+    """The training forward: (out, lse), lse (B, H, S) f32; see
+    ``ref.flash_attention_fwd_ref``.  On the card the forward kernel,
+    counted as ``flash_attention``."""
+    if _route(q):
+        return flash.flash_attention(q, k, v, causal=causal, window=window,
+                                     return_lse=True)
+    return ref.flash_attention_fwd_ref(q, k, v, causal=causal, window=window)
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
+                        window: int = 0):
+    """(dq, dk, dv) of the forward from its ``out`` and ``lse``; see
+    ``ref.flash_attention_bwd_ref``."""
+    if _route(q):
+        return flash.flash_attention_bwd(q, k, v, out, dout, lse,
+                                         causal=causal, window=window)
+    return ref.flash_attention_bwd_ref(q, k, v, out, dout, lse,
+                                       causal=causal, window=window)
+
+
 _LAUNCHERS = {
     "topk_sqdist": knn_topk.topk_sqdist,
     "fused_edge_step": largevis_step.fused_edge_step,
@@ -91,6 +112,7 @@ _LAUNCHERS = {
     "largevis_grads": largevis_grad.largevis_grads,
     "scatter_add_ordered": largevis_step.scatter_add_ordered,
     "flash_attention": flash.flash_attention,
+    "flash_attention_bwd": flash.flash_attention_bwd,
 }
 
 

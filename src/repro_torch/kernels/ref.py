@@ -301,6 +301,28 @@ def check_window(S: int, T: int, causal: bool, window: int) -> int:
     return window
 
 
+def _flash_scores(q, k, causal: bool, window: int):
+    """(B, H, S, T) f32 scores ``(q.k) * scale`` with the masked ones at
+    -1e30 (top-left causal, and the window's lookback)."""
+    S, T, hd = q.shape[1], k.shape[1], q.shape[3]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * \
+        (1.0 / math.sqrt(hd))
+    if causal:
+        s = s.masked_fill(~_flash_keep(S, T, window, q.device), FLASH_NEG_INF)
+    return s
+
+
+def _flash_keep(S: int, T: int, window: int, device, rows=None):
+    """The causal mask (rows ``rows`` of it, all S by default), the
+    window's band under ``window`` > 0: True where a key is kept."""
+    r = torch.arange(S, device=device) if rows is None else rows
+    kpos = torch.arange(T, device=device)[None, :]
+    keep = kpos <= r[:, None]
+    if window:
+        keep &= kpos > r[:, None] - window
+    return keep
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     """q (B, S, H, hd), k and v (B, T, H, hd), heads pre-broadcast.
 
@@ -313,14 +335,63 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     W``, the JAX package's ``_mask_bias`` on its sliding-window layers
     (``check_window`` gives the contract).  The output is cast to q's
     dtype."""
-    S, T, hd = q.shape[1], k.shape[1], q.shape[3]
-    window = check_window(S, T, causal, window)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * \
-        (1.0 / math.sqrt(hd))
-    if causal:
-        keep = torch.ones((S, T), dtype=torch.bool, device=q.device).tril()
-        if window:
-            keep = keep.triu(1 - window)
-        s = s.masked_fill(~keep, FLASH_NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    window = check_window(q.shape[1], k.shape[1], causal, window)
+    p = torch.softmax(_flash_scores(q, k, causal, window), dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_fwd_ref(q, k, v, *, causal: bool = True,
+                            window: int = 0):
+    """:func:`flash_attention_ref` and each row's log-sum-exp of its
+    scaled, masked scores, (B, H, S) f32: (out, lse), the training
+    forward's pair (the JAX package's ``_chunk_fwd`` returns ``m +
+    log(l)``)."""
+    window = check_window(q.shape[1], k.shape[1], causal, window)
+    s = _flash_scores(q, k, causal, window)
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1),
+                       v.float()).to(q.dtype)
+    return out, torch.logsumexp(s, dim=-1)
+
+
+def flash_attention_bwd_ref(q, k, v, out, dout, lse, *, causal: bool = True,
+                            window: int = 0, max_elems: int = 1 << 28):
+    """(dq, dk, dv) of :func:`flash_attention_ref`, in q's dtype: the
+    arithmetic of the JAX package's ``_mha_bwd_rule`` (the chunked
+    attention's flash backward), dense over the keys and by blocks of
+    query rows (``max_elems`` bounds a block's (B, H, rows, T) scores).
+
+    ``delta = rowsum(dout * out)`` in f32; ``s = (q.k) * scale`` from the
+    exact products summed in f32; ``p = exp(s - lse)``, 0 on a masked pair;
+    ``ds = p * (dout.v - delta) * scale``; under bf16 inputs p and ds are
+    rounded to bf16 before the products that take them, as the JAX rule
+    casts them (``p`` for dv, ``ds`` for dq and dk); dq, dk and dv sum in
+    f32 and are rounded once."""
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    window = check_window(S, T, causal, window)
+    dt = q.dtype
+    scale = 1.0 / math.sqrt(hd)
+    kf, vf = k.float(), v.float()
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)  # (B,H,S)
+    dq = torch.empty((B, S, H, hd), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, T, H, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    rows = max(1, min(S, max_elems // max(1, B * H * T)))
+    for r0 in range(0, S, rows):
+        r1 = min(S, r0 + rows)
+        qs, dos = q[:, r0:r1].float(), dout[:, r0:r1].float()
+        s = torch.einsum("bqhd,bkhd->bhqk", qs, kf) * scale
+        if causal:
+            keep = _flash_keep(S, T, window, q.device,
+                               torch.arange(r0, r1, device=q.device))
+            s = s.masked_fill(~keep, FLASH_NEG_INF)
+        p = torch.exp(s - lse[:, :, r0:r1, None])
+        dov = torch.einsum("bqhd,bkhd->bhqk", dos, vf)
+        ds = p * (dov - delta[:, :, r0:r1, None]) * scale
+        del s, dov
+        p, ds = p.to(dt).float(), ds.to(dt).float()
+        dq[:, r0:r1] = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+        dk += torch.einsum("bhqk,bqhd->bkhd", ds, qs)
+        dv += torch.einsum("bhqk,bqhd->bkhd", p, dos)
+        del p, ds
+    return dq.to(dt), dk.to(dt), dv.to(dt)

@@ -1,22 +1,26 @@
 """Attention: GQA, RoPE, sliding-window / local:global, QK-norm, KV cache
 — the JAX package's ``models/attention.py`` for serving.
 
-Two prefill paths, chosen by ``attend`` with the JAX package's rule:
-  * ``full``    — one einsum + masked softmax (short prompts);
-  * ``chunked`` — the forward flash kernel, ``ops.flash_attention``: the
-                  hand-written CUDA kernel on the card, its plain version
-                  on the CPU, with the sliding window in the kernel.  In
-                  the JAX package this path is the ``lax.scan`` flash
-                  algorithm (its Pallas kernel is the drop-in for the
-                  unwindowed case).
+Two paths for a whole sequence (prefill and the training forward),
+chosen by ``attend`` with the JAX package's rule:
+  * ``full``    — one einsum + masked softmax (short sequences); autograd
+                  differentiates it as it stands;
+  * ``chunked`` — the flash kernels, through ``ops``: the hand-written
+                  CUDA kernels on the card, their plain versions on the
+                  CPU, with the sliding window in the kernels.  In the JAX
+                  package this path is the ``lax.scan`` flash algorithm
+                  with its flash ``custom_vjp`` (its Pallas kernel is the
+                  forward's drop-in for the unwindowed case).  Under
+                  autograd it is :class:`FlashAttention`: the forward
+                  kernel also writes the rows' log-sum-exp, and the
+                  backward kernel recomputes the scores from it; without
+                  gradients (every serving call) the forward writes none.
 Decode is one new token against the filled cache, a plain softmax as in
 the JAX package: a global layer's cache is indexed by position, a local
 layer's by position mod W when it holds the window's W slots (the ring
 buffer ``attention_prefill`` leaves behind).  KV heads may be replicated
 (``kv_repeat``) and the cache stored in int8 with per-(token, head)
 scales (``kv_quant``); decode infers both from the cache it is given.
-
-Not ported yet: the chunked path's backward (training, ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -135,16 +139,44 @@ def mha_full(q, k, v, q_pos, k_pos, *, causal=True, window=0):
     return o.reshape(B, Sq, H, hd)
 
 
+class FlashAttention(torch.autograd.Function):
+    """The flash path under autograd (the JAX package's
+    ``_mha_chunked_core`` custom VJP): the forward saves q, k, v, out and
+    the rows' log-sum-exp; the backward is ``ops.flash_attention_bwd``, the
+    backward kernel on the card.  q (B, S, H, hd), k and v (B, T, H, hd)
+    with the heads broadcast."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out, lse = ops.flash_attention_fwd(q, k, v, causal=causal,
+                                           window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = ops.flash_attention_bwd(
+            q, k, v, out, dout.contiguous(), lse, causal=ctx.causal,
+            window=ctx.window)
+        return dq, dk, dv, None, None
+
+
 def mha_chunked(q, k, v, *, causal=True, window=0):
-    """The flash path: ``ops.flash_attention`` on kv heads broadcast to
-    the query heads (query head h reads kv head h // G, so
-    ``repeat_interleave``).  q: (B,Sq,H,hd); k/v: (B,Sk,KVH,hd).
+    """The flash path: the flash kernels on kv heads broadcast to the
+    query heads (query head h reads kv head h // G, so
+    ``repeat_interleave``, outside the kernels: autograd sums the G query
+    heads' dk and dv into their kv head).  q: (B,Sq,H,hd); k/v:
+    (B,Sk,KVH,hd).
 
     The kernel's causal mask is top-left: the rows sit at positions
     0..Sq-1 and 0..Sk-1, as every prefill's do, so it takes no positions;
     ``window`` > 0 (with ``causal``) is the sliding window, in the kernel.
     The JAX package's shape contract holds: Sq a multiple of min(2048, Sq)
-    and Sk of min(1024, Sk).  Forward only."""
+    and Sk of min(1024, Sk).  With gradients on and an input that takes
+    them, :class:`FlashAttention`; otherwise ``ops.flash_attention``
+    alone (no log-sum-exp written)."""
     B, Sq, H, hd = q.shape
     KVH, Sk = k.shape[2], k.shape[1]
     if Sq % min(Q_BLOCK, Sq) or Sk % min(KV_BLOCK, Sk):
@@ -155,13 +187,17 @@ def mha_chunked(q, k, v, *, causal=True, window=0):
     if G > 1:
         k = k.repeat_interleave(G, dim=2)
         v = v.repeat_interleave(G, dim=2)
-    return ops.flash_attention(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal=causal, window=window)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, int(window))
+    return ops.flash_attention(q, k, v, causal=causal, window=window)
 
 
 def attend(q, k, v, *, causal=True, window=0, impl="auto"):
-    """Prefill attention, the query and key rows at positions 0..Sq-1 and
-    0..Sk-1; ``impl`` picks the path with the JAX package's rule."""
+    """Attention over a whole sequence (prefill or the training forward),
+    the query and key rows at positions 0..Sq-1 and 0..Sk-1; ``impl``
+    picks the path with the JAX package's rule."""
     Sq, Sk = q.shape[1], k.shape[1]
     if impl == "auto":
         impl = "chunked" if Sq * Sk > (1 << 22) and Sq >= 2048 else "full"

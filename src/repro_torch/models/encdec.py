@@ -1,5 +1,5 @@
 """Whisper-style encoder-decoder backbone (audio frontend stubbed) — the
-JAX package's ``models/encdec.py`` for serving.
+JAX package's ``models/encdec.py``.
 
 The conv frontend is a stub: ``encoder_frames`` (precomputed (B, F, d)
 frame embeddings) arrive as an input.  The encoder is bidirectional
@@ -14,7 +14,7 @@ The parameters are JAX's tree with ``enc_layers`` and ``dec_layers`` as
 (``convert.py`` carries one into the other).  The cache is JAX's tree:
 ``{"self": {"k", "v"} (n_layers, B, T, KVH, hd), "encoder_out": (B, F,
 d)}``; decode writes the new token's K and V in place.  ``encdec_loss``
-waits for training (ROADMAP Queue 1).
+is the training loss (no recomputation, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -23,9 +23,9 @@ import math
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (dense_init, embed, init_embedding,
-                                       init_layernorm, init_mlp, layernorm,
-                                       mlp, unembed)
+from repro_torch.models.layers import (cross_entropy, dense_init, embed,
+                                       init_embedding, init_layernorm,
+                                       init_mlp, layernorm, mlp, unembed)
 from repro_torch.models.lm import as_module
 
 
@@ -106,15 +106,18 @@ def encode(params, cfg, frames):
 def _dec_layer(cfg, lp, x, enc_out, *, mode, cache=None, position=None,
                attn_impl: str = "auto"):
     h = layernorm(lp["ln1"], x, cfg.norm_eps)
-    if mode == "prefill":
+    new_cache = None
+    if mode == "fwd":
+        a = attn.attention_fwd(lp["attn"], h, cfg, impl=attn_impl)
+    elif mode == "prefill":
         a, new_cache = attn.attention_prefill(lp["attn"], h, cfg,
                                               impl=attn_impl)
     elif mode == "decode":
         a, new_cache = attn.attention_decode(lp["attn"], h, cfg, cache,
                                              position)
     else:
-        raise ValueError(f"_dec_layer: mode {mode!r}, expected prefill|"
-                         "decode (training waits)")
+        raise ValueError(f"_dec_layer: mode {mode!r}, expected fwd|"
+                         "prefill|decode")
     x = x + a
     h = layernorm(lp["ln_x"], x, cfg.norm_eps)
     x = x + cross_attention(lp["xattn"], h, enc_out, cfg)
@@ -132,6 +135,23 @@ def _dec_positions(params, positions, dtype):
 def _logits(params, cfg, x):
     x = layernorm(params["dec_norm"], x, cfg.norm_eps)
     return unembed({}, x, table=params["embed"]["table"])
+
+
+def encdec_loss(params, cfg, tokens, labels, encoder_frames, *,
+                attn_impl: str = "auto"):
+    """Mean token cross-entropy (with z-loss) of the decoder's next-token
+    labels given the encoder frames, as the JAX package's
+    ``encdec_loss``; a 0-d f32 tensor."""
+    enc_out = encode(params, cfg, encoder_frames)
+    S = tokens.shape[1]
+    x = embed(params["embed"], tokens, cfg.dtype) + _dec_positions(
+        params, torch.arange(S, device=tokens.device), cfg.dtype)[None]
+    for lp in params["dec_layers"]:
+        x, _ = _dec_layer(cfg, lp, x, enc_out, mode="fwd",
+                          attn_impl=attn_impl)
+    x = layernorm(params["dec_norm"], x, cfg.norm_eps)
+    return cross_entropy(unembed({}, x, table=params["embed"]["table"]),
+                         labels)
 
 
 @torch.no_grad()

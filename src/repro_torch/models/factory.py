@@ -1,14 +1,16 @@
-"""Model factory: uniform (init, prefill, decode) per architecture.
+"""Model factory: uniform (init, loss, prefill, decode) per architecture.
 
     init_fn(generator)                                  -> params
+    loss_fn(params, batch)                              -> 0-d f32 loss
     prefill_fn(params, tokens[, encoder_frames], attn_impl="auto")
                                                         -> (logits, cache)
     decode_fn(params, tokens, cache, position)          -> (logits, cache)
 
-The JAX package's ``models/factory.py`` for serving: decoder-only models
-through ``models/lm.py``, the encoder-decoder through
-``models/encdec.py`` (its prefill takes the encoder frames); the loss
-(training) waits (ROADMAP Queue 1).  ``make_model(cfg, kv_repeat=,
+The JAX package's ``models/factory.py``: decoder-only models through
+``models/lm.py``, the encoder-decoder through ``models/encdec.py`` (its
+prefill takes the encoder frames).  ``batch`` is JAX's dict: ``tokens``
+and ``labels`` (B, S), and ``encoder_frames`` (B, F, d) for the
+encoder-decoder.  ``make_model(cfg, kv_repeat=,
 kv_quant=)`` fixes a decoder's prefill cache storage, as JAX's does (the
 encoder-decoder's prefill takes neither, as in JAX).  Its
 ``cache_specs`` (shapes by ``eval_shape`` of the prefill) becomes
@@ -35,9 +37,11 @@ def make_model(cfg, *, kv_repeat: int = 1, kv_quant: bool = False) -> dict:
     lm.check_supported(cfg)
     if cfg.is_encoder_decoder:
         return {"init": functools.partial(encdec.init_encdec, cfg=cfg),
+                "loss": functools.partial(_encdec_loss, cfg=cfg),
                 "prefill": functools.partial(_encdec_prefill, cfg=cfg),
                 "decode": functools.partial(_encdec_decode, cfg=cfg)}
     return {"init": functools.partial(_init, cfg=cfg),
+            "loss": functools.partial(_loss, cfg=cfg),
             "prefill": functools.partial(_prefill, cfg=cfg,
                                          kv_repeat=kv_repeat,
                                          kv_quant=kv_quant),
@@ -46,6 +50,15 @@ def make_model(cfg, *, kv_repeat: int = 1, kv_quant: bool = False) -> dict:
 
 def _init(generator, *, cfg):
     return lm.init_lm(generator, cfg)
+
+
+def _loss(params, batch, *, cfg):
+    return lm.lm_loss(params, cfg, batch["tokens"], batch["labels"])
+
+
+def _encdec_loss(params, batch, *, cfg):
+    return encdec.encdec_loss(params, cfg, batch["tokens"], batch["labels"],
+                              batch["encoder_frames"])
 
 
 def _prefill(params, tokens, *, cfg, attn_impl: str = "auto",

@@ -3,8 +3,8 @@
 The JAX package's ``models/layers.py`` in PyTorch.  Parameters are plain
 dicts of tensors at init (``models/lm.py`` wraps them in modules); each
 ``apply`` casts a weight to the activations' dtype at use, which is a
-no-op for weights already cast for inference.  Norms, rotary angles and
-logits are f32.  ``cross_entropy`` waits for training.
+no-op for weights already cast for inference.  Norms, rotary angles,
+logits and the training loss (``cross_entropy``) are f32.
 """
 from __future__ import annotations
 
@@ -159,3 +159,17 @@ def unembed(params, x: torch.Tensor, table: torch.Tensor = None):
     runs it with TF32 off (``core.largevis.resolve_device`` sets that)."""
     t = table if table is not None else params["table"]
     return x.float() @ t.float().T
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean token cross-entropy with the z-loss term ``z_loss * lse**2``,
+    on f32 logits: ``mean(lse - logit[label] + z_loss * lse**2)``, the
+    JAX package's ``cross_entropy``."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse.square()
+    return loss.mean()

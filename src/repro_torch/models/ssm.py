@@ -1,5 +1,7 @@
 """Mamba (S6) selective state-space layer — the JAX package's
-``models/ssm.py`` for serving, forward only.
+``models/ssm.py``.  Training differentiates ``mamba_fwd`` with autograd as
+it stands (the doubling scan's ``cat`` and products save their inputs;
+nothing here writes in place into a saved tensor).
 
 Diagonal linear recurrence h_t = exp(dt_t A) h_{t-1} + dt_t B_t u_t with
 input-dependent (selective) dt/B/C, run as a chunked scan: within a chunk

@@ -1,6 +1,8 @@
-"""xLSTM blocks — the JAX package's ``models/xlstm.py`` for serving,
-forward only: mLSTM (matrix memory, 2x expansion) and sLSTM (scalar
-memory with head-wise recurrent gating).
+"""xLSTM blocks — the JAX package's ``models/xlstm.py``: mLSTM (matrix
+memory, 2x expansion) and sLSTM (scalar memory with head-wise recurrent
+gating).  Training differentiates ``mlstm_fwd``/``slstm_fwd`` with
+autograd through the token loops (each step makes new states; nothing
+writes in place).
 
 Both use exponential gating with the max-stabilizer state m (xLSTM paper,
 arXiv:2405.04517).  The recurrences run token by token, as the JAX

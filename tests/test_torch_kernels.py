@@ -321,4 +321,5 @@ def test_cuda_launchers_refuse_cpu_tensors():
     assert ops.launch_counts() == {"topk_sqdist": 0, "fused_edge_step": 0,
                                    "pairwise_sqdist": 0, "largevis_grads": 0,
                                    "scatter_add_ordered": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0,
+                                   "flash_attention_bwd": 0}

@@ -276,7 +276,7 @@ def test_registry(name):
     assert small.dtype == torch.float32
     tlm.check_supported(cfg)
     model = make_model(small)
-    assert sorted(model) == ["decode", "init", "prefill"]
+    assert sorted(model) == ["decode", "init", "loss", "prefill"]
     assert init_cache(small, 2, 16, "cpu")
     eng = ServeEngine(small, slots=1, max_len=16, device="cpu")
     req = Request(0, [1, 2, 3], max_new=2)
