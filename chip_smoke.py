@@ -9,7 +9,10 @@ CUDA toolkit.  It imports nothing of JAX or of the JAX package.  With
 ``--parent PATH`` (a checkout of the parent commit) it only times the
 parent's package and this one in turns, parent, change, change, parent,
 in one process (``run_parent``), and requires the two packages'
-``pairwise_sqdist`` outputs to be bitwise equal.  Without it, in order:
+``pairwise_sqdist`` outputs to be bitwise equal; then
+``flash_attention_bwd`` at qwen's training microbatch in turns, beside
+SDPA's backward (each package's turns bitwise equal, parent and change
+within the backward's bf16 limit).  Without it, in order:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
@@ -230,6 +233,7 @@ import functools
 import json
 import math
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -297,6 +301,43 @@ def fail(msg: str) -> None:
 def check(cond, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def _kernel_name(symbol: str) -> str:
+    """A mangled kernel's last name and its first template argument, e.g.
+    ``flash_bwd_wgmma<64>`` or ``delta_kernel<bf16>``."""
+    i = 3 if symbol.startswith("_ZN") else 2
+    names = []
+    while i < len(symbol) and symbol[i].isdigit():
+        j = i
+        while symbol[j].isdigit():
+            j += 1
+        names.append(symbol[j:j + int(symbol[i:j])])
+        i = j + int(symbol[i:j])
+    arg = re.match(r"I(?:Li(\d+)E|(f)E|\d+(__nv_bfloat16)E)", symbol[i:])
+    if not names:
+        return symbol
+    if arg is None:
+        return names[-1]
+    return f"{names[-1]}<{arg.group(1) or ('f32' if arg.group(2) else 'bf16')}>"
+
+
+def ptxas_lines(reports: dict) -> list[str]:
+    """``_build.build``'s ptxas reports, {source: report}, as one line a
+    kernel: its registers and its stack and spill bytes."""
+    out = []
+    for name, rep in sorted(reports.items()):
+        kernel, spill = "?", ""
+        for line in rep.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                kernel = _kernel_name(m.group(1))
+            elif "spill" in line:
+                spill = line.strip()
+            elif "Used" in line:
+                used = line.split(":", 1)[-1].strip()
+                out.append(f"{name}: {kernel}: {used}; {spill}")
+    return out
 
 
 def nvidia_smi() -> str:
@@ -372,10 +413,11 @@ KERNEL_EVENTS = {
     "topk_sqdist": ("topk_kernel",),
     "pairwise_sqdist": ("pairwise_kernel",),
     "flash_attention": ("flash_attention",),
-    "flash_attention_bwd": ("dkdv_kernel",),     # one of its three a call
+    "flash_attention_bwd": ("flash_bwd_wgmma",),  # one of a bf16 call's two
 }
-# the backward flash launcher's three kernels
-BWD_EVENTS = ("delta_kernel", "dkdv_kernel", "dq_kernel")
+# the backward flash launcher's kernels: bf16 the delta kernel and the
+# wgmma pass, f32 the delta kernel and the two FMA kernels
+BWD_EVENTS = ("delta_kernel", "flash_bwd_wgmma", "dkdv_kernel", "dq_kernel")
 
 
 def _is_event_of(launcher: str, key: str) -> bool:
@@ -385,6 +427,8 @@ def _is_event_of(launcher: str, key: str) -> bool:
         return True                      # the indexed form
     if launcher == "fused_edge_step" and "edge_forces_kernel" in key:
         return True                      # a parent checkout's phase 0
+    if launcher == "flash_attention_bwd" and "dkdv_kernel" in key:
+        return True                      # f32, or a parent's bf16 call
     return all(part in key for part in KERNEL_EVENTS[launcher])
 
 
@@ -400,8 +444,9 @@ class Profile:
 
     def kernel(self, launcher: str):
         """(device ms a launch seen, launches seen, launches made).  The
-        backward flash launcher makes three kernels a call: its time is
-        theirs, its launches seen its dk/dv kernel's."""
+        backward flash launcher makes two kernels a bf16 call and three an
+        f32 one: its time is theirs, its launches seen its wgmma pass's
+        (f32: its dk/dv kernel's)."""
         hits = [v for key, v in self.events.items()
                 if _is_event_of(launcher, key)]
         seen = sum(c for _, c in hits)
@@ -2888,7 +2933,7 @@ def check_flash_bwd(torch):
     noise); every case called twice, bitwise
     equal; each main shape timed by CUDA events beside the plain version,
     SDPA's backward (``is_causal``, or the window's boolean mask; the
-    backward alone) and its bound, with the device time of its three
+    backward alone) and its bound, with the device time of each of its
     kernels.  Returns the record of qwen's shape."""
     import torch.nn.functional as F
 
@@ -2974,6 +3019,7 @@ def check_flash_bwd(torch):
         dev_ms, seen, made = prof.kernel("flash_attention_bwd")
         parts = {e: sum(t for key_, (t, _) in prof.events.items()
                         if e in key_) / max(seen, 1) for e in BWD_EVENTS}
+        parts = {e: t for e, t in parts.items() if t > 0}
         plain = time_ms(torch, lambda: ref.flash_attention_bwd_ref(
             q, k, v, out, dout, lse, **kw), reps=2, warmup=1)
         torch.cuda.empty_cache()
@@ -4187,8 +4233,8 @@ def bench_turn(torch, x, xq, spn: int) -> dict:
 
 def run_parent(torch, parent: Path, spn: int) -> None:
     """Time a parent checkout's package and this one in turns, parent,
-    change, change, parent, in one process on one card (``bench_turn``),
-    and print each turn and the means."""
+    change, change, parent, in one process on one card (``bench_turn``,
+    then ``parent_bwd_turns``), and print each turn and the means."""
     import numpy as np
 
     src = parent / "src"
@@ -4199,7 +4245,8 @@ def run_parent(torch, parent: Path, spn: int) -> None:
         activate(mods)
         from repro_torch.kernels import _build
         t0 = time.perf_counter()
-        _build.build("knn_topk", "largevis_step", "largevis_grad")
+        _build.build("knn_topk", "largevis_step", "largevis_grad",
+                     "flash_attention", "flash_attention_bwd")
         print(f"{name}: kernels built in {time.perf_counter() - t0:.2f} s "
               f"({mods['repro_torch'].__file__})", flush=True)
     from repro_torch.core.largevis import resolve_device
@@ -4240,6 +4287,55 @@ def run_parent(torch, parent: Path, spn: int) -> None:
                 for n in ("parent", "change")}
         print(f"  {key}: parent {mean['parent']:.4f}, change "
               f"{mean['change']:.4f}", flush=True)
+    parent_bwd_turns(torch, pkgs)
+
+
+def parent_bwd_turns(torch, pkgs: dict) -> None:
+    """``flash_attention_bwd`` at the kernels line's shape (qwen's training
+    microbatch) in turns, parent, change, change, parent, on one set of
+    inputs (out and lse from the change's forward), by CUDA events;
+    SDPA's backward timed in the same process (the library's time spreads
+    2x between processes).  Each package's two turns must give the same
+    bits; parent and change agree to the backward's bf16 limit."""
+    (b, s, h, d), w, name = BWD_RECORD
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    q, k, v, dout = (torch.randn((b, s, h, d), generator=gen, device=dev)
+                     .to(getattr(torch, name)) for _ in range(4))
+    activate(pkgs["change"])
+    from repro_torch.kernels import flash_attention as fa
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, window=w)
+    turns = []
+    for pkg in ("parent", "change", "change", "parent"):
+        activate(pkgs[pkg])
+        from repro_torch.kernels import flash_attention as fa
+        ms = time_ms(torch, lambda: fa.flash_attention_bwd(
+            q, k, v, out, dout, lse, window=w))
+        turns.append((pkg, ms, fa.flash_attention_bwd(q, k, v, out, dout,
+                                                      lse, window=w)))
+        print(f"flash_attention_bwd turn {len(turns)} ({pkg}) "
+              f"{(b, s, h, d)} {name}: {ms:.4f} ms by CUDA events",
+              flush=True)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    o = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                         is_causal=True)
+    lib = time_ms(torch, lambda: torch.autograd.grad(
+        o, (qt, kt, vt), dout.transpose(1, 2), retain_graph=True))
+    for pkg in ("parent", "change"):
+        a, c = (g for p_, _, g in turns if p_ == pkg)
+        check(all(torch.equal(x, y) for x, y in zip(a, c)),
+              f"flash_attention_bwd: the {pkg}'s two turns differ")
+    rel = _bwd_errs(turns[1][2], turns[0][2])
+    check(max(rel) <= BWD_BF16_TOL, f"flash_attention_bwd: parent and "
+          f"change differ by {rel} > {BWD_BF16_TOL}")
+    mean = {pkg: sum(ms for p_, ms, _ in turns if p_ == pkg) / 2
+            for pkg in ("parent", "change")}
+    print(f"  flash_attention_bwd: parent {mean['parent']:.4f}, change "
+          f"{mean['change']:.4f} ms (each package's turns bitwise equal; "
+          f"change vs parent max |err| / max |parent| {max(rel):.3g}); SDPA "
+          f"backward is_causal {lib:.4f} ms in this process; bound "
+          f"{flash_bwd_bound(b, s, h, d, w, name)[0]:.5f} ms", flush=True)
 
 
 def main() -> None:
@@ -4286,10 +4382,8 @@ def main() -> None:
                            "flash_attention", "flash_attention_bwd")
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(sorted(reports)) or 'cached'})", flush=True)
-    for name, rep in sorted(reports.items()):
-        for line in rep.splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    for line in ptxas_lines(reports):
+        print(f"  {line}")
 
     cfg = LargeVisConfig(samples_per_node=args.samples_per_node)
     if args.samples_per_node != PAPER_SAMPLES_PER_NODE:

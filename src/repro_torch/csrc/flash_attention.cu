@@ -93,13 +93,10 @@
 // through shared memory (214,528 bytes at D = 256, which the launch opts
 // into).  It serves the f32 models' chunked prefill (the decode-vs-prefill
 // checks).
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <cudaTypedefs.h>
-
 #include <climits>
 #include <cstdint>
+
+#include "sm90.cuh"
 
 namespace {
 // ---------------------------------------------------------------------------
@@ -278,6 +275,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // ---------------------------------------------------------------------------
 namespace wg {
 
+using namespace sm90;
+
 constexpr int BQ = 128;           // query rows of a block: two warpgroups
 constexpr int NS = 2;             // K/V stages in the ring
 constexpr int CONSUMERS = 256;    // 2 consumer warpgroups
@@ -296,8 +295,6 @@ struct Tiles {
   static constexpr int KVSLAB = BK * SW * 2;       // bytes of a K or V slab
   static constexpr int QBYTES = SLABS * QSLAB;
   static constexpr int KVBYTES = SLABS * KVSLAB;
-  // wgmma's swizzle mode: 1 for 128 B, 2 for 64 B, 3 for 32 B
-  static constexpr uint64_t MODE = SW == 64 ? 1 : SW == 32 ? 2 : 3;
   // threads: the consumers and one producer warp; at D = 256 a whole
   // producer warpgroup, so that setmaxnreg can move registers to the
   // consumers: 384 threads enter with 168 registers each (65,536 / 384),
@@ -307,255 +304,6 @@ struct Tiles {
   static constexpr int NT = SPLIT_REGS ? CONSUMERS + 128 : CONSUMERS + 32;
   static_assert(D % 16 == 0 && D <= 256 && SLABS * SW == D, "head dim");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one box of a 4-D tensor map at coordinates (col, h, row, b)
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int h,
-                                         int row, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(h),
-      "r"(row), "r"(b)
-      : "memory");
-}
-
-// a tile of `rows` rows, slab by slab (the slabs contiguous, `slab` bytes
-// apart)
-template <int D>
-__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int slab, int h,
-                                         int row, int b) {
-#pragma unroll
-  for (int c = 0; c < Tiles<D>::SLABS; ++c)
-    tma_load(dst + c * slab, map, bar, c * Tiles<D>::SW, h, row, b);
-}
-
-// wgmma shared-memory descriptor of a slab of rows as TMA wrote it: start
-// address, leading byte offset, stride byte offset between 8-row groups
-// (8 rows of a slab), all in 16-byte units, and the swizzle mode.  The
-// leading offset is unused by the K-major operands (a k16 step lies within
-// one swizzle row); for the N-major V it is the step from one 64-column
-// slab to the next (unused at D <= 64, one slab)
-template <int D>
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr,
-                                              uint32_t lbo = 16) {
-  constexpr uint64_t sbo = 8 * Tiles<D>::SW * 2;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((sbo >> 4) << 32) | (Tiles<D>::MODE << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// keep the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma's issue and wait
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// 2^x; 0 for the masked scores' -1.8e29 and for results below 2^-126
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// D += A B for A (64 x 16) and B (16 x N), both K-major in shared memory
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
-                                         uint64_t db, int scale_d);
-// D += A B for A (64 x 16) in registers and B (16 x N) N-major in shared
-// memory (the transpose layout); d is the N / 2 accumulators from d[0]
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
-                                         uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo_col, hi_col);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 template <int D>
 constexpr int smem_bytes() {
@@ -615,13 +363,13 @@ __global__ void __launch_bounds__(Tiles<D>::NT, 1) flash_attention_wgmma(
     // producer warp: one thread keeps the ring full
     if (threadIdx.x == CONSUMERS) {
       mbar_expect_tx(q_full, Tl::QBYTES);
-      tma_tile<D>(q_s, &tq, q_full, Tl::QSLAB, h, q0, b);
+      tma_tile<D, SW>(q_s, &tq, q_full, Tl::QSLAB, h, q0, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % NS, k0 = (t_first + i) * BK;
         if (i >= NS) mbar_wait(empty(s), ((i / NS) - 1) & 1);
         mbar_expect_tx(full(s), 2 * KVBYTES);
-        tma_tile<D>(k_s + s * KVBYTES, &tk, full(s), KVSLAB, h, k0, b);
-        tma_tile<D>(v_s + s * KVBYTES, &tv, full(s), KVSLAB, h, k0, b);
+        tma_tile<D, SW>(k_s + s * KVBYTES, &tk, full(s), KVSLAB, h, k0, b);
+        tma_tile<D, SW>(v_s + s * KVBYTES, &tv, full(s), KVSLAB, h, k0, b);
       }
     }
   } else {
@@ -639,7 +387,7 @@ __global__ void __launch_bounds__(Tiles<D>::NT, 1) flash_attention_wgmma(
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     // the warpgroup's 64 rows in each Q slab
-    const uint64_t dq = make_desc<D>(q_s + 64 * w * SW * 2);
+    const uint64_t dq = make_desc<SW>(q_s + 64 * w * SW * 2);
 
     mbar_wait(q_full, 0);
     for (int i = 0; i < n_tiles; ++i) {
@@ -653,7 +401,7 @@ __global__ void __launch_bounds__(Tiles<D>::NT, 1) flash_attention_wgmma(
         continue;
       }
       float sc[BK / 2];
-      const uint64_t dk = make_desc<D>(k_s + s * KVBYTES);
+      const uint64_t dk = make_desc<SW>(k_s + s * KVBYTES);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {    // 16 columns = 32 bytes a step
@@ -719,7 +467,7 @@ __global__ void __launch_bounds__(Tiles<D>::NT, 1) flash_attention_wgmma(
       // D = 256 each half of O (128 columns, two slabs) is its own product.
       constexpr int N = D < 128 ? D : 128;
       const uint64_t dv =
-          make_desc<D>(v_s + s * KVBYTES, Tl::SLABS > 1 ? KVSLAB : 16);
+          make_desc<SW>(v_s + s * KVBYTES, Tl::SLABS > 1 ? KVSLAB : 16);
       fence_regs(o);
       wgmma_fence();
 #pragma unroll
@@ -758,46 +506,16 @@ __global__ void __launch_bounds__(Tiles<D>::NT, 1) flash_attention_wgmma(
   }
 }
 
-// a 4-D map over (D, H, L, B) of a contiguous (B, L, H, D) bf16 tensor,
-// boxes of `rows` rows of one head and one slab's columns, swizzled to the
-// slab's bytes
-template <int D>
-bool make_map(CUtensorMap* map, const void* ptr, int B, int L, int H,
-              int rows) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled",
-                                reinterpret_cast<void**>(&encode),
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return false;
-  }
-  constexpr int SW = Tiles<D>::SW;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                                 (cuuint64_t)L * H * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)SW, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swz = SW == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : SW == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                            : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int B, int S, int Tk, int H, float scale,
                    int causal, int window, cudaStream_t st) {
   CUtensorMap mq, mk, mv;
   constexpr int BK = Tiles<D>::BK;
-  if (!make_map<D>(&mq, q, B, S, H, BQ) || !make_map<D>(&mk, k, B, Tk, H, BK)
-      || !make_map<D>(&mv, v, B, Tk, H, BK))
+  constexpr int SW = Tiles<D>::SW;
+  if (!make_map(&mq, q, B, S, H, D, SW, BQ) ||
+      !make_map(&mk, k, B, Tk, H, D, SW, BK) ||
+      !make_map(&mv, v, B, Tk, H, D, SW, BK))
     return cudaErrorInvalidValue;
   const int nq = (S + BQ - 1) / BQ;
   const long long blocks = (long long)nq * B * H;

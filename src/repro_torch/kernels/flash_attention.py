@@ -12,10 +12,12 @@ read by TMA), f32 inputs to the f32 FMA kernel (64 by 64); the tiles
 change no result.  With ``return_lse`` the forward also writes each
 row's log-sum-exp (B, H, S) f32, the backward's input; without it (every
 serving call) it writes none.  :func:`flash_attention_bwd` takes the
-forward's contract and returns (dq, dk, dv).  CUDA tensors only; each
-launcher counts its calls in ``<launcher>.launches``.  The plain versions
-are ``ref.flash_attention_ref``, ``ref.flash_attention_fwd_ref`` and
-``ref.flash_attention_bwd_ref``.
+forward's contract and returns (dq, dk, dv): under bf16 a delta kernel
+and one pass on wgmma (a block a key tile, dq added across key tiles in a
+fixed order), under f32 a delta kernel and two FMA kernels.  CUDA tensors
+only; each launcher counts its calls in ``<launcher>.launches``.  The
+plain versions are ``ref.flash_attention_ref``,
+``ref.flash_attention_fwd_ref`` and ``ref.flash_attention_bwd_ref``.
 """
 from __future__ import annotations
 
@@ -31,10 +33,12 @@ MAX_BH = 65535              # B * H rides on grid.y (f32)
 MAX_LEN = 2**31 - 1         # S and T are C ints
 BQ_BF16 = 128               # query rows of a bf16 block
 MAX_BLOCKS = 2**31 - 1      # bf16: ceil(S / BQ_BF16) * B * H on grid.x
+BQ_BWD = 64                 # query rows of a tile of the bf16 backward
+MAX_INT = 2**31 - 1         # bf16 backward: B * H * S padded, as C ints
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 5 + [_I] * 8 + [_F, _P]
-_BWD_ARGTYPES = [_P] * 10 + [_I] * 8 + [_F, _P]
+_BWD_ARGTYPES = [_P] * 12 + [_I] * 8 + [_F, _P]
 
 
 def _lib() -> ctypes.CDLL:
@@ -121,7 +125,19 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                         window: int = 0):
     """(dq, dk, dv) of ``flash_attention`` on the card, in q's dtype: the
     forward's ``out`` and ``lse`` and the incoming ``dout`` (shaped as
-    q) in, three kernels (delta, dk/dv, dq) out, no atomics."""
+    q) in; no atomic adds on the gradients, so two calls give the same
+    bits.
+
+    bf16 launches a delta kernel and one pass on wgmma, one block a key
+    tile.  Its scratch, with the rows padded to S64 = ceil(S / 64) * 64:
+    lse log2(e) and delta (2, B, H, S64) f32, written by the delta kernel;
+    a dq accumulator (B, H, S64, hd) f32, into which the key tiles that
+    see a query tile of 64 rows add their partials in ascending order (the
+    first writes, the last rounds the sum into dq); and B * H * S64 / 64
+    counters that admit them in that order, plus the work counter of the
+    persistent grid, all zeroed by the delta kernel.  f32 launches a delta
+    kernel and two FMA kernels (dk and dv by key tiles, dq by query
+    tiles)."""
     window = _check("flash_attention_bwd", q, k, v, out, dout,
                     causal=causal, window=window)
     B, S, H, hd = q.shape
@@ -133,13 +149,26 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                          f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
     if any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
         raise ValueError("flash_attention_bwd: q, k, v, out and dout must "
-                         "be 16-byte aligned (vector loads)")
+                         "be 16-byte aligned (TMA and vector loads)")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        s64 = -(-S // BQ_BWD) * BQ_BWD
+        if B * H * s64 > MAX_INT:
+            raise ValueError(f"flash_attention_bwd: B*H*S = {B * H * S} "
+                             f"(rows padded to {BQ_BWD}) above {MAX_INT}")
+        delta = torch.empty((2, B, H, s64), **f32)    # lse log2(e), delta
+        acc = torch.empty((B, H, s64, hd), **f32)
+        counters = torch.empty(B * H * s64 // BQ_BWD + 1, dtype=torch.int32,
+                               device=q.device)
+    else:
+        delta = torch.empty((B, H, S), **f32)
+        acc = counters = None
     p = _build.ptr
     rc = _lib_bwd().flash_attention_bwd_launch(
         p(q), p(k), p(v), p(out), p(dout), p(lse), p(delta), p(dq), p(dk),
-        p(dv), B, S, T, H, hd, int(q.dtype == torch.bfloat16),
+        p(dv), p(acc), p(counters), B, S, T, H, hd, int(bf16),
         int(bool(causal)), window, 1.0 / math.sqrt(hd),
         _build.stream(q.device))
     _build.check(rc, "flash_attention_bwd")

@@ -54,11 +54,9 @@ def main() -> None:
     print(cs.nvidia_smi(), flush=True)
     resolve_device("cuda")                 # also switches TF32 off
     t0 = time.perf_counter()
-    for name, rep in sorted(_build.build("flash_attention",
-                                         "flash_attention_bwd").items()):
-        for line in rep.splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    for line in cs.ptxas_lines(_build.build("flash_attention",
+                                            "flash_attention_bwd")):
+        print(f"  {line}")
     print(f"kernel build: {time.perf_counter() - t0:.2f} s", flush=True)
     launches = {}
     for name in phases:
