@@ -218,6 +218,19 @@ within the backward's bf16 limit).  Without it, in order:
    steps against 5 resumed to 8, the losses after step 4 bitwise equal;
    every architecture's reduced f32 step on the card against the CPU's
    from one state, twice on the card, bitwise;
+14. the sharded trainer (``run_sharded_training``): ``train(production=
+   True)`` at world 2 over gloo, two processes on the one card, on
+   qwen1.5-0.5b at full width and depth (2 rows and 1 microbatch a rank,
+   8 steps), the losses and a hash of every final leaf bitwise the
+   world-1 run's at 2 microbatches, each rank's ms a step, sync ms (the
+   gradient all-reduce, the parameter gather), peak memory and flash
+   launches (48 forward and 24 backward a step); checkpoints across
+   worlds at the resume check's cut: a world-1 save at step 4 resumed at
+   world 2, a world-2 save at step 4 resumed at world 1, each to step 8
+   and bitwise the uninterrupted run; then ``compressed_grads_with_ef``
+   on qwen's full gradient tree (``run_grad_compress``): the worst leaf
+   error in quantization units, ``compression_ratio``, the error-fed
+   drift after 5 rounds against JAX's bound, ms a call;
 
 then prints a JSON line of the kernel records and, last, the device line.
 Any failed check exits with status 1 and prints no result.  Device times
@@ -3057,9 +3070,10 @@ def check_flash_bwd(torch):
                 " no Pallas kernel)", max_abs_err=max_err, **record)
 
 
-def _timed_steps(torch, train_mod, step_ms: list):
+def _timed_steps(torch, train_mod, step_ms: list, sync: list = None):
     """``train_mod.make_train_step`` wrapped so that each step's wall time
-    (host clock around a synchronize) lands in ``step_ms``."""
+    (host clock around a synchronize) lands in ``step_ms``, and a sharded
+    step's sync ms (``sync_ms``) in ``sync``."""
     real = train_mod.make_train_step
 
     def builder(*args, **kw):
@@ -3071,10 +3085,19 @@ def _timed_steps(torch, train_mod, step_ms: list):
             res = fn(*a)
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t) * 1e3)
+            if sync is not None:
+                sync.append(fn.sync_ms())
             return res
         call.microbatches = fn.microbatches
         return call
     return mock.patch.object(train_mod, "make_train_step", builder)
+
+
+def leaf_hashes(params) -> dict:
+    """{parameter name: sha256 of its bytes}."""
+    import hashlib
+    return {n: hashlib.sha256(p.detach().cpu().numpy().tobytes()).hexdigest()
+            for n, p in params.named_parameters()}
 
 
 def run_trainer(torch, ckpt_dir: str):
@@ -3089,7 +3112,8 @@ def run_trainer(torch, ckpt_dir: str):
     step, tokens/s, peak memory, the flash launches a step (forward 24
     layers x 2 microbatches x 2, the period recomputed in the backward;
     backward 24 x 2); then one profiled step.  Returns (the launch counts,
-    the parameter count)."""
+    the parameter count, {"losses", "hashes"}: the losses by step and a
+    hash of every final parameter leaf by name, for the world-2 run)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.largevis import seeded_generator
@@ -3130,6 +3154,8 @@ def run_trainer(torch, ckpt_dir: str):
     peak = torch.cuda.max_memory_allocated() / 2**30
     after = held_loss(params)
     loss = [x for _, x in losses]
+    # the run's final leaves, before the profiled step below moves them
+    world1 = {"losses": loss, "hashes": leaf_hashes(params)}
     n_micro = pick_microbatches(ShapeConfig("c", "train", TRAIN_SEQ,
                                             TRAIN_BATCH))
     per_step = {"flash_attention": cfg.n_layers * n_micro * 2,
@@ -3171,7 +3197,7 @@ def run_trainer(torch, ckpt_dir: str):
           f"kernels {attn_ms:.3f} ms of it", flush=True)
     del params, opt, step_fn, batch
     free_card(torch)
-    return counts, n_params
+    return counts, n_params, world1
 
 
 def run_resume(torch, ckpt_root: str, full_params: int) -> dict:
@@ -3179,7 +3205,12 @@ def run_resume(torch, ckpt_root: str, full_params: int) -> dict:
     ``RESUME_LAYERS`` layers (a printed cut): an 8-step run against a
     5-step run resumed to 8, both saving every 4 steps; the resumed run
     restarts at step 4 and its losses from there are bitwise the
-    uninterrupted run's.  Returns the launch counts of the three runs."""
+    uninterrupted run's.  Returns (the launch counts of the three runs,
+    {"cfg", "ref", "hashes", "w1"}: the cut config, the uninterrupted
+    losses, a hash of its final leaves by name, and a directory holding
+    only the 5-step run's save at step 4, for world 2 to resume)."""
+    import shutil
+
     from repro_torch.checkpoint import checkpointer as ck
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -3195,21 +3226,30 @@ def run_resume(torch, ckpt_root: str, full_params: int) -> dict:
 
     opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
 
-    def run(steps, d, resume):
-        return dict(train_mod.train(
+    def run(steps, d, resume, hashes=None):
+        params, _, losses = train_mod.train(
             TRAIN_ARCH, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
             reduced=False, microbatches=0, ckpt_dir=d,
             save_every=RESUME_EVERY, resume=resume, log_every=10**6,
-            opt_cfg=opt_cfg)[2])
+            opt_cfg=opt_cfg)
+        if hashes is not None:
+            hashes.update(leaf_hashes(params))
+        return dict(losses)
 
     ops.reset_launch_counts()
     t0 = time.perf_counter()
+    hashes = {}
+    w1 = os.path.join(ckpt_root, "world1_at4")
     with mock.patch.object(train_mod, "get_config", lambda name: cfg):
-        ref = run(TRAIN_STEPS, os.path.join(ckpt_root, "ref"), False)
+        ref = run(TRAIN_STEPS, os.path.join(ckpt_root, "ref"), False,
+                  hashes)
         d = os.path.join(ckpt_root, "int")
         run(RESUME_CUT, d, False)
+        shutil.copytree(os.path.join(d, f"step_{RESUME_EVERY}"),
+                        os.path.join(w1, f"step_{RESUME_EVERY}"))
         resumed = run(TRAIN_STEPS, d, True)
     counts = ops.launch_counts()
+    shutil.rmtree(os.path.join(ckpt_root, "ref"))
     after = list(range(RESUME_EVERY, TRAIN_STEPS))
     same = all(resumed.get(s) == ref[s] for s in after)
     got, want = [resumed.get(s) for s in after], [ref[s] for s in after]
@@ -3223,8 +3263,9 @@ def run_resume(torch, ckpt_root: str, full_params: int) -> dict:
     check(all(resumed[s] == ref[s] for s in after),
           "resume: the resumed losses are not bitwise the uninterrupted "
           "run's")
+    shutil.rmtree(d)
     free_card(torch)
-    return counts
+    return counts, {"cfg": cfg, "ref": ref, "hashes": hashes, "w1": w1}
 
 
 def run_arch_steps(torch) -> dict:
@@ -3323,13 +3364,298 @@ def run_training(torch) -> tuple[dict, dict]:
     free_card(torch)
     with tempfile.TemporaryDirectory() as tmp:
         t1 = time.perf_counter()
-        counts, n_params = run_trainer(torch, os.path.join(tmp, "main"))
+        counts, n_params, world1 = run_trainer(torch,
+                                               os.path.join(tmp, "main"))
         print(f"trainer: {time.perf_counter() - t1:.1f} s", flush=True)
-        counts = _add_counts(counts, run_resume(torch, tmp, n_params))
-    counts = _add_counts(counts, run_arch_steps(torch))
+        more, resumed = run_resume(torch, tmp, n_params)
+        counts = _add_counts(counts, more)
+        counts = _add_counts(counts, run_arch_steps(torch))
+        print(f"training phase: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t1 = time.perf_counter()
+        counts = _add_counts(counts, run_sharded_training(
+            torch, tmp, world1, resumed))
+        run_grad_compress(torch)
+        print(f"sharded training phases: {time.perf_counter() - t1:.1f} s",
+              flush=True)
     record["launches"] = counts["flash_attention_bwd"]
-    print(f"training phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return record, counts
+
+
+# ---------------------------------------------------------------------------
+# the sharded trainer: world 2 on the one card, checkpoints across worlds,
+# the int8 gradient compressor
+# ---------------------------------------------------------------------------
+
+# the compressor on one microbatch of qwen's full gradient tree
+COMPRESS_BATCH, COMPRESS_ROUNDS = 1, 5
+
+
+def _train2_rank(rank, store, out_dir, w1_dir):
+    """One rank of the world-2 trainer (a spawned process): qwen1.5-0.5b
+    at full width and depth, ``production=True``, then at the resume
+    check's cut a world-1 save resumed here and a world-2 run cut after
+    its save."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim.adamw import AdamWConfig
+
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=900))
+    out = {}
+    try:
+        opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+        kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, reduced=False,
+                  microbatches=0, production=True, log_every=10**6,
+                  opt_cfg=opt_cfg)
+        step_ms, sync = [], []
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        with _timed_steps(torch, train_mod, step_ms, sync):
+            params, opt, losses = train_mod.train(
+                TRAIN_ARCH, steps=TRAIN_STEPS, resume=False,
+                ckpt_dir=os.path.join(out_dir, "full"), **kw)
+        torch.cuda.synchronize()
+        out["full"] = {
+            "losses": [x for _, x in losses], "hashes": leaf_hashes(params),
+            "step_ms": step_ms, "sync": sync,
+            "launches": ops.launch_counts(),
+            "peak": torch.cuda.max_memory_allocated(),
+            "moment_bytes": sum(4 * m.numel() for k in ("m", "v")
+                                for m in opt[k].parameters()),
+            "param_bytes": sum(4 * p.numel() for p in params.parameters())}
+        del params, opt
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                                  n_layers=RESUME_LAYERS)
+        ops.reset_launch_counts()
+        with mock.patch.object(train_mod, "get_config", lambda name: cfg):
+            params, _, resumed = train_mod.train(
+                TRAIN_ARCH, steps=TRAIN_STEPS, ckpt_dir=w1_dir,
+                save_every=RESUME_EVERY, resume=True, **kw)
+            out["from_world1"] = {"losses": resumed,
+                                  "hashes": leaf_hashes(params)}
+            del params
+            _, _, cut = train_mod.train(
+                TRAIN_ARCH, steps=RESUME_CUT, resume=False,
+                ckpt_dir=os.path.join(out_dir, "world2_at4"),
+                save_every=RESUME_EVERY, **kw)
+            out["cut"] = cut
+        out["cut_launches"] = ops.launch_counts()
+    finally:
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+        dist.destroy_process_group()
+
+
+def run_sharded_training(torch, tmp: str, world1: dict, resumed: dict):
+    """``train(production=True)`` at world 2 over gloo, two processes on
+    the one card (the kernels built by this process first): qwen1.5-0.5b
+    at full width and depth, 2 rows and 1 microbatch a rank, which must
+    give ``run_trainer``'s world-1 run at 2 microbatches bitwise (the loss
+    at every step, every final leaf), each rank's step, sync and memory;
+    then checkpoints across worlds at ``run_resume``'s cut: a world-1 save
+    at step 4 resumed at world 2, and a world-2 run's save at step 4
+    (cut at 5) resumed here at world 1, each to step 8 and bitwise the
+    uninterrupted run.  Returns the launch counts of both worlds' runs."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim.adamw import AdamWConfig
+
+    from repro_torch.configs import get_config
+
+    free_card(torch)
+    cfg = resumed["cfg"]
+    full_layers = get_config(TRAIN_ARCH).n_layers
+    print(f"cut: the checkpoints across worlds at {RESUME_LAYERS} of "
+          f"{full_layers} layers (full width), run_resume's cut", flush=True)
+    out_dir = os.path.join(tmp, "world2")
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(
+        _train2_rank, args=(os.path.join(out_dir, "store"), out_dir,
+                            resumed["w1"]),
+        nprocs=2, join=False, start_method="spawn")
+    deadline = time.perf_counter() + 900
+    try:
+        while not ctx.join(timeout=5):
+            check(time.perf_counter() < deadline,
+                  "the world-2 trainer's ranks did not finish in 900 s")
+    except Exception as e:            # a rank's exception or exit code
+        fail(f"a world-2 trainer rank failed: {type(e).__name__}: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    wall = time.perf_counter() - t0
+    r = [json.loads(Path(out_dir, f"rank{i}.json").read_text())
+         for i in (0, 1)]
+    per_step = {"flash_attention": full_layers * 2,
+                "flash_attention_bwd": full_layers}
+    lines = []
+    for i, rk in enumerate(r):
+        f = rk["full"]
+        steady = f["step_ms"][1:]
+        ms = sum(steady) / len(steady)
+        red = [x["grad_all_reduce"] for x in f["sync"][1:]]
+        gat = [x["param_gather"] for x in f["sync"][1:]]
+        lines.append(
+            f"rank {i}: {ms:.1f} ms a step after the first (step ms "
+            f"{[round(x, 1) for x in f['step_ms']]}), "
+            f"{TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} tokens/s for the "
+            f"world; sync: the gradient all-reduce {sum(red) / len(red):.1f}"
+            f" ms, the parameter gather {sum(gat) / len(gat):.1f} ms a step;"
+            f" peak {f['peak'] / 2**30:.2f} GiB (moments "
+            f"{f['moment_bytes'] / 2**30:.2f} GiB, half of "
+            f"{2 * f['param_bytes'] / 2**30:.2f}); launches "
+            f"{ {k: f['launches'][k] for k in per_step} } ({per_step} a step"
+            f" expected)")
+        check(f["losses"] == world1["losses"], f"world 2 rank {i}: losses "
+              f"{f['losses']} are not world 1's {world1['losses']}")
+        differ = [n for n, h in world1["hashes"].items()
+                  if f["hashes"].get(n) != h]
+        check(sorted(f["hashes"]) == sorted(world1["hashes"]) and
+              not differ, f"world 2 rank {i}: {len(differ)} final leaves "
+              f"differ from world 1's, first {differ[:5]}")
+        for k, n in per_step.items():
+            check(f["launches"][k] == n * TRAIN_STEPS, f"world 2 rank {i}: "
+                  f"{k} launched {f['launches'][k]} times, expected {n} x "
+                  f"{TRAIN_STEPS}")
+        # half of m and v, but for the few leaves no spec shards (norms,
+        # biases), which each rank holds whole
+        check(f["moment_bytes"] <= 1.001 * f["param_bytes"],
+              f"world 2 rank {i}: the moments take {f['moment_bytes']} "
+              f"bytes, not about half of {2 * f['param_bytes']}")
+    print(f"world-2 trainer over gloo, two processes on one card ({wall:.1f}"
+          f" s with their start): {TRAIN_ARCH} at full width and depth, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ} as 2 rows and 1 microbatch a "
+          f"rank, {TRAIN_STEPS} steps: losses and all "
+          f"{len(world1['hashes'])} final leaves bitwise world 1's (2 "
+          f"microbatches); {'; '.join(lines)}", flush=True)
+    ref, after = resumed["ref"], list(range(RESUME_EVERY, TRAIN_STEPS))
+    for i, rk in enumerate(r):
+        got = {int(s_): x for s_, x in rk["from_world1"]["losses"]}
+        check(sorted(got) == after and all(got[s_] == ref[s_]
+                                           for s_ in after),
+              f"world 2 rank {i}: the world-1 save resumed gives {got}, "
+              f"not {ref}")
+        check(rk["from_world1"]["hashes"] == resumed["hashes"],
+              f"world 2 rank {i}: the world-1 save resumed ends on other "
+              "leaves than the uninterrupted run")
+        cut = {int(s_): x for s_, x in rk["cut"]}
+        check(sorted(cut) == list(range(RESUME_CUT)) and
+              all(cut[s_] == ref[s_] for s_ in cut),
+              f"world 2 rank {i}: the cut run's losses {cut} are not the "
+              "uninterrupted run's")
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    with mock.patch.object(train_mod, "get_config", lambda name: cfg):
+        params, _, losses = train_mod.train(
+            TRAIN_ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            reduced=False, microbatches=0, production=True,
+            ckpt_dir=os.path.join(out_dir, "world2_at4"),
+            save_every=RESUME_EVERY, resume=True, log_every=10**6,
+            opt_cfg=opt_cfg)
+    w1_counts = ops.launch_counts()
+    got = dict(losses)
+    hashes = leaf_hashes(params)
+    del params
+    print(f"checkpoints across worlds at {RESUME_LAYERS} layers: a world-1 "
+          f"save at step {RESUME_EVERY} resumed at world 2 to step "
+          f"{TRAIN_STEPS} (losses "
+          f"{[x for _, x in r[0]['from_world1']['losses']]}"
+          f"), a world-2 run saved at step {RESUME_EVERY} and cut at "
+          f"{RESUME_CUT} resumed at world 1 ({time.perf_counter() - t1:.1f} "
+          f"s; losses {[got[s_] for s_ in sorted(got)]}), against the "
+          f"uninterrupted {[ref[s_] for s_ in after]}: both bitwise, "
+          f"losses and every final leaf", flush=True)
+    check(sorted(got) == after and all(got[s_] == ref[s_] for s_ in after),
+          f"the world-2 save resumed at world 1 gives {got}, not {ref}")
+    check(hashes == resumed["hashes"], "the world-2 save resumed at world 1 "
+          "ends on other leaves than the uninterrupted run")
+    counts = dict(w1_counts)
+    for rk in r:
+        counts = _add_counts(counts, rk["full"]["launches"])
+        counts = _add_counts(counts, rk["cut_launches"])
+    free_card(torch)
+    return counts
+
+
+def run_grad_compress(torch):
+    """``compressed_grads_with_ef`` on qwen1.5-0.5b's full gradient tree
+    (one microbatch of ``COMPRESS_BATCH`` x ``TRAIN_SEQ``) on the card:
+    each leaf's worst error against one quantization unit, max|g| / 127
+    (JAX's bound adds 1e-6); ``compression_ratio`` (< 0.27); the mean of
+    ``COMPRESS_ROUNDS`` error-fed rounds against the gradient (JAX's
+    bound: max|g| / 127 + 1e-5); ms a call by CUDA events."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.largevis import seeded_generator
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models.factory import make_model
+    from repro_torch.optim import grad_compress
+
+    free_card(torch)
+    cfg = get_config(TRAIN_ARCH)
+    model = make_model(cfg)
+    params = model["init"](seeded_generator(torch.device("cuda"), 0))
+    batch = token_batch(1, 0, COMPRESS_BATCH, TRAIN_SEQ, cfg.vocab_size,
+                        device="cuda")
+    params.requires_grad_(True)
+    names = [n for n, _ in params.named_parameters()]
+    gs = torch.autograd.grad(model["loss"](params, batch),
+                             list(params.parameters()), allow_unused=True)
+    grads = {n: (torch.zeros_like(p) if g is None else g.detach()) for
+             n, p, g in zip(names, params.parameters(), gs)}
+    del params, gs, batch
+    free_card(torch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    acc = {n: torch.zeros_like(g) for n, g in grads.items()}
+    ef, ms = None, []
+    worst = 0.0
+    for i in range(COMPRESS_ROUNDS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        deq, ef = grad_compress.compressed_grads_with_ef(grads, ef, gen)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        if i == 0:            # no error fed back yet: deq quantizes g
+            for n, g in grads.items():
+                unit = float(g.abs().max()) / 127.0
+                err = float((g - deq[n]).abs().max())
+                check(err <= unit + 1e-6, f"compress: leaf {n} off by {err}"
+                      f", more than one unit {unit}")
+                worst = max(worst, err / unit if unit else 0.0)
+        for n in acc:
+            acc[n] += deq[n]
+        del deq
+    drift = max((float((acc[n] / float(COMPRESS_ROUNDS) - g).abs().max())
+                 / (float(g.abs().max()) / 127.0 + 1e-5))
+                for n, g in grads.items())
+    ratio = grad_compress.compression_ratio(grads)
+    n_el = sum(g.numel() for g in grads.values())
+    print(f"grad compress: compressed_grads_with_ef on {TRAIN_ARCH}'s full "
+          f"gradient tree ({len(grads)} leaves, {n_el / 1e6:.1f}M f32, one "
+          f"microbatch of {COMPRESS_BATCH} x {TRAIN_SEQ}): worst leaf error "
+          f"{worst:.4f} of a unit (max|g| / 127); compression_ratio "
+          f"{ratio:.5f} (< 0.27); after {COMPRESS_ROUNDS} error-fed rounds "
+          f"the worst leaf's drift {drift:.4f} of JAX's bound (max|g| / "
+          f"127 + 1e-5); ms a call {[round(x, 2) for x in ms]}", flush=True)
+    check(ratio < 0.27, f"compress: ratio {ratio}")
+    check(drift <= 1.0, f"compress: the error-fed drift is {drift} of the "
+          "bound")
+    del grads, acc, ef
+    free_card(torch)
 
 
 # ---------------------------------------------------------------------------

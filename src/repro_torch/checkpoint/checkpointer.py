@@ -12,7 +12,9 @@ Contract (``tests/test_torch_checkpoint.py``):
     restore, so a process killed mid-save never corrupts a run;
   * ``restore`` gives the saved leaves bit for bit, as numpy arrays (the
     caller puts them on its device), or cast to the leaves of ``like``
-    (dtype, and device for a tensor) after its structure is checked;
+    (dtype, and device for a tensor) after its structure is checked, or
+    with ``shardings`` each as this rank's block on its mesh's device
+    (JAX's elastic restore: any world resumes any other's save);
   * corruption detection: every shard file's CRC32 is recorded in
     ``meta.json``; a committed but damaged checkpoint fails verification
     and ``restore()`` falls back to the newest older checkpoint that loads
@@ -41,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import treedef
+from repro_torch.runtime.sharding import data_dim
 
 # on-disk format version.  v1 has no "version"/"crc" fields and is still
 # readable (CRC verification is skipped for it); v2 adds them.
@@ -153,6 +156,16 @@ def latest_step(ckpt_dir) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def shapes(ckpt_dir, step: int) -> dict:
+    """The tree of committed checkpoint ``step`` with each leaf's shape
+    (a tuple) in its place, from ``meta.json`` alone: what a caller
+    builds ``restore(shardings=)``'s tree from before any leaf is read."""
+    meta = json.loads((pathlib.Path(ckpt_dir) / f"step_{step}" /
+                       "meta.json").read_text())
+    return treedef.unflatten(bytes.fromhex(meta["treedef"]),
+                             [tuple(s) for s in meta["shapes"]])
+
+
 def _like(like, got, where=()):
     """``got`` (numpy leaves) in the structure of ``like``: the same keys
     at every level, each leaf cast to the like leaf's dtype, and a tensor
@@ -171,6 +184,37 @@ def _like(like, got, where=()):
         return torch.from_numpy(np.array(got)).to(device=like.device,
                                                   dtype=like.dtype)
     return np.asarray(got).astype(np.asarray(like).dtype)
+
+
+def _shard(shardings, got, where=()):
+    """``got`` (numpy leaves, or ``like``'s) placed by ``shardings``: each
+    leaf's ``(mesh, spec)`` gives this rank's block along the spec's
+    ``"data"`` dimension, a tensor on the mesh's device; every other axis
+    is whole (the port's meshes have ``"model"`` = 1)."""
+    if isinstance(shardings, dict):
+        if not isinstance(got, dict) or sorted(shardings) != sorted(got):
+            at = "/".join(where) or "<root>"
+            have = sorted(got) if isinstance(got, dict) else "a leaf"
+            raise ValueError(f"restore(shardings=): the checkpoint has "
+                             f"{have} at {at}, shardings has "
+                             f"{sorted(shardings)}")
+        return {k: _shard(shardings[k], got[k], where + (k,))
+                for k in shardings}
+    mesh, spec = shardings
+    t = got if torch.is_tensor(got) else torch.from_numpy(np.array(got))
+    d = data_dim(spec)
+    if d is not None and mesh.size > 1:
+        if not mesh.in_mesh:
+            raise ValueError("restore(shardings=): this rank is outside "
+                             "the mesh and holds no block")
+        n = t.shape[d]
+        if n % mesh.size:
+            raise ValueError(f"restore(shardings=): {'/'.join(where)} has "
+                             f"{n} rows on dimension {d}, not a multiple "
+                             f"of the mesh's {mesh.size} ranks")
+        b = n // mesh.size
+        t = t.narrow(d, mesh.rank * b, b).contiguous()
+    return t.to(mesh.device)
 
 
 def _load_step(path: pathlib.Path, *, expect_schema: Optional[str] = None):
@@ -215,12 +259,19 @@ def _load_step(path: pathlib.Path, *, expect_schema: Optional[str] = None):
     return treedef.unflatten(bytes.fromhex(meta["treedef"]), leaves), meta
 
 
-def restore(ckpt_dir, step: Optional[int] = None, *, like=None,
-            expect_schema: Optional[str] = None,
+def restore(ckpt_dir, step: Optional[int] = None, *, shardings=None,
+            like=None, expect_schema: Optional[str] = None,
             return_meta: bool = False, validate=None):
     """Load a checkpoint; the leaves are numpy arrays, or with ``like`` (a
     tree of arrays or tensors of the same structure, which is checked)
     cast to each like leaf's dtype and, for a tensor, its device.
+
+    ``shardings``: a tree of ``(mesh, spec)`` of the checkpoint's
+    structure (a ``DataMesh`` and a spec of ``runtime/sharding.py``).
+    Each leaf then comes back as this rank's block along its spec's
+    ``"data"`` dimension, on the mesh's device.  A checkpoint holds
+    global arrays, so a mesh of any size resumes it, whatever size wrote
+    it.
 
     ``step=None`` loads the NEWEST committed checkpoint that passes
     verification — a committed-but-corrupt directory (CRC mismatch,
@@ -271,6 +322,8 @@ def restore(ckpt_dir, step: Optional[int] = None, *, like=None,
             f"(last error: {last_err})")
     if like is not None:
         tree = _like(like, tree)
+    if shardings is not None:
+        tree = _shard(shardings, tree)
     if return_meta:
         return tree, meta["step"], meta
     return tree, meta["step"]

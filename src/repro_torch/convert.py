@@ -82,16 +82,18 @@ def _map(tree, fn):
 
 def lm_params_from_numpy(tree: dict, cfg, device="cuda"):
     """The port's LM parameters (f32, as ``lm.init_lm`` makes them) from
-    the JAX package's parameter pytree with numpy leaves."""
+    the JAX package's parameter pytree with numpy leaves (or tensors)."""
     dev = resolve_device(device)
     lm.check_supported(cfg)
     P = len(cfg.block_pattern)
 
-    def t(a):
+    def t(a):        # a tensor is taken as it is, not copied
+        if torch.is_tensor(a):
+            return a.to(device=dev, dtype=torch.float32)
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
 
     def layer(stacked, i):
-        return _map(stacked, lambda a: t(np.asarray(a)[i]))
+        return _map(stacked, lambda a: t(a[i]))
 
     if cfg.is_encoder_decoder:          # stacked over the layers
         lists = {k: [layer(tree[k], i) for i in range(n)] for k, n in
@@ -109,8 +111,10 @@ def lm_params_to_numpy(params, cfg) -> dict:
     P = len(cfg.block_pattern)
 
     def tree(m):
-        if torch.is_tensor(m):
-            return m.detach().float().cpu().numpy()
+        if torch.is_tensor(m):     # a copy: a later step updates m in place
+            x = m.detach().float()
+            return x.numpy().copy() if x.device.type == "cpu" else \
+                x.cpu().numpy()
         return {k: tree(v) for k, v in m.items()}
 
     if cfg.is_encoder_decoder:
@@ -139,13 +143,14 @@ def opt_state_to_numpy(state: dict, cfg) -> dict:
 
 
 def opt_state_from_numpy(tree: dict, cfg, device="cuda") -> dict:
-    """The port's AdamW state from the JAX package's (numpy leaves): the
-    moments frozen f32 module trees, ``step`` an int32 0-d tensor."""
+    """The port's AdamW state from the JAX package's (numpy leaves, or a
+    rank's blocks as tensors): the moments frozen f32 module trees,
+    ``step`` an int32 0-d tensor."""
     dev = resolve_device(device)
     return {"m": lm_params_from_numpy(tree["m"], cfg, dev),
             "v": lm_params_from_numpy(tree["v"], cfg, dev),
-            "step": torch.tensor(int(np.asarray(tree["step"])),
-                                 dtype=torch.int32, device=dev)}
+            "step": torch.tensor(int(tree["step"]), dtype=torch.int32,
+                                 device=dev)}
 
 
 def train_state_to_numpy(params, opt_state: dict, cfg) -> dict:

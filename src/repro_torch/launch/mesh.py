@@ -49,6 +49,12 @@ class DataMesh:
     def in_mesh(self) -> bool:
         return self.rank >= 0
 
+    @property
+    def shape(self) -> dict:
+        """The axis sizes, JAX's ``mesh.shape``: ``{"data": P, "model":
+        1}`` (the partition rules of ``runtime/sharding.py`` read it)."""
+        return {"data": self.size, "model": 1}
+
     def _wire(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` as the backend moves it: on the card for NCCL, a host
         copy for gloo."""
@@ -167,6 +173,19 @@ def make_data_mesh(data: int = 0, *, device="cuda") -> DataMesh:
     return DataMesh(group=group if inside else None,
                     rank=wrank if inside else -1, size=P, device=dev,
                     backend=backend, world_rank=wrank, world_size=world)
+
+
+def make_host_mesh(data: int = 1, model: int = 1, *,
+                   device="cuda") -> DataMesh:
+    """The JAX package's ``make_host_mesh``: the data mesh over
+    ``min(data, world)`` ranks, as JAX clamps ``data`` to the devices.
+    ``model > 1`` raises: tensor parallelism over ``"model"`` is ROADMAP
+    Queue 1 item 7 step 8."""
+    if model > 1:
+        raise ValueError(f"make_host_mesh: model={model}: tensor "
+                         "parallelism over 'model' is ROADMAP Queue 1 item "
+                         "7 step 8; the port's meshes have model = 1")
+    return make_data_mesh(max(1, int(data)), device=device)
 
 
 def broadcast_from_mesh(mesh: DataMesh, tensors: list, obj=None):

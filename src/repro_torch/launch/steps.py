@@ -1,26 +1,56 @@
-"""The train step on one device — the JAX package's ``launch/steps.py``
+"""The train step — the JAX package's ``launch/steps.py``
 (``pick_microbatches``, ``make_train_step``).
 
-JAX builds a sharded, jitted step over a mesh; the port's step runs
-eagerly on the parameters' device, so the mesh arguments, the shardings
-and the argument specs have no counterpart here (the sharded trainer,
+JAX builds one jitted step over a ``(data, model)`` mesh, its parameters,
+moments and batch laid out by ``runtime/sharding.py``.  The port runs the
+step eagerly on each rank of a ``DataMesh`` (SPMD, one process a rank),
+or on the parameters' device alone when ``mesh`` is None.  On a mesh of
+P ranks a step:
+
+1. takes the rank's contiguous block of the batch's rows (JAX's batch
+   sharding over ``"data"``), so rank r's rows are what one device's
+   microbatch r of P would be;
+2. sums its microbatches' gradients and losses in f32 in microbatch
+   order, from zero;
+3. adds the ranks' sums in rank order (``DataMesh.all_reduce_sum``) and
+   divides by the total microbatch count, a tensor;
+4. updates its blocks of the parameters and of the moments along each
+   leaf's FSDP dimension (``optim/adamw.py``), and all-gathers the blocks
+   so that every rank holds the whole parameters again.
+
+So a step over P ranks with one microbatch each gives the bits of one
+device's step over P microbatches.  At rest the parameters are whole on
+every rank and ``m`` and ``v`` hold only the rank's blocks; JAX's FSDP
+also shards the parameters at rest and gathers them a layer at a time
+inside the step, which takes per-layer hooks in eager PyTorch (ROADMAP
+Queue 1 item 7 step 8, with tensor parallelism over ``"model"``).
 ``make_prefill_step``, ``make_decode_step`` and ``make_step`` are ROADMAP
-Queue 1 item 7 step 8).
+Queue 1 item 7 step 9.
 """
 from __future__ import annotations
+
+import time
 
 import torch
 
 from repro_torch.models.factory import make_model
-from repro_torch.optim.adamw import AdamWConfig, adamw_update
+from repro_torch.models.lm import map_tree
+from repro_torch.optim.adamw import AdamWConfig, adamw_update, block_of
+from repro_torch.runtime import sharding as sh
+
+# the most f32 elements a collective of the step moves at once (256 MB),
+# which bounds the copies the sync holds beside the gradients
+SYNC_ELEMS = 1 << 26
 
 
-def pick_microbatches(shape_cfg, *, tokens_budget: int = 8192) -> int:
-    """The largest divisor of the batch that brings a microbatch's tokens
-    under budget (activation memory is one microbatch's; gradients
-    accumulate in f32 across microbatches).  One device: the whole batch
-    is the device's."""
-    per_dev_batch = max(1, shape_cfg.global_batch)
+def pick_microbatches(shape_cfg, *, mesh=None,
+                      tokens_budget: int = 8192) -> int:
+    """The largest divisor of the per-rank batch (``global_batch //
+    mesh.size``, the whole batch without a mesh) that brings a
+    microbatch's tokens under budget (activation memory is one
+    microbatch's; gradients accumulate in f32 across microbatches)."""
+    dp_size = 1 if mesh is None else mesh.size
+    per_dev_batch = max(1, shape_cfg.global_batch // dp_size)
     target = max(1, per_dev_batch * shape_cfg.seq_len // tokens_budget)
     n = 1
     for cand in range(1, per_dev_batch + 1):
@@ -43,18 +73,125 @@ def _split(batch: dict, n: int, i: int) -> dict:
     return out
 
 
-def make_train_step(cfg, shape_cfg, *, opt_cfg: AdamWConfig = None,
-                    microbatches: int = 0):
+def rank_rows(batch: dict, mesh) -> dict:
+    """The mesh rank's block of every batch leaf's rows, by the batch's
+    partition specs; raises where a leaf's rows do not divide over the
+    mesh (JAX would replicate such a batch on every device)."""
+    rows = {t.shape[0] for t in batch.values()}
+    if len(rows) != 1:
+        raise ValueError(f"make_train_step: batch leaves of {sorted(rows)} "
+                         "rows")
+    B = rows.pop()
+    specs = sh.batch_shardings(batch, mesh.shape, global_batch=B)
+    for name, spec in specs.items():
+        if sh.data_dim(spec) != 0:
+            raise ValueError(f"make_train_step: batch leaf {name!r} of {B} "
+                             f"rows does not divide over the mesh's "
+                             f"{mesh.size} ranks")
+    return _split(batch, mesh.size, mesh.rank)
+
+
+def _mark(dev):
+    """A point in the step's time: a CUDA event recorded on the current
+    stream (read after the step, without draining the card), or the host
+    clock on the CPU."""
+    if dev.type != "cuda":
+        return time.perf_counter()
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def _ms(a, b) -> float:
+    """ms from mark ``a`` to mark ``b`` (waits for ``b`` on the card)."""
+    if isinstance(a, float):
+        return (b - a) * 1e3
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def all_reduce_flat(mesh, flat: torch.Tensor) -> None:
+    """``flat`` replaced in place by the rank-order sum over the mesh, in
+    pieces of at most ``SYNC_ELEMS`` (each element's sum is the same
+    whatever the pieces)."""
+    for lo in range(0, flat.numel(), SYNC_ELEMS):
+        piece = flat[lo:lo + SYNC_ELEMS]
+        piece.copy_(mesh.all_reduce_sum(piece))
+
+
+@torch.no_grad()
+def gather_blocks(mesh, params, blocks) -> None:
+    """Every rank's blocks written into the whole parameters, so that the
+    replicas are whole and equal again; the blocks go over the mesh in
+    buckets of whole leaves of at most ``SYNC_ELEMS`` elements a rank (a
+    larger leaf goes alone)."""
+    owned = [(p, blk) for p, blk in zip(params.parameters(), blocks)
+             if blk is not None]
+
+    def flush(bucket):
+        flat = torch.cat([block_of(p, blk).reshape(-1)
+                          for p, blk in bucket])
+        parts = mesh.all_gather_list(flat)
+        off = 0
+        for p, (d, _, b) in bucket:
+            shape = block_of(p, (d, 0, b)).shape
+            n = shape.numel()
+            for r, part in enumerate(parts):
+                p.narrow(d, r * b, b).copy_(part[off:off + n].view(shape))
+            off += n
+
+    bucket, size = [], 0
+    for p, blk in owned:
+        n = block_of(p, blk).numel()
+        if bucket and size + n > SYNC_ELEMS:
+            flush(bucket)
+            bucket, size = [], 0
+        bucket.append((p, blk))
+        size += n
+    if bucket:
+        flush(bucket)
+
+
+def gather_moments(mesh, params, moments, cfg):
+    """A module tree of ``moments`` (the rank's blocks, paired with
+    ``params``) gathered into whole leaves over the mesh, along each
+    leaf's FSDP dimension (``sharding.owned_blocks``); every rank of the
+    mesh must call it."""
+    blocks = dict(zip(map(id, moments.parameters()),
+                      sh.owned_blocks(params, cfg, mesh)))
+
+    def whole(m):
+        if blocks[id(m)] is None:
+            return m.detach()
+        return torch.cat(mesh.all_gather_list(m.detach()),
+                         dim=blocks[id(m)][0])
+
+    return map_tree(whole, moments)
+
+
+def make_train_step(cfg, shape_cfg, *, mesh=None,
+                    opt_cfg: AdamWConfig = None, microbatches: int = 0):
     """The step ``train_step(params, opt_state, batch) -> (params,
-    opt_state, loss)``: the mean loss and gradients over
-    ``microbatches`` microbatches (0: :func:`pick_microbatches`), summed
-    in f32 in microbatch order and divided by their count, then one AdamW
-    step, as JAX's step.  It turns the parameters' gradients on, updates
-    them and the moments in place (``adamw_update``) and returns a 0-d f32
-    loss."""
+    opt_state, loss)``: the mean loss and gradients over ``microbatches``
+    microbatches a rank (0: :func:`pick_microbatches`), summed in f32 in
+    microbatch order and divided by their count, then one AdamW step, as
+    JAX's step.  It turns the parameters' gradients on, updates them and
+    the moments in place (``adamw_update``) and returns a 0-d f32 loss.
+    One body serves both cases: without a mesh it skips the rank's rows,
+    the all-reduce and the gather, and updates every leaf whole.
+
+    With a ``mesh`` (a ``DataMesh``), ``batch`` is the global batch, which
+    every rank holds; ``opt_state`` holds the rank's blocks
+    (``adamw_init(params, sharding.owned_blocks(params, cfg, mesh))``);
+    the loss is the global mean, the same bits on every rank.
+    ``train_step.sync_ms()`` gives the last step's ``grad_all_reduce``
+    and ``param_gather`` ms, timed by CUDA events on the card, so the
+    step itself never waits for the card."""
     opt_cfg = opt_cfg or AdamWConfig()
     loss_fn = make_model(cfg)["loss"]
-    n_micro = microbatches or pick_microbatches(shape_cfg)
+    n_micro = microbatches or pick_microbatches(shape_cfg, mesh=mesh)
+    if mesh is not None and not mesh.in_mesh:
+        raise ValueError("make_train_step: this rank is outside the mesh")
 
     def grads_of(params, plist, batch):
         loss = loss_fn(params, batch)
@@ -62,29 +199,52 @@ def make_train_step(cfg, shape_cfg, *, opt_cfg: AdamWConfig = None,
         return loss.detach(), [torch.zeros_like(p) if g is None else g
                                for p, g in zip(plist, gs)]
 
+    blocks = None      # sharding.owned_blocks, made at the first step
+    marks = []
+
     def train_step(params, opt_state, batch):
+        nonlocal blocks
         params.requires_grad_(True)
         plist = list(params.parameters())
-        if n_micro == 1:
-            loss, grads = grads_of(params, plist, batch)
-        else:
-            dev = plist[0].device
-            gsum = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
-                    for p in plist]
-            lsum = torch.zeros((), dtype=torch.float32, device=dev)
-            for i in range(n_micro):
-                loss_i, g = grads_of(params, plist,
-                                     _split(batch, n_micro, i))
-                gsum = [acc + gi.float() for acc, gi in zip(gsum, g)]
-                lsum = lsum + loss_i
-                del g
-            n = torch.tensor(float(n_micro), dtype=torch.float32,
-                             device=dev)
-            grads = [g / n for g in gsum]
-            loss = lsum / n
+        dev = plist[0].device
+        if mesh is not None and blocks is None:
+            blocks = sh.owned_blocks(params, cfg, mesh)
+        local = batch if mesh is None else rank_rows(batch, mesh)
+        # the gradients and the loss in one flat f32 buffer, summed from
+        # zero in microbatch order
+        sizes = [p.numel() for p in plist]
+        flat = torch.zeros(sum(sizes) + 1, dtype=torch.float32, device=dev)
+        for i in range(n_micro):
+            loss_i, g = grads_of(params, plist, _split(local, n_micro, i))
+            for acc, gi in zip(flat[:-1].split(sizes), g):
+                acc.add_(gi.reshape(-1).float())
+            flat[-1].add_(loss_i)
+            del g
+        marks[:] = [_mark(dev)]
+        if mesh is not None:
+            all_reduce_flat(mesh, flat)
+        marks.append(_mark(dev))
+        flat.div_(torch.tensor(float(n_micro * n_ranks),
+                               dtype=torch.float32, device=dev))
+        loss = flat[-1].clone()
+        grads = [v.view(p.shape) for v, p in
+                 zip(flat[:-1].split(sizes), plist)]
         params, opt_state, _ = adamw_update(opt_cfg, params, grads,
-                                            opt_state)
+                                            opt_state, blocks=blocks)
+        del grads, flat
+        marks.append(_mark(dev))
+        if mesh is not None:
+            gather_blocks(mesh, params, blocks)
+        marks.append(_mark(dev))
         return params, opt_state, loss
 
+    def sync_ms() -> dict:
+        """ms of the last step's ``grad_all_reduce`` and ``param_gather``
+        (0 without a mesh), read when asked: CUDA events on the card."""
+        return {"grad_all_reduce": _ms(*marks[:2]),
+                "param_gather": _ms(*marks[2:])}
+
+    n_ranks = 1 if mesh is None else mesh.size
     train_step.microbatches = n_micro
+    train_step.sync_ms = sync_ms
     return train_step

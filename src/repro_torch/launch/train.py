@@ -1,5 +1,5 @@
-"""Training driver: --arch <id> --steps N [--no-resume] — the JAX
-package's ``launch/train.py`` on one device.
+"""Training driver: --arch <id> --steps N [--no-resume]
+[--production-mesh] — the JAX package's ``launch/train.py``.
 
 Wires: model factory -> train step (``launch/steps.py``: microbatched
 gradients, AdamW) -> checkpoint manager (atomic, rotating, auto-resume;
@@ -7,21 +7,37 @@ the train state in the JAX trainer's tree, so either package resumes the
 other's run) -> preemption guard -> straggler watchdog.  It runs on the
 card unless ``device="cpu"`` (the plain versions of the kernels).
 
+``production=False`` trains on one device (JAX's 1 x 1 host mesh).
+``production=True`` trains data-parallel over ``make_data_mesh()``,
+every rank of the process group (``torchrun --nproc_per_node=P``; with no
+group, a world of one), the counterpart of the data axis of JAX's pod
+mesh: each rank takes its block of the batch's rows and its blocks of
+the moments (``launch/steps.py``), the parameters stay whole on every
+rank.  Every rank joins the gather of the moments at a save, and mesh
+rank 0 writes the checkpoint, which holds whole leaves in JAX's layout;
+every rank resumes through ``resume(shardings=)``, so a run saved at any
+world resumes at any other.
+
 Preemption: a SIGTERM is held until the step in flight ends; the loop
 then saves the step it has reached, ``step + 1`` (unless the cadence just
-saved it), and the process exits by the signal.  The JAX trainer saves at
-step -1 from inside the handler, which a later resume ranks below its
-periodic saves or replays from step 0 (ROADMAP Queue 3); the port does
-not.  ``production=True`` (JAX's pod mesh) raises: the sharded trainer is
-ROADMAP Queue 1 item 7 step 8.
+saved it), and the process exits by the signal.  On a mesh the ranks
+agree at each step's end, by a max over the mesh, whether any of them
+was signalled; then all of them save and every rank exits by SIGTERM.
+The JAX trainer saves at step -1 from inside the handler, which a later
+resume ranks below its periodic saves or replays from step 0 (ROADMAP
+Queue 3); the port does not.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import signal
 import tempfile
 import time
 
+import torch
+
+from repro_torch.checkpoint import checkpointer as ckpt
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
@@ -29,10 +45,42 @@ from repro_torch.convert import (lm_params_from_numpy, opt_state_from_numpy,
                                  train_state_to_numpy)
 from repro_torch.core.largevis import resolve_device, seeded_generator
 from repro_torch.data.synthetic import token_batch
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.mesh import make_data_mesh
+from repro_torch.launch.steps import gather_moments, make_train_step
 from repro_torch.models.factory import make_model
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
+from repro_torch.runtime import sharding as sh
 from repro_torch.runtime.fault_tolerance import PreemptionGuard, Watchdog
+
+
+def state_shardings(shapes: dict, mesh) -> dict:
+    """The ``(mesh, spec)`` tree of a train checkpoint whose leaves have
+    ``shapes`` (``checkpointer.shapes``), for ``resume(shardings=)``: the
+    parameters and the step whole, each moment by its parameter's
+    training spec, JAX's ``params_shardings`` (a leaf under ``blocks/``
+    or a layer list stacked)."""
+    def walk(tree, path, moment):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,), moment) for k, v in tree.items()}
+        if not moment:
+            return mesh, (None,) * len(tree)
+        s = "/".join(path)
+        return mesh, sh.param_pspec(s, tree, mesh.shape, train=True,
+                                    stacked="blocks/" in s or
+                                    "_layers/" in s)
+
+    opt = shapes["opt"]
+    return {"params": walk(shapes["params"], (), False),
+            "opt": {"m": walk(opt["m"], (), True),
+                    "v": walk(opt["v"], (), True), "step": (mesh, ())}}
+
+
+def _agree(mesh, flag: bool, dev) -> bool:
+    """The max of every rank's ``flag`` over the mesh (one int each)."""
+    if mesh is None or mesh.size == 1:
+        return flag
+    got = mesh.all_gather(torch.tensor([int(flag)], device=dev))
+    return bool(got.max())
 
 
 def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
@@ -45,11 +93,9 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
     ran.  ``ckpt_dir`` defaults to ``$TMPDIR/repro_ckpt``; ``microbatches``
     0 picks them (``pick_microbatches``); ``opt_cfg`` (the port's addition)
     defaults to JAX's ``AdamWConfig()``, whose 100-step warmup moves a
-    full-width model's loss very little in a few steps."""
-    if production:
-        raise ValueError("train: production=True (the pod mesh) needs the "
-                         "sharded trainer, ROADMAP Queue 1 item 7 step 8; "
-                         "the port trains on one device")
+    full-width model's loss very little in a few steps.  Under
+    ``production`` every rank of the world calls it alike and gets the
+    same losses and parameters; its ``opt_state`` holds its blocks."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -58,16 +104,28 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
                          "batches, which the token stream does not make "
                          "(call make_train_step with them)")
     dev = resolve_device(device)
+    mesh = make_data_mesh(0, device=dev) if production else None
+    if mesh is not None:
+        dev = mesh.device
+    writer = mesh is None or mesh.rank == 0
     step_fn = make_train_step(cfg, ShapeConfig("custom", "train", seq, batch),
-                              opt_cfg=opt_cfg, microbatches=microbatches)
+                              mesh=mesh, opt_cfg=opt_cfg,
+                              microbatches=microbatches)
     mgr = CheckpointManager(
         ckpt_dir or os.path.join(tempfile.gettempdir(), "repro_ckpt"),
-        save_every=save_every)
-    state, start = (mgr.resume() if resume else (None, 0))
+        save_every=save_every, writes=writer)
+
+    state, start = None, 0
+    last = ckpt.latest_step(mgr.directory) if resume else None
+    if last is not None and mesh is None:
+        state, start = mgr.resume()
+    elif last is not None:      # every rank its blocks of the moments
+        state, start = mgr.resume(shardings=state_shardings(
+            ckpt.shapes(mgr.directory, last), mesh))
     if state is None:
         params = make_model(cfg)["init"](seeded_generator(dev, seed))
-        opt_state = adamw_init(params)
-        start = 0
+        opt_state = adamw_init(params, sh.owned_blocks(params, cfg, mesh)
+                               if mesh else None)
     else:
         params = lm_params_from_numpy(state["params"], cfg, dev)
         opt_state = opt_state_from_numpy(state["opt"], cfg, dev)
@@ -77,7 +135,15 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
     dog = Watchdog()
 
     def tree():
-        return train_state_to_numpy(params, opt_state, cfg)
+        """The train state in JAX's layout: on a mesh of ranks every rank
+        joins the gather of the moments, and only mesh rank 0 (which
+        writes) takes host copies."""
+        st = opt_state
+        if mesh is not None and mesh.size > 1:
+            st = dict(opt_state, **{k: gather_moments(mesh, params,
+                                                      opt_state[k], cfg)
+                                    for k in ("m", "v")})
+        return train_state_to_numpy(params, st, cfg) if writer else None
 
     losses = []
     try:
@@ -93,11 +159,17 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
             if step % log_every == 0:
                 print(f"step {step:5d} loss {loss:.4f} ({dt*1000:.0f} ms)",
                       flush=True)
-            saved = mgr.maybe_save(step + 1, tree)
-            if guard.pending is not None:
-                reached = step + 1
-                guard.set_save_fn(None if saved is not None else
-                                  lambda: mgr.save_now(reached, tree))
+            reached = step + 1
+            saved = mgr.maybe_save(reached, tree)
+            stop = _agree(mesh, guard.pending is not None, dev)
+            if stop and saved is None:
+                saved = mgr.save_now(reached, tree)
+            if saved is not None and mesh is not None:
+                mesh.barrier()          # the writer has committed it
+            if stop:
+                guard.set_save_fn(None)
+                if guard.pending is None:    # another rank was signalled
+                    guard.pending = signal.SIGTERM
                 print(f"preemption: checkpointed at step {reached} and "
                       "exiting", flush=True)
                 guard.finish()               # exits by the signal
@@ -119,13 +191,27 @@ def main():
     ap.add_argument("--save-every", type=int, default=20)
     ap.add_argument("--no-resume", action="store_true")
     ap.add_argument("--full-config", action="store_true")
-    ap.add_argument("--production-mesh", action="store_true")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="data-parallel over every rank of the world "
+                    "(torchrun --nproc_per_node=P)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
-    train(args.arch, steps=args.steps, batch=args.batch, seq=args.seq,
-          ckpt_dir=args.ckpt_dir, save_every=args.save_every,
-          resume=not args.no_resume, reduced=not args.full_config,
-          production=args.production_mesh, device=args.device)
+    group = args.production_mesh and "WORLD_SIZE" in os.environ
+    if group:
+        # started by torchrun: join its group (its env:// rendezvous)
+        import torch.distributed as dist
+        if torch.device(args.device).type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl" if torch.device(args.device).type
+                                == "cuda" else "gloo")
+    try:
+        train(args.arch, steps=args.steps, batch=args.batch, seq=args.seq,
+              ckpt_dir=args.ckpt_dir, save_every=args.save_every,
+              resume=not args.no_resume, reduced=not args.full_config,
+              production=args.production_mesh, device=args.device)
+    finally:
+        if group:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -18,6 +18,15 @@ parameters' names, not ``jax.tree.leaves``' (JAX stacks the layers), so it
 agrees with JAX's within f32 rounding; a tree rebuilt from a checkpoint
 (its dicts in another key order) gives the same bits as the tree it was
 saved from, which a resumed run needs to be bitwise the uninterrupted one.
+
+Under the sharded trainer (``launch/steps.py`` with a mesh) each rank
+owns a block of every leaf that its spec shards over ``"data"``
+(``blocks``: one ``(dim, start, length)`` or None a parameter).  ``m``
+and ``v`` then hold only those blocks, and the per-element arithmetic
+runs on the block of the parameter and its gradient, views along that
+dimension: element for element the bits of the one-device update.  A
+leaf with no block is updated whole on every rank.  The gradient norm
+is taken over the full gradients, as on one device.
 """
 from __future__ import annotations
 
@@ -41,12 +50,22 @@ class AdamWConfig:
     warmup_steps: int = 100
 
 
-def adamw_init(params) -> dict:
-    """Zero moments (f32, frozen) in the parameters' tree; step 0."""
-    dev = next(params.parameters()).device
-    zeros = lambda p: torch.zeros(p.shape, dtype=_F32, device=p.device)
+def block_of(t: torch.Tensor, block) -> torch.Tensor:
+    """The view of ``t`` that a block ``(dim, start, length)`` names (``t``
+    itself for None)."""
+    return t if block is None else t.narrow(*block)
+
+
+def adamw_init(params, blocks=None) -> dict:
+    """Zero moments (f32, frozen) in the parameters' tree, each of its
+    block's shape when ``blocks`` is given; step 0."""
+    plist = list(params.parameters())
+    own = dict(zip(map(id, plist), blocks or [None] * len(plist)))
+    zeros = lambda p: torch.zeros(block_of(p, own[id(p)]).shape,
+                                  dtype=_F32, device=p.device)
     return {"m": map_tree(zeros, params), "v": map_tree(zeros, params),
-            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+            "step": torch.zeros((), dtype=torch.int32,
+                                device=plist[0].device)}
 
 
 def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
@@ -64,11 +83,13 @@ def global_norm(leaves) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params, grads, state: dict):
-    """One AdamW step.  ``grads`` are the gradients in
+def adamw_update(cfg: AdamWConfig, params, grads, state: dict, *,
+                 blocks=None):
+    """One AdamW step.  ``grads`` are the whole gradients in
     ``params.parameters()`` order (a sequence of tensors, or a module tree
     of the parameters' structure).  Updates ``params``, ``state["m"]`` and
-    ``state["v"]`` in place; returns (params, new state, {"grad_norm",
+    ``state["v"]`` in place, each parameter only on its block when
+    ``blocks`` is given; returns (params, new state, {"grad_norm",
     "lr"})."""
     if isinstance(grads, torch.nn.Module):
         grads = list(grads.parameters())
@@ -83,9 +104,11 @@ def adamw_update(cfg: AdamWConfig, params, grads, state: dict):
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1.0 - b1 ** step.to(_F32)
     bc2 = 1.0 - b2 ** step.to(_F32)
-    for p, g, m, v in zip(params.parameters(), grads,
-                          state["m"].parameters(), state["v"].parameters(),
-                          strict=True):
+    blocks = blocks or [None] * len(names)
+    for p, g, m, v, blk in zip(params.parameters(), grads,
+                               state["m"].parameters(),
+                               state["v"].parameters(), blocks, strict=True):
+        p, g = block_of(p, blk), block_of(g, blk)
         g = g.to(_F32) * scale
         m.copy_(b1 * m + (1 - b1) * g)
         v.copy_(b2 * v + (1 - b2) * torch.square(g))

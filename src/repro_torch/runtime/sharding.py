@@ -1,4 +1,5 @@
-"""The row layout every stage of the distributed pipeline shares.
+"""The row layout every stage of the distributed pipeline shares, and
+the partition rules of the sharded trainer.
 
 Each stage (the KNN ring, calibration, symmetrization, the sampler build)
 shards its N rows the same way: N is padded up to a multiple of the
@@ -8,10 +9,23 @@ so a local row l is global row ``s * rows_per_shard + l``.  One layout
 across stages means a stage's output block is the next stage's input
 block, with no repartitioning between them.
 
-Only the JAX package's row-layout helpers are here; its partition specs
-for the language models wait for the LM substrate.
+The LM rules are the JAX package's (``runtime/sharding.py``): FSDP over
+``"data"``, tensor parallelism over ``"model"``, every proposed axis
+dropped where the dimension does not divide over it.  They take the
+mesh's axis sizes as a mapping, JAX's ``mesh.shape`` (``DataMesh.shape``
+in the port), and a spec is a tuple of an axis name, a tuple of names or
+None per dimension, JAX's ``PartitionSpec``.  The port trains at
+``"model"`` = 1; the rules are held to JAX's at larger meshes too.
+
+JAX's activation policy and ``constrain_*`` have no counterpart: they are
+XLA trace-time hints, and a port rank holds its own rows by
+construction.  ``_cache_pspec`` and ``out_shardings_for`` wait for the
+sharded serving steps (ROADMAP Queue 1 item 7 step 8).
 """
 from __future__ import annotations
+
+import re
+from typing import Mapping, Optional
 
 import torch
 
@@ -44,3 +58,178 @@ def shard_rows(x: torch.Tensor, mesh) -> torch.Tensor:
     if lo + n_loc <= x.shape[0]:              # a block with no padding
         return x[lo:lo + n_loc].to(mesh.device)
     return pad_rows(x, mesh.size)[lo:lo + n_loc].to(mesh.device)
+
+
+# ---------------------------------------------------------------------------
+# The LM partition rules
+# ---------------------------------------------------------------------------
+
+def _axis_size(sizes: Mapping, name) -> int:
+    if name is None:
+        return 1
+    if isinstance(name, tuple):
+        out = 1
+        for n in name:
+            out *= _axis_size(sizes, n)
+        return out
+    return sizes[name] if name in sizes else 0
+
+
+def _guard(sizes: Mapping, shape, spec) -> tuple:
+    """``spec`` with each axis that is absent, or does not divide its
+    dimension, replaced by None; a tuple of one name is the name, as in
+    JAX's ``PartitionSpec``."""
+    out = []
+    for dim, ax in zip(shape, spec):
+        size = _axis_size(sizes, ax) if ax is not None else 0
+        if isinstance(ax, tuple) and len(ax) == 1:
+            ax = ax[0]
+        out.append(ax if size and dim % size == 0 and dim >= size else None)
+    return tuple(out)
+
+
+def dp_axes(sizes: Mapping) -> tuple:
+    return ("pod", "data") if "pod" in sizes else ("data",)
+
+
+def fsdp_axis(sizes: Mapping, train: bool):
+    return "data" if train else None
+
+
+_RULES = [
+    # (regex on the "/"-joined path, proposal builder given ndim)
+    (r"(embed|lm_head)/table$", lambda nd: ["model", "fsdp"]),
+    (r"dec_pos$|enc_pos$", lambda nd: ["fsdp", None]),
+    (r"attn/w[qkv]$|xattn/w[qkv]$", lambda nd: ["fsdp", "model", None]),
+    (r"attn/wo$|xattn/wo$", lambda nd: ["model", None, "fsdp"]),
+    (r"attn/b[qkv]$", lambda nd: ["model", None]),
+    (r"mlp/w_(gate|up)$", lambda nd: ["fsdp", "model"]),
+    (r"mlp/w_down$", lambda nd: ["model", "fsdp"]),
+    (r"mlp/b_up$", lambda nd: ["model"]),
+    (r"mlp/b_down$", lambda nd: [None]),
+    (r"moe/router$", lambda nd: ["fsdp", None]),
+    (r"moe/w_(gate|up)$", lambda nd: ["expert", "fsdp", "model"]),
+    (r"moe/w_down$", lambda nd: ["expert", "model", "fsdp"]),
+    (r"mamba/w_in$", lambda nd: ["fsdp", "model"]),
+    (r"mamba/conv_w$", lambda nd: [None, "model"]),
+    (r"mamba/conv_b$|mamba/d_skip$|mamba/dt_bias$", lambda nd: ["model"]),
+    (r"mamba/w_[bc]$|mamba/a_log$|mamba/w_dt_down$",
+     lambda nd: ["model", None]),
+    (r"mamba/w_dt_up$", lambda nd: [None, "model"]),
+    (r"mamba/w_out$", lambda nd: ["model", "fsdp"]),
+    (r"core/w_up$|core/w_x$", lambda nd: ["fsdp", "model"]),
+    (r"core/w_[qkv]$", lambda nd: [None, "model"]),
+    (r"core/w_[if]$", lambda nd: ["model", None]),
+    (r"core/b_[ifx]$", lambda nd: ["model"]),
+    (r"core/r$", lambda nd: [None, None, None]),
+    (r"core/w_down$|core/w_out$", lambda nd: ["model", "fsdp"]),
+    (r"core/norm/scale$", lambda nd: ["model"]),
+]
+
+_LAYER_LISTS = ("enc_layers", "dec_layers")     # the encoder-decoder's
+
+
+def jax_path(name: str, period: int) -> tuple[str, bool]:
+    """(the JAX path, whether JAX stacks the leaf) of the port's parameter
+    ``name`` (``named_parameters``), in ``convert.lm_params_to_numpy``'s
+    layout: layer ``li`` of ``blocks`` is period ``li // period`` of
+    ``blocks/pos{li % period}``, and the encoder-decoder's layer lists are
+    JAX's ``enc_layers``/``dec_layers``, stacked over the layers."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        return "/".join(["blocks", f"pos{int(parts[1]) % period}"]
+                        + parts[2:]), True
+    if parts[0] in _LAYER_LISTS:
+        return "/".join([parts[0]] + parts[2:]), True
+    return "/".join(parts), False
+
+
+def param_pspec(path: str, shape, sizes: Mapping, *, train: bool,
+                stacked: bool) -> tuple:
+    """The spec of one parameter leaf at ``path`` ("/"-joined); a
+    ``stacked`` leaf carries a leading period axis, never sharded."""
+    shape = tuple(shape)
+    fsdp = fsdp_axis(sizes, train)
+    body = shape[1:] if stacked else shape
+    proposal: Optional[list] = None
+    for pat, builder in _RULES:
+        if re.search(pat, path):
+            proposal = builder(len(body))
+            break
+    if proposal is None or len(proposal) != len(body):
+        proposal = [None] * len(body)
+    resolved = []
+    for ax in proposal:
+        if ax == "fsdp":
+            resolved.append(fsdp)
+        elif ax == "expert":
+            # EP: experts over "data" at inference (no FSDP there);
+            # during training "data" is taken by FSDP, so E is replicated
+            resolved.append(None if train else "data")
+        else:
+            resolved.append(ax)
+    spec = _guard(sizes, body, resolved)
+    return (None,) + spec if stacked else spec
+
+
+def params_shardings(params, cfg, sizes: Mapping, *, train: bool) -> dict:
+    """{name: spec} of every parameter of the port's module tree, in
+    ``named_parameters`` order.  Each leaf is named by its JAX path
+    (:func:`jax_path`); a port layer is one period of JAX's stacked leaf,
+    so its spec is JAX's without the leading None."""
+    period = len(cfg.block_pattern)
+    return {name: param_pspec(jax_path(name, period)[0], p.shape, sizes,
+                              train=train, stacked=False)
+            for name, p in params.named_parameters()}
+
+
+def data_dim(spec) -> Optional[int]:
+    """The dimension a spec shards over ``"data"``, or None."""
+    for d, ax in enumerate(spec):
+        if ax == "data" or (isinstance(ax, tuple) and "data" in ax):
+            return d
+    return None
+
+
+def owned_blocks(params, cfg, mesh) -> list:
+    """A ``(dim, start, length)`` or None a parameter, in ``parameters()``
+    order: the mesh rank's block along the dimension that the leaf's spec
+    (:func:`params_shardings`, train) shards over ``"data"``; None
+    everywhere on a mesh of one."""
+    specs = params_shardings(params, cfg, mesh.shape, train=True)
+    out = []
+    for name, p in params.named_parameters():
+        d = data_dim(specs[name])
+        if d is None or mesh.size == 1:
+            out.append(None)
+        else:
+            b = p.shape[d] // mesh.size
+            out.append((d, mesh.rank * b, b))
+    return out
+
+
+def batch_shardings(batch: Mapping, sizes: Mapping, *,
+                    global_batch: int) -> dict:
+    """{name: spec} of a training batch: tokens, labels, positions and
+    encoder frames over the DP axes along their rows when the batch
+    covers them, whole otherwise.  A decode cache raises: its layouts
+    come with the sharded serving steps (ROADMAP Queue 1 item 7 step
+    8)."""
+    dp = dp_axes(sizes)
+    dp_size = 1
+    for a in dp:
+        dp_size *= sizes[a]
+    batch_first = global_batch % dp_size == 0 and global_batch >= dp_size
+    out = {}
+    for name, leaf in batch.items():
+        if "cache" in name:
+            raise ValueError(f"batch_shardings: {name!r} is a decode "
+                             "cache, whose layout comes with the sharded "
+                             "serving steps (ROADMAP Queue 1 item 7 step 8)")
+        shape = tuple(leaf.shape)
+        if len(shape) >= 1 and batch_first:
+            spec = [dp] + [None] * (len(shape) - 1)
+        else:
+            spec = [None] * len(shape)
+        out[name] = _guard(sizes, shape, spec)
+    return out

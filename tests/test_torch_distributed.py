@@ -245,7 +245,8 @@ def test_topology_tag_and_restore_onto_a_mesh(tmp_path):
 
 def test_distributed_modules_import_no_jax():
     new = ["repro_torch.launch.mesh", "repro_torch.runtime.sharding",
-           "repro_torch.core.knn_sharded"]
+           "repro_torch.core.knn_sharded", "repro_torch.optim.grad_compress",
+           "repro_torch.launch.steps", "repro_torch.launch.train"]
     code = ("import importlib, sys\n"
             f"for m in {new!r}:\n"
             "    importlib.import_module(m)\n"

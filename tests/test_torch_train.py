@@ -11,8 +11,9 @@ steps from one state; ``make_train_step`` with one and two microbatches
 against JAX's step on the same batch; the token stream's transitions; the
 checkpoint manager (``tests/test_checkpoint.py``'s cases), and training
 checkpoints read both ways between the packages; ``train()`` interrupted
-and resumed bitwise (JAX's ``test_restart_bit_identical``), and a SIGTERM
-whose save lands at the step reached.
+and resumed bitwise (JAX's ``test_restart_bit_identical``), a SIGTERM
+whose save lands at the step reached, and ``production=True`` at a world
+of one (``tests/test_torch_sharded_train.py`` holds the sharded trainer).
 
 Tolerances (f32): losses within 1e-5 relative; gradients and AdamW's
 moments within 1e-4 of each leaf's largest magnitude (XLA and torch sum
@@ -460,8 +461,23 @@ def test_sigterm_saves_the_step_reached(tmp_path):
 
 
 def test_production_mesh_and_encdec_raise(tmp_path):
-    with pytest.raises(ValueError, match="step 8"):
-        ttrain.train("qwen1.5-0.5b", production=True, device="cpu",
-                     ckpt_dir=str(tmp_path))
+    """``production=True`` trains over the data mesh: at a world of one
+    over gloo (made here, and taken down after) its losses are
+    ``production=False``'s; the encoder-decoder, whose batches need
+    encoder frames, raises."""
+    import torch.distributed as dist
+    kw = dict(steps=2, batch=2, seq=16, resume=False, log_every=100,
+              device="cpu")
+    _, _, want = ttrain.train("qwen1.5-0.5b", ckpt_dir=str(tmp_path / "a"),
+                              **kw)
+    was = dist.is_initialized()
+    try:
+        _, opt, got = ttrain.train("qwen1.5-0.5b", production=True,
+                                   ckpt_dir=str(tmp_path / "b"), **kw)
+        assert dist.get_world_size() == 1 and dist.get_backend() == "gloo"
+    finally:
+        if not was and dist.is_initialized():
+            dist.destroy_process_group()
+    assert got == want and int(opt["step"]) == 2
     with pytest.raises(ValueError, match="encoder frames"):
         ttrain.train("whisper-tiny", device="cpu", ckpt_dir=str(tmp_path))

@@ -242,3 +242,97 @@ def layout_world(mesh, pl):
         out["foreign_warn"] = np.array(
             [f"{m.category.__name__}: {m.message}" for m in log] or [""])
     return out
+
+
+# ---------------------------------------------------------------------------
+# the world of tests/test_torch_sharded_train.py
+# ---------------------------------------------------------------------------
+
+def _flat(tree, prefix: str) -> dict:
+    """A nested dict of arrays as {prefix/path: array}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}/{k}"))
+        else:
+            out[f"{prefix}/{k}"] = np.asarray(v)
+    return out
+
+
+def sharded_train_world(mesh, pl):
+    """The sharded trainer at world P: two steps of each architecture at
+    1 and 2 microbatches a rank (loss, parameters, the moments gathered
+    and the rank's own blocks), ``restore(shardings=)`` of a tree mesh
+    rank 0 saved, ``make_host_mesh``, and ``train(production=True)``: a
+    world-1 save resumed here, and a fresh run that saves for the test
+    to resume at world 1."""
+    import torch
+
+    from repro_torch.checkpoint import checkpointer as ck
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.convert import (lm_params_from_numpy,
+                                     lm_params_to_numpy, opt_state_to_numpy,
+                                     train_state_to_numpy)
+    from repro_torch.launch import train as ttrain
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import gather_moments, make_train_step
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime.sharding import owned_blocks
+
+    out = {}
+    for name, jp in pl["params"].items():
+        cfg = get_config(name + "-reduced")
+        B, S = pl["batches"][0].shape[0], pl["batches"][0].shape[1] - 1
+        for micro in (1, 2):
+            p = lm_params_from_numpy(jp, cfg, "cpu")
+            blocks = owned_blocks(p, cfg, mesh)
+            st = adamw_init(p, blocks)
+            step = make_train_step(cfg, ShapeConfig("c", "train", S, B),
+                                   mesh=mesh, microbatches=micro)
+            tag = f"{name}/m{micro}"
+            for i, toks in enumerate(pl["batches"]):
+                t = torch.from_numpy(toks)
+                p, st, loss = step(p, st, {"tokens": t[:, :-1],
+                                           "labels": t[:, 1:]})
+                out[f"{tag}/loss{i}"] = np.asarray(float(loss))
+                state = train_state_to_numpy(p, dict(st, **{
+                    k: gather_moments(mesh, p, st[k], cfg)
+                    for k in ("m", "v")}), cfg)
+                out.update(_flat(state, f"{tag}/state{i}"))
+                out.update(_flat(opt_state_to_numpy(st, cfg)["m"],
+                                 f"{tag}/own_m{i}"))
+            out[f"{tag}/blocks"] = np.array(
+                [(-1, -1, -1) if b is None else b for b in blocks])
+            sync = step.sync_ms()
+            out[f"{tag}/sync"] = np.array([sync["grad_all_reduce"],
+                                           sync["param_gather"]])
+            out.update(_flat(lm_params_to_numpy(p, cfg), f"{tag}/final"))
+    # restore(shardings=): every rank its block of a tree rank 0 saved
+    if mesh.rank == 0:
+        ck.save(pl["ckpt"] / "tree", 1, pl["tree"])
+    mesh.barrier()
+    shardings = {"w": (mesh, ("data", None)),
+                 "nested": {"b": (mesh, (None,)), "scale": (mesh, ())},
+                 "stack": (mesh, (None, "data", None))}
+    got, _ = ck.restore(pl["ckpt"] / "tree", shardings=shardings)
+    out.update(_flat({k: v for k, v in got.items() if k != "nested"},
+                     "restored"))
+    out.update(_flat(got["nested"], "restored/nested"))
+    # make_host_mesh clamps data to the world; model > 1 raises
+    out["host_mesh"] = np.array([make_host_mesh(4, device="cpu").size,
+                                 make_host_mesh(1, device="cpu").size])
+    try:
+        make_host_mesh(1, 2, device="cpu")
+        out["host_mesh_model"] = np.array("")
+    except ValueError as e:
+        out["host_mesh_model"] = np.array(str(e))
+    # train(production=True): the world-1 save resumed, and a fresh run
+    kw = dict(pl["train"], device="cpu", production=True, log_every=10**6)
+    _, opt, losses = ttrain.train(**kw, steps=pl["steps"],
+                                  ckpt_dir=str(pl["ckpt"] / "world1"))
+    out["resumed_losses"] = np.array(losses)
+    _, _, losses = ttrain.train(**kw, steps=pl["cut"], resume=False,
+                                ckpt_dir=str(pl["ckpt"] / f"world{mesh.size}"))
+    out["fresh_losses"] = np.array(losses)
+    return out

@@ -1,7 +1,8 @@
-"""The distributed fit on P cards of one host over NCCL, held against a
-world of one.
+"""The distributed fit, or the sharded trainer, on P cards of one host
+over NCCL, held against a world of one.
 
     python3 tools/distributed_check.py --world 4
+    python3 tools/distributed_check.py --world 4 --train
 
 Spawns P ranks, one a card, joined over NCCL (``tcp://localhost`` on a
 free port, a timeout on the group and on the joins); each calls
@@ -17,6 +18,14 @@ kernels are built here before the ranks start.  It prints the cards'
 names and power limits, a line a world, and last one JSON object of
 the numbers.  ``--samples-per-node`` cuts the layout's depth (printed
 as ``cut:``).  Exits non-zero if a rank fails or a check does not hold.
+
+``--train``: each rank calls ``train(production=True)`` at
+``chip_smoke.py``'s trainer settings (qwen1.5-0.5b at full width and
+depth, its batch of 4096-token rows, its steps and AdamW settings), one
+microbatch a rank; this process then trains on card 0 at world 1 with P
+microbatches, and the ranks' losses and every final leaf must be its
+bits.  It prints each world's ms a step, the ranks' sync ms
+(the gradient all-reduce, the parameter gather) and peak memory.
 """
 from __future__ import annotations
 
@@ -34,6 +43,9 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+import chip_smoke as smoke  # noqa: E402  (the trainer's settings, helpers)
+
 N_POINTS, DIM, CLUSTERS = 100_000, 100, 10
 TIMEOUT_S = 600
 SYNC_REPS = 50
@@ -60,7 +72,6 @@ def _rank(rank: int, world: int, port: int, out_dir: str, spn: int):
     import torch
     import torch.distributed as dist
 
-    sys.path.insert(0, str(ROOT / "src"))
     os.environ["LOCAL_RANK"] = str(rank)
     torch.cuda.set_device(rank)
     dist.init_process_group(
@@ -111,6 +122,102 @@ def _rank(rank: int, world: int, port: int, out_dir: str, spn: int):
         dist.destroy_process_group()
 
 
+def _train_run(torch, **kw) -> dict:
+    """``train(**kw)`` at ``chip_smoke.py``'s trainer settings: the losses,
+    a hash of every final leaf, ms a step, the sharded step's sync ms,
+    peak memory."""
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim.adamw import AdamWConfig
+
+    step_ms, sync = [], []
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp, \
+            smoke._timed_steps(torch, train_mod, step_ms, sync):
+        params, _, losses = train_mod.train(
+            smoke.TRAIN_ARCH, steps=smoke.TRAIN_STEPS,
+            batch=smoke.TRAIN_BATCH, seq=smoke.TRAIN_SEQ, reduced=False,
+            resume=False, ckpt_dir=tmp, log_every=10**6,
+            opt_cfg=AdamWConfig(lr=smoke.TRAIN_LR,
+                                warmup_steps=smoke.TRAIN_WARMUP), **kw)
+    return {"losses": [x for _, x in losses],
+            "hashes": smoke.leaf_hashes(params), "step_ms": step_ms,
+            "sync": sync, "peak": torch.cuda.max_memory_allocated()}
+
+
+def _train_rank(rank: int, world: int, port: int, out_dir: str):
+    import torch
+    import torch.distributed as dist
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.cuda.set_device(rank)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    try:
+        out = _train_run(torch, production=True, microbatches=1)
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def _steady(r: dict) -> str:
+    ms = r["step_ms"][1:]
+    return (f"{sum(ms) / len(ms):.1f} ms a step after the first, "
+            f"{smoke.TRAIN_BATCH * smoke.TRAIN_SEQ / (sum(ms) / len(ms))
+               * 1e3:.0f} "
+            f"tokens/s, peak {r['peak'] / 2**30:.2f} GiB a rank")
+
+
+def main_train(torch, mp, P: int) -> None:
+    """``--train``: world P over NCCL against world 1 at P microbatches."""
+    from repro_torch.core.largevis import resolve_device
+    from repro_torch.kernels import _build
+
+    resolve_device("cuda")
+    _build.build("flash_attention", "flash_attention_bwd")
+    tmp = tempfile.TemporaryDirectory()
+    ctx = mp.start_processes(_train_rank, args=(P, _free_port(), tmp.name),
+                             nprocs=P, join=False, start_method="spawn")
+    deadline = time.monotonic() + 2 * TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                sys.exit(f"the {P} ranks did not finish in {2 * TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [json.loads(Path(tmp.name, f"rank{r}.json").read_text())
+             for r in range(P)]
+    tmp.cleanup()
+    red = [x["grad_all_reduce"] for x in ranks[0]["sync"][1:]]
+    gat = [x["param_gather"] for x in ranks[0]["sync"][1:]]
+    print(f"world {P} over NCCL, {smoke.TRAIN_ARCH} at full width and "
+          f"depth, batch {smoke.TRAIN_BATCH} x {smoke.TRAIN_SEQ}, 1 "
+          f"microbatch a rank, {smoke.TRAIN_STEPS} steps: {_steady(ranks[0])}; sync a step: the "
+          f"gradient all-reduce {sum(red) / len(red):.1f} ms, the parameter "
+          f"gather {sum(gat) / len(gat):.1f} ms; losses {ranks[0]['losses']}",
+          flush=True)
+    one = _train_run(torch, microbatches=P)
+    print(f"world 1 on card 0, {P} microbatches: {_steady(one)}; losses "
+          f"{one['losses']}", flush=True)
+    same = [r["losses"] == one["losses"] and r["hashes"] == one["hashes"]
+            for r in ranks]
+    differ = sorted(n for n, h in one["hashes"].items()
+                    if ranks[0]["hashes"].get(n) != h)
+    print(f"world {P} against world 1: losses and all {len(one['hashes'])} "
+          f"final leaves bitwise on ranks "
+          f"{[i for i, x in enumerate(same) if x]}; leaves that differ on "
+          f"rank 0: {len(differ)} {differ[:5]}", flush=True)
+    print(json.dumps({"world": P, "train": True, "ok": all(same),
+                      "world_ms": ranks[0]["step_ms"],
+                      "one_ms": one["step_ms"], "grad_all_reduce_ms": red,
+                      "param_gather_ms": gat, "peak": ranks[0]["peak"],
+                      "one_peak": one["peak"]}))
+    if not all(same):
+        sys.exit(1)
+
+
 def _line(what: str, r: dict) -> str:
     return (f"{what}: {float(r['fit_s']):.2f} s (knn_s "
             f"{float(r['knn_s']):.3f} = ring {float(r['knn_ring_s']):.3f} "
@@ -129,6 +236,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--world", type=int, default=4)
     ap.add_argument("--samples-per-node", type=int, default=10_000)
+    ap.add_argument("--train", action="store_true",
+                    help="the sharded trainer instead of the fit")
     args = ap.parse_args()
     import torch
     import torch.multiprocessing as mp
@@ -142,10 +251,12 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
+    if args.train:
+        main_train(torch, mp, P)
+        return
     if args.samples_per_node != 10_000:
         print(f"cut: samples_per_node 10000 -> {args.samples_per_node}",
               flush=True)
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import LargeVisConfig, largevis
     from repro_torch.core import metrics
     from repro_torch.core.largevis import resolve_device

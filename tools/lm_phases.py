@@ -9,19 +9,24 @@ check, as the smoke does.
     python3 tools/lm_phases.py --phases xlstm
     python3 tools/lm_phases.py --phases flash_bwd     # the backward kernel
     python3 tools/lm_phases.py --phases train         # the training phase
+    python3 tools/lm_phases.py --phases sharded       # the sharded trainer
 
 Phases: ``flash`` (``check_flash``), ``flash_bwd`` (``check_flash_bwd``),
 ``gemma3``, ``mixtral``, ``jamba``, ``xlstm``, ``whisper``
 (``run_<phase>``), ``train`` (``run_training``: the backward kernel's
 checks, the full-width trainer, the resume check, every architecture's
-step).  Prints each phase's lines and seconds, then the flash launches
-each phase made, as JSON.
+step, then the sharded trainer's phases), ``sharded`` (the full-width
+trainer and the resume check, the world-1 runs the sharded phases hold
+world 2 to, then ``run_sharded_training`` and ``run_grad_compress``).
+Prints each phase's lines and seconds, then the flash launches each phase
+made, as JSON.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -30,7 +35,7 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 PHASES = ("flash", "flash_bwd", "gemma3", "mixtral", "jamba", "xlstm",
-          "whisper", "train")
+          "whisper", "train", "sharded")
 
 
 def main() -> None:
@@ -69,6 +74,16 @@ def main() -> None:
             record, counts = cs.run_training(torch)
             launches[name] = counts
             print(json.dumps(record))
+        elif name == "sharded":
+            with tempfile.TemporaryDirectory() as tmp:
+                counts, n_params, world1 = cs.run_trainer(
+                    torch, str(Path(tmp) / "main"))
+                more, resumed = cs.run_resume(torch, tmp, n_params)
+                counts = cs._add_counts(counts, more)
+                launches[name] = cs._add_counts(
+                    counts, cs.run_sharded_training(torch, tmp, world1,
+                                                    resumed))
+            cs.run_grad_compress(torch)
         else:
             launches[name] = getattr(cs, f"run_{name}")(torch)
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
