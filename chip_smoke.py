@@ -199,7 +199,15 @@ within the backward's bf16 limit).  Without it, in order:
    prompts of 4096, 700, 4096 and 100 tokens: the kernel at (1, 4096, 6,
    64) in each of 4 decoder layers a long prompt, 8 launches); each serve
    run with its prefill and decode ms, tokens/s, profiled busy shares and
-   peak memory;
+   peak memory; then the sharded serving path (``run_tp_serve``):
+   mixtral-8x7b at full width and 2 layers on a (data 2, model 2) mesh of
+   four gloo processes on the one card, each rank holding its blocks: f32
+   with total routing, two 4096-token prompts (the windowed flash kernel
+   on each rank's 16 heads) and 8 decode steps against world 1 on the
+   card (logits and the rebuilt cache within 1e-4 of their largest
+   magnitude); bf16 with top-2 three times (a warm-up, a timed run, a run
+   with each collective timed), bitwise equal, 2 flash launches a prefill
+   a rank, the MoE routes, ms, tokens/s and peak a rank;
 13. the LM training path, the serving phases' state released first
    (``run_training``): ``flash_attention_bwd`` against its plain version
    on the forward kernel's own out and lse (that lse against the plain
@@ -221,8 +229,9 @@ within the backward's bf16 limit).  Without it, in order:
 14. the sharded trainer (``run_sharded_training``): ``train(production=
    True)`` at world 2 over gloo, two processes on the one card, on
    qwen1.5-0.5b at full width and depth (2 rows and 1 microbatch a rank,
-   8 steps), the losses and a hash of every final leaf bitwise the
-   world-1 run's at 2 microbatches, each rank's ms a step, sync ms (the
+   2 of the trainer's 8 steps, a printed cut), the losses and a hash of
+   every leaf bitwise the world-1 run's after its step 2 at 2
+   microbatches, each rank's ms a step, sync ms (the
    gradient all-reduce, the parameter gather), peak memory and flash
    launches (48 forward and 24 backward a step); checkpoints across
    worlds at the resume check's cut: a world-1 save at step 4 resumed at
@@ -2714,6 +2723,387 @@ def run_mixtral(torch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the sharded serving path: mixtral-8x7b on a (data 2, model 2) mesh
+# ---------------------------------------------------------------------------
+
+TP_MESH = (2, 2)                  # (data, model): 4 ranks
+TP_PROMPT, TP_DECODE = 4096, 8    # two prompts, one a data rank; 8 steps
+TP_LAYERS = 2                     # of mixtral's 32 on one card (printed)
+# f32 with total routing, the mesh against world 1 on the same rows: max
+# |diff| / max |logit| (and / max |leaf| of each cache leaf); about 1e-5
+# is expected from the row-parallel sums over "model"
+TP_REL_TOL = 1e-4
+TP_TIMEOUT_S = 600
+
+
+def _tp_prompts(torch, cfg, dev):
+    """The two prompts and the bf16 runs' decode tokens, from a seed."""
+    from repro_torch.core.largevis import seeded_generator
+
+    gen = seeded_generator(dev, 11)
+    return (torch.randint(0, cfg.vocab_size, (2, TP_PROMPT), generator=gen,
+                          device=dev),
+            torch.randint(0, cfg.vocab_size, (2, TP_DECODE), generator=gen,
+                          device=dev))
+
+
+def tp_world1(torch, out_dir: str, n_layers: int = TP_LAYERS) -> dict:
+    """World 1 on the card: mixtral-8x7b at full width and ``n_layers``,
+    f32, total routing (random weights, seed 7), the two prompts' prefill
+    and ``TP_DECODE`` greedy decode steps.  Writes the steps' logits, the
+    tokens fed and the final cache to ``out_dir`` for the mesh's ranks and
+    returns the run's flash launches and seconds."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.largevis import seeded_generator
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.models.factory import init_cache
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    full = get_config(MIXTRAL_ARCH)
+    cfg = dataclasses.replace(full, n_layers=n_layers, dtype=torch.float32,
+                              topk_experts=full.n_experts)
+    params = lm.init_lm(seeded_generator(dev, 7), cfg)
+    toks, _ = _tp_prompts(torch, cfg, dev)
+    ops.reset_launch_counts()
+    logits, pre = lm.lm_prefill(params, cfg, toks)
+    cache = init_cache(cfg, 2, TP_PROMPT + TP_DECODE, dev)
+    for p, e in pre.items():
+        for k, t in e.items():
+            cache[p][k].copy_(t)
+    del pre
+    steps, fed = [logits], []
+    for i in range(TP_DECODE):
+        nxt = steps[-1].argmax(-1, keepdim=True)
+        fed.append(nxt)
+        logits, cache = lm.lm_decode(params, cfg, nxt, cache, torch.full(
+            (2,), TP_PROMPT + i, device=dev))
+        steps.append(logits)
+    np.save(os.path.join(out_dir, "w1_logits.npy"),
+            torch.stack(steps).cpu().numpy())
+    np.save(os.path.join(out_dir, "w1_fed.npy"),
+            torch.cat(fed, 1).cpu().numpy())
+    for p, e in cache.items():
+        for k, t in e.items():
+            np.save(os.path.join(out_dir, f"w1_cache_{p}_{k}.npy"),
+                    t.cpu().numpy())
+    launches = ops.launch_counts()["flash_attention"]
+    del params, cache
+    free_card(torch)
+    return {"launches": launches, "s": time.perf_counter() - t0}
+
+
+def _timed_collectives(torch, mesh, ms: dict) -> None:
+    """Wrap the mesh's collectives so that each call's ms (the card
+    synchronised around it) adds to ``ms["<collective>:<axis>"]``; ``del
+    mesh.<name>`` takes a wrapper off again."""
+    for name in ("all_reduce_sum", "all_to_all", "all_gather"):
+        real = getattr(mesh, name)
+
+        def call(*a, _real=real, _name=name, **kw):
+            axis = kw.get("axis", a[1] if len(a) > 1 else None)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _real(*a, **kw)
+            torch.cuda.synchronize()
+            key = f"{_name}:{axis}"
+            ms[key] = ms.get(key, 0.0) + (time.perf_counter() - t) * 1e3
+            return out
+        setattr(mesh, name, call)
+
+
+def _tp_whole(mesh, tree, layout):
+    """The whole tensors of a tree of the rank's blocks (every rank of the
+    mesh gathers; a collective)."""
+    from repro_torch.runtime import sharding as sh
+
+    if isinstance(tree, dict):
+        return {k: _tp_whole(mesh, tree[k], layout[k]) for k in tree}
+    return sh.gather(mesh, tree, layout)
+
+
+def _tp_serve_rank(rank, world, init, backend, out_dir, n_layers, check_a):
+    """One rank of the (2, 2) serving mesh.  ``check_a``: the f32 run with
+    total routing at ``TP_LAYERS``, fed world 1's tokens, the logits and
+    the cache rebuilt whole on mesh rank 0 for the parent to compare.
+    Then bf16 with top-2 at ``n_layers``, three times: prefill and decode ms,
+    the collectives' ms, peak memory, the MoE routes, flash launches, and
+    hashes of the logits and the final cache of each run."""
+    import datetime
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    if backend == "nccl":
+        os.environ["LOCAL_RANK"] = str(rank)
+        torch.cuda.set_device(rank)
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    out = {}
+    try:
+        from repro_torch.configs import get_config
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.core.largevis import resolve_device, seeded_generator
+        from repro_torch.kernels import ops
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.launch.steps import (make_decode_step,
+                                              make_prefill_step)
+        from repro_torch.models import lm, moe
+        from repro_torch.models.factory import cast_for_inference
+        from repro_torch.runtime import sharding as sh
+
+        dev = resolve_device("cuda")           # also switches TF32 off
+        mesh = make_host_mesh(*TP_MESH, device="cuda")
+        dev = mesh.device
+        full = get_config(MIXTRAL_ARCH)
+        B, T = 2, TP_PROMPT + TP_DECODE
+
+        def steps_for(cfg):
+            pre = make_prefill_step(cfg, mesh, ShapeConfig(
+                "serve", "prefill", TP_PROMPT, B))
+            dec = make_decode_step(cfg, mesh, ShapeConfig(
+                "serve", "decode", T, B))
+            return pre, dec
+
+        def rows(t, layout):
+            return sh.block(t, layout, mesh)
+
+        def run(cfg, params, toks, fed, whole=False, coll=None):
+            (pstep, _, (_, pl), pout), (dstep, dbatch, (_, dl), dout) = \
+                steps_for(cfg)
+            coll = {} if coll is None else coll
+            coll.clear()
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits, cache = pstep(params, {"tokens": rows(toks, pl["tokens"])})
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            launches = ops.launch_counts()["flash_attention"]
+            prefill_coll = dict(coll)
+            coll.clear()
+            # the prefill's ring of W = 4096 slots is the decode's cache
+            for p, e in cache.items():
+                for k, t in e.items():
+                    assert t.shape == sh.block(dbatch["cache"][p][k],
+                                               dl["cache"][p][k], mesh).shape
+            logit_list = [logits]
+            dec_ms = []
+            for i in range(TP_DECODE):
+                pos = torch.full((B,), TP_PROMPT + i, dtype=torch.int32,
+                                 device=dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = dstep(params, {
+                    "tokens": rows(fed[:, i:i + 1], dl["tokens"]),
+                    "cache": cache, "position": rows(pos, dl["position"])})
+                torch.cuda.synchronize()
+                dec_ms.append((time.perf_counter() - t0) * 1e3)
+                logit_list.append(logits)
+            res = {"prefill_ms": prefill_ms, "decode_ms": dec_ms,
+                   "launches": launches, "prefill_coll_ms": prefill_coll,
+                   "decode_coll_ms": {k: v / TP_DECODE
+                                      for k, v in coll.items()}}
+            if whole:
+                res["logits"] = torch.stack([_tp_whole(mesh, lg, pout[0])
+                                             for lg in logit_list])
+                res["cache"] = _tp_whole(mesh, cache, dout[1])
+            h = hashlib.sha256()          # (bf16 widened exactly to f32)
+            for lg in logit_list:
+                h.update(lg.float().cpu().numpy().tobytes())
+            for p in sorted(cache):
+                for k in sorted(cache[p]):
+                    h.update(cache[p][k].float().cpu().numpy().tobytes())
+            res["hash"] = h.hexdigest()
+            return res
+
+        if check_a:
+            cfg = dataclasses.replace(full, n_layers=TP_LAYERS,
+                                      dtype=torch.float32,
+                                      topk_experts=full.n_experts)
+            params = lm.init_lm(seeded_generator(dev, 7), cfg, mesh=mesh)
+            toks, _ = _tp_prompts(torch, cfg, dev)
+            fed = torch.from_numpy(np.load(os.path.join(
+                out_dir, "w1_fed.npy"))).to(dev)
+            res = run(cfg, params, toks, fed, whole=True)
+            if mesh.rank == 0:
+                np.save(os.path.join(out_dir, "tp_logits.npy"),
+                        res["logits"].cpu().numpy())
+                for p, e in res["cache"].items():
+                    for k, t in e.items():
+                        np.save(os.path.join(out_dir, f"tp_cache_{p}_{k}.npy"),
+                                t.cpu().numpy())
+            out["a"] = {"launches": res["launches"],
+                        "routes": dict(moe.ROUTES)}
+            moe.ROUTES.clear()
+            del params, res
+            torch.cuda.empty_cache()
+        cfg = dataclasses.replace(full, n_layers=n_layers)
+        torch.cuda.reset_peak_memory_stats()
+        params = lm.init_lm(seeded_generator(dev, 7), cfg, mesh=mesh)
+        cast_for_inference(params, cfg)
+        torch.cuda.empty_cache()
+        out["weights_gib"] = sum(p.numel() * p.element_size()
+                                 for p in params.parameters()) / 2**30
+        toks, fed = _tp_prompts(torch, cfg, dev)
+        ms = {}
+        runs = []
+        # a warm-up (the first collectives on a group make its
+        # communicators), a run timed as it stands, and one with each
+        # collective synchronised and timed
+        for timed in (False, False, True):
+            if timed:
+                _timed_collectives(torch, mesh, ms)
+            torch.cuda.reset_peak_memory_stats()
+            r = run(cfg, params, toks, fed, coll=ms)
+            r["routes"] = dict(moe.ROUTES)
+            moe.ROUTES.clear()
+            r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            runs.append(r)
+        out["b"] = runs
+        out["coords"] = [mesh.axis_index("data"), mesh.axis_index("model")]
+    finally:
+        Path(out_dir, f"tp_rank{rank}.json").write_text(json.dumps(out))
+        dist.destroy_process_group()
+
+
+def spawn_tp_serve(torch, out_dir: str, *, backend: str, n_layers: int,
+                   check_a: bool, init: str) -> list:
+    """Start the four ranks of the (2, 2) mesh, wait for them (failing on
+    a rank's error or the deadline) and return their results."""
+    import torch.multiprocessing as mp
+
+    world = TP_MESH[0] * TP_MESH[1]
+    ctx = mp.start_processes(
+        _tp_serve_rank, args=(world, init, backend, out_dir, n_layers,
+                              check_a),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.perf_counter() + TP_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            check(time.perf_counter() < deadline, "the serving mesh's ranks "
+                  f"did not finish in {TP_TIMEOUT_S} s")
+    except Exception as e:            # a rank's exception or exit code
+        fail(f"a serving mesh rank failed: {type(e).__name__}: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return [json.loads(Path(out_dir, f"tp_rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def tp_check_a(out_dir: str) -> dict:
+    """The mesh's f32 logits and cache against world 1's: max |diff| /
+    max |logit| (and of each cache leaf); fails past ``TP_REL_TOL``."""
+    import numpy as np
+
+    def load(name):
+        return np.load(os.path.join(out_dir, name))
+
+    got, want = load("tp_logits.npy"), load("w1_logits.npy")
+    check(got.shape == want.shape and np.isfinite(got).all(),
+          f"sharded serving: logits {got.shape}, world 1's {want.shape}")
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    leaves = {}
+    for name in sorted(os.listdir(out_dir)):
+        if name.startswith("w1_cache_"):
+            w = load(name)
+            g = load("tp_" + name[3:])
+            check(g.shape == w.shape, f"sharded serving: {name} {g.shape}, "
+                  f"world 1's {w.shape}")
+            leaves[name[9:-4]] = float(np.abs(g - w).max() /
+                                       np.abs(w).max())
+    check(rel <= TP_REL_TOL and max(leaves.values()) <= TP_REL_TOL,
+          f"sharded serving: the (2, 2) mesh against world 1: logits rel "
+          f"{rel}, cache leaves {leaves} (bound {TP_REL_TOL})")
+    return {"logits": rel, "cache": leaves}
+
+
+def _tp_line(ranks: list, n_layers: int) -> str:
+    """The bf16 runs' numbers, each rank's: ms and tokens/s of the run
+    after the warm-up, the collectives' ms of the last (synchronised around
+    each, so that run is slower)."""
+    parts = []
+    for i, rk in enumerate(ranks):
+        _, r, t = rk["b"]
+        dec = sum(r["decode_ms"]) / len(r["decode_ms"])
+        dec_t = sum(t["decode_ms"]) / len(t["decode_ms"])
+        pre = {k: round(v, 2) for k, v in sorted(t["prefill_coll_ms"].items())}
+        dco = {k: round(v, 3) for k, v in sorted(t["decode_coll_ms"].items())}
+        parts.append(
+            f"rank {i} {tuple(rk['coords'])}: prefill {r['prefill_ms']:.1f} "
+            f"ms ({2 * TP_PROMPT / r['prefill_ms'] * 1e3:.0f} tokens/s for "
+            f"the mesh), decode {dec:.2f} ms a step ({2 / dec * 1e3:.1f} "
+            f"tokens/s); timed run: prefill {t['prefill_ms']:.1f} ms, "
+            f"collectives ms {pre}, decode {dec_t:.2f} ms a step, "
+            f"collectives ms a step {dco}; "
+            f"weights {rk['weights_gib']:.2f} GiB, peak "
+            f"{r['peak_gib']:.2f} GiB, flash launches {r['launches']} a "
+            f"prefill, MoE routes {r['routes']}")
+    return f"{n_layers} layers: " + "; ".join(parts)
+
+
+def run_tp_serve(torch) -> int:
+    """mixtral-8x7b at full width, ``TP_LAYERS`` of 32 layers (a printed
+    cut), on a (data 2, model 2) mesh of four gloo processes on the one
+    card (the kernels built by this process first): its blocks of the
+    weights a rank, each drawn whole one block at a time and cut.
+    (a) f32 with total routing: the two prompts (one a data rank; the
+    flash kernel windowed at W = 4096 on each rank's 16 heads) and
+    ``TP_DECODE`` decode steps fed world 1's greedy tokens, the logits
+    gathered from their vocab shards and the cache rebuilt from its
+    blocks, against world 1 on this card within ``TP_REL_TOL``; (b) bf16
+    with top-2, three runs (a warm-up, a timed run, a run with each
+    collective timed): ms, tokens/s, the collectives' ms, peak memory and
+    the MoE routes a rank; (c) 2 flash launches a prefill a rank; (d) the
+    bf16 runs bitwise equal on every rank.  Returns the flash launches of
+    world 1 and of the ranks."""
+    free_card(torch)
+    t0 = time.perf_counter()
+    full_layers = 32
+    print(f"cut: the sharded serving mesh runs {MIXTRAL_ARCH} at "
+          f"{TP_LAYERS} of {full_layers} layers (full width), four "
+          "processes sharing one card over gloo", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        w1 = tp_world1(torch, tmp)
+        ranks = spawn_tp_serve(torch, tmp, backend="gloo",
+                               n_layers=TP_LAYERS, check_a=True,
+                               init=f"file://{tmp}/store")
+        a = tp_check_a(tmp)
+    wall = time.perf_counter() - t0
+    launches = w1["launches"]
+    for i, rk in enumerate(ranks):
+        got = [rk["a"]["launches"]] + [r["launches"] for r in rk["b"]]
+        check(got == [TP_LAYERS] * 4, f"sharded serving rank {i}: flash "
+              f"launches a prefill {got}, expected {TP_LAYERS}")
+        check(len({r["hash"] for r in rk["b"]}) == 1,
+              f"sharded serving rank {i}: the bf16 runs differ")
+        launches += sum(got)
+    print(f"sharded serving, (data 2, model 2) over gloo: (a) f32, total "
+          f"routing, 2 x {TP_PROMPT} tokens + {TP_DECODE} decode steps fed "
+          f"world 1's tokens: max |diff| / max |logit| {a['logits']:.3g}, "
+          f"cache leaves {({k: float(f'{v:.3g}') for k, v in a['cache'].items()})} "
+          f"(bound {TP_REL_TOL}; world 1 {w1['s']:.1f} s); MoE routes a rank "
+          f"{[rk['a']['routes'] for rk in ranks]}; (c) flash launches a "
+          f"prefill on each rank {[rk['a']['launches'] for rk in ranks]} "
+          f"(expected {TP_LAYERS}); (d) three bf16 runs bitwise equal on "
+          f"every rank", flush=True)
+    print(f"sharded serving bf16, top-2: {_tp_line(ranks, TP_LAYERS)}",
+          flush=True)
+    print(f"sharded serving phase: {wall:.1f} s", flush=True)
+    free_card(torch)
+    return launches
+
+
 def serve_phase_end(torch, eng, what: str, t0: float) -> None:
     """The serve run's cache leaves and peak memory, then the card freed."""
     def shapes(tree):
@@ -2880,6 +3270,9 @@ TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen1.5-0.5b", 4, 4096, 8
 # 1e-3 in 8 steps, below the batches' spread, and lr 1e-3 from the first
 # step diverges by the eighth (tools/train_lr_probe.py)
 TRAIN_LR, TRAIN_WARMUP = 3e-4, 1
+# the world-2 trainer's steps (a printed cut of the 8: 91% of its step is
+# the gloo sync through the host, which measures the host, not the card)
+TRAIN_STEPS_WORLD2 = 2
 TRAIN_EVAL_BATCH = 10_000          # a held-out batch of the stream
 # the resume check: 2 of qwen's 24 layers at full width (a printed cut; a
 # full-depth train state is 5.6 GB a checkpoint, four of them here)
@@ -3070,10 +3463,13 @@ def check_flash_bwd(torch):
                 " no Pallas kernel)", max_abs_err=max_err, **record)
 
 
-def _timed_steps(torch, train_mod, step_ms: list, sync: list = None):
+def _timed_steps(torch, train_mod, step_ms: list, sync: list = None,
+                 hashes: dict = None):
     """``train_mod.make_train_step`` wrapped so that each step's wall time
     (host clock around a synchronize) lands in ``step_ms``, and a sharded
-    step's sync ms (``sync_ms``) in ``sync``."""
+    step's sync ms (``sync_ms``) in ``sync``; ``hashes``, where given, gets
+    ``leaf_hashes`` of the parameters after step ``TRAIN_STEPS_WORLD2``
+    (the world-2 trainer's cut)."""
     real = train_mod.make_train_step
 
     def builder(*args, **kw):
@@ -3087,6 +3483,8 @@ def _timed_steps(torch, train_mod, step_ms: list, sync: list = None):
             step_ms.append((time.perf_counter() - t) * 1e3)
             if sync is not None:
                 sync.append(fn.sync_ms())
+            if hashes is not None and len(step_ms) == TRAIN_STEPS_WORLD2:
+                hashes.update(leaf_hashes(res[0]))
             return res
         call.microbatches = fn.microbatches
         return call
@@ -3112,8 +3510,9 @@ def run_trainer(torch, ckpt_dir: str):
     step, tokens/s, peak memory, the flash launches a step (forward 24
     layers x 2 microbatches x 2, the period recomputed in the backward;
     backward 24 x 2); then one profiled step.  Returns (the launch counts,
-    the parameter count, {"losses", "hashes"}: the losses by step and a
-    hash of every final parameter leaf by name, for the world-2 run)."""
+    the parameter count, {"losses", "hashes"}: the losses of the first
+    ``TRAIN_STEPS_WORLD2`` steps and a hash of every parameter leaf by
+    name after them, for the world-2 run)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.largevis import seeded_generator
@@ -3140,10 +3539,10 @@ def run_trainer(torch, ckpt_dir: str):
     before = held_loss(init)
     del init
     free_card(torch)
-    step_ms = []
+    step_ms, at_cut = [], {}
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    with _timed_steps(torch, train_mod, step_ms):
+    with _timed_steps(torch, train_mod, step_ms, hashes=at_cut):
         params, opt, losses = train_mod.train(
             TRAIN_ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
             reduced=False, microbatches=0, ckpt_dir=ckpt_dir, resume=False,
@@ -3154,8 +3553,8 @@ def run_trainer(torch, ckpt_dir: str):
     peak = torch.cuda.max_memory_allocated() / 2**30
     after = held_loss(params)
     loss = [x for _, x in losses]
-    # the run's final leaves, before the profiled step below moves them
-    world1 = {"losses": loss, "hashes": leaf_hashes(params)}
+    # the leaves at the world-2 trainer's cut
+    world1 = {"losses": loss[:TRAIN_STEPS_WORLD2], "hashes": at_cut}
     n_micro = pick_microbatches(ShapeConfig("c", "train", TRAIN_SEQ,
                                             TRAIN_BATCH))
     per_step = {"flash_attention": cfg.n_layers * n_micro * 2,
@@ -3421,7 +3820,7 @@ def _train2_rank(rank, store, out_dir, w1_dir):
         ops.reset_launch_counts()
         with _timed_steps(torch, train_mod, step_ms, sync):
             params, opt, losses = train_mod.train(
-                TRAIN_ARCH, steps=TRAIN_STEPS, resume=False,
+                TRAIN_ARCH, steps=TRAIN_STEPS_WORLD2, resume=False,
                 ckpt_dir=os.path.join(out_dir, "full"), **kw)
         torch.cuda.synchronize()
         out["full"] = {
@@ -3477,6 +3876,9 @@ def run_sharded_training(torch, tmp: str, world1: dict, resumed: dict):
     full_layers = get_config(TRAIN_ARCH).n_layers
     print(f"cut: the checkpoints across worlds at {RESUME_LAYERS} of "
           f"{full_layers} layers (full width), run_resume's cut", flush=True)
+    print(f"cut: the world-2 trainer at full depth runs {TRAIN_STEPS_WORLD2}"
+          f" of the trainer's {TRAIN_STEPS} steps, held to world 1's leaves "
+          f"after step {TRAIN_STEPS_WORLD2}", flush=True)
     out_dir = os.path.join(tmp, "world2")
     os.makedirs(out_dir)
     t0 = time.perf_counter()
@@ -3526,9 +3928,9 @@ def run_sharded_training(torch, tmp: str, world1: dict, resumed: dict):
               not differ, f"world 2 rank {i}: {len(differ)} final leaves "
               f"differ from world 1's, first {differ[:5]}")
         for k, n in per_step.items():
-            check(f["launches"][k] == n * TRAIN_STEPS, f"world 2 rank {i}: "
-                  f"{k} launched {f['launches'][k]} times, expected {n} x "
-                  f"{TRAIN_STEPS}")
+            check(f["launches"][k] == n * TRAIN_STEPS_WORLD2,
+                  f"world 2 rank {i}: {k} launched {f['launches'][k]} times,"
+                  f" expected {n} x {TRAIN_STEPS_WORLD2}")
         # half of m and v, but for the few leaves no spec shards (norms,
         # biases), which each rank holds whole
         check(f["moment_bytes"] <= 1.001 * f["param_bytes"],
@@ -3537,7 +3939,7 @@ def run_sharded_training(torch, tmp: str, world1: dict, resumed: dict):
     print(f"world-2 trainer over gloo, two processes on one card ({wall:.1f}"
           f" s with their start): {TRAIN_ARCH} at full width and depth, "
           f"batch {TRAIN_BATCH} x {TRAIN_SEQ} as 2 rows and 1 microbatch a "
-          f"rank, {TRAIN_STEPS} steps: losses and all "
+          f"rank, {TRAIN_STEPS_WORLD2} steps: losses and all "
           f"{len(world1['hashes'])} final leaves bitwise world 1's (2 "
           f"microbatches); {'; '.join(lines)}", flush=True)
     ref, after = resumed["ref"], list(range(RESUME_EVERY, TRAIN_STEPS))
@@ -4783,6 +5185,7 @@ def main() -> None:
     check_decode_matches_prefill(torch)
     flash["launches"] += run_gemma3(torch)
     flash["launches"] += run_mixtral(torch)
+    flash["launches"] += run_tp_serve(torch)
     flash["launches"] += run_jamba(torch)
     flash["launches"] += run_xlstm(torch)
     flash["launches"] += run_whisper(torch)

@@ -32,6 +32,7 @@ from repro_torch.configs.largevis_default import LargeVisConfig
 from repro_torch.core.largevis import LargeVisResult, resolve_device
 from repro_torch.core.sampler import EdgeSampler, NodeSampler
 from repro_torch.models import lm
+from repro_torch.runtime import sharding as sh
 
 _FIELDS = ("y", "knn_idx", "knn_dist", "weights", "x")
 _EDGE = ("src", "dst", "threshold", "alias")
@@ -80,12 +81,18 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def lm_params_from_numpy(tree: dict, cfg, device="cuda"):
+def lm_params_from_numpy(tree: dict, cfg, device="cuda", mesh=None):
     """The port's LM parameters (f32, as ``lm.init_lm`` makes them) from
-    the JAX package's parameter pytree with numpy leaves (or tensors)."""
+    the JAX package's parameter pytree with numpy leaves (or tensors).
+    With a ``mesh``, the rank's blocks of them by JAX's inference rules
+    (``params_shardings(train=False)``: no FSDP, experts over ``"data"``),
+    each cut before it is copied to the device."""
     dev = resolve_device(device)
     lm.check_supported(cfg)
+    lm.check_mesh(cfg, mesh)
     P = len(cfg.block_pattern)
+    if mesh is not None:
+        tree = _blocks_of(tree, mesh)
 
     def t(a):        # a tensor is taken as it is, not copied
         if torch.is_tensor(a):
@@ -103,6 +110,22 @@ def lm_params_from_numpy(tree: dict, cfg, device="cuda"):
                             for li in range(cfg.n_layers)]}
     out = {k: _map(v, t) for k, v in tree.items() if k not in lists}
     return lm.as_module({**out, **lists})
+
+
+def _blocks_of(tree: dict, mesh, prefix: str = "") -> dict:
+    """The rank's blocks of every leaf of a JAX parameter pytree, by the
+    spec of its path (a stacked leaf's leading axis is never cut)."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out[k] = _blocks_of(v, mesh, path)
+            continue
+        stacked = "blocks/" in path or "_layers/" in path
+        spec = sh.param_pspec(path, v.shape, mesh.shape, train=False,
+                              stacked=stacked)
+        out[k] = sh.block(v, spec, mesh)
+    return out
 
 
 def lm_params_to_numpy(params, cfg) -> dict:

@@ -1,27 +1,36 @@
-"""The 1-D "data" mesh of the distributed pipeline, over ``torch.distributed``.
+"""The meshes of the distributed pipeline and of the sharded LM, over
+``torch.distributed``.
 
 The JAX package runs one controller over a ``shard_map`` mesh.  Here each
-shard is a rank of a process group (SPMD): every rank calls the same
-entry point with the same inputs, computes its own row block
-(``runtime/sharding.py``), and the collectives the JAX stages use become
-the :class:`DataMesh` methods: ``ppermute`` one step along the ring is
+device of the mesh is a rank of a process group (SPMD): every rank calls
+the same entry point, computes its own block (``runtime/sharding.py``),
+and the collectives the JAX stages use become the :class:`DataMesh`
+methods: ``ppermute`` one step along the ring is
 :meth:`DataMesh.ring_shift`, ``all_gather(tiled=True)`` is
 :meth:`DataMesh.all_gather`, ``psum`` is :meth:`DataMesh.all_reduce_sum`
-(added in rank order).
+(added in rank order), ``all_to_all(tiled=True)`` is
+:meth:`DataMesh.all_to_all`.  Each takes the mesh axis it runs along:
+``"data"``, ``"model"``, or None for the whole mesh.
+
+A mesh is ``(data, model)``, JAX's ``make_mesh((D, M), ("data",
+"model"))``: mesh rank r is device ``(r // M, r % M)``, row-major, and
+the mesh is the first D·M ranks of the world.  Each rank belongs to one
+process group a ``"model"`` row (the M ranks of its data index) and one a
+``"data"`` column (the D ranks of its model index).  The pipeline's meshes
+are ``(P, 1)``: their ``size`` and ``rank`` are the data axis's.
 
 The transport follows the group's backend.  NCCL moves the tensors on
 the card.  Gloo moves host tensors: a tensor on the card is copied to the
-host, moved, and copied back (two processes that share one card can only
+host, moved, and copied back (processes that share one card can only
 talk through gloo, since NCCL takes one rank a GPU).  A failing
 collective raises; nothing retries it another way.
 
-The mesh is the first ``data`` ranks of the world (0 means all of them),
-as a subgroup when it is smaller than the world; the other ranks are
-outside it (``rank == -1``) and receive the mesh's result by
-:func:`broadcast_from_mesh`.  With no process group, :func:`make_data_mesh`
-makes a world of one: NCCL on the card, gloo when the caller asked for
-the CPU.  On a host with several cards, ``torchrun --nproc_per_node=P``
-starts the ranks; each takes the card of its ``LOCAL_RANK``.
+The ranks outside a mesh smaller than the world have ``rank == -1`` and
+receive the mesh's result by :func:`broadcast_from_mesh`.  With no
+process group, :func:`make_data_mesh` makes a world of one: NCCL on the
+card, gloo when the caller asked for the CPU.  On a host with several
+cards, ``torchrun --nproc_per_node=P`` starts the ranks; each takes the
+card of its ``LOCAL_RANK``.
 """
 from __future__ import annotations
 
@@ -31,19 +40,23 @@ import os
 import torch
 import torch.distributed as dist
 
-_SUBGROUPS: dict = {}       # (world group id, P) -> the subgroup of P ranks
+_SUBGROUPS: dict = {}       # (world group id, ranks) -> their subgroup
 
 
 @dataclasses.dataclass
 class DataMesh:
-    """One rank's view of the data mesh."""
+    """One rank's view of a ``(data, model)`` mesh."""
     group: object           # the mesh's process group (None outside it)
-    rank: int               # this rank's shard index, -1 outside the mesh
-    size: int               # shards P
+    rank: int               # this rank's mesh index d * M + m, -1 outside
+    size: int               # the mesh's ranks D * M
     device: torch.device    # where this rank's stages run
     backend: str            # "nccl" or "gloo"
     world_rank: int
     world_size: int
+    model: int = 1          # the "model" axis M
+    # {"data": (group, global ranks), "model": (...)}: this rank's column
+    # and row, for a mesh with both axes above 1
+    axes: dict = dataclasses.field(default_factory=dict)
 
     @property
     def in_mesh(self) -> bool:
@@ -51,9 +64,26 @@ class DataMesh:
 
     @property
     def shape(self) -> dict:
-        """The axis sizes, JAX's ``mesh.shape``: ``{"data": P, "model":
-        1}`` (the partition rules of ``runtime/sharding.py`` read it)."""
-        return {"data": self.size, "model": 1}
+        """The axis sizes, JAX's ``mesh.shape``: ``{"data": D, "model":
+        M}`` (the partition rules of ``runtime/sharding.py`` read it)."""
+        return {"data": self.size // self.model, "model": self.model}
+
+    def axis_size(self, axis=None) -> int:
+        """The ranks along ``axis`` ("data", "model"; None: the mesh)."""
+        return self.size if axis is None else self.shape[axis]
+
+    def axis_index(self, axis=None) -> int:
+        """This rank's index along ``axis``."""
+        if axis is None:
+            return self.rank
+        return self.rank // self.model if axis == "data" else \
+            self.rank % self.model
+
+    def _group(self, axis):
+        """(the process group along ``axis``, its global ranks)."""
+        if axis is None or self.axis_size(axis) == self.size:
+            return self.group, list(range(self.size))
+        return self.axes[axis]
 
     def _wire(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` as the backend moves it: on the card for NCCL, a host
@@ -76,56 +106,83 @@ class DataMesh:
             r.wait()
         return recv.to(self.device)
 
-    def all_gather_list(self, t: torch.Tensor) -> list:
-        """Every rank's ``t``, in rank order (equal shapes)."""
-        if self.size == 1:
+    def all_gather_list(self, t: torch.Tensor, axis=None) -> list:
+        """Every rank's ``t`` along ``axis``, in rank order (equal
+        shapes)."""
+        n = self.axis_size(axis)
+        if n == 1:
             return [t]
         w = self._wire(t)
-        out = [torch.empty_like(w) for _ in range(self.size)]
-        dist.all_gather(out, w, group=self.group)
+        out = [torch.empty_like(w) for _ in range(n)]
+        dist.all_gather(out, w, group=self._group(axis)[0])
         return [o.to(self.device) for o in out]
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """The ranks' ``t`` concatenated along axis 0 in rank order."""
-        if self.size == 1:
+    def all_gather(self, t: torch.Tensor, axis=None,
+                   dim: int = 0) -> torch.Tensor:
+        """The ranks' ``t`` along ``axis`` concatenated along ``dim`` in
+        rank order (JAX's ``all_gather(tiled=True)``)."""
+        if self.axis_size(axis) == 1:
             return t
-        return torch.cat(self.all_gather_list(t))
+        return torch.cat(self.all_gather_list(t, axis), dim=dim)
 
-    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of every rank's ``t``, added in rank order.
+    def all_reduce_sum(self, t: torch.Tensor, axis=None) -> torch.Tensor:
+        """The sum of every rank's ``t`` along ``axis``, added in rank
+        order.
 
         The backend's own reduction adds in an order of its choosing, so
         this one is spelled out: ``t`` is cut into P blocks, an all-to-all
         hands rank r block r of every rank, rank r adds them in rank
         order, and an all-gather returns the sums.  Every rank holds the
         same bits, two runs agree, and the bits do not depend on the
-        backend (an f32 add rounds alike on the host and the card).  A
-        rank moves about 2 (P-1)/P times ``t``'s bytes, as in a ring
+        backend (an add rounds alike on the host and the card).  A rank
+        moves about 2 (P-1)/P times ``t``'s bytes, as in a ring
         all-reduce, and holds three copies of ``t`` at most."""
-        P = self.size
+        P = self.axis_size(axis)
         if P == 1:
             return t
+        group = self._group(axis)[0]
         flat = t.reshape(-1)
         n = flat.numel()
         blk = -(-n // P)
         w = self._wire(torch.nn.functional.pad(flat, (0, blk * P - n)))
         parts = torch.empty_like(w)
-        dist.all_to_all_single(parts, w, group=self.group)
+        dist.all_to_all_single(parts, w, group=group)
         parts = parts.view(P, blk)
         acc = parts[0]
         for p in parts[1:]:
             acc = acc + p
         out = torch.empty_like(w)
-        dist.all_gather(list(out.view(P, blk).unbind(0)), acc,
-                        group=self.group)
+        dist.all_gather(list(out.view(P, blk).unbind(0)), acc, group=group)
         return out[:n].view(t.shape).to(self.device)
 
-    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
-        """Mesh rank ``src``'s ``t`` on every rank of the mesh."""
-        if self.size == 1:
+    def all_to_all(self, t: torch.Tensor, axis, split_axis: int,
+                   concat_axis: int) -> torch.Tensor:
+        """JAX's ``all_to_all(t, axis, split_axis, concat_axis,
+        tiled=True)``: ``t`` cut into P equal chunks along ``split_axis``,
+        chunk i sent to rank i of ``axis``, and the chunks received
+        concatenated along ``concat_axis`` in the senders' rank order."""
+        P = self.axis_size(axis)
+        if P == 1:
             return t
+        if t.shape[split_axis] % P:
+            raise ValueError(f"all_to_all: dimension {split_axis} of "
+                             f"{tuple(t.shape)} does not split over {P}")
+        send = self._wire(torch.stack(t.chunk(P, dim=split_axis)))
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=self._group(axis)[0])
+        return torch.cat(recv.to(self.device).unbind(0), dim=concat_axis)
+
+    def broadcast(self, t: torch.Tensor, src: int = 0,
+                  axis=None) -> torch.Tensor:
+        """Rank ``src``'s ``t`` (an index along ``axis``) on every rank
+        of that axis (``t`` itself is left as it is)."""
+        if self.axis_size(axis) == 1:
+            return t
+        group, ranks = self._group(axis)
         w = self._wire(t)
-        dist.broadcast(w, src, group=self.group)
+        if w is t:
+            w = w.clone()
+        dist.broadcast(w, ranks[src], group=group)
         return w.to(self.device)
 
     def barrier(self) -> None:
@@ -162,30 +219,49 @@ def make_data_mesh(data: int = 0, *, device="cuda") -> DataMesh:
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     P = world if data <= 0 else min(int(data), world)
-    if P == world:
-        group = dist.group.WORLD
-    else:
-        key = (id(dist.distributed_c10d._get_default_group()), P)
-        if key not in _SUBGROUPS:
-            _SUBGROUPS[key] = dist.new_group(list(range(P)), backend=backend)
-        group = _SUBGROUPS[key]
+    group = dist.group.WORLD if P == world else \
+        _subgroup(backend, list(range(P)))
     inside = wrank < P
     return DataMesh(group=group if inside else None,
                     rank=wrank if inside else -1, size=P, device=dev,
                     backend=backend, world_rank=wrank, world_size=world)
 
 
+def _subgroup(backend: str, ranks: list):
+    """The process group of the world ranks ``ranks``, made once (every
+    rank of the world must take part in making it)."""
+    key = (id(dist.distributed_c10d._get_default_group()), tuple(ranks))
+    if key not in _SUBGROUPS:
+        _SUBGROUPS[key] = dist.new_group(list(ranks), backend=backend)
+    return _SUBGROUPS[key]
+
+
 def make_host_mesh(data: int = 1, model: int = 1, *,
                    device="cuda") -> DataMesh:
-    """The JAX package's ``make_host_mesh``: the data mesh over
-    ``min(data, world)`` ranks, as JAX clamps ``data`` to the devices.
-    ``model > 1`` raises: tensor parallelism over ``"model"`` is ROADMAP
-    Queue 1 item 7 step 8."""
-    if model > 1:
-        raise ValueError(f"make_host_mesh: model={model}: tensor "
-                         "parallelism over 'model' is ROADMAP Queue 1 item "
-                         "7 step 8; the port's meshes have model = 1")
-    return make_data_mesh(max(1, int(data)), device=device)
+    """The JAX package's ``make_host_mesh``: ``data`` clamped to the
+    world, then ``model`` to ``world // data``, the mesh the first
+    ``data * model`` ranks in JAX's row-major order (mesh rank ``d * M +
+    m``).  ``model = 1`` is :func:`make_data_mesh`'s 1-D mesh.  Every rank
+    of the world must call this with the same arguments."""
+    if not dist.is_initialized():
+        make_data_mesh(1, device=device)        # a world of one
+    world = dist.get_world_size()
+    D = max(1, min(int(data), world))
+    M = max(1, min(int(model), world // D))
+    mesh = make_data_mesh(D * M, device=device)
+    if M == 1:
+        return mesh
+    mesh.model = M
+    rows = [list(range(d * M, (d + 1) * M)) for d in range(D)]
+    cols = [list(range(m, D * M, M)) for m in range(M)]
+    for axis, groups in (("model", rows), ("data", cols)):
+        if len(groups[0]) in (1, D * M):     # no group, or the mesh's
+            continue
+        for ranks in groups:
+            g = _subgroup(mesh.backend, ranks)
+            if mesh.world_rank in ranks:
+                mesh.axes[axis] = (g, ranks)
+    return mesh
 
 
 def broadcast_from_mesh(mesh: DataMesh, tensors: list, obj=None):

@@ -1,5 +1,6 @@
-"""The train step — the JAX package's ``launch/steps.py``
-(``pick_microbatches``, ``make_train_step``).
+"""The train and serving steps — the JAX package's ``launch/steps.py``
+(``pick_microbatches``, ``make_train_step``, ``make_prefill_step``,
+``make_decode_step``, ``make_step``).
 
 JAX builds one jitted step over a ``(data, model)`` mesh, its parameters,
 moments and batch laid out by ``runtime/sharding.py``.  The port runs the
@@ -22,10 +23,15 @@ So a step over P ranks with one microbatch each gives the bits of one
 device's step over P microbatches.  At rest the parameters are whole on
 every rank and ``m`` and ``v`` hold only the rank's blocks; JAX's FSDP
 also shards the parameters at rest and gathers them a layer at a time
-inside the step, which takes per-layer hooks in eager PyTorch (ROADMAP
-Queue 1 item 7 step 8, with tensor parallelism over ``"model"``).
-``make_prefill_step``, ``make_decode_step`` and ``make_step`` are ROADMAP
-Queue 1 item 7 step 9.
+inside the step, which takes per-layer hooks in eager PyTorch, and
+tensor-parallel training is the same step's (ROADMAP Queue 1 item 7 step
+8b).
+
+The serving steps run on every rank of a ``(data, model)`` mesh, each on
+its blocks: the weights by ``params_shardings(train=False)``, the batch
+by ``batch_shardings`` (a decode cache by ``_cache_pspec``), the outputs
+in the layouts of ``_out_tree_shardings``; ``sharding.block`` and
+``sharding.assemble`` go between whole tensors and blocks.
 """
 from __future__ import annotations
 
@@ -33,8 +39,9 @@ import time
 
 import torch
 
-from repro_torch.models.factory import make_model
-from repro_torch.models.lm import map_tree
+from repro_torch.models.attention import kv_tp_repeat
+from repro_torch.models.factory import init_cache, make_model, param_shapes
+from repro_torch.models.lm import MESH_STEP, map_tree
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, block_of
 from repro_torch.runtime import sharding as sh
 
@@ -248,3 +255,139 @@ def make_train_step(cfg, shape_cfg, *, mesh=None,
     train_step.microbatches = n_micro
     train_step.sync_ms = sync_ms
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# The sharded serving steps
+# ---------------------------------------------------------------------------
+
+def _out_tree_shardings(out, sizes, *, global_batch: int):
+    """JAX's rule-based layouts of a (logits, cache) output tree (shapes,
+    tensors or arrays as leaves): a scalar replicated; 2-D logits wider
+    than 1,024 over ``(dp, "model")``; cache leaves by their names
+    (``sharding._cache_pspec``); anything else over the DP axes along a
+    row axis of the global batch."""
+    dp = sh.dp_axes(sizes)
+    batch_first = sh.covers_dp(sizes, global_batch)
+    cache_ends = ("/k", "/v", "/ssm", "/conv", "/C", "/n", "/m", "/c", "/h")
+
+    def one(s, shape):
+        if len(shape) == 0:
+            return ()
+        if len(shape) == 2 and shape[-1] > 1024:          # logits (B, V)
+            return sh._guard(sizes, shape,
+                             [dp if batch_first else None, "model"])
+        if s.endswith("encoder_out") or s.endswith("_scale") or \
+                any(s.endswith(t) for t in cache_ends):
+            return sh._cache_pspec(s, shape, sizes, batch_first)
+        spec = [dp if batch_first and shape[0] == global_batch else None]
+        return sh._guard(sizes, shape, spec + [None] * (len(shape) - 1))
+
+    return sh._walk(out, one)
+
+
+def _serve_batch(cfg, shape_cfg, *, kv_repeat: int = 1,
+                 kv_quant: bool = False) -> dict:
+    """The global batch's leaves of a prefill or decode cell on the meta
+    device, JAX's ``input_specs``: tokens (B, S) or (B, 1) with the
+    filled cache of ``seq_len`` and the positions (B,); the
+    encoder-decoder's frames (B, F, d)."""
+    B, S = shape_cfg.global_batch, shape_cfg.seq_len
+    meta = torch.device("meta")
+    if shape_cfg.kind == "prefill":
+        batch = {"tokens": torch.empty((B, S), dtype=torch.int32,
+                                       device=meta)}
+    else:
+        batch = {"tokens": torch.empty((B, 1), dtype=torch.int32,
+                                       device=meta),
+                 "cache": init_cache(cfg, B, S, meta, kv_repeat=kv_repeat,
+                                     kv_quant=kv_quant),
+                 "position": torch.empty((B,), dtype=torch.int32,
+                                         device=meta)}
+    if cfg.is_encoder_decoder:
+        batch["encoder_frames"] = torch.empty(
+            (B, cfg.enc_positions, cfg.d_model), dtype=cfg.dtype,
+            device=meta)
+    return batch
+
+
+def _serving_step(cfg, mesh, shape_cfg, kv_quant: bool):
+    """The rank's prefill or decode step and its layouts."""
+    sizes = mesh.shape
+    kv_rep = kv_tp_repeat(cfg, sizes["model"])
+    B = shape_cfg.global_batch
+    batch_first = sh.covers_dp(sizes, B)
+    if cfg.is_encoder_decoder and not batch_first:
+        raise ValueError(f"{cfg.name}: a batch of {B} does not cover "
+                         f"data={sizes['data']}; the encoder-decoder's "
+                         f"sequence-parallel decode is {MESH_STEP}")
+    model = make_model(cfg, kv_repeat=kv_rep, kv_quant=kv_quant, mesh=mesh)
+    batch = _serve_batch(cfg, shape_cfg, kv_repeat=kv_rep,
+                         kv_quant=kv_quant)
+    p_layout = sh.params_shardings(param_shapes(cfg), cfg, sizes,
+                                   train=False)
+    b_layout = sh.batch_shardings(batch, sizes, global_batch=B)
+    if shape_cfg.kind == "prefill":
+        cache = init_cache(cfg, B, shape_cfg.seq_len, "meta",
+                           kv_repeat=kv_rep)
+    else:
+        cache = batch["cache"]
+    out_shapes = (torch.empty((B, cfg.vocab_size), device="meta"), cache)
+    out_layout = _out_tree_shardings(out_shapes, sizes, global_batch=B)
+    whole_logits = out_layout[0][-1] is None
+
+    def finish(logits, cache):
+        # logits in their layout: a vocab shard gathered where it is whole
+        if whole_logits and logits.shape[-1] < cfg.vocab_size:
+            logits = mesh.all_gather(logits, "model", dim=-1)
+        return logits, cache
+
+    if shape_cfg.kind == "prefill":
+        def step(params, batch):
+            if cfg.is_encoder_decoder:
+                return finish(*model["prefill"](params, batch["tokens"],
+                                                batch["encoder_frames"]))
+            return finish(*model["prefill"](params, batch["tokens"],
+                                            seq_parallel=not batch_first))
+    else:
+        def step(params, batch):
+            kw = {} if cfg.is_encoder_decoder or batch_first else \
+                {"sp_len": shape_cfg.seq_len}
+            return finish(*model["decode"](params, batch["tokens"],
+                                           batch["cache"], batch["position"],
+                                           **kw))
+    return step, batch, (p_layout, b_layout), out_layout
+
+
+def make_prefill_step(cfg, mesh, shape_cfg):
+    """JAX's ``make_prefill_step``: ``(prefill_step, batch, (param
+    layout, batch layout), out layout)``.  ``prefill_step(params,
+    batch)`` takes the rank's blocks (``batch``: ``tokens``, and the
+    encoder-decoder's ``encoder_frames``) and returns the rank's blocks
+    of ``(logits, cache)``; the cache holds the KV heads repeated by
+    ``kv_tp_repeat(cfg, model)``, as JAX's.  ``batch`` holds the global
+    batch's leaves on the meta device; the layouts are {name: spec} trees:
+    the parameters' by the port's parameter names."""
+    return _serving_step(cfg, mesh, shape_cfg, False)
+
+
+def make_decode_step(cfg, mesh, shape_cfg, *, kv_quant: bool = False):
+    """JAX's ``make_decode_step``, as :func:`make_prefill_step`: the batch
+    is ``tokens`` (B, 1), the filled ``cache`` of ``seq_len`` slots
+    (int8 under ``kv_quant``) and ``position`` (B,); a batch that does not
+    cover ``"data"`` decodes sequence-parallel."""
+    return _serving_step(cfg, mesh, shape_cfg, kv_quant)
+
+
+def make_step(cfg, mesh, shape_cfg):
+    """The step of ``shape_cfg.kind``: the sharded trainer at ``model`` =
+    1 (tensor-parallel training is ROADMAP's next step), the prefill or
+    decode step otherwise."""
+    if shape_cfg.kind == "train":
+        if mesh.shape["model"] > 1:
+            raise ValueError(f"make_step: training at model="
+                             f"{mesh.shape['model']} is {MESH_STEP}")
+        return make_train_step(cfg, shape_cfg, mesh=mesh)
+    if shape_cfg.kind == "prefill":
+        return make_prefill_step(cfg, mesh, shape_cfg)
+    return make_decode_step(cfg, mesh, shape_cfg)

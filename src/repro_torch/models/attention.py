@@ -243,6 +243,26 @@ def dequantize_kv(q, scale, dtype):
     return (q.float() * scale).to(dtype)
 
 
+def _stored(k, v, kv_quant: bool) -> dict:
+    """A cache entry's leaves of K and V: as they are, or int8 with their
+    f32 scales."""
+    if not kv_quant:
+        return {"k": k, "v": v}
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+
+
+def _ring(t, window: int):
+    """A prefill's K or V (B, S, ...) as a local layer's cache: the last W
+    positions, rolled so that slot = position mod W, once S >= W."""
+    S = t.shape[1]
+    if not window or S < window:
+        return t
+    start = S - window
+    return torch.roll(t[:, start:], start % window, dims=1)
+
+
 # ---------------------------------------------------------------------------
 # Block-level entry points
 # ---------------------------------------------------------------------------
@@ -280,16 +300,7 @@ def attention_prefill(params, x, cfg, *, kind="attn", impl="auto",
     if kv_repeat > 1:
         k = k.repeat_interleave(kv_repeat, dim=2)
         v = v.repeat_interleave(kv_repeat, dim=2)
-    if window and S >= window:
-        start = S - window
-        shift = start % window
-        k = torch.roll(k[:, start:], shift, dims=1)
-        v = torch.roll(v[:, start:], shift, dims=1)
-    if kv_quant:
-        kq, ks = quantize_kv(k)
-        vq, vs = quantize_kv(v)
-        return out, {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
-    return out, {"k": k, "v": v}
+    return out, _stored(_ring(k, window), _ring(v, window), kv_quant)
 
 
 def attention_decode(params, x, cfg, cache, position, *, kind="attn"):
@@ -315,12 +326,7 @@ def attention_decode(params, x, cfg, cache, position, *, kind="attn"):
     ring = bool(window) and T == window
     slot = position % window if ring else position
     quant = "k_scale" in cache
-    if quant:
-        kq, ks = quantize_kv(k)
-        vq, vs = quantize_kv(v)
-        new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
-    else:
-        new = {"k": k, "v": v}
+    new = _stored(k, v, quant)
     bidx = torch.arange(B, device=x.device)
     at = slot.clamp(0, T - 1)
     inside = (slot < T)[:, None, None]
@@ -351,3 +357,215 @@ def attention_decode(params, x, cfg, cache, position, *, kind="attn"):
     p = torch.softmax(s, dim=-1).to(x.dtype)
     o = torch.einsum("bhgt,bthk->bhgk", p, cv).reshape(B, 1, H, hd)
     return _out_proj(o, params["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# On a (data, model) mesh: the rank's heads, JAX's sharded cache layouts
+# ---------------------------------------------------------------------------
+
+def check_mesh_heads(cfg, model_axis: int) -> None:
+    """The sharded attention splits the query heads, and the head
+    dimension of a cache whose heads do not divide, over ``"model"``:
+    both must divide it (every attention decoder of the JAX package's
+    does at ``model`` <= 4)."""
+    hd = cfg.resolved_head_dim
+    if cfg.n_heads % model_axis or hd % model_axis:
+        raise ValueError(f"{cfg.name}: {cfg.n_heads} heads of dimension "
+                         f"{hd} do not divide over model={model_axis}")
+
+
+def _kv_for_heads(k, q_lo: int, n_q: int, group: int):
+    """The kv heads of the query heads ``[q_lo, q_lo + n_q)`` (query head
+    h reads kv head h // group): a slice of whole groups, else one kv head
+    a query head (phi3's 10 kv heads at model 4 split groups)."""
+    if n_q % group == 0 and q_lo % group == 0:
+        return k[:, :, q_lo // group:(q_lo + n_q) // group]
+    idx = torch.arange(q_lo, q_lo + n_q, device=k.device) // group
+    return k[:, :, idx]
+
+
+def _seq_block(mesh, T_glob: int):
+    """(first position, length) of the rank's block of a cache sequence of
+    ``T_glob`` slots sharded over ``"data"`` (SP), or the whole sequence
+    when it does not divide."""
+    D = mesh.shape["data"]
+    if T_glob % D or T_glob < D:
+        return 0, T_glob
+    T = T_glob // D
+    return mesh.axis_index("data") * T, T
+
+
+def attention_prefill_sharded(params, x, cfg, mesh, *, kind="attn",
+                              impl="auto", kv_repeat: int = 1,
+                              kv_quant: bool = False,
+                              seq_parallel: bool = False):
+    """:func:`attention_prefill` on a rank of a ``(data, model)`` mesh:
+    x is the rank's rows (all rows under ``seq_parallel``), the weights
+    its blocks.  The rank attends with its query heads and the kv heads
+    they read (its own where the kv heads shard over ``"model"``, picked
+    by global index from the whole kv projection where they do not); the
+    flash kernel runs on those heads past 2048 tokens.  ``wo`` is
+    row-parallel, followed by the ``"model"`` sum.  Returns the rank's
+    block of JAX's cache leaf (``sharding._cache_pspec``): its heads, or
+    its slice of the head dimension when the cache heads do not divide the
+    model axis; under ``seq_parallel`` its block of the sequence over
+    ``"data"``; int8 values are quantized over the whole head dimension
+    first, as JAX's, and their scales cut by heads only."""
+    S = x.shape[1]
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    M, m = mesh.shape["model"], mesh.axis_index("model")
+    check_mesh_heads(cfg, M)
+    positions = torch.arange(S, device=x.device)
+    q, k, v = _project_qkv(params, x, cfg, positions, _theta_for(cfg, kind))
+    n_q = q.shape[2]
+    q_lo = m * n_q if n_q < H else 0
+    kv_local = k.shape[2] < KVH
+    if kv_local:
+        ka, va = k, v
+    else:
+        ka = _kv_for_heads(k, q_lo, n_q, H // KVH)
+        va = _kv_for_heads(v, q_lo, n_q, H // KVH)
+    window = _window_for(cfg, kind)
+    o = attend(q, ka, va, causal=True, window=window, impl=impl)
+    out = _out_proj(o, params["wo"])
+    if params["wo"].shape[0] < H:
+        out = mesh.all_reduce_sum(out, "model")
+    if kv_repeat > 1:
+        k = k.repeat_interleave(kv_repeat, dim=2)
+        v = v.repeat_interleave(kv_repeat, dim=2)
+    k, v = _ring(k, window), _ring(v, window)
+    kvh_c = KVH * kv_repeat
+    heads = kvh_c % M == 0
+    if heads and not kv_local:
+        b = kvh_c // M
+        k, v = k[:, :, m * b:(m + 1) * b], v[:, :, m * b:(m + 1) * b]
+    if seq_parallel:
+        t0, T = _seq_block(mesh, k.shape[1])
+        k, v = k[:, t0:t0 + T], v[:, t0:t0 + T]
+    entry = _stored(k, v, kv_quant)
+    if not heads:
+        b = hd // M
+        for name in ("k", "v"):
+            entry[name] = entry[name][..., m * b:(m + 1) * b].contiguous()
+    return out, entry
+
+
+def attention_decode_sharded(params, x, cfg, cache, position, mesh, *,
+                             kind="attn", sp_len=None):
+    """:func:`attention_decode` on a rank of a ``(data, model)`` mesh,
+    its cache the rank's block of JAX's layout.
+
+    The layout is read off the block: a head dimension shorter than the
+    config's is the hd-over-``"model"`` cache (then the cache holds every
+    kv head), otherwise the cache holds the rank's heads.  The new token's
+    K/V, repeated as the cache's heads are (``kv_repeat``), go into the
+    rank's heads or its hd slice.  With heads, the rank's query heads
+    attend over them as on one device.  With hd slices, the query heads
+    are gathered over ``"model"``, each rank scores every head on its
+    slice, the partial scores are summed over ``"model"`` in rank order,
+    and the rank's slice of every head's output is gathered back before
+    its own heads take ``wo``.
+
+    ``sp_len`` (the global length of a position-indexed cache) marks a
+    sequence-parallel decode: every rank holds all rows, and each
+    attention leaf whose slots (``sp_len``, or the window W of a local
+    layer's ring) divide over ``"data"`` holds the rank's block of them.
+    The new token is written by the rank that owns its slot; each rank
+    attends over its block and the partial (max, sum, out) are combined
+    across ``"data"`` in rank order, the flash-decoding combine XLA
+    inserts for JAX."""
+    B = x.shape[0]
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    M, m = mesh.shape["model"], mesh.axis_index("model")
+    check_mesh_heads(cfg, M)
+    q, k, v = _project_qkv(params, x, cfg, position[:, None],
+                           _theta_for(cfg, kind))
+    n_q = q.shape[2]
+    q_lo = m * n_q if n_q < H else 0
+    c_h, c_d = cache["k"].shape[2], cache["k"].shape[3]
+    hd_split = c_d < hd
+    kvh_c = c_h if hd_split else c_h * M
+    rep = kvh_c // KVH
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    if not hd_split and k.shape[2] > c_h:        # whole kv: the rank's
+        k, v = k[:, :, m * c_h:(m + 1) * c_h], v[:, :, m * c_h:(m + 1) * c_h]
+    quant = "k_scale" in cache
+    new = _stored(k, v, quant)
+    if hd_split:
+        for name in ("k", "v"):
+            new[name] = new[name][..., m * c_d:(m + 1) * c_d]
+
+    # the rank's slots of the sequence, and where the new token goes
+    T = cache["k"].shape[1]
+    window = _window_for(cfg, kind)
+    if sp_len is None:
+        T_glob, t0 = T, 0
+    else:
+        T_glob = window if window and sp_len >= window else sp_len
+        t0, T_blk = _seq_block(mesh, T_glob)
+        if T_blk != T:
+            raise ValueError(f"attention_decode_sharded: a cache block of "
+                             f"{T} slots, expected {T_blk} of {T_glob}")
+    sp = T < T_glob
+    ring = bool(window) and T_glob == window
+    slot = position % window if ring else position
+    at = slot - t0
+    bidx = torch.arange(B, device=x.device)
+    inside = ((at >= 0) & (at < T))[:, None, None]
+    at = at.clamp(0, T - 1)
+    for name, t in new.items():
+        c = cache[name]
+        c[bidx, at] = torch.where(inside, t[:, 0], c[bidx, at])
+    if quant:
+        ck = dequantize_kv(cache["k"], cache["k_scale"], x.dtype)
+        cv = dequantize_kv(cache["v"], cache["v_scale"], x.dtype)
+    else:
+        ck, cv = cache["k"], cache["v"]
+
+    if hd_split:
+        qa = mesh.all_gather(q, "model", dim=2) if n_q < H else q
+        G = H // kvh_c
+        qg = qa[..., m * c_d:(m + 1) * c_d].reshape(B, kvh_c, G, c_d)
+        s = torch.einsum("bhgk,bthk->bhgt", qg.float(), ck.float())
+        s = mesh.all_reduce_sum(s, "model") / math.sqrt(hd)
+    else:
+        G = n_q // c_h
+        qg = q.reshape(B, c_h, G, hd)
+        s = torch.einsum("bhgk,bthk->bhgt", qg.float(), ck.float()) / \
+            math.sqrt(hd)
+    tpos = t0 + torch.arange(T, device=x.device)[None, :]
+    if ring:
+        recon = position[:, None] - ((position[:, None] - tpos) % window)
+        valid = recon >= 0
+    else:
+        valid = tpos <= position[:, None]
+    valid = valid[:, None, None, :]
+    s = s.masked_fill(~valid, NEG_INF)
+    if sp:
+        mx = s.amax(dim=-1, keepdim=True)
+        p = torch.where(valid, torch.exp(s - mx), 0.0)
+        part = torch.cat([mx, p.sum(-1, keepdim=True),
+                          torch.einsum("bhgt,bthk->bhgk", p, cv.float())],
+                         dim=-1)
+        parts = mesh.all_gather_list(part, "data")
+        top = parts[0][..., :1]
+        for pt in parts[1:]:
+            top = torch.maximum(top, pt[..., :1])
+        acc = None
+        for pt in parts:                       # in rank order
+            w = torch.exp(pt[..., :1] - top)
+            term = pt[..., 1:] * w
+            acc = term if acc is None else acc + term
+        o = (acc[..., 1:] / acc[..., :1]).to(x.dtype)
+    else:
+        p = torch.softmax(s, dim=-1).to(x.dtype)
+        o = torch.einsum("bhgt,bthk->bhgk", p, cv)
+    if hd_split:
+        o = mesh.all_gather(o, "model", dim=-1).reshape(B, H, hd)
+        o = o[:, q_lo:q_lo + n_q]
+    out = _out_proj(o.reshape(B, 1, n_q, hd), params["wo"])
+    if params["wo"].shape[0] < H:
+        out = mesh.all_reduce_sum(out, "model")
+    return out, cache

@@ -15,7 +15,15 @@ kv_quant=)`` fixes a decoder's prefill cache storage, as JAX's does (the
 encoder-decoder's prefill takes neither, as in JAX).  Its
 ``cache_specs`` (shapes by ``eval_shape`` of the prefill) becomes
 :func:`init_cache`, a direct allocation of the same tree, and
-``param_specs(inference=True)`` becomes :func:`cast_for_inference`.
+``param_specs(inference=True)`` becomes :func:`cast_for_inference`
+(and :func:`param_shapes` the shapes alone, on no memory).
+
+``make_model(cfg, mesh=)`` and ``init_cache(..., mesh=)`` are a rank's
+share of a ``(data, model)`` mesh (``launch/mesh.py``): its blocks of the
+weights, its rows and its blocks of the cache (``models/lm.py``).  A
+decoder's prefill then takes ``seq_parallel`` and its decode ``sp_len``
+for a batch that does not cover ``"data"``; the encoder-decoder runs
+batch-sharded at ``model`` = 1.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ import functools
 import torch
 
 from repro_torch.models import encdec, lm
+from repro_torch.runtime import sharding as sh
 
 # matrices the JAX package reads at f32 (never through ``.astype(dtype)``),
 # so they stay f32 under cast_for_inference: the embedding tables, the MoE
@@ -33,8 +42,18 @@ F32_MATRICES = ("table", "router", "a_log", "w_b", "w_c", "w_dt_down",
                 "w_dt_up", "w_i", "w_f", "w_x", "r")
 
 
-def make_model(cfg, *, kv_repeat: int = 1, kv_quant: bool = False) -> dict:
+def make_model(cfg, *, kv_repeat: int = 1, kv_quant: bool = False,
+               mesh=None) -> dict:
     lm.check_supported(cfg)
+    lm.check_mesh(cfg, mesh)
+    if mesh is not None:
+        if cfg.is_encoder_decoder:      # at model 1: the rank's rows
+            return make_model(cfg)
+        return {"init": functools.partial(lm.init_lm, cfg=cfg, mesh=mesh),
+                "prefill": functools.partial(_prefill, cfg=cfg,
+                                             kv_repeat=kv_repeat,
+                                             kv_quant=kv_quant, mesh=mesh),
+                "decode": functools.partial(_decode, cfg=cfg, mesh=mesh)}
     if cfg.is_encoder_decoder:
         return {"init": functools.partial(encdec.init_encdec, cfg=cfg),
                 "loss": functools.partial(_encdec_loss, cfg=cfg),
@@ -62,13 +81,17 @@ def _encdec_loss(params, batch, *, cfg):
 
 
 def _prefill(params, tokens, *, cfg, attn_impl: str = "auto",
-             kv_repeat: int = 1, kv_quant: bool = False):
+             kv_repeat: int = 1, kv_quant: bool = False, mesh=None,
+             seq_parallel: bool = False):
     return lm.lm_prefill(params, cfg, tokens, attn_impl=attn_impl,
-                         kv_repeat=kv_repeat, kv_quant=kv_quant)
+                         kv_repeat=kv_repeat, kv_quant=kv_quant, mesh=mesh,
+                         seq_parallel=seq_parallel)
 
 
-def _decode(params, tokens, cache, position, *, cfg):
-    return lm.lm_decode(params, cfg, tokens, cache, position)
+def _decode(params, tokens, cache, position, *, cfg, mesh=None,
+            sp_len=None):
+    return lm.lm_decode(params, cfg, tokens, cache, position, mesh=mesh,
+                        sp_len=sp_len)
 
 
 def _encdec_prefill(params, tokens, encoder_frames, *, cfg,
@@ -97,8 +120,19 @@ def cast_for_inference(params, cfg):
     return params
 
 
+@functools.lru_cache(maxsize=16)
+def param_shapes(cfg):
+    """The parameter module tree of ``cfg`` with fake tensors (shapes and
+    dtypes, no memory): what the partition rules read.  Made once a
+    config (a few seconds at full size)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        return make_model(cfg)["init"](torch.Generator())
+
+
 def init_cache(cfg, batch: int, max_len: int, device, *, kv_repeat: int = 1,
-               kv_quant: bool = False) -> dict:
+               kv_quant: bool = False, mesh=None) -> dict:
     """Zeroed caches in the tree the prefill returns and the decode reads,
     for sequences up to ``max_len`` (the shapes and dtypes of JAX's
     ``cache_specs``).  A decoder: ``{"pos{p}": {...}}`` with attention
@@ -112,7 +146,22 @@ def init_cache(cfg, batch: int, max_len: int, device, *, kv_repeat: int = 1,
     ``"h"``, ``"c"``, ``"n"``, ``"m"`` (..., nh, dh), f32.  The
     encoder-decoder: ``{"self": {"k", "v"} (n_layers, batch, max_len,
     KVH, hd), "encoder_out": (batch, enc_positions, d)}`` in the compute
-    dtype."""
+    dtype.  With a ``mesh``, ``batch`` is the global batch and each leaf
+    the rank's block of it (``sharding._cache_pspec``, sequence-parallel
+    when the batch does not cover ``"data"``)."""
+    if mesh is not None:
+        whole = init_cache(cfg, batch, max_len, "meta", kv_repeat=kv_repeat,
+                           kv_quant=kv_quant)
+        specs = sh.batch_shardings({"cache": whole}, mesh.shape,
+                                   global_batch=batch)["cache"]
+
+        def zeros_block(t, spec):
+            if isinstance(t, dict):
+                return {k: zeros_block(t[k], spec[k]) for k in t}
+            shape = sh.block(t, spec, mesh).shape
+            return torch.zeros(shape, dtype=t.dtype, device=device)
+
+        return zeros_block(whole, specs)
     hd = cfg.resolved_head_dim
 
     def zeros(shape, dtype=cfg.dtype):

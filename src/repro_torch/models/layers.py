@@ -5,6 +5,13 @@ dicts of tensors at init (``models/lm.py`` wraps them in modules); each
 ``apply`` casts a weight to the activations' dtype at use, which is a
 no-op for weights already cast for inference.  Norms, rotary angles,
 logits and the training loss (``cross_entropy``) are f32.
+
+On a ``(data, model)`` mesh a rank holds its blocks of the weights
+(``runtime/sharding.py``'s rules): :func:`embed_sharded` looks up a
+vocab-parallel table, :func:`mlp_sharded` runs the column- and
+row-parallel MLP, both followed by the ``"model"`` sum, and
+:func:`unembed` on a rank's rows of the table gives its vocab shard of the
+logits.
 """
 from __future__ import annotations
 
@@ -138,6 +145,34 @@ def mlp(params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
     return out
 
 
+def mlp_sharded(params, x: torch.Tensor, mlp_type: str, d_ff: int,
+                mesh) -> torch.Tensor:
+    """:func:`mlp` on the rank's ff columns of ``w_gate``/``w_up`` (and
+    ``b_up``) and its rows of ``w_down``, the partial outputs summed over
+    ``"model"`` in rank order; a replicated ``b_down`` is added once,
+    after the sum.  Weights whose ff does not divide the model axis are
+    whole, and then nothing is summed."""
+    dtype = x.dtype
+    w_in = params["w_gate" if "w_gate" in params else "w_up"]
+    if w_in.shape[1] == d_ff:
+        return mlp(params, x, mlp_type)
+    if mlp_type in ("swiglu", "geglu"):
+        gate = x @ params["w_gate"].to(dtype)
+        up = x @ params["w_up"].to(dtype)
+        act = F.silu(gate) if mlp_type == "swiglu" else \
+            F.gelu(gate, approximate="tanh")
+        out = (act * up) @ params["w_down"].to(dtype)
+    else:
+        h = x @ params["w_up"].to(dtype)
+        if "b_up" in params:
+            h = h + params["b_up"].to(dtype)
+        out = F.gelu(h, approximate="tanh") @ params["w_down"].to(dtype)
+    out = mesh.all_reduce_sum(out, "model")
+    if "b_down" in params:
+        out = out + params["b_down"].to(dtype)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
@@ -154,8 +189,28 @@ def embed(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return params["table"][tokens].to(dtype)
 
 
+def embed_sharded(params, tokens: torch.Tensor, dtype, vocab: int,
+                  mesh) -> torch.Tensor:
+    """:func:`embed` of a vocab-parallel table: the rank holds rows
+    ``[m V/M, (m+1) V/M)``, looks up the ids in that range, writes zeros
+    elsewhere, and the ``"model"`` sum adds the one nonzero term, so the
+    rows are bitwise the unsharded lookup.  A whole table (V not dividing
+    the model axis) is looked up as it is."""
+    table = params["table"]
+    v_loc = table.shape[0]
+    if v_loc == vocab:
+        return embed(params, tokens, dtype)
+    ids = tokens - mesh.axis_index("model") * v_loc
+    inside = (ids >= 0) & (ids < v_loc)
+    rows = table[ids.clamp(0, v_loc - 1)].to(dtype)
+    x = torch.where(inside[..., None], rows,
+                    torch.zeros((), dtype=dtype, device=rows.device))
+    return mesh.all_reduce_sum(x, "model")
+
+
 def unembed(params, x: torch.Tensor, table: torch.Tensor = None):
-    """Logits in f32 (softmax stability).  A full-f32 product: the card
+    """Logits in f32 (softmax stability); of a rank's rows of a
+    vocab-parallel table, its vocab shard of them.  A full-f32 product: the card
     runs it with TF32 off (``core.largevis.resolve_device`` sets that)."""
     t = table if table is not None else params["table"]
     return x.float() @ t.float().T

@@ -25,6 +25,19 @@ a local layer's T_p its window once the sequence reaches it; mamba
 ``"ssm"`` (n_periods, B, inner, state) f32 and ``"conv"`` (n_periods, B,
 K-1, inner); mLSTM ``"C"``, ``"n"``, ``"m"`` and sLSTM ``"h"``, ``"c"``,
 ``"n"``, ``"m"`` in f32.
+
+On a ``(data, model)`` mesh (``mesh=``, a ``launch/mesh.DataMesh``) a
+rank holds its blocks of the weights (:func:`init_lm` or
+``convert.lm_params_from_numpy`` with the mesh, JAX's inference rules)
+and of the cache (``sharding._cache_pspec``), and takes its rows of the
+batch: ``lm_prefill`` and ``lm_decode`` run the vocab-parallel embedding,
+the rank's heads and ff slices with their ``"model"`` sums, the
+expert-parallel MoE, and return the rank's vocab shard of the logits.  A
+batch that does not cover ``"data"`` is sequence-parallel: every rank
+holds all rows, and the attention caches their sequence blocks.  The
+recurrent blocks and the encoder-decoder run at ``model`` = 1 only
+(:func:`check_mesh`).  With ``mesh=None`` the path is the one-device
+path.
 """
 from __future__ import annotations
 
@@ -35,9 +48,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm, xlstm
-from repro_torch.models.layers import (cross_entropy, embed, init_embedding,
-                                       init_mlp, init_rmsnorm, mlp, rmsnorm,
-                                       unembed)
+from repro_torch.models.layers import (cross_entropy, embed, embed_sharded,
+                                       init_embedding, init_mlp,
+                                       init_rmsnorm, mlp, mlp_sharded,
+                                       rmsnorm, unembed)
+from repro_torch.runtime import sharding as sh
 
 ATTN_KINDS = ("attn", "local", "global")
 # the recurrent cores: (fwd, prefill, decode); prefill and decode return
@@ -56,6 +71,43 @@ def check_supported(cfg) -> None:
         if kind not in BLOCK_KINDS:
             raise ValueError(f"{cfg.name}: block kind {kind!r}, expected "
                              f"one of {BLOCK_KINDS}")
+
+
+# where the blocks the sharded path leaves at model 1 get their model axis
+MESH_STEP = "ROADMAP Queue 1 item 7 step 8b"
+
+
+def check_mesh(cfg, mesh) -> None:
+    """Raise for what the sharded serving path does not run: at ``model``
+    > 1 the mamba and xLSTM blocks and the encoder-decoder (JAX shards
+    their inner dimensions over ``"model"``; the port's next step)."""
+    if mesh is None or mesh.shape["model"] == 1:
+        return
+    kinds = sorted(set(cfg.block_pattern) - set(ATTN_KINDS))
+    if kinds or cfg.is_encoder_decoder:
+        what = "the encoder-decoder" if cfg.is_encoder_decoder else \
+            f"blocks {kinds}"
+        raise ValueError(f"{cfg.name}: {what} at model="
+                         f"{mesh.shape['model']}: tensor parallelism over "
+                         f"'model' for these is {MESH_STEP}")
+    attn.check_mesh_heads(cfg, mesh.shape["model"])
+
+
+def _cut(tree, prefix: str, mesh) -> dict:
+    """The rank's blocks of a (nested dict) parameter tree at JAX path
+    ``prefix``, by the inference rules (copies, so that the whole leaves
+    can be freed)."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}"
+        if not torch.is_tensor(v):
+            out[k] = _cut(v, path, mesh)
+            continue
+        spec = sh.param_pspec(path, v.shape, mesh.shape, train=False,
+                              stacked=False)
+        b = sh.block(v, spec, mesh)
+        out[k] = b.clone() if b.numel() < v.numel() else b
+    return out
 
 
 def _position_is_moe(cfg, p: int) -> bool:
@@ -156,18 +208,28 @@ def init_block(generator, cfg, p: int) -> dict:
     return params
 
 
-def init_lm(generator: torch.Generator, cfg) -> nn.ModuleDict:
+def init_lm(generator: torch.Generator, cfg, mesh=None) -> nn.ModuleDict:
     """Random f32 master weights on ``generator.device``, with the JAX
-    init's distributions (not its numbers: the generators differ)."""
+    init's distributions (not its numbers: the generators differ).  With
+    a ``mesh``, the rank's blocks of the same weights (JAX's inference
+    rules), each cut as soon as its block is drawn: a rank holds one
+    whole block at most beside its own blocks."""
     check_supported(cfg)
+    check_mesh(cfg, mesh)
     P = len(cfg.block_pattern)
-    tree = {"embed": init_embedding(generator, cfg.vocab_size, cfg.d_model),
+
+    def cut(tree, prefix):
+        return tree if mesh is None else _cut(tree, prefix, mesh)
+
+    tree = {"embed": cut(init_embedding(generator, cfg.vocab_size,
+                                        cfg.d_model), "embed"),
             "final_norm": init_rmsnorm(cfg.d_model, generator.device),
-            "blocks": [init_block(generator, cfg, li % P)
+            "blocks": [cut(init_block(generator, cfg, li % P),
+                           f"blocks/pos{li % P}")
                        for li in range(cfg.n_layers)]}
     if not cfg.tie_embeddings:
-        tree["lm_head"] = init_embedding(generator, cfg.vocab_size,
-                                         cfg.d_model)
+        tree["lm_head"] = cut(init_embedding(generator, cfg.vocab_size,
+                                             cfg.d_model), "lm_head")
     return as_module(tree)
 
 
@@ -177,17 +239,29 @@ def init_lm(generator: torch.Generator, cfg) -> nn.ModuleDict:
 
 def apply_block(cfg, p: int, params, x, *, mode: str, cache=None,
                 position=None, attn_impl: str = "auto", kv_repeat: int = 1,
-                kv_quant: bool = False):
+                kv_quant: bool = False, mesh=None, sp_len=None):
     """Block position ``p`` of the pattern; returns (x, cache entry, aux),
     as the JAX package's: the cache entry None under ``mode="fwd"`` (the
     training forward), aux the MoE block's load-balance loss there and 0.0
     otherwise (a float: no device allocation on the serving path).  An
     attention decode writes the cache in place and returns it; a
-    recurrent decode returns new states (``lm_decode`` copies them in)."""
+    recurrent decode returns new states (``lm_decode`` copies them in).
+
+    With a ``mesh`` (serving only) the block is the rank's share: the
+    recurrent blocks (at ``model`` = 1) run on the rank's rows as on one
+    device, and so does attention at ``model`` = 1 unless ``sp_len``
+    marks a sequence-parallel prefill or decode; otherwise the sharded
+    attention.  The MLP is column- then row-parallel, the MoE
+    expert-parallel (``moe.moe_apply_sharded``)."""
     kind = cfg.block_pattern[p]
     if mode not in ("fwd", "prefill", "decode"):
         raise ValueError(f"apply_block: mode {mode!r}, expected fwd|"
                          "prefill|decode")
+    if mesh is not None and mode == "fwd":
+        raise ValueError("apply_block: the training forward runs on one "
+                         f"device or a data mesh; with a mesh, {MESH_STEP}")
+    sharded = mesh is not None and (mesh.shape["model"] > 1 or
+                                    sp_len is not None)
     aux = 0.0
     new_cache = None
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
@@ -210,19 +284,33 @@ def apply_block(cfg, p: int, params, x, *, mode: str, cache=None,
     elif mode == "fwd":
         a = attn.attention_fwd(params["attn"], h, cfg, kind=kind,
                                impl=attn_impl)
+    elif mode == "prefill" and sharded:
+        a, new_cache = attn.attention_prefill_sharded(
+            params["attn"], h, cfg, mesh, kind=kind, impl=attn_impl,
+            kv_repeat=kv_repeat, kv_quant=kv_quant,
+            seq_parallel=sp_len is not None)
     elif mode == "prefill":
         a, new_cache = attn.attention_prefill(
             params["attn"], h, cfg, kind=kind, impl=attn_impl,
             kv_repeat=kv_repeat, kv_quant=kv_quant)
+    elif sharded:
+        a, new_cache = attn.attention_decode_sharded(
+            params["attn"], h, cfg, cache, position, mesh, kind=kind,
+            sp_len=sp_len)
     else:
         a, new_cache = attn.attention_decode(params["attn"], h, cfg, cache,
                                              position, kind=kind)
     x = x + a
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    if "moe" in params:
+    if "moe" in params and mesh is not None:
+        m, _ = moe_lib.moe_apply_sharded(params["moe"], h, cfg, mesh,
+                                         batch_first=sp_len is None)
+    elif "moe" in params:
         m, moe_aux = moe_lib.moe_apply(params["moe"], h, cfg)
         if mode == "fwd":
             aux = moe_aux
+    elif mesh is not None and mesh.shape["model"] > 1:
+        m = mlp_sharded(params["mlp"], h, cfg.mlp_type, cfg.d_ff, mesh)
     else:
         m = mlp(params["mlp"], h, cfg.mlp_type)
     return x + m, new_cache, aux
@@ -232,8 +320,12 @@ def apply_block(cfg, p: int, params, x, *, mode: str, cache=None,
 # Full stacks
 # ---------------------------------------------------------------------------
 
-def _embed_in(params, cfg, tokens):
-    x = embed(params["embed"], tokens, cfg.dtype)
+def _embed_in(params, cfg, tokens, mesh=None):
+    if mesh is not None and mesh.shape["model"] > 1:
+        x = embed_sharded(params["embed"], tokens, cfg.dtype,
+                          cfg.vocab_size, mesh)
+    else:
+        x = embed(params["embed"], tokens, cfg.dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype,
                              device=x.device)
@@ -295,16 +387,22 @@ def lm_loss(params, cfg, tokens, labels, *, attn_impl: str = "auto",
 
 @torch.no_grad()
 def lm_prefill(params, cfg, tokens, *, attn_impl: str = "auto",
-               kv_repeat: int = 1, kv_quant: bool = False):
-    """tokens (B, S) -> (last-position logits (B, V) f32, cache)."""
+               kv_repeat: int = 1, kv_quant: bool = False, mesh=None,
+               seq_parallel: bool = False):
+    """tokens (B, S) -> (last-position logits (B, V) f32, cache).  With a
+    ``mesh``: the rank's rows of tokens (all rows under
+    ``seq_parallel``), its blocks of the weights; returns its vocab shard
+    of the logits and its blocks of the cache."""
     check_supported(cfg)
-    x = _embed_in(params, cfg, tokens)
+    check_mesh(cfg, mesh)
+    sp_len = tokens.shape[1] if mesh is not None and seq_parallel else None
+    x = _embed_in(params, cfg, tokens, mesh)
     P = len(cfg.block_pattern)
     entries = [[] for _ in range(P)]
     for li, block in enumerate(params["blocks"]):
         x, c, _ = apply_block(cfg, li % P, block, x, mode="prefill",
                               attn_impl=attn_impl, kv_repeat=kv_repeat,
-                              kv_quant=kv_quant)
+                              kv_quant=kv_quant, mesh=mesh, sp_len=sp_len)
         entries[li % P].append(c)
     x = rmsnorm(params["final_norm"], x[:, -1], cfg.norm_eps)
     cache = {f"pos{p}": {name: torch.stack([c[name] for c in cs])
@@ -314,18 +412,25 @@ def lm_prefill(params, cfg, tokens, *, attn_impl: str = "auto",
 
 
 @torch.no_grad()
-def lm_decode(params, cfg, tokens, cache, position):
+def lm_decode(params, cfg, tokens, cache, position, *, mesh=None,
+              sp_len=None):
     """tokens (B, 1); position (B,) index of the new token.  Updates
     ``cache`` in place (the new token's K and V, each recurrent layer's
-    states); returns (logits (B, V), cache)."""
+    states); returns (logits (B, V), cache).  With a ``mesh``, the rank's
+    rows, blocks and vocab shard as in :func:`lm_prefill`; ``sp_len``, the
+    global length of a position-indexed cache, marks a sequence-parallel
+    decode (all rows on every rank, the caches' sequence over
+    ``"data"``)."""
     check_supported(cfg)
-    x = _embed_in(params, cfg, tokens)
+    check_mesh(cfg, mesh)
+    x = _embed_in(params, cfg, tokens, mesh)
     P = len(cfg.block_pattern)
     for li, block in enumerate(params["blocks"]):
         layer = {name: t[li // P]
                  for name, t in cache[f"pos{li % P}"].items()}
         x, new, _ = apply_block(cfg, li % P, block, x, mode="decode",
-                                cache=layer, position=position)
+                                cache=layer, position=position, mesh=mesh,
+                                sp_len=sp_len)
         for name, t in new.items():
             if t is not layer[name]:
                 layer[name].copy_(t)

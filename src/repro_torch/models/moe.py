@@ -16,12 +16,14 @@ from run to run.  The gradient path is as ordered: the backward of each
 gather is CUDA's sort-based accumulating ``index_put_``, and two training
 steps of a MoE model on the card are bitwise equal (``chip_smoke.py``).
 
-Not ported yet: the mesh-sharded dispatch (``_moe_apply_sharded``,
-``_dispatch_ep_a2a``), which needs the LM partition specs (ROADMAP
-Queue 1).
+On a ``(data, model)`` mesh, :func:`moe_apply_sharded` is JAX's
+``_moe_apply_sharded`` with ``_dispatch_ep_a2a``: experts over
+``"data"`` (EP), their ff over ``"model"``, the route chosen by
+:func:`moe_route`.
 """
 from __future__ import annotations
 
+import collections
 import math
 
 import torch
@@ -59,14 +61,13 @@ def route(params, xf, cfg):
     return probs, top_p, top_e
 
 
-def moe_apply(params, x, cfg, capacity_factor: float = 1.25):
-    """x: (B,S,d) -> (y (B,S,d) in x's dtype, aux loss f32 scalar)."""
-    B, S, d = x.shape
-    T = B * S
+def _dispatch(params, xf, cfg, capacity_factor: float):
+    """Route the tokens ``xf`` (T, d) and gather them into the padded
+    (E, C, d) buffer of each expert's slots; returns (the buffer, what
+    :func:`_combine` needs, the aux loss)."""
+    T, d = xf.shape
     E, K = cfg.n_experts, cfg.topk_experts
-    dtype = x.dtype
-    dev = x.device
-    xf = x.reshape(T, d)
+    dev = xf.device
     probs, top_p, top_e = route(params, xf, cfg)
 
     # ---- aux load-balance loss (Switch): E * sum_e f_e * p_e ----
@@ -87,19 +88,29 @@ def moe_apply(params, x, cfg, capacity_factor: float = 1.25):
     keep = pos < C
     dest = torch.where(keep, e_s * C + pos, E * C)         # E*C: dropped
 
-    gathered = torch.zeros((E * C + 1, d), dtype=dtype, device=dev)
+    gathered = torch.zeros((E * C + 1, d), dtype=xf.dtype, device=dev)
     gathered[dest] = xf[t_s]
-    g = gathered[:-1].view(E, C, d)
+    return gathered[:-1].view(E, C, d), (order, keep, dest, w_flat), aux
 
-    # ---- expert FFN, batched over E; silu(x) = x * sigmoid(x) ----
-    gate = torch.bmm(g, params["w_gate"].to(dtype))
-    up = torch.bmm(g, params["w_up"].to(dtype))
+
+def _experts(g, w_gate, w_up, w_down):
+    """The expert FFN batched over the experts of ``g`` (E, C, d); silu(x)
+    = x * sigmoid(x)."""
+    dtype = g.dtype
+    gate = torch.bmm(g, w_gate.to(dtype))
+    up = torch.bmm(g, w_up.to(dtype))
     h = gate * torch.sigmoid(gate) * up
-    out = torch.bmm(h, params["w_down"].to(dtype)).reshape(E * C, d)
+    return torch.bmm(h, w_down.to(dtype))
 
-    # ---- combine back: each token's K contributions in stream order ----
+
+def _combine(out, state, T: int, K: int):
+    """Each token's K contributions from ``out`` (E * C, d), added from
+    zero in their sorted stream order."""
+    order, keep, dest, w_flat = state
+    EC, d = out.shape
+    dtype, dev = out.dtype, out.device
     contrib = torch.where(keep, w_flat[order], 0.0).to(dtype)
-    picked = torch.where(keep[:, None], out[dest.clamp(max=E * C - 1)],
+    picked = torch.where(keep[:, None], out[dest.clamp(max=EC - 1)],
                          torch.zeros((), dtype=dtype, device=dev))
     upd = picked * contrib[:, None]
     inv = torch.empty_like(order)
@@ -108,4 +119,83 @@ def moe_apply(params, x, cfg, capacity_factor: float = 1.25):
     y = torch.zeros((T, d), dtype=dtype, device=dev)
     for j in range(K):
         y = y + upd[slots[:, j]]
+    return y
+
+
+def moe_apply(params, x, cfg, capacity_factor: float = 1.25):
+    """x: (B,S,d) -> (y (B,S,d) in x's dtype, aux loss f32 scalar)."""
+    B, S, d = x.shape
+    g, state, aux = _dispatch(params, x.reshape(B * S, d), cfg,
+                              capacity_factor)
+    E, C = g.shape[:2]
+    out = _experts(g, params["w_gate"], params["w_up"], params["w_down"])
+    y = _combine(out.reshape(E * C, d), state, B * S, cfg.topk_experts)
+    return y.reshape(B, S, d), aux
+
+
+# ---------------------------------------------------------------------------
+# On a (data, model) mesh: JAX's _moe_apply_sharded and _dispatch_ep_a2a
+# ---------------------------------------------------------------------------
+
+ROUTES: collections.Counter = collections.Counter()   # route -> calls
+
+
+def moe_route(cfg, t_loc: int, sizes, capacity_factor: float = 1.25, *,
+              batch_first: bool = True) -> str:
+    """The sharded MoE's route at inference, JAX's choice
+    (``_moe_apply_sharded``): ``"local"`` when the experts do not divide
+    over ``"data"`` (each rank holds them all); with experts over
+    ``"data"`` (EP), ``"a2a"`` (the token slots go to their experts' ranks
+    and back) when the slots' bytes ``2 E c_loc d 2`` are below the
+    resident expert stack's ``3 E d ff 2 / M``, at ``c_loc =
+    capacity(t_loc)`` of the rank's ``t_loc`` tokens, else ``"gather"``
+    (the expert weights gathered over ``"data"``), which is also the route
+    of a batch that does not cover ``"data"`` (every rank holds all rows,
+    JAX's global path)."""
+    D, M = sizes.get("data", 1), sizes.get("model", 1)
+    E, d = cfg.n_experts, cfg.d_model
+    if E % D or E < D:
+        return "local"
+    if not batch_first:
+        return "gather"
+    c_loc = capacity(max(t_loc, 1), E, cfg.topk_experts, capacity_factor)
+    token_bytes = 2 * E * c_loc * d * 2
+    weight_bytes = 3 * E * d * cfg.d_ff * 2 // max(1, M)
+    return "gather" if token_bytes >= weight_bytes else "a2a"
+
+
+def moe_apply_sharded(params, x, cfg, mesh, capacity_factor: float = 1.25,
+                      *, batch_first: bool = True, mean_aux: bool = False):
+    """:func:`moe_apply` on a rank of a ``(data, model)`` mesh at
+    inference: x the rank's rows (all rows unless ``batch_first``), the
+    expert weights its blocks (experts over ``"data"``, ff over
+    ``"model"``).  The rank routes its own tokens at ``capacity(t_loc)``;
+    by :func:`moe_route` the slots go to their experts' ranks by
+    ``all_to_all`` over ``"data"`` and back, or the expert weights are
+    gathered over ``"data"``.  The partial outputs of the ff slices are
+    summed over ``"model"`` in rank order.  ``mean_aux``: the aux loss is
+    the mean over the data ranks, added in rank order (else the rank's
+    own).  The orders are :func:`moe_apply`'s, so two runs agree."""
+    B, S, d = x.shape
+    T = B * S
+    E, K = cfg.n_experts, cfg.topk_experts
+    kind = moe_route(cfg, T, mesh.shape, capacity_factor,
+                     batch_first=batch_first)
+    ROUTES[kind] += 1
+    wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
+    if kind == "gather":
+        wg, wu, wd = (mesh.all_gather(w, "data") for w in (wg, wu, wd))
+    g, state, aux = _dispatch(params, x.reshape(T, d), cfg, capacity_factor)
+    C = g.shape[1]
+    if kind == "a2a":
+        g = mesh.all_to_all(g, "data", 0, 1)     # (E/D, D*C, d)
+    out = _experts(g, wg, wu, wd)
+    if wg.shape[2] < cfg.d_ff:
+        out = mesh.all_reduce_sum(out, "model")
+    if kind == "a2a":
+        out = mesh.all_to_all(out, "data", 1, 0)     # (E, C, d)
+    y = _combine(out.reshape(E * C, d), state, T, K)
+    if mean_aux and mesh.shape["data"] > 1:
+        aux = mesh.all_reduce_sum(aux.reshape(1), "data")[0] / \
+            mesh.shape["data"]
     return y.reshape(B, S, d), aux

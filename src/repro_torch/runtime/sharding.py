@@ -14,13 +14,17 @@ The LM rules are the JAX package's (``runtime/sharding.py``): FSDP over
 dropped where the dimension does not divide over it.  They take the
 mesh's axis sizes as a mapping, JAX's ``mesh.shape`` (``DataMesh.shape``
 in the port), and a spec is a tuple of an axis name, a tuple of names or
-None per dimension, JAX's ``PartitionSpec``.  The port trains at
-``"model"`` = 1; the rules are held to JAX's at larger meshes too.
+None per dimension, JAX's ``PartitionSpec``.  The serving layouts are
+JAX's too: ``_cache_pspec`` (a decode cache batch-sharded over the DP
+axes, or its sequence over ``"data"`` when the batch does not cover them;
+heads, or else the head dimension, over ``"model"``) and
+``out_shardings_for``.  :func:`block` cuts a rank's block out of a whole
+tensor by its spec, and :func:`assemble` puts the ranks' blocks back
+together.
 
 JAX's activation policy and ``constrain_*`` have no counterpart: they are
 XLA trace-time hints, and a port rank holds its own rows by
-construction.  ``_cache_pspec`` and ``out_shardings_for`` wait for the
-sharded serving steps (ROADMAP Queue 1 item 7 step 8).
+construction.
 """
 from __future__ import annotations
 
@@ -208,28 +212,154 @@ def owned_blocks(params, cfg, mesh) -> list:
     return out
 
 
+def _walk(tree, fn, path=""):
+    """``fn(path, leaf)`` over a nested dict (or tuple) of leaves, the
+    "/"-joined path as JAX's ``_path_str`` spells it (a tuple's index as
+    a number)."""
+    if isinstance(tree, dict):
+        return {k: _walk(v, fn, f"{path}/{k}" if path else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_walk(v, fn, f"{path}/{i}" if path else str(i))
+                          for i, v in enumerate(tree))
+    return fn(path, _shape(tree))
+
+
+def _shape(leaf) -> tuple:
+    """The shape of a tensor, an array or a shape."""
+    return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf)
+
+
+def covers_dp(sizes: Mapping, global_batch: int) -> bool:
+    """Whether ``global_batch`` rows shard over the DP axes (JAX's
+    ``batch_first``); otherwise a decode cache is sequence-parallel."""
+    dp_size = 1
+    for a in dp_axes(sizes):
+        dp_size *= sizes[a]
+    return global_batch % dp_size == 0 and global_batch >= dp_size
+
+
 def batch_shardings(batch: Mapping, sizes: Mapping, *,
                     global_batch: int) -> dict:
-    """{name: spec} of a training batch: tokens, labels, positions and
-    encoder frames over the DP axes along their rows when the batch
-    covers them, whole otherwise.  A decode cache raises: its layouts
-    come with the sharded serving steps (ROADMAP Queue 1 item 7 step
-    8)."""
+    """{name: spec} of a batch (nested where the batch nests): tokens,
+    labels, positions and encoder frames over the DP axes along their rows
+    when the batch covers them, whole otherwise; a decode cache's leaves by
+    :func:`_cache_pspec`, batch- or sequence-sharded."""
     dp = dp_axes(sizes)
-    dp_size = 1
-    for a in dp:
-        dp_size *= sizes[a]
-    batch_first = global_batch % dp_size == 0 and global_batch >= dp_size
-    out = {}
-    for name, leaf in batch.items():
-        if "cache" in name:
-            raise ValueError(f"batch_shardings: {name!r} is a decode "
-                             "cache, whose layout comes with the sharded "
-                             "serving steps (ROADMAP Queue 1 item 7 step 8)")
-        shape = tuple(leaf.shape)
+    batch_first = covers_dp(sizes, global_batch)
+
+    def one(s, shape):
+        if "cache" in s:
+            return _cache_pspec(s, shape, sizes, batch_first)
         if len(shape) >= 1 and batch_first:
             spec = [dp] + [None] * (len(shape) - 1)
         else:
             spec = [None] * len(shape)
-        out[name] = _guard(sizes, shape, spec)
+        return _guard(sizes, shape, spec)
+
+    return _walk(dict(batch), one)
+
+
+def _cache_pspec(s: str, shape, sizes: Mapping, batch_first: bool) -> tuple:
+    """The spec of a cache leaf at path ``s``, stacked over the periods
+    (n_periods, B, ...), JAX's rules: attention ``k``/``v`` and their
+    scales (n_periods, B, T, KVH, hd) batch-sharded when the batch covers
+    the DP axes, else their sequence over ``"data"`` (SP); the heads over
+    ``"model"`` when they divide it, else the head dimension.  mamba
+    ``ssm``/``conv`` and the mLSTM's ``C`` shard their inner dimension over
+    ``"model"``; the other recurrent states and ``encoder_out`` (B, F, d)
+    only their batch."""
+    dp = dp_axes(sizes)
+    model = max(_axis_size(sizes, "model"), 1)
+    bdp = dp if batch_first else None
+    shape = tuple(shape)
+    if s.endswith("encoder_out"):
+        return _guard(sizes, shape, [bdp, None, None])
+    if s.endswith("/k") or s.endswith("/v") or s.endswith("_scale"):
+        heads = shape[3] % model == 0
+        if batch_first:
+            return _guard(sizes, shape, [None, dp, None, "model", None]
+                          if heads else [None, dp, None, None, "model"])
+        return _guard(sizes, shape, [None, None, "data", "model", None]
+                      if heads else [None, None, "data", None, "model"])
+    if s.endswith("/ssm"):
+        return _guard(sizes, shape, [None, bdp, "model", None])
+    if s.endswith("/conv"):
+        return _guard(sizes, shape, [None, bdp, None, "model"])
+    if s.endswith("/C"):
+        return _guard(sizes, shape, [None, bdp, None, "model", None])
+    return _guard(sizes, shape, [None, bdp] + [None] * (len(shape) - 2))
+
+
+def out_shardings_for(kind: str, sizes: Mapping, *,
+                      global_batch: int) -> tuple:
+    """The loss: a replicated scalar, ``()``.  Logits (B, V): ``(dp,
+    "model")``, unguarded, as JAX's."""
+    dp = dp_axes(sizes)
+    if kind == "loss":
+        return ()
+    return (dp[0] if len(dp) == 1 else dp, "model")
+
+
+# ---------------------------------------------------------------------------
+# A rank's block of a whole tensor, and the whole tensor from the blocks
+# ---------------------------------------------------------------------------
+
+def _coords(rank: int, sizes: Mapping) -> dict:
+    """Mesh rank ``rank``'s index along each axis (row-major, JAX's
+    device order: the last axis fastest)."""
+    out, rest = {}, rank
+    for name in reversed(list(sizes)):
+        out[name] = rest % sizes[name]
+        rest //= sizes[name]
     return out
+
+
+def _slices(shape, spec, sizes: Mapping, rank: int) -> tuple:
+    """The index of mesh rank ``rank``'s block of a whole ``shape``."""
+    at = _coords(rank, sizes)
+    out = []
+    for dim, ax in zip(shape, spec):
+        if ax is None:
+            out.append(slice(None))
+            continue
+        names = ax if isinstance(ax, tuple) else (ax,)
+        n, idx = 1, 0
+        for a in names:
+            idx = idx * sizes[a] + at[a]
+            n *= sizes[a]
+        b = dim // n
+        out.append(slice(idx * b, (idx + 1) * b))
+    return tuple(out)
+
+
+def block(x, spec, mesh):
+    """Mesh rank ``mesh.rank``'s block of the whole tensor (or array)
+    ``x`` under ``spec`` (a view where the tensor allows)."""
+    return x[_slices(x.shape, spec, mesh.shape, mesh.rank)]
+
+
+def gather(mesh, t, spec):
+    """The whole tensor of which ``t`` is this rank's block under
+    ``spec``: every rank's block gathered over the mesh and assembled (a
+    collective: every rank of the mesh calls it)."""
+    return assemble(mesh.all_gather_list(t.contiguous()), spec, mesh.shape)
+
+
+def assemble(blocks: list, spec, sizes: Mapping):
+    """The whole tensor (or array) from every mesh rank's block under
+    ``spec``, the blocks in mesh rank order; a replicated dimension is
+    taken from the first rank that holds each block."""
+    first = blocks[0]
+    shape = list(first.shape)
+    for d, ax in enumerate(spec):
+        if ax is not None:
+            shape[d] *= _axis_size(sizes, ax)
+    if torch.is_tensor(first):
+        whole = first.new_empty(shape)
+    else:
+        import numpy as np
+        whole = np.empty(shape, dtype=first.dtype)
+    for r, b in enumerate(blocks):
+        whole[_slices(shape, spec, sizes, r)] = b
+    return whole

@@ -39,6 +39,7 @@ from repro_torch.core import layout, layout_engine, metrics
 from repro_torch.core import sampler as tsamp
 from repro_torch.core import transform as ttr
 from repro_torch.kernels import largevis_grad, largevis_step, ops
+from torch_threads import few_threads
 
 FIXTURE = dict(n_neighbors=15, n_trees=4, n_explore_iters=2, window=32,
                perplexity=10.0, samples_per_node=2000, batch_size=4096)
@@ -301,8 +302,10 @@ def test_fixture_quality_through_the_chunked_path():
     steps (batch capped at 1,000) in 40 chunks, accuracy >= 0.95 as in
     test_torch_pipeline."""
     x, labels = gaussian_mixture(jax.random.key(0), 2000, 32, 8)
-    res = repro_torch.largevis(np.asarray(x), cfg=LargeVisConfig(**FIXTURE),
-                               device="cpu")
+    with few_threads():
+        res = repro_torch.largevis(np.asarray(x),
+                                   cfg=LargeVisConfig(**FIXTURE),
+                                   device="cpu")
     assert (res.steps, res.steps_per_dispatch, res.dispatches) == (4000, 100,
                                                                    40)
     acc = metrics.knn_classifier_accuracy(res.y, np.asarray(labels), k=5)

@@ -32,6 +32,7 @@ from repro_torch import LargeVisConfig, convert
 from repro_torch.core import knn as tknn
 from repro_torch.core import metrics
 from repro_torch.core.largevis import layout_graph
+from torch_threads import few_threads
 
 KEY = jax.random.key(0)
 FIXTURE = dict(n_neighbors=15, n_trees=4, n_explore_iters=2, window=32,
@@ -67,8 +68,9 @@ def jax_fit(data):
 
 def test_fit_quality_and_graph_recall_vs_jax(data, jax_fit):
     x, labels = data
-    res = repro_torch.largevis(x, cfg=LargeVisConfig(**FIXTURE),
-                               device="cpu", proj=jax_fit[1])
+    with few_threads():
+        res = repro_torch.largevis(x, cfg=LargeVisConfig(**FIXTURE),
+                                   device="cpu", proj=jax_fit[1])
     assert res.y.shape == (2000, 2) and bool(torch.isfinite(res.y).all())
     acc = metrics.knn_classifier_accuracy(res.y, labels, k=5)
     assert acc >= 0.95, acc
@@ -86,8 +88,9 @@ def test_layout_of_converted_jax_state(data, jax_fit):
     arrays = convert.result_to_numpy(jax_fit[0])
     cfg = LargeVisConfig(**FIXTURE)
     state = convert.result_from_numpy(arrays, cfg, device="cpu")
-    res, _ = layout_graph(state.knn_idx, state.weights, cfg=cfg,
-                          device="cpu")
+    with few_threads():
+        res, _ = layout_graph(state.knn_idx, state.weights, cfg=cfg,
+                              device="cpu")
     acc = metrics.knn_classifier_accuracy(res.y, labels, k=5)
     assert acc >= 0.95, acc
     back = convert.result_to_numpy(state)

@@ -29,8 +29,8 @@ rest, and the world of one runs in this process:
   world-2 save resumed at world 1 give the uninterrupted run's losses; the
   world-2 save is the world-1 save's file, leaf for leaf, read by the JAX
   package's ``restore``;
-- ``make_host_mesh`` clamps ``data`` to the world as JAX's clamps it to
-  the devices, and refuses ``model > 1``;
+- ``make_host_mesh`` clamps ``data`` and then ``model`` to the world as
+  JAX's clamps them to the devices, in JAX's row-major rank layout;
 - a SIGTERM to one rank: both ranks save the step reached once and exit
   by the signal.
 
@@ -77,7 +77,7 @@ from repro_torch.launch.steps import make_train_step, pick_microbatches
 from repro_torch.optim import grad_compress as tgc
 from repro_torch.optim.adamw import AdamWConfig, _schedule, adamw_init
 from repro_torch.runtime import sharding as tsh
-from torch_dist_ranks import run_world
+from torch_dist_ranks import HOST_MESH_ASKS, run_world
 from torch_lm_parity import cfgs, params, tokens
 
 REPO = Path(__file__).resolve().parents[1]
@@ -272,9 +272,18 @@ def test_batch_specs_match_jax():
                 assert sorted(got) == sorted(want)
                 for k in want:
                     assert got[k] == tuple(want[k].spec), (name, gb, shape)
-    with pytest.raises(ValueError, match="step 8"):
-        tsh.batch_shardings({"cache": torch.zeros(1, 2)},
-                            {"data": 2, "model": 1}, global_batch=2)
+    # a decode cache's leaves take JAX's cache layout
+    leaf = jax.ShapeDtypeStruct((2, 2, 8, 4, 16), jnp.float32)
+    for gb in (1, 2):
+        for shape in MESHES:
+            amesh = AbstractMesh(shape, ("data", "model"))
+            want = jsh.batch_shardings({"cache": {"pos0": {"k": leaf}}},
+                                       amesh, global_batch=gb)
+            got = tsh.batch_shardings(
+                {"cache": {"pos0": {"k": torch.empty(leaf.shape)}}},
+                dict(amesh.shape), global_batch=gb)
+            assert got["cache"]["pos0"]["k"] == \
+                tuple(want["cache"]["pos0"]["k"].spec), (gb, shape)
 
 
 def test_pick_microbatches_with_a_mesh_matches_jax():
@@ -517,18 +526,27 @@ def test_world2_checkpoint_is_world1s_file_in_jax(world2):
 
 
 def test_make_host_mesh_clamps_as_jax_and_refuses_tp(world2):
-    """JAX clamps ``data`` to the devices (1 here); the port clamps it to
-    the world (1 here, 2 in the spawned world).  ``model > 1`` raises
-    naming ROADMAP step 8."""
-    assert dict(jmake_host_mesh(4).shape) == {"data": 1, "model": 1}
-    with world_of_one():
-        mesh = make_host_mesh(4, device="cpu")
-        assert mesh.shape == {"data": 1, "model": 1}
-        with pytest.raises(ValueError, match="step 8"):
-            make_host_mesh(1, 2, device="cpu")
-    for rank in world2["ranks"]:
-        assert rank["host_mesh"].tolist() == [2, 1]
-        assert "step 8" in str(rank["host_mesh_model"])
+    """JAX clamps ``data`` to the devices, then ``model`` to ``devices //
+    data``; the port clamps to the world (1 here, 2 in the spawned world),
+    and mesh rank r is JAX's device (r // M, r % M), row-major."""
+    from repro.launch import mesh as jmesh
+    for n, ranks in ((1, None), (2, world2["ranks"])):
+        with mock.patch.object(jmesh.jax, "devices", lambda: [None] * n), \
+                mock.patch.object(jmesh, "make_mesh",
+                                  lambda shape, axes: dict(zip(axes, shape))):
+            want = {ask: jmesh.make_host_mesh(*ask)
+                    for ask in HOST_MESH_ASKS}
+        if ranks is None:
+            with world_of_one():
+                for ask, w in want.items():
+                    assert make_host_mesh(*ask, device="cpu").shape == w
+            continue
+        for r, rank in enumerate(ranks):
+            for (data, model), w in want.items():
+                D, M, d, m = rank[f"host_mesh_{data}x{model}"].tolist()
+                assert {"data": D, "model": M} == w, (data, model)
+                if r < D * M:
+                    assert (d, m) == (r // M, r % M), (r, data, model)
 
 
 def test_sigterm_to_one_rank_saves_once_and_both_exit(tmp_path):

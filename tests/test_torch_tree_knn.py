@@ -28,6 +28,7 @@ from repro_torch import LargeVisConfig, largevis
 from repro_torch.core import knn as tknn
 from repro_torch.core import metrics
 from repro_torch.kernels import ops
+from torch_threads import few_threads
 
 KEY = jax.random.key(3)
 
@@ -214,7 +215,8 @@ def test_tree_mode_fit_on_cpu():
     cfg = LargeVisConfig(rp_mode="tree", n_neighbors=15, n_trees=4,
                          n_explore_iters=2, window=32, perplexity=10.0,
                          samples_per_node=2000)
-    res = largevis(x, cfg=cfg, device="cpu")
+    with few_threads():
+        res = largevis(x, cfg=cfg, device="cpu")
     assert res.y.shape == (2000, 2) and bool(torch.isfinite(res.y).all())
     assert tuple(res.knn_idx.shape) == (2000, 15)
     assert metrics.graph_recall(res.x, res.knn_idx) >= 0.9

@@ -19,6 +19,8 @@ from pathlib import Path
 import numpy as np
 
 WORLD_TIMEOUT_S = 60
+# the (data, model) meshes the sharded trainer's world asks make_host_mesh
+HOST_MESH_ASKS = ((4, 1), (1, 1), (1, 2), (2, 2), (1, 4), (2, 1))
 ALL_REDUCE_ROWS = 403         # (403, 2): 806 entries, cut in P blocks
 
 
@@ -41,6 +43,12 @@ def _rank_main(rank, P, tmp, fn_name, payload):
 
 def run_world(fn_name: str, P: int, tmp_path, payload) -> list:
     """Every rank's result dict, in rank order."""
+    return start_world(fn_name, P, tmp_path, payload)()
+
+
+def start_world(fn_name: str, P: int, tmp_path, payload):
+    """Start the world and return a function that waits for it and gives
+    :func:`run_world`'s result (the caller works meanwhile)."""
     import torch.multiprocessing as mp
 
     tmp = Path(tmp_path) / f"world{P}_{fn_name}"
@@ -49,15 +57,19 @@ def run_world(fn_name: str, P: int, tmp_path, payload) -> list:
                                                payload),
                              nprocs=P, join=False, start_method="spawn")
     deadline = time.monotonic() + 2 * WORLD_TIMEOUT_S
-    try:
-        while not ctx.join(timeout=1):
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"world {P} of {fn_name} hung")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-    return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(P)]
+
+    def wait() -> list:
+        try:
+            while not ctx.join(timeout=1):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"world {P} of {fn_name} hung")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(P)]
+
+    return wait
 
 
 # ---------------------------------------------------------------------------
@@ -319,14 +331,13 @@ def sharded_train_world(mesh, pl):
     out.update(_flat({k: v for k, v in got.items() if k != "nested"},
                      "restored"))
     out.update(_flat(got["nested"], "restored/nested"))
-    # make_host_mesh clamps data to the world; model > 1 raises
-    out["host_mesh"] = np.array([make_host_mesh(4, device="cpu").size,
-                                 make_host_mesh(1, device="cpu").size])
-    try:
-        make_host_mesh(1, 2, device="cpu")
-        out["host_mesh_model"] = np.array("")
-    except ValueError as e:
-        out["host_mesh_model"] = np.array(str(e))
+    # make_host_mesh clamps data to the world, then model to world // data;
+    # the rank's (data, model) index, row-major
+    for data, model in HOST_MESH_ASKS:
+        m = make_host_mesh(data, model, device="cpu")
+        out[f"host_mesh_{data}x{model}"] = np.array(
+            [m.shape["data"], m.shape["model"], m.axis_index("data"),
+             m.axis_index("model")])
     # train(production=True): the world-1 save resumed, and a fresh run
     kw = dict(pl["train"], device="cpu", production=True, log_every=10**6)
     _, opt, losses = ttrain.train(**kw, steps=pl["steps"],
@@ -335,4 +346,170 @@ def sharded_train_world(mesh, pl):
     _, _, losses = ttrain.train(**kw, steps=pl["cut"], resume=False,
                                 ckpt_dir=str(pl["ckpt"] / f"world{mesh.size}"))
     out["fresh_losses"] = np.array(losses)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the world of tests/test_torch_tp_serve.py
+# ---------------------------------------------------------------------------
+
+def _mesh_collectives(mesh) -> dict:
+    """Each collective along each axis of a (data, model) mesh, on
+    tensors made from the rank's index."""
+    import torch
+
+    r = mesh.rank
+    t = torch.arange(6, dtype=torch.float32) + 10 * r
+    out = {"coords": np.array([mesh.axis_index("data"),
+                               mesh.axis_index("model")])}
+    for axis in ("data", "model", None):
+        name = axis or "mesh"
+        n = mesh.axis_size(axis)
+        out[f"sum_{name}"] = mesh.all_reduce_sum(t, axis).numpy()
+        out[f"gather_{name}"] = mesh.all_gather(t.view(2, 3), axis,
+                                                dim=1).numpy()
+        out[f"bcast_{name}"] = mesh.broadcast(t, n - 1, axis).numpy()
+        x = torch.arange(n * 2 * 3, dtype=torch.float32).view(n * 2, 3) \
+            + 100 * r
+        out[f"a2a_{name}"] = mesh.all_to_all(x.view(n, 2, 3), axis, 0,
+                                             1).numpy()
+    return out
+
+
+def tp_serve_world(_, pl):
+    """The sharded serving steps at each case's ``(data, model)`` mesh:
+    the rank's blocks of the weights, a prefill and ``steps`` decode
+    steps (``make_prefill_step``/``make_decode_step``), the logits of
+    each and the final cache rebuilt whole from the blocks; at (P, 1) the
+    dense cases also on one device on the rank's rows (bitwise); one MoE
+    layer per data shard at both routes; the mesh's collectives."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import lm, moe
+    from repro_torch.models.attention import kv_tp_repeat
+    from repro_torch.models.factory import make_model
+    from repro_torch.runtime import sharding as sh
+
+    torch.set_num_threads(1)
+
+    def gathered(tree, spec, prefix=""):
+        """{path: the whole leaf} of a tree of the rank's blocks."""
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out.update(gathered(v, spec[k], f"{prefix}/{k}"))
+            else:
+                out[f"{prefix}/{k}"] = sh.gather(mesh, v, spec[k])
+        return out
+
+    out = {}
+    for c in pl["cases"]:
+        D, M = c["mesh"]
+        mesh = make_host_mesh(D, M, device="cpu")
+        if not mesh.in_mesh:
+            continue
+        tag, cfg, B, S, n = c["tag"], c["cfg"], c["B"], c["S"], c["steps"]
+        params = lm_params_from_numpy(pl["weights"][c["weights"]], cfg,
+                                      "cpu", mesh=mesh)
+        toks = torch.from_numpy(c["tokens"])
+        shape = ShapeConfig("c", "prefill", S, B)
+        step, _, (_, bl), outl = make_prefill_step(cfg, mesh, shape)
+        batch = {"tokens": sh.block(toks[:, :S], bl["tokens"], mesh)}
+        if "frames" in c:
+            batch["encoder_frames"] = sh.block(torch.from_numpy(
+                c["frames"]), bl["encoder_frames"], mesh)
+        quant = bool(c.get("kv_quant"))
+        if quant:                       # the prefill of an int8 cache
+            logits, cache = lm.lm_prefill(
+                params, cfg, batch["tokens"], kv_repeat=kv_tp_repeat(cfg, M),
+                kv_quant=True, mesh=mesh,
+                seq_parallel=not sh.covers_dp(mesh.shape, B))
+            if outl[0][-1] is None:
+                logits = mesh.all_gather(logits, "model", dim=-1)
+            # the layout of a cache of S slots
+            cache_l = make_decode_step(cfg, mesh, ShapeConfig(
+                "c", "decode", S, B), kv_quant=True)[2][1]["cache"]
+        else:
+            logits, cache = step(params, batch)
+            cache_l = outl[1]
+        logit_list = [sh.gather(mesh, logits, outl[0])]
+        pre_blocks = cache
+        pre = gathered(cache, cache_l)
+        dstep, dbatch, (_, dbl), doutl = make_decode_step(
+            cfg, mesh, ShapeConfig("c", "decode", S + n, B), kv_quant=quant)
+
+        def grown(t, meta, spec):
+            if t.shape[2] < meta.shape[2]:
+                pad = t.new_zeros(t.shape[:2] + (meta.shape[2] - t.shape[2],)
+                                  + t.shape[3:])
+                t = torch.cat([t, pad], dim=2)
+            return sh.block(t, spec, mesh).clone()
+
+        def regrow(pre_tree, meta, spec, prefix=""):
+            return {k: regrow(pre_tree, meta[k], spec[k], f"{prefix}/{k}")
+                    if isinstance(meta[k], dict) else
+                    grown(pre_tree[f"{prefix}/{k}"], meta[k], spec[k])
+                    for k in meta}
+
+        cache = regrow(pre, dbatch["cache"], dbl["cache"])
+        # at (P, 1), a dense model on one device on the rank's rows
+        plain = c.get("plain")
+        if plain:
+            p_logits, p_cache = lm.lm_prefill(params, cfg, batch["tokens"])
+            bits = [torch.equal(p_logits, logits)] + [
+                torch.equal(p_cache[p][k], pre_blocks[p][k])
+                for p in p_cache for k in p_cache[p]]
+            p_cache = {p: {k: t.clone() for k, t in e.items()}
+                       for p, e in cache.items()}
+        for i in range(n):
+            pos = torch.full((B,), S + i, dtype=torch.int32)
+            db = {"tokens": sh.block(toks[:, S + i:S + i + 1],
+                                     dbl["tokens"], mesh),
+                  "cache": cache,
+                  "position": sh.block(pos, dbl["position"], mesh)}
+            logits, cache = dstep(params, db)
+            logit_list.append(sh.gather(mesh, logits, doutl[0]))
+            if plain:
+                p_logits, p_cache = lm.lm_decode(
+                    params, cfg, db["tokens"], p_cache, db["position"])
+                bits.append(torch.equal(p_logits, logits))
+        if plain:
+            bits += [torch.equal(p_cache[p][k], cache[p][k])
+                     for p in cache for k in cache[p]]
+            out[f"{tag}/plain_bitwise"] = np.array(bits)
+        out[f"{tag}/logits"] = torch.stack(logit_list).numpy()
+        out.update({f"{tag}/cache{k}": v.numpy()
+                    for k, v in gathered(cache, doutl[1]).items()})
+        out[f"{tag}/routes"] = np.array(sorted(moe.ROUTES) or [""])
+        moe.ROUTES.clear()
+    # one MoE layer at top-2 on each data shard's rows, both routes
+    m = pl["moe"]
+    mesh = make_host_mesh(*m["mesh"], device="cpu")
+    cfg = m["cfg"]
+    w = {k: sh.block(torch.from_numpy(v), sh.param_pspec(
+        f"blocks/pos0/moe/{k}", v.shape, mesh.shape, train=False,
+        stacked=False), mesh) for k, v in m["layer"].items()}
+    for i, x in enumerate(m["xs"]):
+        x = torch.from_numpy(x)
+        spec = (("data",), None, None)
+        y, aux = moe.moe_apply_sharded(w, sh.block(x, spec, mesh), cfg, mesh,
+                                       mean_aux=True)
+        out[f"moe{i}/y"] = sh.gather(mesh, y, spec).numpy()
+        out[f"moe{i}/aux"] = aux.numpy()
+        out[f"moe{i}/route"] = np.array(list(moe.ROUTES))
+        moe.ROUTES.clear()
+    out.update({f"mesh/{k}": v for k, v in _mesh_collectives(mesh).items()})
+    # a model axis over a mamba, xLSTM or whisper config raises
+    errs = []
+    for cfg in pl["refused"]:
+        try:
+            make_model(cfg, mesh=mesh)
+            errs.append("")
+        except ValueError as e:
+            errs.append(str(e))
+    out["refused"] = np.array(errs)
     return out

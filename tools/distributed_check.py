@@ -3,6 +3,7 @@ over NCCL, held against a world of one.
 
     python3 tools/distributed_check.py --world 4
     python3 tools/distributed_check.py --world 4 --train
+    python3 tools/distributed_check.py --world 4 --serve
 
 Spawns P ranks, one a card, joined over NCCL (``tcp://localhost`` on a
 free port, a timeout on the group and on the joins); each calls
@@ -26,6 +27,14 @@ microbatch a rank; this process then trains on card 0 at world 1 with P
 microbatches, and the ranks' losses and every final leaf must be its
 bits.  It prints each world's ms a step, the ranks' sync ms
 (the gradient all-reduce, the parameter gather) and peak memory.
+
+``--serve`` (four cards): ``chip_smoke.py``'s sharded serving phase over
+NCCL, one rank a card on a (data 2, model 2) mesh: mixtral-8x7b at full
+width, first its check at ``TP_LAYERS`` layers (f32, total routing,
+against world 1 on card 0, the flash launches, two bf16 runs bitwise),
+then at full depth (32 layers, about 23.5 GB of bf16 weights a rank): the
+bf16 prefill and decode ms, tokens/s, the collectives' ms and peak memory
+a rank.
 """
 from __future__ import annotations
 
@@ -218,6 +227,60 @@ def main_train(torch, mp, P: int) -> None:
         sys.exit(1)
 
 
+def main_serve(torch, P: int) -> None:
+    """``--serve``: the (2, 2) serving mesh over NCCL, at ``TP_LAYERS``
+    against world 1 and then at full depth."""
+    from repro_torch.core.largevis import resolve_device
+    from repro_torch.kernels import _build
+
+    if P != smoke.TP_MESH[0] * smoke.TP_MESH[1]:
+        sys.exit(f"--serve runs the {smoke.TP_MESH} mesh: --world 4")
+    resolve_device("cuda")
+    _build.build("flash_attention")
+    tmp = tempfile.TemporaryDirectory()
+    w1 = smoke.tp_world1(torch, tmp.name)
+    t0 = time.perf_counter()
+    ranks = smoke.spawn_tp_serve(torch, tmp.name, backend="nccl",
+                                 n_layers=smoke.TP_LAYERS, check_a=True,
+                                 init=f"tcp://localhost:{_free_port()}")
+    a = smoke.tp_check_a(tmp.name)
+    same = all(len({x["hash"] for x in r["b"]}) == 1 for r in ranks)
+    launches = [[r["a"]["launches"]] + [x["launches"] for x in r["b"]]
+                for r in ranks]
+    ok_a = same and all(x == [smoke.TP_LAYERS] * 4 for x in launches)
+    print(f"serving mesh (data 2, model 2) over NCCL, {smoke.TP_LAYERS} "
+          f"layers ({time.perf_counter() - t0:.1f} s; world 1 "
+          f"{w1['s']:.1f} s): f32 total routing against world 1: logits "
+          f"rel {a['logits']:.3g}, cache leaves {a['cache']} (bound "
+          f"{smoke.TP_REL_TOL}); flash launches a prefill {launches}; the "
+          f"bf16 runs bitwise equal: {same}", flush=True)
+    print(f"bf16 top-2, {smoke._tp_line(ranks, smoke.TP_LAYERS)}",
+          flush=True)
+    full = 32
+    t0 = time.perf_counter()
+    deep = smoke.spawn_tp_serve(torch, tmp.name, backend="nccl",
+                                n_layers=full, check_a=False,
+                                init=f"tcp://localhost:{_free_port()}")
+    tmp.cleanup()
+    same_deep = all(len({x["hash"] for x in r["b"]}) == 1 for r in deep)
+    ok_deep = same_deep and all(x["launches"] == full for r in deep
+                                for x in r["b"])
+    print(f"full depth ({time.perf_counter() - t0:.1f} s with the ranks' "
+          f"start and init), bf16 top-2, {smoke._tp_line(deep, full)}; the "
+          f"runs bitwise equal: {same_deep}", flush=True)
+    _, r, t = deep[0]["b"]
+    dec = sum(r["decode_ms"]) / len(r["decode_ms"])
+    print(json.dumps({"world": P, "serve": True, "ok": ok_a and ok_deep,
+                      "rel_logits": a["logits"],
+                      "prefill_ms": r["prefill_ms"], "decode_ms": dec,
+                      "peak_gib": [x["b"][1]["peak_gib"] for x in deep],
+                      "weights_gib": [x["weights_gib"] for x in deep],
+                      "prefill_coll_ms": t["prefill_coll_ms"],
+                      "decode_coll_ms": t["decode_coll_ms"]}))
+    if not (ok_a and ok_deep):
+        sys.exit(1)
+
+
 def _line(what: str, r: dict) -> str:
     return (f"{what}: {float(r['fit_s']):.2f} s (knn_s "
             f"{float(r['knn_s']):.3f} = ring {float(r['knn_ring_s']):.3f} "
@@ -238,6 +301,8 @@ def main() -> None:
     ap.add_argument("--samples-per-node", type=int, default=10_000)
     ap.add_argument("--train", action="store_true",
                     help="the sharded trainer instead of the fit")
+    ap.add_argument("--serve", action="store_true",
+                    help="the sharded serving mesh (data 2, model 2)")
     args = ap.parse_args()
     import torch
     import torch.multiprocessing as mp
@@ -253,6 +318,9 @@ def main() -> None:
                          text=True).stdout.strip(), flush=True)
     if args.train:
         main_train(torch, mp, P)
+        return
+    if args.serve:
+        main_serve(torch, P)
         return
     if args.samples_per_node != 10_000:
         print(f"cut: samples_per_node 10000 -> {args.samples_per_node}",
