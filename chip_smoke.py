@@ -2854,7 +2854,8 @@ def _tp_serve_rank(rank, world, init, backend, out_dir, n_layers, check_a):
         from repro_torch.core.largevis import resolve_device, seeded_generator
         from repro_torch.kernels import ops
         from repro_torch.launch.mesh import make_host_mesh
-        from repro_torch.launch.steps import (make_decode_step,
+        from repro_torch.launch.steps import (decode_cache,
+                                              make_decode_step,
                                               make_prefill_step)
         from repro_torch.models import lm, moe
         from repro_torch.models.factory import cast_for_inference
@@ -2865,19 +2866,18 @@ def _tp_serve_rank(rank, world, init, backend, out_dir, n_layers, check_a):
         dev = mesh.device
         full = get_config(MIXTRAL_ARCH)
         B, T = 2, TP_PROMPT + TP_DECODE
+        dshape = ShapeConfig("serve", "decode", T, B)
 
         def steps_for(cfg):
             pre = make_prefill_step(cfg, mesh, ShapeConfig(
                 "serve", "prefill", TP_PROMPT, B))
-            dec = make_decode_step(cfg, mesh, ShapeConfig(
-                "serve", "decode", T, B))
-            return pre, dec
+            return pre, make_decode_step(cfg, mesh, dshape)
 
         def rows(t, layout):
             return sh.block(t, layout, mesh)
 
         def run(cfg, params, toks, fed, whole=False, coll=None):
-            (pstep, _, (_, pl), pout), (dstep, dbatch, (_, dl), dout) = \
+            (pstep, _, (_, pl), pout), (dstep, _, (_, dl), dout) = \
                 steps_for(cfg)
             coll = {} if coll is None else coll
             coll.clear()
@@ -2890,11 +2890,8 @@ def _tp_serve_rank(rank, world, init, backend, out_dir, n_layers, check_a):
             launches = ops.launch_counts()["flash_attention"]
             prefill_coll = dict(coll)
             coll.clear()
-            # the prefill's ring of W = 4096 slots is the decode's cache
-            for p, e in cache.items():
-                for k, t in e.items():
-                    assert t.shape == sh.block(dbatch["cache"][p][k],
-                                               dl["cache"][p][k], mesh).shape
+            # the prefill's ring of W = 4096 slots into the decode's cache
+            cache = decode_cache(cfg, mesh, dshape, cache, pout[1])
             logit_list = [logits]
             dec_ms = []
             for i in range(TP_DECODE):

@@ -92,7 +92,7 @@ def lm_params_from_numpy(tree: dict, cfg, device="cuda", mesh=None):
     lm.check_mesh(cfg, mesh)
     P = len(cfg.block_pattern)
     if mesh is not None:
-        tree = _blocks_of(tree, mesh)
+        tree = sh.blocks_of(tree, mesh, stacked=True)
 
     def t(a):        # a tensor is taken as it is, not copied
         if torch.is_tensor(a):
@@ -110,22 +110,6 @@ def lm_params_from_numpy(tree: dict, cfg, device="cuda", mesh=None):
                             for li in range(cfg.n_layers)]}
     out = {k: _map(v, t) for k, v in tree.items() if k not in lists}
     return lm.as_module({**out, **lists})
-
-
-def _blocks_of(tree: dict, mesh, prefix: str = "") -> dict:
-    """The rank's blocks of every leaf of a JAX parameter pytree, by the
-    spec of its path (a stacked leaf's leading axis is never cut)."""
-    out = {}
-    for k, v in tree.items():
-        path = f"{prefix}/{k}" if prefix else k
-        if isinstance(v, dict):
-            out[k] = _blocks_of(v, mesh, path)
-            continue
-        stacked = "blocks/" in path or "_layers/" in path
-        spec = sh.param_pspec(path, v.shape, mesh.shape, train=False,
-                              stacked=stacked)
-        out[k] = sh.block(v, spec, mesh)
-    return out
 
 
 def lm_params_to_numpy(params, cfg) -> dict:

@@ -7,15 +7,17 @@ device.
 
 Each rank takes the card of its ``LOCAL_RANK`` (NCCL), or the CPU with
 ``--device cpu`` (gloo); the world's address comes from ``torchrun``'s
-environment.  The weights are random, drawn from ``--seed`` layer by layer
-(each rank keeps its blocks), cast to the compute dtype; the prompts are
-random tokens.  Mesh rank 0 prints the prefill's and the decode steps' ms,
-tokens/s, peak memory a rank and the first row's new tokens.
+environment.  The model is the config at its full depth (or its reduced
+form, ``--reduced``), with random weights drawn from seed 0 layer by
+layer (each rank keeps its blocks) and cast to the compute dtype; the
+batch is 2 random prompts of ``--prompt`` tokens, of which 8 new tokens
+are decoded (a batch that does not cover ``"data"`` decodes
+sequence-parallel).  Mesh rank 0 prints the prefill's and the decode
+steps' ms, tokens/s, peak memory a rank and the first row's new tokens.
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 
 import torch
@@ -25,9 +27,13 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.largevis import resolve_device, seeded_generator
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.launch.steps import (decode_cache, make_decode_step,
+                                      make_prefill_step)
 from repro_torch.models.factory import cast_for_inference, make_model
 from repro_torch.runtime import sharding as sh
+
+# the batch's rows, the tokens each row decodes, and the weights' seed
+BATCH, NEW_TOKENS, SEED = 2, 8, 0
 
 
 def _sync(dev) -> None:
@@ -40,14 +46,9 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default="mixtral-8x7b")
     ap.add_argument("--mesh", type=int, nargs=2, default=(2, 2),
                     metavar=("DATA", "MODEL"))
-    ap.add_argument("--layers", type=int, default=0,
-                    help="cut the depth (0: the config's)")
     ap.add_argument("--reduced", action="store_true",
                     help="the config's reduced form")
-    ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt", type=int, default=4096)
-    ap.add_argument("--new", type=int, default=8)
-    ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
@@ -55,29 +56,25 @@ def main(argv=None) -> None:
     try:
         mesh = make_host_mesh(*args.mesh, device=args.device)
         cfg = get_config(args.arch + ("-reduced" if args.reduced else ""))
-        if args.layers:
-            cfg = dataclasses.replace(cfg, n_layers=args.layers)
-        dev = mesh.device
-        B, S, n = args.batch, args.prompt, args.new
         if mesh.in_mesh:
-            _serve(cfg, mesh, B, S, n, args.seed, dev)
+            _serve(cfg, mesh, args.prompt)
     finally:
         dist.destroy_process_group()
 
 
-def _serve(cfg, mesh, B: int, S: int, n: int, seed: int, dev) -> None:
-    if cfg.is_encoder_decoder or not sh.covers_dp(mesh.shape, B):
-        raise ValueError(f"serve_mesh: {cfg.name} at batch {B} on data="
-                         f"{mesh.shape['data']}: this script serves a "
-                         "decoder's batch that covers the data axis")
-    params = make_model(cfg, mesh=mesh)["init"](seeded_generator(dev, seed))
+def _serve(cfg, mesh, S: int) -> None:
+    if cfg.is_encoder_decoder:
+        raise ValueError(f"serve_mesh: {cfg.name} is an encoder-decoder; "
+                         "this script serves a decoder")
+    B, n, dev = BATCH, NEW_TOKENS, mesh.device
+    params = make_model(cfg, mesh=mesh)["init"](seeded_generator(dev, SEED))
     cast_for_inference(params, cfg)
     prefill, _, (_, pl), pout = make_prefill_step(
         cfg, mesh, ShapeConfig("serve", "prefill", S, B))
-    decode, dbatch, (_, dl), dout = make_decode_step(
-        cfg, mesh, ShapeConfig("serve", "decode", S + n, B))
+    dshape = ShapeConfig("serve", "decode", S + n, B)
+    decode, _, (_, dl), dout = make_decode_step(cfg, mesh, dshape)
     toks = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
-                         generator=seeded_generator(dev, seed + 1))
+                         generator=seeded_generator(dev, SEED + 1))
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
@@ -89,11 +86,7 @@ def _serve(cfg, mesh, B: int, S: int, n: int, seed: int, dev) -> None:
     nxt = sh.gather(mesh, logits, pout[0]).argmax(-1, keepdim=True)
     _sync(dev)
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    # the prefill's cache grown to the decode's slots (a local layer's ring
-    # of W slots stays as it is)
-    cache = {p: {k: _grown(t, sh.block(dbatch["cache"][p][k],
-                                       dl["cache"][p][k], mesh).shape)
-                 for k, t in entry.items()} for p, entry in pre.items()}
+    cache = decode_cache(cfg, mesh, dshape, pre, pout[1])
     out, step_ms = [nxt], []
     for i in range(n - 1):
         pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
@@ -117,15 +110,6 @@ def _serve(cfg, mesh, B: int, S: int, n: int, seed: int, dev) -> None:
               f"tokens/s), decode {dec:.2f} ms a step ({B / dec * 1e3:.1f} "
               f"tokens/s), peak {peak} a rank; row 0's new tokens "
               f"{torch.cat(out, 1)[0].tolist()}", flush=True)
-
-
-def _grown(t: torch.Tensor, shape) -> torch.Tensor:
-    """A cache block grown with zero slots along its sequence axis (2) to
-    ``shape``."""
-    if t.shape[2] == shape[2]:
-        return t
-    pad = t.new_zeros(t.shape[:2] + (shape[2] - t.shape[2],) + t.shape[3:])
-    return torch.cat([t, pad], dim=2)
 
 
 if __name__ == "__main__":

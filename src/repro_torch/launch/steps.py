@@ -31,7 +31,8 @@ The serving steps run on every rank of a ``(data, model)`` mesh, each on
 its blocks: the weights by ``params_shardings(train=False)``, the batch
 by ``batch_shardings`` (a decode cache by ``_cache_pspec``), the outputs
 in the layouts of ``_out_tree_shardings``; ``sharding.block`` and
-``sharding.assemble`` go between whole tensors and blocks.
+``sharding.assemble`` go between whole tensors and blocks, and
+:func:`decode_cache` hands a prefill's cache to the decode step.
 """
 from __future__ import annotations
 
@@ -377,6 +378,47 @@ def make_decode_step(cfg, mesh, shape_cfg, *, kv_quant: bool = False):
     (int8 under ``kv_quant``) and ``position`` (B,); a batch that does not
     cover ``"data"`` decodes sequence-parallel."""
     return _serving_step(cfg, mesh, shape_cfg, kv_quant)
+
+
+def decode_cache(cfg, mesh, shape_cfg, cache, layout, *,
+                 kv_quant: bool = False) -> dict:
+    """A prefill's cache handed to the decode step of ``shape_cfg`` (its
+    global batch, ``seq_len`` slots): the rank's blocks of
+    ``init_cache(..., mesh=)`` holding the prefill's ``cache`` (the rank's
+    blocks in ``layout``, the prefill's out layout of the cache), each
+    position-indexed leaf grown with zero slots (a local layer's ring of W
+    slots stays as it is).  A leaf whose sequence is whole on the rank in
+    both layouts is copied in place; one whose blocks move as the slot
+    count changes (the sequence-parallel layout, its sequence over
+    ``"data"``) is gathered whole, grown and cut again: a collective,
+    which every rank of the mesh calls."""
+    B, T = shape_cfg.global_batch, shape_cfg.seq_len
+    kw = {"kv_repeat": kv_tp_repeat(cfg, mesh.shape["model"]),
+          "kv_quant": kv_quant}
+    leaf = cache
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    out = init_cache(cfg, B, T, leaf.device, mesh=mesh, **kw)
+    whole = init_cache(cfg, B, T, "meta", **kw)
+    specs = sh.batch_shardings({"cache": whole}, mesh.shape,
+                               global_batch=B)["cache"]
+
+    def fill(dst, src, src_spec, spec, meta):
+        if isinstance(dst, dict):
+            for k in dst:
+                fill(dst[k], src[k], src_spec[k], spec[k], meta[k])
+            return
+        if tuple(src_spec) == tuple(spec) and (src.shape == dst.shape or
+                                               spec[2] is None):
+            dst[:, :, :src.shape[2]].copy_(src)
+            return
+        grown = torch.zeros(meta.shape, dtype=src.dtype, device=src.device)
+        part = sh.gather(mesh, src, src_spec)
+        grown[:, :, :part.shape[2]] = part
+        dst.copy_(sh.block(grown, spec, mesh))
+
+    fill(out, cache, layout, specs, whole)
+    return out
 
 
 def make_step(cfg, mesh, shape_cfg):

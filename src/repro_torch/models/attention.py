@@ -21,6 +21,9 @@ layer's by position mod W when it holds the window's W slots (the ring
 buffer ``attention_prefill`` leaves behind).  KV heads may be replicated
 (``kv_repeat``) and the cache stored in int8 with per-(token, head)
 scales (``kv_quant``); decode infers both from the cache it is given.
+With a ``(data, model)`` mesh (``mesh=``) the prefill and decode run on
+a rank's heads and its block of JAX's sharded cache layouts; with
+``mesh=None`` they run on one device.
 """
 from __future__ import annotations
 
@@ -283,86 +286,6 @@ def attention_fwd(params, x, cfg, *, kind="attn", causal=True, impl="auto"):
     return _out_proj(o, params["wo"])
 
 
-def attention_prefill(params, x, cfg, *, kind="attn", impl="auto",
-                      kv_repeat: int = 1, kv_quant: bool = False):
-    """Prefill: returns (out, cache_entry) — the cache holds the roped K
-    and V, (B, S, KVH * kv_repeat, hd), int8 with f32 ``k_scale`` and
-    ``v_scale`` (B, S, KVH * kv_repeat, 1) under ``kv_quant``.  A local
-    layer with S >= W keeps the last W positions as a ring buffer, rolled
-    so that slot = position mod W."""
-    S = x.shape[1]
-    positions = torch.arange(S, device=x.device)
-    theta = _theta_for(cfg, kind)
-    q, k, v = _project_qkv(params, x, cfg, positions, theta)
-    window = _window_for(cfg, kind)
-    o = attend(q, k, v, causal=True, window=window, impl=impl)
-    out = _out_proj(o, params["wo"])
-    if kv_repeat > 1:
-        k = k.repeat_interleave(kv_repeat, dim=2)
-        v = v.repeat_interleave(kv_repeat, dim=2)
-    return out, _stored(_ring(k, window), _ring(v, window), kv_quant)
-
-
-def attention_decode(params, x, cfg, cache, position, *, kind="attn"):
-    """One-token decode.  x: (B,1,d); cache k/v: (B,T,KVH*r,hd); position:
-    (B,) index of the NEW token.  The replication factor r and int8
-    storage (``k_scale`` in the cache) are inferred from the cache.  A
-    local layer whose cache holds exactly its window's W slots is a ring
-    buffer (slot = position mod W), as in the JAX package.  Writes the new
-    K and V (quantized under int8) into the cache in place (the JAX
-    package returns an updated copy) and returns (out, cache).  In a
-    position-indexed cache a position at or past T writes nothing, as
-    JAX's out-of-range scatter drops the update; the engine's retired
-    slots decode there."""
-    B = x.shape[0]
-    theta = _theta_for(cfg, kind)
-    q, k, v = _project_qkv(params, x, cfg, position[:, None], theta)
-    T = cache["k"].shape[1]
-    rep = cache["k"].shape[2] // cfg.n_kv_heads
-    if rep > 1:
-        k = k.repeat_interleave(rep, dim=2)
-        v = v.repeat_interleave(rep, dim=2)
-    window = _window_for(cfg, kind)
-    ring = bool(window) and T == window
-    slot = position % window if ring else position
-    quant = "k_scale" in cache
-    new = _stored(k, v, quant)
-    bidx = torch.arange(B, device=x.device)
-    at = slot.clamp(0, T - 1)
-    inside = (slot < T)[:, None, None]
-    for name, t in new.items():
-        c = cache[name]
-        c[bidx, at] = torch.where(inside, t[:, 0], c[bidx, at])
-    if quant:
-        ck = dequantize_kv(cache["k"], cache["k_scale"], x.dtype)
-        cv = dequantize_kv(cache["v"], cache["v_scale"], x.dtype)
-    else:
-        ck, cv = cache["k"], cache["v"]
-
-    KVH, hd = ck.shape[2], ck.shape[3]
-    H = q.shape[2]
-    G = H // KVH
-    qg = q.reshape(B, KVH, G, hd)
-    s = torch.einsum("bhgk,bthk->bhgt", qg.float(), ck.float()) / \
-        math.sqrt(hd)
-    # validity: a position-indexed slot at or before the position; a ring
-    # slot whose reconstructed position is >= 0
-    tpos = torch.arange(T, device=x.device)[None, :]
-    if ring:
-        recon = position[:, None] - ((position[:, None] - tpos) % window)
-        valid = recon >= 0
-    else:
-        valid = tpos <= position[:, None]
-    s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
-    p = torch.softmax(s, dim=-1).to(x.dtype)
-    o = torch.einsum("bhgt,bthk->bhgk", p, cv).reshape(B, 1, H, hd)
-    return _out_proj(o, params["wo"]), cache
-
-
-# ---------------------------------------------------------------------------
-# On a (data, model) mesh: the rank's heads, JAX's sharded cache layouts
-# ---------------------------------------------------------------------------
-
 def check_mesh_heads(cfg, model_axis: int) -> None:
     """The sharded attention splits the query heads, and the head
     dimension of a cache whose heads do not divide, over ``"model"``:
@@ -372,6 +295,14 @@ def check_mesh_heads(cfg, model_axis: int) -> None:
     if cfg.n_heads % model_axis or hd % model_axis:
         raise ValueError(f"{cfg.name}: {cfg.n_heads} heads of dimension "
                          f"{hd} do not divide over model={model_axis}")
+
+
+def _model_rank(mesh):
+    """(size of ``"model"``, the rank's index on it); (1, 0) without a
+    mesh."""
+    if mesh is None:
+        return 1, 0
+    return mesh.shape["model"], mesh.axis_index("model")
 
 
 def _kv_for_heads(k, q_lo: int, n_q: int, group: int):
@@ -395,32 +326,37 @@ def _seq_block(mesh, T_glob: int):
     return mesh.axis_index("data") * T, T
 
 
-def attention_prefill_sharded(params, x, cfg, mesh, *, kind="attn",
-                              impl="auto", kv_repeat: int = 1,
-                              kv_quant: bool = False,
-                              seq_parallel: bool = False):
-    """:func:`attention_prefill` on a rank of a ``(data, model)`` mesh:
-    x is the rank's rows (all rows under ``seq_parallel``), the weights
-    its blocks.  The rank attends with its query heads and the kv heads
-    they read (its own where the kv heads shard over ``"model"``, picked
-    by global index from the whole kv projection where they do not); the
-    flash kernel runs on those heads past 2048 tokens.  ``wo`` is
-    row-parallel, followed by the ``"model"`` sum.  Returns the rank's
-    block of JAX's cache leaf (``sharding._cache_pspec``): its heads, or
-    its slice of the head dimension when the cache heads do not divide the
-    model axis; under ``seq_parallel`` its block of the sequence over
-    ``"data"``; int8 values are quantized over the whole head dimension
-    first, as JAX's, and their scales cut by heads only."""
+def attention_prefill(params, x, cfg, *, kind="attn", impl="auto",
+                      kv_repeat: int = 1, kv_quant: bool = False, mesh=None,
+                      seq_parallel: bool = False):
+    """Prefill: returns (out, cache_entry) — the cache holds the roped K
+    and V, (B, S, KVH * kv_repeat, hd), int8 with f32 ``k_scale`` and
+    ``v_scale`` (B, S, KVH * kv_repeat, 1) under ``kv_quant``.  A local
+    layer with S >= W keeps the last W positions as a ring buffer, rolled
+    so that slot = position mod W.
+
+    On a rank of a ``(data, model)`` ``mesh``, x is the rank's rows (all
+    rows under ``seq_parallel``) and the weights its blocks.  The rank
+    attends with its query heads and the kv heads they read (its own where
+    the kv heads shard over ``"model"``, picked by global index from the
+    whole kv projection where they do not); the flash kernel runs on those
+    heads past 2048 tokens.  ``wo`` is row-parallel, followed by the
+    ``"model"`` sum.  The cache entry is the rank's block of JAX's leaf
+    (``sharding._cache_pspec``): its heads, or its slice of the head
+    dimension when the cache heads do not divide the model axis; under
+    ``seq_parallel`` its block of the sequence over ``"data"``; int8
+    values are quantized over the whole head dimension first, as JAX's,
+    and their scales cut by heads only."""
     S = x.shape[1]
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    M, m = mesh.shape["model"], mesh.axis_index("model")
+    M, m = _model_rank(mesh)
     check_mesh_heads(cfg, M)
     positions = torch.arange(S, device=x.device)
     q, k, v = _project_qkv(params, x, cfg, positions, _theta_for(cfg, kind))
     n_q = q.shape[2]
     q_lo = m * n_q if n_q < H else 0
     kv_local = k.shape[2] < KVH
-    if kv_local:
+    if kv_local or n_q == H:
         ka, va = k, v
     else:
         ka = _kv_for_heads(k, q_lo, n_q, H // KVH)
@@ -436,7 +372,7 @@ def attention_prefill_sharded(params, x, cfg, mesh, *, kind="attn",
     k, v = _ring(k, window), _ring(v, window)
     kvh_c = KVH * kv_repeat
     heads = kvh_c % M == 0
-    if heads and not kv_local:
+    if heads and not kv_local and M > 1:
         b = kvh_c // M
         k, v = k[:, :, m * b:(m + 1) * b], v[:, :, m * b:(m + 1) * b]
     if seq_parallel:
@@ -450,21 +386,30 @@ def attention_prefill_sharded(params, x, cfg, mesh, *, kind="attn",
     return out, entry
 
 
-def attention_decode_sharded(params, x, cfg, cache, position, mesh, *,
-                             kind="attn", sp_len=None):
-    """:func:`attention_decode` on a rank of a ``(data, model)`` mesh,
-    its cache the rank's block of JAX's layout.
+def attention_decode(params, x, cfg, cache, position, *, kind="attn",
+                     mesh=None, sp_len=None):
+    """One-token decode.  x: (B,1,d); cache k/v: (B,T,KVH*r,hd); position:
+    (B,) index of the NEW token.  The replication factor r and int8
+    storage (``k_scale`` in the cache) are inferred from the cache.  A
+    local layer whose cache holds exactly its window's W slots is a ring
+    buffer (slot = position mod W), as in the JAX package.  Writes the new
+    K and V (quantized under int8) into the cache in place (the JAX
+    package returns an updated copy) and returns (out, cache).  In a
+    position-indexed cache a position at or past T writes nothing, as
+    JAX's out-of-range scatter drops the update; the engine's retired
+    slots decode there.
 
-    The layout is read off the block: a head dimension shorter than the
-    config's is the hd-over-``"model"`` cache (then the cache holds every
-    kv head), otherwise the cache holds the rank's heads.  The new token's
-    K/V, repeated as the cache's heads are (``kv_repeat``), go into the
-    rank's heads or its hd slice.  With heads, the rank's query heads
-    attend over them as on one device.  With hd slices, the query heads
-    are gathered over ``"model"``, each rank scores every head on its
-    slice, the partial scores are summed over ``"model"`` in rank order,
-    and the rank's slice of every head's output is gathered back before
-    its own heads take ``wo``.
+    On a rank of a ``(data, model)`` ``mesh`` the cache is the rank's
+    block of JAX's layout, read off the block: a head dimension shorter
+    than the config's is the hd-over-``"model"`` cache (then the cache
+    holds every kv head), otherwise the cache holds the rank's heads.  The
+    new token's K/V, repeated as the cache's heads are, go into the rank's
+    heads or its hd slice.  With heads, the rank's query heads attend over
+    them as on one device.  With hd slices, the query heads are gathered
+    over ``"model"``, each rank scores every head on its slice, the
+    partial scores are summed over ``"model"`` in rank order, and the
+    rank's slice of every head's output is gathered back before its own
+    heads take ``wo`` (row-parallel, then the ``"model"`` sum).
 
     ``sp_len`` (the global length of a position-indexed cache) marks a
     sequence-parallel decode: every rank holds all rows, and each
@@ -476,7 +421,7 @@ def attention_decode_sharded(params, x, cfg, cache, position, mesh, *,
     inserts for JAX."""
     B = x.shape[0]
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    M, m = mesh.shape["model"], mesh.axis_index("model")
+    M, m = _model_rank(mesh)
     check_mesh_heads(cfg, M)
     q, k, v = _project_qkv(params, x, cfg, position[:, None],
                            _theta_for(cfg, kind))
@@ -506,8 +451,8 @@ def attention_decode_sharded(params, x, cfg, cache, position, mesh, *,
         T_glob = window if window and sp_len >= window else sp_len
         t0, T_blk = _seq_block(mesh, T_glob)
         if T_blk != T:
-            raise ValueError(f"attention_decode_sharded: a cache block of "
-                             f"{T} slots, expected {T_blk} of {T_glob}")
+            raise ValueError(f"attention_decode: a cache block of {T} "
+                             f"slots, expected {T_blk} of {T_glob}")
     sp = T < T_glob
     ring = bool(window) and T_glob == window
     slot = position % window if ring else position
@@ -535,6 +480,8 @@ def attention_decode_sharded(params, x, cfg, cache, position, mesh, *,
         qg = q.reshape(B, c_h, G, hd)
         s = torch.einsum("bhgk,bthk->bhgt", qg.float(), ck.float()) / \
             math.sqrt(hd)
+    # validity: a position-indexed slot at or before the position; a ring
+    # slot whose reconstructed position is >= 0
     tpos = t0 + torch.arange(T, device=x.device)[None, :]
     if ring:
         recon = position[:, None] - ((position[:, None] - tpos) % window)

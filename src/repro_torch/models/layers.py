@@ -152,24 +152,14 @@ def mlp_sharded(params, x: torch.Tensor, mlp_type: str, d_ff: int,
     ``"model"`` in rank order; a replicated ``b_down`` is added once,
     after the sum.  Weights whose ff does not divide the model axis are
     whole, and then nothing is summed."""
-    dtype = x.dtype
     w_in = params["w_gate" if "w_gate" in params else "w_up"]
     if w_in.shape[1] == d_ff:
         return mlp(params, x, mlp_type)
-    if mlp_type in ("swiglu", "geglu"):
-        gate = x @ params["w_gate"].to(dtype)
-        up = x @ params["w_up"].to(dtype)
-        act = F.silu(gate) if mlp_type == "swiglu" else \
-            F.gelu(gate, approximate="tanh")
-        out = (act * up) @ params["w_down"].to(dtype)
-    else:
-        h = x @ params["w_up"].to(dtype)
-        if "b_up" in params:
-            h = h + params["b_up"].to(dtype)
-        out = F.gelu(h, approximate="tanh") @ params["w_down"].to(dtype)
+    out = mlp({k: w for k, w in params.items() if k != "b_down"}, x,
+              mlp_type)
     out = mesh.all_reduce_sum(out, "model")
     if "b_down" in params:
-        out = out + params["b_down"].to(dtype)
+        out = out + params["b_down"].to(x.dtype)
     return out
 
 

@@ -93,23 +93,6 @@ def check_mesh(cfg, mesh) -> None:
     attn.check_mesh_heads(cfg, mesh.shape["model"])
 
 
-def _cut(tree, prefix: str, mesh) -> dict:
-    """The rank's blocks of a (nested dict) parameter tree at JAX path
-    ``prefix``, by the inference rules (copies, so that the whole leaves
-    can be freed)."""
-    out = {}
-    for k, v in tree.items():
-        path = f"{prefix}/{k}"
-        if not torch.is_tensor(v):
-            out[k] = _cut(v, path, mesh)
-            continue
-        spec = sh.param_pspec(path, v.shape, mesh.shape, train=False,
-                              stacked=False)
-        b = sh.block(v, spec, mesh)
-        out[k] = b.clone() if b.numel() < v.numel() else b
-    return out
-
-
 def _position_is_moe(cfg, p: int) -> bool:
     if cfg.n_experts == 0:
         return False
@@ -219,7 +202,8 @@ def init_lm(generator: torch.Generator, cfg, mesh=None) -> nn.ModuleDict:
     P = len(cfg.block_pattern)
 
     def cut(tree, prefix):
-        return tree if mesh is None else _cut(tree, prefix, mesh)
+        return tree if mesh is None else \
+            sh.blocks_of(tree, mesh, prefix, stacked=False)
 
     tree = {"embed": cut(init_embedding(generator, cfg.vocab_size,
                                         cfg.d_model), "embed"),
@@ -249,10 +233,10 @@ def apply_block(cfg, p: int, params, x, *, mode: str, cache=None,
 
     With a ``mesh`` (serving only) the block is the rank's share: the
     recurrent blocks (at ``model`` = 1) run on the rank's rows as on one
-    device, and so does attention at ``model`` = 1 unless ``sp_len``
-    marks a sequence-parallel prefill or decode; otherwise the sharded
-    attention.  The MLP is column- then row-parallel, the MoE
-    expert-parallel (``moe.moe_apply_sharded``)."""
+    device; attention runs on the rank's heads and its cache blocks
+    (``sp_len`` marks a sequence-parallel prefill or decode), the MLP
+    column- then row-parallel, the MoE expert-parallel
+    (``moe.moe_apply_sharded``)."""
     kind = cfg.block_pattern[p]
     if mode not in ("fwd", "prefill", "decode"):
         raise ValueError(f"apply_block: mode {mode!r}, expected fwd|"
@@ -260,8 +244,6 @@ def apply_block(cfg, p: int, params, x, *, mode: str, cache=None,
     if mesh is not None and mode == "fwd":
         raise ValueError("apply_block: the training forward runs on one "
                          f"device or a data mesh; with a mesh, {MESH_STEP}")
-    sharded = mesh is not None and (mesh.shape["model"] > 1 or
-                                    sp_len is not None)
     aux = 0.0
     new_cache = None
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
@@ -284,22 +266,15 @@ def apply_block(cfg, p: int, params, x, *, mode: str, cache=None,
     elif mode == "fwd":
         a = attn.attention_fwd(params["attn"], h, cfg, kind=kind,
                                impl=attn_impl)
-    elif mode == "prefill" and sharded:
-        a, new_cache = attn.attention_prefill_sharded(
-            params["attn"], h, cfg, mesh, kind=kind, impl=attn_impl,
-            kv_repeat=kv_repeat, kv_quant=kv_quant,
-            seq_parallel=sp_len is not None)
     elif mode == "prefill":
         a, new_cache = attn.attention_prefill(
             params["attn"], h, cfg, kind=kind, impl=attn_impl,
-            kv_repeat=kv_repeat, kv_quant=kv_quant)
-    elif sharded:
-        a, new_cache = attn.attention_decode_sharded(
-            params["attn"], h, cfg, cache, position, mesh, kind=kind,
-            sp_len=sp_len)
+            kv_repeat=kv_repeat, kv_quant=kv_quant, mesh=mesh,
+            seq_parallel=sp_len is not None)
     else:
         a, new_cache = attn.attention_decode(params["attn"], h, cfg, cache,
-                                             position, kind=kind)
+                                             position, kind=kind, mesh=mesh,
+                                             sp_len=sp_len)
     x = x + a
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
     if "moe" in params and mesh is not None:
@@ -309,7 +284,7 @@ def apply_block(cfg, p: int, params, x, *, mode: str, cache=None,
         m, moe_aux = moe_lib.moe_apply(params["moe"], h, cfg)
         if mode == "fwd":
             aux = moe_aux
-    elif mesh is not None and mesh.shape["model"] > 1:
+    elif mesh is not None:
         m = mlp_sharded(params["mlp"], h, cfg.mlp_type, cfg.d_ff, mesh)
     else:
         m = mlp(params["mlp"], h, cfg.mlp_type)

@@ -19,8 +19,8 @@ JAX's too: ``_cache_pspec`` (a decode cache batch-sharded over the DP
 axes, or its sequence over ``"data"`` when the batch does not cover them;
 heads, or else the head dimension, over ``"model"``) and
 ``out_shardings_for``.  :func:`block` cuts a rank's block out of a whole
-tensor by its spec, and :func:`assemble` puts the ranks' blocks back
-together.
+tensor by its spec (:func:`blocks_of`, of every parameter of a tree),
+and :func:`assemble` puts the ranks' blocks back together.
 
 JAX's activation policy and ``constrain_*`` have no counterpart: they are
 XLA trace-time hints, and a port rank holds its own rows by
@@ -337,6 +337,29 @@ def block(x, spec, mesh):
     """Mesh rank ``mesh.rank``'s block of the whole tensor (or array)
     ``x`` under ``spec`` (a view where the tensor allows)."""
     return x[_slices(x.shape, spec, mesh.shape, mesh.rank)]
+
+
+def blocks_of(tree: Mapping, mesh, prefix: str = "", *,
+              stacked: bool) -> dict:
+    """The rank's blocks of every leaf of a nested dict of parameters
+    (tensors or arrays) at JAX path ``prefix``, by the inference rules
+    (``param_pspec(train=False)``).  ``stacked``: the tree is JAX's,
+    whose leaves under ``blocks/`` and the layer lists carry a leading
+    layer axis, never cut.  A cut tensor is copied, so that the whole leaf
+    can be freed."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, Mapping):
+            out[k] = blocks_of(v, mesh, path, stacked=stacked)
+            continue
+        lead = stacked and ("blocks/" in path or "_layers/" in path)
+        spec = param_pspec(path, v.shape, mesh.shape, train=False,
+                           stacked=lead)
+        b = block(v, spec, mesh)
+        cut = torch.is_tensor(v) and b.numel() < v.numel()
+        out[k] = b.clone() if cut else b
+    return out
 
 
 def gather(mesh, t, spec):

@@ -249,7 +249,8 @@ def test_distributed_modules_import_no_jax():
            "repro_torch.launch.steps", "repro_torch.launch.train",
            "repro_torch.models.attention", "repro_torch.models.moe",
            "repro_torch.models.layers", "repro_torch.models.lm",
-           "repro_torch.models.factory", "repro_torch.convert"]
+           "repro_torch.models.factory", "repro_torch.convert",
+           "repro_torch.launch.serve_mesh"]
     code = ("import importlib, sys\n"
             f"for m in {new!r}:\n"
             "    importlib.import_module(m)\n"

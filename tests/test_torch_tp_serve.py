@@ -70,6 +70,7 @@ from repro_torch.models import encdec as tencdec
 from repro_torch.models import lm as tlm
 from repro_torch.models import moe as tmoe
 from repro_torch.models.attention import kv_tp_repeat
+from repro_torch.models.factory import init_cache
 from repro_torch.runtime import sharding as tsh
 from torch_dist_ranks import start_world
 from torch_lm_parity import cfgs, normal, tokens
@@ -159,6 +160,7 @@ def test_serving_layouts_match_jax(name):
 
 STEP_CASES = [("mixtral-8x7b", (2, 2), "prefill", 4, False),
               ("mixtral-8x7b", (2, 2), "decode", 4, False),
+              ("gemma3-12b", (2, 2), "decode", 1, False),
               ("gemma3-12b", (1, 4), "decode", 1, False),
               ("phi3-medium-14b", (1, 4), "decode", 4, True),
               ("jamba-v0.1-52b", (4, 1), "decode", 4, False),
@@ -169,7 +171,10 @@ STEP_CASES = [("mixtral-8x7b", (2, 2), "prefill", 4, False),
 def test_step_layouts_match_jax(name, mesh, kind, gb, quant):
     """``make_prefill_step``/``make_decode_step``'s parameter, batch and
     output layouts equal those of JAX's two functions (the parameters' by JAX
-    path, a port layer one period of JAX's stacked leaf)."""
+    path, a port layer one period of JAX's stacked leaf); a decode's
+    ``init_cache(..., mesh=)`` gives every rank the shapes and dtypes of its
+    block of the step's cache (batch-first, sequence-parallel at global
+    batch 1 on data 2, phi3's hd-over-"model" int8 cache)."""
     jcfg, tcfg = jget_config(name), get_config(name)
     amesh = AbstractMesh(mesh, ("data", "model"))
     fake = types.SimpleNamespace(shape=dict(amesh.shape))
@@ -181,8 +186,8 @@ def test_step_layouts_match_jax(name, mesh, kind, gb, quant):
     else:
         _, _, (jp, jb), jout = jsteps.make_decode_step(jcfg, amesh, jshape,
                                                        kv_quant=quant)
-        _, _, (tp, tb), tout = tsteps.make_decode_step(tcfg, fake, tshape,
-                                                       kv_quant=quant)
+        _, tbatch, (tp, tb), tout = tsteps.make_decode_step(
+            tcfg, fake, tshape, kv_quant=quant)
     assert tb == _specs(jb)
     assert tout == _specs(jout)
     jflat = _flat(_specs(jp))
@@ -190,6 +195,23 @@ def test_step_layouts_match_jax(name, mesh, kind, gb, quant):
     for pname, spec in tp.items():
         path, stacked = tsh.jax_path(pname, period)
         assert spec == (jflat[path][1:] if stacked else jflat[path]), pname
+    if kind == "prefill":
+        return
+
+    def shapes(t, spec, rank):
+        if isinstance(t, dict):
+            return {k: shapes(t[k], spec if spec is None else spec[k], rank)
+                    for k in t}
+        b = t if spec is None else tsh.block(t, spec, rank)
+        return tuple(b.shape), b.dtype
+
+    for r in range(mesh[0] * mesh[1]):
+        rank = types.SimpleNamespace(shape=fake.shape, rank=r)
+        got = init_cache(tcfg, gb, 256, "meta",
+                         kv_repeat=kv_tp_repeat(tcfg, mesh[1]),
+                         kv_quant=quant, mesh=rank)
+        assert shapes(got, None, rank) == \
+            shapes(tbatch["cache"], tb["cache"], rank), r
 
 
 def _jax_route(jcfg, mesh, Bg, Sg):
@@ -318,8 +340,20 @@ def _jax_run(jcfg, jp, toks, frames, kv_quant):
     return np.stack(out), jax.tree.map(np.asarray, cache)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def world_started(tmp_path_factory):
+    """The world and JAX's references, started in a thread before the
+    file's first test, so that the layout tests run meanwhile."""
+    with ThreadPoolExecutor(1) as pool:
+        yield pool.submit(_world, tmp_path_factory)
+
+
 @pytest.fixture(scope="module")
-def world(tmp_path_factory):
+def world(world_started):
+    return world_started.result()
+
+
+def _world(tmp_path_factory):
     """The world's results beside JAX's, computed here while the world
     runs."""
     weights, payload_cases, jobs = {}, [], {}
@@ -355,23 +389,27 @@ def world(tmp_path_factory):
     wait = start_world("tp_serve_world", 4, tmp_path_factory.mktemp("tp"),
                        payload)
     jw = {k: jax.tree.map(jnp.asarray, v) for k, v in weights.items()}
+    jl = jax.tree.map(jnp.asarray, layer)
+    moe_layer = jax.jit(lambda w, x: jmoe._dispatch_and_compute(w, x, jm,
+                                                                1.25))
+
+    def moe_ref(x):
+        ys, auxes = [], []
+        for d in range(2):                 # each data shard's own rows
+            y, aux = moe_layer(jl, jnp.asarray(x[2 * d:2 * d + 2]))
+            ys.append(np.asarray(y))
+            auxes.append(np.float32(aux))
+        return np.concatenate(ys), (auxes[0] + auxes[1]) / 2
+
     refs = {}
-    with ThreadPoolExecutor(4) as pool:      # XLA compiles off the GIL
+    with ThreadPoolExecutor(6) as pool:      # XLA compiles off the GIL
+        moe_runs = [pool.submit(moe_ref, x) for x in xs]
         runs = {key: pool.submit(_jax_run, jcfg, jw[key[0]], toks, frames,
                                  key[2])
                 for key, (jcfg, toks, frames, _) in jobs.items()}
     for key, (*_, tags) in jobs.items():
         refs.update({tag: runs[key].result() for tag in tags})
-    jl = jax.tree.map(jnp.asarray, layer)
-    moe_refs = []
-    for x in xs:
-        ys, auxes = [], []
-        for d in range(2):                 # each data shard's own rows
-            y, aux = jmoe._dispatch_and_compute(
-                jl, jnp.asarray(x[2 * d:2 * d + 2]), jm, 1.25)
-            ys.append(np.asarray(y))
-            auxes.append(np.float32(aux))
-        moe_refs.append((np.concatenate(ys), (auxes[0] + auxes[1]) / 2))
+    moe_refs = [r.result() for r in moe_runs]
     ranks = wait()
     return {"ranks": ranks, "refs": refs, "moe": moe_refs,
             "cases": {c[0]: c for c in _cases()}}

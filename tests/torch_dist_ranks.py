@@ -388,7 +388,8 @@ def tp_serve_world(_, pl):
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.convert import lm_params_from_numpy
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.launch.steps import (decode_cache, make_decode_step,
+                                          make_prefill_step)
     from repro_torch.models import lm, moe
     from repro_torch.models.attention import kv_tp_repeat
     from repro_torch.models.factory import make_model
@@ -438,24 +439,11 @@ def tp_serve_world(_, pl):
             cache_l = outl[1]
         logit_list = [sh.gather(mesh, logits, outl[0])]
         pre_blocks = cache
-        pre = gathered(cache, cache_l)
-        dstep, dbatch, (_, dbl), doutl = make_decode_step(
-            cfg, mesh, ShapeConfig("c", "decode", S + n, B), kv_quant=quant)
-
-        def grown(t, meta, spec):
-            if t.shape[2] < meta.shape[2]:
-                pad = t.new_zeros(t.shape[:2] + (meta.shape[2] - t.shape[2],)
-                                  + t.shape[3:])
-                t = torch.cat([t, pad], dim=2)
-            return sh.block(t, spec, mesh).clone()
-
-        def regrow(pre_tree, meta, spec, prefix=""):
-            return {k: regrow(pre_tree, meta[k], spec[k], f"{prefix}/{k}")
-                    if isinstance(meta[k], dict) else
-                    grown(pre_tree[f"{prefix}/{k}"], meta[k], spec[k])
-                    for k in meta}
-
-        cache = regrow(pre, dbatch["cache"], dbl["cache"])
+        dshape = ShapeConfig("c", "decode", S + n, B)
+        dstep, _, (_, dbl), doutl = make_decode_step(cfg, mesh, dshape,
+                                                     kv_quant=quant)
+        cache = decode_cache(cfg, mesh, dshape, cache, cache_l,
+                             kv_quant=quant)
         # at (P, 1), a dense model on one device on the rank's rows
         plain = c.get("plain")
         if plain:
