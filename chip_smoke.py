@@ -48,10 +48,11 @@ within the backward's bf16 limit).  Without it, in order:
    must restore the graph, weights and samplers from disk and end
    bitwise on the main fit's y (its launches counted with the fit's);
    graphs captured while another thread copies to the host, bitwise;
-   ``layout_s`` at the cut depth plain, with ``checkpoint``, with
-   ``health`` and with both, in turns, all eight bitwise equal; a NaN
-   payload rolled back once (finite, 5-NN accuracy within 0.05 of the
-   fit's, at the fit's depth); at the cut depth, the fused step failing
+   ``layout_s`` plain, with ``checkpoint``, with ``health`` and with
+   both, in turns there and back at 1,000 samples per node (a printed
+   cut), all eight bitwise equal; at 2,000 samples per node (a printed
+   cut), a NaN payload rolled back once (finite, 5-NN accuracy within
+   0.05 of the split route's layout at that depth) and the fused step failing
    at its first call demoted to the split route (bitwise the split
    route's layout, its launches counted with the split path's);
    ``LargeVis.save`` and ``load(device="cuda")`` of the fit, every array
@@ -115,10 +116,11 @@ within the backward's bf16 limit).  Without it, in order:
    fit under ``routing.autotune="cache"`` (the committed table: the run
    points the user cache at an empty directory) bitwise one under
    ``"off"``, both at the cut depth; the baselines: LINE from the fit's
-   samplers at 1,000 samples per node, twice from one seed, bitwise, one
+   samplers at 500 samples per node, twice from one seed, bitwise, one
    ordered scatter a step; exact t-SNE and symmetric SNE on the first
-   10,000 points' KNN graph, 1,000 iterations (ms an iteration, the KL,
-   5-NN accuracy); NN-Descent at full width, 4 exploring rounds,
+   10,000 points' KNN graph, 500 iterations (ms an iteration, the KL,
+   5-NN accuracy); NN-Descent at full width, 2 exploring rounds (each
+   baseline at half the JAX package's default depth, a printed cut),
    graph_recall beside the forest's; the VP-tree on the host over the
    10,000 points, 200 queries, recall against brute force and queries/s;
    then ``LargeVis.insert`` of 2,000 more points (it grows the fit's
@@ -133,7 +135,8 @@ within the backward's bf16 limit).  Without it, in order:
    bucket, the pair count printed), ids and distances exactly the plain
    version's on the first 2,000 rows; then
    ``LargeVisConfig(distributed=True)`` at full width on a world of one
-   over NCCL (the launch counts reset just before and read just after:
+   over NCCL, its layout at 2,000 samples per node (a printed cut; the
+   launch counts reset just before and read just after:
    one ``topk_sqdist``, one ``fused_edge_step`` a step; ``knn_s`` split
    into ring and exploring, 5-NN accuracy >= 0.95, peak memory), its
    sharded tables bitwise the flat tables of its graph, a second fit
@@ -141,9 +144,10 @@ within the backward's bf16 limit).  Without it, in order:
    the one card (the kernels built here first): the ring graph before
    exploring, the graph, distances and weights bitwise world 1's, the
    sharded edge marginals within ``MARGINAL_TOL`` of world 1's, the
-   local-SGD layout at a printed cut of its depth, syncing every step
-   (accuracy >= 0.95; one sync's ms; world 1's layout of world 1's
-   graph at the same depth printed beside it), a shard fault
+   local-SGD layout of the first 20,000 points' graph at 2,000 samples
+   per node (a printed cut), syncing every step (accuracy >= 0.95; one
+   sync's ms; world 1's layout of that graph printed beside it), on
+   those points a shard fault
    at ``knn_ring_step:1`` degraded 2 -> 1 with one
    ``DegradedModeWarning`` on each rank and completed, and a layout
    checkpoint of world 2 (killed after its second save) resumed here at
@@ -168,10 +172,11 @@ within the backward's bf16 limit).  Without it, in order:
    through the plain version; one timed prefill of a 16,384-token prompt
    (wall and device time, busy share, flash launches; no plain
    comparison at that length); decode against prefill at reduced depth
-   in f32; then ``gemma3-12b`` at full width and depth through
+   in f32; then ``gemma3-12b`` at full width and 24 of its 48 layers (a
+   printed cut) through
    ``ServeEngine`` (4 slots, max_len 8224, prompts of 8192, 700, 8192 and
-   1000 tokens, 16 new tokens each: the flash kernel windowed on the 40
-   local layers and causal on the 8 global ones, 96 launches; the local
+   1000 tokens, 16 new tokens each: the flash kernel windowed on the 20
+   local layers and causal on the 4 global ones, 48 launches; the local
    layers' 1024-slot rings wrap while decoding), the long prompts' last
    logits against the plain version, prefill and decode ms, tokens/s,
    busy shares and peak memory, and decode against prefill in f32 at one
@@ -190,8 +195,8 @@ within the backward's bf16 limit).  Without it, in order:
    ``ServeEngine`` (prompts of 4096, 256, 4096 and 200 tokens: the flash
    kernel at (1, 4096, 32, 128) once a long prompt, 2 launches);
    ``xlstm-125m`` at full width and depth: decode against prefill in f32
-   (S = 256) and ``ServeEngine`` with prompts of 1024, 300, 1024 and 64
-   tokens (token-by-token recurrences, no attention; the profiled
+   (S = 256) and ``ServeEngine`` with prompts of 512, 300, 512 and 64
+   tokens (a printed cut; token-by-token recurrences, no attention; the profiled
    prefill's device events a token); ``whisper-tiny`` at full width and
    depth (4 encoder and 4 decoder layers, 1500 frames): on random frames
    in f32, prefill(2048) through the kernel against the plain version and
@@ -222,24 +227,34 @@ within the backward's bf16 limit).  Without it, in order:
    the launch counts reset just before and read just after (flash forward
    96 and backward 48 a step), the loss by step, a held-out batch's loss
    before and after (it must fall), ms a step, tokens/s, peak memory and
-   a profiled step; the resume check at 2 layers (a printed cut): 8
-   steps against 5 resumed to 8, the losses after step 4 bitwise equal;
+   a profiled step; the resume check at 2 layers (a printed cut): 4
+   steps against 3 resumed to 4, the losses after step 2 bitwise equal;
    every architecture's reduced f32 step on the card against the CPU's
    from one state, twice on the card, bitwise;
 14. the sharded trainer (``run_sharded_training``): ``train(production=
    True)`` at world 2 over gloo, two processes on the one card, on
-   qwen1.5-0.5b at full width and depth (2 rows and 1 microbatch a rank,
-   2 of the trainer's 8 steps, a printed cut), the losses and a hash of
-   every leaf bitwise the world-1 run's after its step 2 at 2
-   microbatches, each rank's ms a step, sync ms (the
-   gradient all-reduce, the parameter gather), peak memory and flash
-   launches (48 forward and 24 backward a step); checkpoints across
-   worlds at the resume check's cut: a world-1 save at step 4 resumed at
-   world 2, a world-2 save at step 4 resumed at world 1, each to step 8
-   and bitwise the uninterrupted run; then ``compressed_grads_with_ef``
-   on qwen's full gradient tree (``run_grad_compress``): the worst leaf
-   error in quantization units, ``compression_ratio``, the error-fed
-   drift after 5 rounds against JAX's bound, ms a call;
+   qwen1.5-0.5b at full width and the resume check's 2 layers (2 rows
+   and 1 microbatch a rank, 2 steps, a printed cut; each rank holds its
+   blocks of the parameters and moments), the losses and a hash of every
+   leaf (gathered whole) bitwise the resume check's world-1 run after its
+   step 2 at 2 microbatches, each rank's ms a step, sync ms (the
+   ``"data"`` gathers, the reduce-scatters, the all-reduces), peak
+   memory and flash launches (4 forward and 2 backward a step);
+   checkpoints across worlds at the
+   resume check's cut: a world-1 save at step 2 resumed at world 2, a
+   world-2 save at step 2 resumed at world 1, each to step 4 and bitwise
+   the uninterrupted run; then ``compressed_grads_with_ef`` on qwen's
+   full gradient tree (``run_grad_compress``): the worst leaf error in
+   quantization units, ``compression_ratio``, the error-fed drift after
+   5 rounds against JAX's bound, ms a call; then the tensor-parallel
+   trainer (``run_tp_training``): qwen1.5-0.5b at full width and 2
+   layers (a printed cut) on a (data 2, model 2) mesh of four gloo
+   processes on the one card, each rank its training blocks, a 4096-token
+   row a data rank: 2 f32 steps against world 1 at 2 microbatches (the
+   losses within 1e-5 relative, the state gathered whole within the CPU
+   tests' tolerances), two bf16 runs bitwise equal, ms a step, sync ms,
+   peak memory, 4 forward and 2 backward flash launches a step a rank on
+   its 8 of 16 heads;
 
 then prints a JSON line of the kernel records and, last, the device line.
 Any failed check exits with status 1 and prints no result.  Device times
@@ -291,6 +306,7 @@ SERVE_SLOTS, SERVE_MAX_LEN, SERVE_MAX_NEW = 4, 4128, 16
 LONG_PROMPT, N_LONG, N_SHORT = 4096, 4, 4
 TIMED_PROMPT = 16_384             # one timed prefill, batch 1
 GEMMA_ARCH, GEMMA_WINDOW, GEMMA_LONG = "gemma3-12b", 1024, 8192
+GEMMA_SERVE_LAYERS = 24           # of 48: 4 of its 8 periods (printed)
 GEMMA_LENGTHS = [GEMMA_LONG, 700, GEMMA_LONG, 1000]   # 2 long, 2 short
 MIXTRAL_ARCH, MIXTRAL_WINDOW = "mixtral-8x7b", 4096
 MIXTRAL_LAYERS, MIXTRAL_PROMPT = 2, 8192
@@ -298,7 +314,7 @@ JAMBA_ARCH, JAMBA_PERIODS, JAMBA_LONG = "jamba-v0.1-52b", 1, 4096
 # multiples of mamba's chunk of 256, or at most one chunk
 JAMBA_LENGTHS = [JAMBA_LONG, 256, JAMBA_LONG, 200]
 JAMBA_DECODE_S = 200              # prefill(200) + decode vs prefill(201)
-XLSTM_ARCH, XLSTM_LENGTHS = "xlstm-125m", [1024, 300, 1024, 64]
+XLSTM_ARCH, XLSTM_LENGTHS = "xlstm-125m", [512, 300, 512, 64]
 XLSTM_DECODE_S = 256
 WHISPER_ARCH, WHISPER_LONG = "whisper-tiny", 4096
 WHISPER_LENGTHS = [WHISPER_LONG, 700, WHISPER_LONG, 100]
@@ -1765,7 +1781,10 @@ def run_second_fit(torch, x, res, cfg):
 # ---------------------------------------------------------------------------
 
 ROBUST_KILL_CHUNK = 1_200       # the layout_chunk hit that kills the fit
-ROBUST_NAN_CHUNK = 1_200        # the layout_chunk hit poisoned under health
+ROBUST_NAN_CHUNK = 240          # the layout_chunk hit poisoned under health
+# the timed layouts' depth: eight in turns there and back at 1,000 take
+# the time of four at the split layout's 2,000 (a printed cut)
+ROBUST_TURN_SAMPLES_PER_NODE = 1_000
 
 
 def relayout(torch, res, cfg, spn: int, **kw):
@@ -1864,11 +1883,12 @@ def run_robust_fit(torch, x, res, labels, acc_fit, cfg):
     2. chunked steps whose graphs are captured while another thread
        copies device memory to the host (``check_capture_beside_copies``),
        then ``layout_s`` at the cut depth from the fit's samplers, plain,
-       with ``checkpoint``, with ``health`` and with both, in turns (the
-       eight layouts bitwise equal);
-    3. at the fit's depth, a NaN payload at one layout chunk under
+       with ``checkpoint``, with ``health`` and with both, in turns there
+       and back at ``ROBUST_TURN_SAMPLES_PER_NODE`` (the eight layouts
+       bitwise equal);
+    3. at the cut depth, a NaN payload at one layout chunk under
        ``health``: one rollback, finite, 5-NN accuracy within 0.05 of the
-       fit's;
+       split route's layout at that depth (step 4's reference);
     4. at the cut depth, the fused step patched to raise at its first
        call: one DegradedModeWarning, y bitwise the split route's;
     5. ``LargeVis.save`` of the fit and ``LargeVis.load`` on the card:
@@ -1972,9 +1992,11 @@ def run_robust_fit(torch, x, res, labels, acc_fit, cfg):
         # first, the writer's copies must not break a capture
         check_capture_beside_copies(torch, res, cfg)
         spn = min(SPLIT_SAMPLES_PER_NODE, cfg.samples_per_node)
+        turn_spn = min(ROBUST_TURN_SAMPLES_PER_NODE, spn)
         print(f"cut: the robustness layouts' samples_per_node "
-              f"{cfg.samples_per_node} -> {spn} (from the fit's samplers)",
-              flush=True)
+              f"{cfg.samples_per_node} -> {turn_spn} in the timed turns, "
+              f"{spn} in the rollback and the demotion (from the fit's "
+              f"samplers)", flush=True)
         # health alone splits checkpoint+health's cost between the
         # per-chunk sync and probe and the synchronous saves
         order = ("plain", "checkpoint", "health", "checkpoint+health")
@@ -1990,7 +2012,7 @@ def run_robust_fit(torch, x, res, labels, acc_fit, cfg):
                     signals=(signal.SIGTERM, signal.SIGINT),
                     exit_after_save=True).activate()
             try:
-                lay, secs = relayout(torch, res, cfg, spn, **kw)
+                lay, secs = relayout(torch, res, cfg, turn_spn, **kw)
             finally:
                 if guard is not None:
                     guard.restore_handlers()
@@ -2016,12 +2038,17 @@ def run_robust_fit(torch, x, res, labels, acc_fit, cfg):
                   for n, vs in times.items())
               + f"; the {len(ys)} layouts bitwise equal", flush=True)
 
-        # 3. a NaN payload, one rollback (at the fit's depth: the
-        # accuracy is held to the fit's)
+        # 3. a NaN payload, one rollback (at the cut depth: the accuracy
+        # is held to the split route's layout there, step 4's reference)
+        want, _ = relayout(torch, res, cfg, spn,
+                           routing=RoutingConfig(layout_step="split"))
+        acc_want = metrics.knn_classifier_accuracy(want.y, labels)
+        check(ROBUST_NAN_CHUNK + 1 < want.steps // H,
+              f"the NaN chunk {ROBUST_NAN_CHUNK} is past the layout")
         with warnings.catch_warnings(record=True) as log:
             warnings.simplefilter("always")
             lay, secs = relayout(
-                torch, res, cfg, cfg.samples_per_node, health=HealthConfig(),
+                torch, res, cfg, spn, health=HealthConfig(),
                 fault=FaultInjector({"layout_chunk": {ROBUST_NAN_CHUNK:
                                                       "nan"}}))
         w = _only(log, DivergenceWarning, "the NaN fault")
@@ -2030,18 +2057,17 @@ def run_robust_fit(torch, x, res, labels, acc_fit, cfg):
               f"{ROBUST_NAN_CHUNK + 1} of "
               f"{-(-lay.steps // H)}: {w}; rollbacks {lay.rollbacks}, "
               f"rho0_scale {lay.rho0_scale}, {lay.dispatches} dispatches, "
-              f"layout_s {secs:.3f} s ({lay.steps} steps, the fit's "
-              f"depth), finite, knn_classifier_accuracy {acc:.4f} (main "
-              f"fit {acc_fit:.4f})", flush=True)
+              f"layout_s {secs:.3f} s ({lay.steps} steps at {spn} samples "
+              f"per node), finite, knn_classifier_accuracy {acc:.4f} (the "
+              f"split route's layout at that depth {acc_want:.4f}; main fit "
+              f"{acc_fit:.4f})", flush=True)
         check(lay.rollbacks == 1 and bool(torch.isfinite(lay.y).all()),
               f"rollbacks {lay.rollbacks}, finite "
               f"{bool(torch.isfinite(lay.y).all())}")
-        check(abs(acc - acc_fit) <= 0.05,
-              f"rolled-back accuracy {acc} vs the fit's {acc_fit}")
+        check(abs(acc - acc_want) <= 0.05, f"rolled-back accuracy {acc} vs "
+              f"the layout at that depth {acc_want}")
 
         # 4. the fused step fails at its first call: demoted to split
-        want, _ = relayout(torch, res, cfg, spn,
-                           routing=RoutingConfig(layout_step="split"))
         real, calls = ops.largevis_edge_step, {"n": 0}
 
         def fails_first(*a, **kw):
@@ -2618,10 +2644,11 @@ def free_card(torch) -> None:
 
 
 def run_gemma3(torch):
-    """gemma3-12b at full width and depth through ``ServeEngine``, random
-    bf16 weights from a seed: 2 prompts of ``GEMMA_LONG`` tokens (flash at
-    hd 256: windowed on the 40 local layers, causal on the 8 global ones)
-    and 2 under its window, ``max_len`` long enough to decode past the
+    """gemma3-12b at full width and ``GEMMA_SERVE_LAYERS`` layers (a
+    printed cut) through ``ServeEngine``, random bf16 weights from a
+    seed: 2 prompts of ``GEMMA_LONG`` tokens (flash at hd 256: windowed
+    on the local layers, causal on the global ones, 5 to 1) and 2 under
+    its window, ``max_len`` long enough to decode past the
     prompts, which wraps the local layers' 1024-slot rings.  Then decode
     vs prefill at full width in f32, one period of 6 layers (5 local, 1
     global; a printed cut), S = 2048 through the kernel: past the window
@@ -2631,8 +2658,12 @@ def run_gemma3(torch):
     base = torch.cuda.memory_allocated() / 2**30
     from repro_torch.configs import get_config
 
-    eng, launches = run_serve(torch, get_config(GEMMA_ARCH), GEMMA_LENGTHS,
-                              GEMMA_LONG + 32)
+    full = get_config(GEMMA_ARCH)
+    print(f"cut: {GEMMA_ARCH} serves at {GEMMA_SERVE_LAYERS} of "
+          f"{full.n_layers} layers (full width)", flush=True)
+    eng, launches = run_serve(
+        torch, dataclasses.replace(full, n_layers=GEMMA_SERVE_LAYERS),
+        GEMMA_LENGTHS, GEMMA_LONG + 32)
     peak = torch.cuda.max_memory_allocated() / 2**30
     cfg = eng.cfg
     rings = {p: tuple(e["k"].shape) for p, e in eng.cache.items()}
@@ -3168,12 +3199,13 @@ def run_jamba(torch):
 def run_xlstm(torch):
     """xlstm-125m at full width and depth (12 layers, alternating mLSTM
     and sLSTM), random weights from a seed: decode vs prefill in f32 (S =
-    256), then ``ServeEngine`` in bf16 with prompts of 1024, 300, 1024 and
-    64 tokens.  No attention: the recurrences run token by token, and the
-    profiled prefill prints the device events a token (the shortest
-    prompt alone: profiling the 300-token prefill as well, about 90,000
-    device events, made the phase about 50 s longer on an H100).  Returns
-    the flash launches of the serve run (none)."""
+    256), then ``ServeEngine`` in bf16 with prompts of ``XLSTM_LENGTHS``
+    tokens (the long ones cut from 1024 to 512, printed).  No attention:
+    the recurrences run token by token, and the profiled prefill prints
+    the device events a token (the shortest prompt alone: profiling the
+    300-token prefill as well, about 90,000 device events, made the phase
+    about 50 s longer on an H100).  Returns the flash launches of the
+    serve run (none)."""
     from repro_torch.configs import get_config
 
     t0 = time.perf_counter()
@@ -3182,6 +3214,8 @@ def run_xlstm(torch):
     check_decode_matches_prefill(torch, XLSTM_ARCH, n_layers=cfg.n_layers,
                                  S=XLSTM_DECODE_S)
     free_card(torch)
+    print(f"cut: {XLSTM_ARCH} serves prompts of {XLSTM_LENGTHS} tokens "
+          f"(the long ones 1024 before)", flush=True)
     eng, launches = run_serve(torch, cfg, XLSTM_LENGTHS,
                               max(XLSTM_LENGTHS) + 32, profiled=(64,),
                               prof_n=1)
@@ -3267,13 +3301,16 @@ TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen1.5-0.5b", 4, 4096, 8
 # 1e-3 in 8 steps, below the batches' spread, and lr 1e-3 from the first
 # step diverges by the eighth (tools/train_lr_probe.py)
 TRAIN_LR, TRAIN_WARMUP = 3e-4, 1
-# the world-2 trainer's steps (a printed cut of the 8: 91% of its step is
-# the gloo sync through the host, which measures the host, not the card)
+# the world-2 trainer's steps at the resume check's depth (a printed cut
+# of the 8 at 24 layers: 91% of its full-depth step is the gloo sync
+# through the host, which measures the host, not the card)
 TRAIN_STEPS_WORLD2 = 2
 TRAIN_EVAL_BATCH = 10_000          # a held-out batch of the stream
 # the resume check: 2 of qwen's 24 layers at full width (a printed cut; a
-# full-depth train state is 5.6 GB a checkpoint, four of them here)
-RESUME_LAYERS, RESUME_CUT, RESUME_EVERY = 2, 5, 4
+# full-depth train state is 5.6 GB a checkpoint, four of them here), 4
+# steps saved every 2 (8 steps saved every 4 before the tensor-parallel
+# trainer's phase paid for its time with the half, a printed cut)
+RESUME_LAYERS, RESUME_STEPS, RESUME_CUT, RESUME_EVERY = 2, 4, 3, 2
 # every architecture's reduced step at B 1, S 256 (mha_full), and three at
 # S 4096 (attend's rule takes the flash path above 2048 x 2048 pairs): a
 # causal decoder, a windowed one and the encoder-decoder; the others' CPU
@@ -3304,6 +3341,8 @@ BWD_MAIN = {((2, 4096, 16, 64), 0, "bfloat16"):
             ((1, 8192, 16, 256), 1024, "bfloat16"):
             "gemma3-12b local layers",
             ((1, 4096, 6, 64), 0, "bfloat16"): "whisper-tiny decoder",
+            ((1, 4096, 16, 128), 0, "bfloat16"):
+            "llama3-8b's microbatch a rank on a (2, 2) mesh",
             ((1, 2048, 4, 128), 0, "float32"): "an f32 shape"}
 BWD_RECORD = ((2, 4096, 16, 64), 0, "bfloat16")   # the kernels line's
 
@@ -3488,11 +3527,30 @@ def _timed_steps(torch, train_mod, step_ms: list, sync: list = None,
     return mock.patch.object(train_mod, "make_train_step", builder)
 
 
+def sync_line(syncs: list) -> str:
+    """The mean ms a step of each kind of a train step's collectives
+    (``sync_ms``), the kinds that ran."""
+    kinds = [k for k in syncs[0] if any(x[k] for x in syncs)]
+    return str({k: round(sum(x[k] for x in syncs) / len(syncs), 1)
+                for k in kinds})
+
+
 def leaf_hashes(params) -> dict:
     """{parameter name: sha256 of its bytes}."""
     import hashlib
     return {n: hashlib.sha256(p.detach().cpu().numpy().tobytes()).hexdigest()
             for n, p in params.named_parameters()}
+
+
+def whole_hashes(params, cfg) -> dict:
+    """``leaf_hashes`` of the whole leaves of a data-parallel rank's
+    training blocks (``train(production=True)``'s parameters), gathered
+    over the world's data mesh: every rank calls it."""
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.runtime import sharding as sh
+
+    return leaf_hashes(sh.gather_tree(make_data_mesh(0, device="cuda"),
+                                      params, cfg))
 
 
 def run_trainer(torch, ckpt_dir: str):
@@ -3507,9 +3565,7 @@ def run_trainer(torch, ckpt_dir: str):
     step, tokens/s, peak memory, the flash launches a step (forward 24
     layers x 2 microbatches x 2, the period recomputed in the backward;
     backward 24 x 2); then one profiled step.  Returns (the launch counts,
-    the parameter count, {"losses", "hashes"}: the losses of the first
-    ``TRAIN_STEPS_WORLD2`` steps and a hash of every parameter leaf by
-    name after them, for the world-2 run)."""
+    the parameter count)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.largevis import seeded_generator
@@ -3536,10 +3592,10 @@ def run_trainer(torch, ckpt_dir: str):
     before = held_loss(init)
     del init
     free_card(torch)
-    step_ms, at_cut = [], {}
+    step_ms = []
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    with _timed_steps(torch, train_mod, step_ms, hashes=at_cut):
+    with _timed_steps(torch, train_mod, step_ms):
         params, opt, losses = train_mod.train(
             TRAIN_ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
             reduced=False, microbatches=0, ckpt_dir=ckpt_dir, resume=False,
@@ -3550,8 +3606,6 @@ def run_trainer(torch, ckpt_dir: str):
     peak = torch.cuda.max_memory_allocated() / 2**30
     after = held_loss(params)
     loss = [x for _, x in losses]
-    # the leaves at the world-2 trainer's cut
-    world1 = {"losses": loss[:TRAIN_STEPS_WORLD2], "hashes": at_cut}
     n_micro = pick_microbatches(ShapeConfig("c", "train", TRAIN_SEQ,
                                             TRAIN_BATCH))
     per_step = {"flash_attention": cfg.n_layers * n_micro * 2,
@@ -3593,18 +3647,20 @@ def run_trainer(torch, ckpt_dir: str):
           f"kernels {attn_ms:.3f} ms of it", flush=True)
     del params, opt, step_fn, batch
     free_card(torch)
-    return counts, n_params, world1
+    return counts, n_params
 
 
 def run_resume(torch, ckpt_root: str, full_params: int) -> dict:
     """JAX's ``test_restart_bit_identical`` on the card, at full width and
-    ``RESUME_LAYERS`` layers (a printed cut): an 8-step run against a
-    5-step run resumed to 8, both saving every 4 steps; the resumed run
-    restarts at step 4 and its losses from there are bitwise the
+    ``RESUME_LAYERS`` layers (a printed cut): a ``RESUME_STEPS``-step run
+    against a ``RESUME_CUT``-step run resumed to ``RESUME_STEPS``, both
+    saving every ``RESUME_EVERY`` steps; the resumed run restarts at the
+    cut run's last save and its losses from there are bitwise the
     uninterrupted run's.  Returns (the launch counts of the three runs,
-    {"cfg", "ref", "hashes", "w1"}: the cut config, the uninterrupted
-    losses, a hash of its final leaves by name, and a directory holding
-    only the 5-step run's save at step 4, for world 2 to resume)."""
+    {"cfg", "ref", "hashes", "at_cut", "w1"}: the cut config, the
+    uninterrupted losses, a hash of its final leaves by name, the same
+    hashes after ``TRAIN_STEPS_WORLD2`` steps, and a directory holding
+    only the cut run's save, for world 2 to resume)."""
     import shutil
 
     from repro_torch.checkpoint import checkpointer as ck
@@ -3618,7 +3674,8 @@ def run_resume(torch, ckpt_root: str, full_params: int) -> dict:
     print(f"cut: the resume check at {RESUME_LAYERS} of {full.n_layers} "
           f"layers (full width; a full-depth train state, parameters and "
           f"two moments in f32, is {12 * full_params / 1e9:.2f} GB a "
-          "checkpoint)", flush=True)
+          f"checkpoint), {RESUME_STEPS} steps saved every {RESUME_EVERY}",
+          flush=True)
 
     opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
 
@@ -3634,23 +3691,24 @@ def run_resume(torch, ckpt_root: str, full_params: int) -> dict:
 
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    hashes = {}
-    w1 = os.path.join(ckpt_root, "world1_at4")
-    with mock.patch.object(train_mod, "get_config", lambda name: cfg):
-        ref = run(TRAIN_STEPS, os.path.join(ckpt_root, "ref"), False,
+    hashes, at_cut = {}, {}
+    w1 = os.path.join(ckpt_root, f"world1_at{RESUME_EVERY}")
+    with mock.patch.object(train_mod, "get_config", lambda name: cfg), \
+            _timed_steps(torch, train_mod, [], hashes=at_cut):
+        ref = run(RESUME_STEPS, os.path.join(ckpt_root, "ref"), False,
                   hashes)
         d = os.path.join(ckpt_root, "int")
         run(RESUME_CUT, d, False)
         shutil.copytree(os.path.join(d, f"step_{RESUME_EVERY}"),
                         os.path.join(w1, f"step_{RESUME_EVERY}"))
-        resumed = run(TRAIN_STEPS, d, True)
+        resumed = run(RESUME_STEPS, d, True)
     counts = ops.launch_counts()
     shutil.rmtree(os.path.join(ckpt_root, "ref"))
-    after = list(range(RESUME_EVERY, TRAIN_STEPS))
+    after = list(range(RESUME_EVERY, RESUME_STEPS))
     same = all(resumed.get(s) == ref[s] for s in after)
     got, want = [resumed.get(s) for s in after], [ref[s] for s in after]
-    print(f"resume: {TRAIN_ARCH} at {RESUME_LAYERS} layers, {TRAIN_STEPS} "
-          f"steps against {RESUME_CUT} resumed to {TRAIN_STEPS} (saves every "
+    print(f"resume: {TRAIN_ARCH} at {RESUME_LAYERS} layers, {RESUME_STEPS} "
+          f"steps against {RESUME_CUT} resumed to {RESUME_STEPS} (saves every "
           f"{RESUME_EVERY}) in {time.perf_counter() - t0:.1f} s: resumed "
           f"steps {sorted(resumed)}, losses {got} against {want}: "
           f"{'bitwise equal' if same else 'DIFFER'}; checkpoints "
@@ -3661,7 +3719,8 @@ def run_resume(torch, ckpt_root: str, full_params: int) -> dict:
           "run's")
     shutil.rmtree(d)
     free_card(torch)
-    return counts, {"cfg": cfg, "ref": ref, "hashes": hashes, "w1": w1}
+    return counts, {"cfg": cfg, "ref": ref, "hashes": hashes,
+                    "at_cut": at_cut, "w1": w1}
 
 
 def run_arch_steps(torch) -> dict:
@@ -3760,8 +3819,7 @@ def run_training(torch) -> tuple[dict, dict]:
     free_card(torch)
     with tempfile.TemporaryDirectory() as tmp:
         t1 = time.perf_counter()
-        counts, n_params, world1 = run_trainer(torch,
-                                               os.path.join(tmp, "main"))
+        counts, n_params = run_trainer(torch, os.path.join(tmp, "main"))
         print(f"trainer: {time.perf_counter() - t1:.1f} s", flush=True)
         more, resumed = run_resume(torch, tmp, n_params)
         counts = _add_counts(counts, more)
@@ -3769,9 +3827,10 @@ def run_training(torch) -> tuple[dict, dict]:
         print(f"training phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
         t1 = time.perf_counter()
-        counts = _add_counts(counts, run_sharded_training(
-            torch, tmp, world1, resumed))
+        counts = _add_counts(counts, run_sharded_training(torch, tmp,
+                                                          resumed))
         run_grad_compress(torch)
+        counts = _add_counts(counts, run_tp_training(torch))
         print(f"sharded training phases: {time.perf_counter() - t1:.1f} s",
               flush=True)
     record["launches"] = counts["flash_attention_bwd"]
@@ -3788,10 +3847,10 @@ COMPRESS_BATCH, COMPRESS_ROUNDS = 1, 5
 
 
 def _train2_rank(rank, store, out_dir, w1_dir):
-    """One rank of the world-2 trainer (a spawned process): qwen1.5-0.5b
-    at full width and depth, ``production=True``, then at the resume
-    check's cut a world-1 save resumed here and a world-2 run cut after
-    its save."""
+    """One rank of the world-2 trainer (a spawned process), qwen1.5-0.5b
+    at full width and the resume check's depth: ``production=True`` for
+    ``TRAIN_STEPS_WORLD2`` steps, a world-1 save resumed here and a
+    world-2 run cut after its save."""
     import datetime
 
     import torch
@@ -3801,6 +3860,7 @@ def _train2_rank(rank, store, out_dir, w1_dir):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import train as train_mod
+    from repro_torch.models.factory import param_shapes
     from repro_torch.optim.adamw import AdamWConfig
 
     dist.init_process_group("gloo", init_method=f"file://{store}",
@@ -3812,36 +3872,40 @@ def _train2_rank(rank, store, out_dir, w1_dir):
         kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, reduced=False,
                   microbatches=0, production=True, log_every=10**6,
                   opt_cfg=opt_cfg)
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                                  n_layers=RESUME_LAYERS)
         step_ms, sync = [], []
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
-        with _timed_steps(torch, train_mod, step_ms, sync):
-            params, opt, losses = train_mod.train(
-                TRAIN_ARCH, steps=TRAIN_STEPS_WORLD2, resume=False,
-                ckpt_dir=os.path.join(out_dir, "full"), **kw)
-        torch.cuda.synchronize()
-        out["full"] = {
-            "losses": [x for _, x in losses], "hashes": leaf_hashes(params),
-            "step_ms": step_ms, "sync": sync,
-            "launches": ops.launch_counts(),
-            "peak": torch.cuda.max_memory_allocated(),
-            "moment_bytes": sum(4 * m.numel() for k in ("m", "v")
-                                for m in opt[k].parameters()),
-            "param_bytes": sum(4 * p.numel() for p in params.parameters())}
-        del params, opt
-        cfg = dataclasses.replace(get_config(TRAIN_ARCH),
-                                  n_layers=RESUME_LAYERS)
-        ops.reset_launch_counts()
         with mock.patch.object(train_mod, "get_config", lambda name: cfg):
+            with _timed_steps(torch, train_mod, step_ms, sync):
+                params, opt, losses = train_mod.train(
+                    TRAIN_ARCH, steps=TRAIN_STEPS_WORLD2, resume=False,
+                    ckpt_dir=os.path.join(out_dir, "full"), **kw)
+            torch.cuda.synchronize()
+            out["full"] = {
+                "losses": [x for _, x in losses],
+                "hashes": whole_hashes(params, cfg),
+                "step_ms": step_ms, "sync": sync,
+                "launches": ops.launch_counts(),
+                "peak": torch.cuda.max_memory_allocated(),
+                "moment_bytes": sum(4 * m.numel() for k in ("m", "v")
+                                    for m in opt[k].parameters()),
+                "param_bytes": sum(4 * p.numel()
+                                   for p in params.parameters()),
+                "whole_bytes": sum(4 * p.numel() for p in
+                                   param_shapes(cfg).parameters())}
+            del params, opt
+            ops.reset_launch_counts()
             params, _, resumed = train_mod.train(
-                TRAIN_ARCH, steps=TRAIN_STEPS, ckpt_dir=w1_dir,
+                TRAIN_ARCH, steps=RESUME_STEPS, ckpt_dir=w1_dir,
                 save_every=RESUME_EVERY, resume=True, **kw)
             out["from_world1"] = {"losses": resumed,
-                                  "hashes": leaf_hashes(params)}
+                                  "hashes": whole_hashes(params, cfg)}
             del params
             _, _, cut = train_mod.train(
                 TRAIN_ARCH, steps=RESUME_CUT, resume=False,
-                ckpt_dir=os.path.join(out_dir, "world2_at4"),
+                ckpt_dir=os.path.join(out_dir, "world2_cut"),
                 save_every=RESUME_EVERY, **kw)
             out["cut"] = cut
         out["cut_launches"] = ops.launch_counts()
@@ -3850,16 +3914,20 @@ def _train2_rank(rank, store, out_dir, w1_dir):
         dist.destroy_process_group()
 
 
-def run_sharded_training(torch, tmp: str, world1: dict, resumed: dict):
+def run_sharded_training(torch, tmp: str, resumed: dict):
     """``train(production=True)`` at world 2 over gloo, two processes on
     the one card (the kernels built by this process first): qwen1.5-0.5b
-    at full width and depth, 2 rows and 1 microbatch a rank, which must
-    give ``run_trainer``'s world-1 run at 2 microbatches bitwise (the loss
-    at every step, every final leaf), each rank's step, sync and memory;
-    then checkpoints across worlds at ``run_resume``'s cut: a world-1 save
-    at step 4 resumed at world 2, and a world-2 run's save at step 4
-    (cut at 5) resumed here at world 1, each to step 8 and bitwise the
-    uninterrupted run.  Returns the launch counts of both worlds' runs."""
+    at full width and ``run_resume``'s depth, 2 rows and 1 microbatch a
+    rank, which must give ``run_resume``'s uninterrupted world-1 run at 2
+    microbatches bitwise (the loss at every step, every leaf after
+    ``TRAIN_STEPS_WORLD2`` steps), each rank's step, sync and memory;
+    then checkpoints across worlds at that cut: a world-1 save
+    at step ``RESUME_EVERY`` resumed at world 2, and a world-2 run's save
+    there (cut at ``RESUME_CUT``) resumed here at world 1, each to step
+    ``RESUME_STEPS`` and bitwise the uninterrupted run.  The world-2 ranks
+    hold their blocks of the parameters at rest; their leaves are
+    gathered whole to be hashed.  Returns the launch counts of both
+    worlds' runs."""
     import torch.multiprocessing as mp
 
     from repro_torch.kernels import ops
@@ -3871,11 +3939,14 @@ def run_sharded_training(torch, tmp: str, world1: dict, resumed: dict):
     free_card(torch)
     cfg = resumed["cfg"]
     full_layers = get_config(TRAIN_ARCH).n_layers
-    print(f"cut: the checkpoints across worlds at {RESUME_LAYERS} of "
-          f"{full_layers} layers (full width), run_resume's cut", flush=True)
-    print(f"cut: the world-2 trainer at full depth runs {TRAIN_STEPS_WORLD2}"
-          f" of the trainer's {TRAIN_STEPS} steps, held to world 1's leaves "
-          f"after step {TRAIN_STEPS_WORLD2}", flush=True)
+    ref = resumed["ref"]
+    world1 = {"losses": [ref[s_] for s_ in range(TRAIN_STEPS_WORLD2)],
+              "hashes": resumed["at_cut"]}
+    print(f"cut: the world-2 trainer and the checkpoints across worlds at "
+          f"{RESUME_LAYERS} of {full_layers} layers (full width), "
+          f"run_resume's cut; the world-2 trainer runs {TRAIN_STEPS_WORLD2} "
+          f"of the trainer's {TRAIN_STEPS} steps, held to run_resume's "
+          f"world-1 leaves after step {TRAIN_STEPS_WORLD2}", flush=True)
     out_dir = os.path.join(tmp, "world2")
     os.makedirs(out_dir)
     t0 = time.perf_counter()
@@ -3897,24 +3968,22 @@ def run_sharded_training(torch, tmp: str, world1: dict, resumed: dict):
     wall = time.perf_counter() - t0
     r = [json.loads(Path(out_dir, f"rank{i}.json").read_text())
          for i in (0, 1)]
-    per_step = {"flash_attention": full_layers * 2,
-                "flash_attention_bwd": full_layers}
+    per_step = {"flash_attention": RESUME_LAYERS * 2,
+                "flash_attention_bwd": RESUME_LAYERS}
     lines = []
     for i, rk in enumerate(r):
         f = rk["full"]
         steady = f["step_ms"][1:]
         ms = sum(steady) / len(steady)
-        red = [x["grad_all_reduce"] for x in f["sync"][1:]]
-        gat = [x["param_gather"] for x in f["sync"][1:]]
         lines.append(
             f"rank {i}: {ms:.1f} ms a step after the first (step ms "
             f"{[round(x, 1) for x in f['step_ms']]}), "
             f"{TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} tokens/s for the "
-            f"world; sync: the gradient all-reduce {sum(red) / len(red):.1f}"
-            f" ms, the parameter gather {sum(gat) / len(gat):.1f} ms a step;"
-            f" peak {f['peak'] / 2**30:.2f} GiB (moments "
-            f"{f['moment_bytes'] / 2**30:.2f} GiB, half of "
-            f"{2 * f['param_bytes'] / 2**30:.2f}); launches "
+            f"world; sync ms a step {sync_line(f['sync'][1:])}; peak "
+            f"{f['peak'] / 2**30:.2f} GiB (parameter blocks "
+            f"{f['param_bytes'] / 2**30:.2f} GiB of "
+            f"{f['whole_bytes'] / 2**30:.2f}, moments "
+            f"{f['moment_bytes'] / 2**30:.2f}); launches "
             f"{ {k: f['launches'][k] for k in per_step} } ({per_step} a step"
             f" expected)")
         check(f["losses"] == world1["losses"], f"world 2 rank {i}: losses "
@@ -3928,18 +3997,21 @@ def run_sharded_training(torch, tmp: str, world1: dict, resumed: dict):
             check(f["launches"][k] == n * TRAIN_STEPS_WORLD2,
                   f"world 2 rank {i}: {k} launched {f['launches'][k]} times,"
                   f" expected {n} x {TRAIN_STEPS_WORLD2}")
-        # half of m and v, but for the few leaves no spec shards (norms,
-        # biases), which each rank holds whole
-        check(f["moment_bytes"] <= 1.001 * f["param_bytes"],
-              f"world 2 rank {i}: the moments take {f['moment_bytes']} "
-              f"bytes, not about half of {2 * f['param_bytes']}")
+        # at rest, half of the parameters and of m and v, but for the few
+        # leaves no spec shards (norms, biases), which each rank holds whole
+        check(f["param_bytes"] <= 0.501 * f["whole_bytes"] and
+              f["moment_bytes"] == 2 * f["param_bytes"],
+              f"world 2 rank {i}: parameter blocks of {f['param_bytes']} "
+              f"bytes (whole {f['whole_bytes']}), moments "
+              f"{f['moment_bytes']}: not about half")
     print(f"world-2 trainer over gloo, two processes on one card ({wall:.1f}"
-          f" s with their start): {TRAIN_ARCH} at full width and depth, "
+          f" s with their start): {TRAIN_ARCH} at full width, "
+          f"{RESUME_LAYERS} layers, "
           f"batch {TRAIN_BATCH} x {TRAIN_SEQ} as 2 rows and 1 microbatch a "
           f"rank, {TRAIN_STEPS_WORLD2} steps: losses and all "
           f"{len(world1['hashes'])} final leaves bitwise world 1's (2 "
           f"microbatches); {'; '.join(lines)}", flush=True)
-    ref, after = resumed["ref"], list(range(RESUME_EVERY, TRAIN_STEPS))
+    after = list(range(RESUME_EVERY, RESUME_STEPS))
     for i, rk in enumerate(r):
         got = {int(s_): x for s_, x in rk["from_world1"]["losses"]}
         check(sorted(got) == after and all(got[s_] == ref[s_]
@@ -3959,9 +4031,9 @@ def run_sharded_training(torch, tmp: str, world1: dict, resumed: dict):
     t1 = time.perf_counter()
     with mock.patch.object(train_mod, "get_config", lambda name: cfg):
         params, _, losses = train_mod.train(
-            TRAIN_ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            TRAIN_ARCH, steps=RESUME_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
             reduced=False, microbatches=0, production=True,
-            ckpt_dir=os.path.join(out_dir, "world2_at4"),
+            ckpt_dir=os.path.join(out_dir, "world2_cut"),
             save_every=RESUME_EVERY, resume=True, log_every=10**6,
             opt_cfg=opt_cfg)
     w1_counts = ops.launch_counts()
@@ -3970,7 +4042,7 @@ def run_sharded_training(torch, tmp: str, world1: dict, resumed: dict):
     del params
     print(f"checkpoints across worlds at {RESUME_LAYERS} layers: a world-1 "
           f"save at step {RESUME_EVERY} resumed at world 2 to step "
-          f"{TRAIN_STEPS} (losses "
+          f"{RESUME_STEPS} (losses "
           f"{[x for _, x in r[0]['from_world1']['losses']]}"
           f"), a world-2 run saved at step {RESUME_EVERY} and cut at "
           f"{RESUME_CUT} resumed at world 1 ({time.perf_counter() - t1:.1f} "
@@ -3985,6 +4057,343 @@ def run_sharded_training(torch, tmp: str, world1: dict, resumed: dict):
     for rk in r:
         counts = _add_counts(counts, rk["full"]["launches"])
         counts = _add_counts(counts, rk["cut_launches"])
+    free_card(torch)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel trainer: qwen on a (data 2, model 2) mesh of four
+# gloo processes on the one card, against world 1
+# ---------------------------------------------------------------------------
+
+TPT_MESH = (2, 2)                 # (data, model): 4 ranks
+TPT_LAYERS = 2                    # of qwen's 24 on one card (printed)
+TPT_BATCH, TPT_STEPS = 2, 2       # one 4096-token row a data rank
+TPT_TIMEOUT_S = 600
+
+
+def tpt_spec(arch: str = TRAIN_ARCH, n_layers: int = TPT_LAYERS, *,
+             batch: int = TPT_BATCH, steps: int = TPT_STEPS,
+             microbatches: int = 1, check_a: bool = True,
+             bf16_runs: int = 2) -> dict:
+    """What a tensor-parallel trainer rank runs (:func:`_tpt_rank`)."""
+    return dict(arch=arch, n_layers=n_layers, batch=batch, steps=steps,
+                microbatches=microbatches, check_a=check_a,
+                bf16_runs=bf16_runs)
+
+
+def _tpt_cfg(spec: dict, dtype=None):
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(spec["arch"]),
+                              n_layers=spec["n_layers"])
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
+def tpt_world1(torch, out_dir: str, spec: dict) -> dict:
+    """World 1 on the card for the f32 check: the spec's model in f32
+    (random weights, seed 7), ``steps`` steps of its batch in as many
+    microbatches as the mesh's data rows run together, the default AdamW;
+    writes the losses and the train state after the last step (JAX
+    layout) to ``out_dir`` for the comparison; returns the flash launches
+    and seconds."""
+    import numpy as np
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.convert import train_state_to_numpy
+    from repro_torch.core.largevis import seeded_generator
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import adamw_init
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfg = _tpt_cfg(spec, torch.float32)
+    params = lm.init_lm(seeded_generator(dev, 7), cfg)
+    opt = adamw_init(params)
+    step = make_train_step(cfg, ShapeConfig("c", "train", TRAIN_SEQ,
+                                            spec["batch"]),
+                           microbatches=TPT_MESH[0] * spec["microbatches"])
+    ops.reset_launch_counts()
+    losses = []
+    for i in range(spec["steps"]):
+        b = token_batch(3, i, spec["batch"], TRAIN_SEQ, cfg.vocab_size,
+                        device=dev)
+        params, opt, loss = step(params, opt, b)
+        losses.append(float(loss))
+    counts = ops.launch_counts()
+    state = train_state_to_numpy(params, opt, cfg)
+    np.savez(os.path.join(out_dir, "w1_state.npz"), losses=np.array(losses),
+             **_flat_state(state))
+    del params, opt, state
+    free_card(torch)
+    return {"launches": counts, "s": time.perf_counter() - t0,
+            "losses": losses}
+
+
+def _flat_state(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_flat_state(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def _tpt_rank(rank, world, init, backend, out_dir, spec):
+    """One rank of the tensor-parallel trainer on a (2, 2) mesh: its
+    training blocks of the spec's model from a seed (each leaf drawn whole
+    and cut), ``steps`` steps of the batch through ``make_train_step``.
+    ``check_a``: the f32 run, the rank's blocks of the state after the
+    last step held to its blocks of world 1's (``tpt_check_a``).
+    Then ``bf16_runs`` runs in the config's dtype: ms a step, ``sync_ms``
+    a step, peak memory, the flash launches, the losses, and a hash of
+    the losses and of the rank's blocks of the parameters and moments."""
+    import datetime
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    if backend == "nccl":
+        os.environ["LOCAL_RANK"] = str(rank)
+        torch.cuda.set_device(rank)
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=TPT_TIMEOUT_S))
+    out = {}
+    try:
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.convert import lm_params_to_numpy, opt_state_to_numpy
+        from repro_torch.core.largevis import resolve_device, seeded_generator
+        from repro_torch.data.synthetic import token_batch
+        from repro_torch.kernels import ops
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.launch.steps import make_train_step
+        from repro_torch.models import lm
+        from repro_torch.optim.adamw import AdamWConfig, _schedule, adamw_init
+
+        resolve_device("cuda")                 # also switches TF32 off
+        mesh = make_host_mesh(*TPT_MESH, device="cuda")
+        dev = mesh.device
+        shape = ShapeConfig("c", "train", TRAIN_SEQ, spec["batch"])
+
+        def run(cfg, timed=False):
+            t0 = time.perf_counter()
+            params = lm.init_lm(seeded_generator(dev, 7), cfg, mesh=mesh,
+                                train=True)
+            opt = adamw_init(params)
+            init_s = time.perf_counter() - t0
+            step = make_train_step(cfg, shape, mesh=mesh,
+                                   microbatches=spec["microbatches"])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            res = {"losses": [], "step_ms": [], "sync": [],
+                   "init_s": init_s}
+            for i in range(spec["steps"]):
+                b = token_batch(3, i, spec["batch"], TRAIN_SEQ,
+                                cfg.vocab_size, device=dev)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                params, opt, loss = step(params, opt, b)
+                torch.cuda.synchronize()
+                res["step_ms"].append((time.perf_counter() - t) * 1e3)
+                res["sync"].append(step.sync_ms())
+                res["losses"].append(float(loss))
+            res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            res["launches"] = ops.launch_counts()
+            res["state_gib"] = sum(
+                t.numel() * t.element_size() for t in
+                list(params.parameters()) + list(opt["m"].parameters())
+                + list(opt["v"].parameters())) / 2**30
+            h = hashlib.sha256(np.array(res["losses"]).tobytes())
+            for tree in (params, opt["m"], opt["v"]):
+                for t in tree.parameters():
+                    h.update(t.detach().cpu().numpy().tobytes())
+            res["hash"] = h.hexdigest()
+            return params, opt, res
+
+        if spec["check_a"]:
+            cfg = _tpt_cfg(spec, torch.float32)
+            params, opt, res = run(cfg)
+            own = _flat_state({"params": lm_params_to_numpy(params, cfg),
+                               "opt": opt_state_to_numpy(opt, cfg)})
+            res["check"] = tpt_check_a(out_dir, own, mesh, float(
+                _schedule(AdamWConfig(), torch.tensor(spec["steps"]))))
+            out["a"] = res
+            del params, opt, own
+            torch.cuda.empty_cache()
+        runs = []
+        for _ in range(spec["bf16_runs"]):
+            params, opt, res = run(_tpt_cfg(spec))
+            runs.append(res)
+            del params, opt
+            torch.cuda.empty_cache()
+        out["b"] = runs
+        out["coords"] = [mesh.axis_index("data"), mesh.axis_index("model")]
+    finally:
+        Path(out_dir, f"tpt_rank{rank}.json").write_text(json.dumps(out))
+        dist.destroy_process_group()
+
+
+def spawn_tpt(torch, out_dir: str, spec: dict, *, backend: str,
+              init: str) -> list:
+    """Start the four ranks of the (2, 2) trainer, wait for them (failing
+    on a rank's error or the deadline) and return their results."""
+    import torch.multiprocessing as mp
+
+    world = TPT_MESH[0] * TPT_MESH[1]
+    ctx = mp.start_processes(
+        _tpt_rank, args=(world, init, backend, out_dir, spec),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.perf_counter() + TPT_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            check(time.perf_counter() < deadline, "the tensor-parallel "
+                  f"trainer's ranks did not finish in {TPT_TIMEOUT_S} s")
+    except Exception as e:            # a rank's exception or exit code
+        fail(f"a tensor-parallel trainer rank failed: {type(e).__name__}: "
+             f"{e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return [json.loads(Path(out_dir, f"tpt_rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def tpt_check_a(out_dir: str, own: dict, mesh, lr: float) -> dict:
+    """A rank's f32 state against world 1's (``w1_state.npz``): each of
+    the rank's blocks (``own``, by JAX-layout path) against its block of
+    world 1's whole leaf under the leaf's training spec, each parameter
+    within 1e-6 of the whole leaf's largest magnitude plus twice the last
+    step's ``lr``, each moment within 1e-4 of its largest (the CPU tests'
+    tolerances).  Returns the worst parameter's distance over its bound
+    and the worst moment's over its largest magnitude."""
+    import numpy as np
+
+    from repro_torch.runtime import sharding as sh
+
+    want = dict(np.load(os.path.join(out_dir, "w1_state.npz")))
+    want.pop("losses")
+    check(sorted(own) == sorted(want), "tensor-parallel trainer: the "
+          "rank's leaves are not world 1's")
+    worst = {"params": 0.0, "m": 0.0, "v": 0.0}
+    for k, whole in want.items():
+        if k.startswith("opt/step"):
+            check(int(own[k]) == int(whole),
+                  f"tensor-parallel trainer: step {own[k]}")
+            continue
+        kind = "params" if k.startswith("params/") else k.split("/")[1]
+        path = k.split("/", 1 if kind == "params" else 2)[-1]
+        spec = sh.param_pspec(path, whole.shape, mesh.shape, train=True,
+                              stacked="blocks/" in path)
+        w, g = sh.block(whole, spec, mesh), own[k]
+        check(g.shape == w.shape and np.isfinite(g).all(),
+              f"tensor-parallel trainer: {k} {g.shape}, world 1's block "
+              f"{w.shape}")
+        scale = max(float(np.abs(whole).max()), 1e-30)
+        err = float(np.abs(g.astype(np.float64) - w).max())
+        if kind == "params":
+            bound = 1e-6 * scale + 2 * lr
+            check(err <= bound, f"tensor-parallel trainer: {k} off world "
+                  f"1's by {err} (bound 1e-6 x {scale} + 2 x {lr})")
+            worst[kind] = max(worst[kind], err / bound)
+        else:
+            check(err <= 1e-4 * scale, f"tensor-parallel trainer: {k} off "
+                  f"world 1's by {err / scale:.3g} of its largest")
+            worst[kind] = max(worst[kind], err / scale)
+    return worst
+
+
+def tpt_line(ranks: list, spec: dict) -> str:
+    """Each rank's numbers of its last bf16 run."""
+    parts = []
+    for i, rk in enumerate(ranks):
+        r = rk["b"][-1]
+        steady = r["step_ms"][1:] or r["step_ms"]
+        ms = sum(steady) / len(steady)
+        tokens = spec["batch"] * TRAIN_SEQ
+        parts.append(
+            f"rank {i} {tuple(rk['coords'])}: step ms "
+            f"{[round(x, 1) for x in r['step_ms']]} ({ms:.1f} after the "
+            f"first, {tokens / ms * 1e3:.0f} tokens/s for the mesh); sync "
+            f"ms a step {sync_line(r['sync'][1:] or r['sync'])}; blocks of "
+            f"the state {r['state_gib']:.2f} GiB, peak {r['peak_gib']:.2f} "
+            f"GiB; losses {[round(x, 5) for x in r['losses']]}; flash "
+            f"launches { {k: r['launches'][k] for k in ('flash_attention', 'flash_attention_bwd')} }")
+    return "; ".join(parts)
+
+
+def run_tp_training(torch) -> dict:
+    """qwen1.5-0.5b at full width, ``TPT_LAYERS`` of 24 layers (a printed
+    cut), trained on a (data 2, model 2) mesh of four gloo processes on
+    the one card (the kernels built by this process first): each rank
+    its training blocks (FSDP over "data", heads, ff and vocab over
+    "model"), a 4096-token row a data rank, one microbatch a rank.  (a)
+    f32: ``TPT_STEPS`` steps against world 1 at two microbatches on this
+    card (the losses, and each rank's blocks of the state, ``tpt_check_a``);
+    (b) bf16
+    (the config's dtype), the same steps twice, bitwise equal on every
+    rank; ms a step, sync ms, peak memory; (c) each step's flash launches
+    a rank: forward 2 a layer (the recompute), backward 1, on the rank's
+    8 of 16 heads.  Returns the launch counts of world 1 and the
+    ranks."""
+    free_card(torch)
+    t0 = time.perf_counter()
+    spec = tpt_spec()
+    print(f"cut: the tensor-parallel trainer runs {TRAIN_ARCH} at "
+          f"{TPT_LAYERS} of 24 layers (full width), four processes sharing "
+          f"one card over gloo, {TPT_STEPS} steps", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        w1 = tpt_world1(torch, tmp, spec)
+        ranks = spawn_tpt(torch, tmp, spec, backend="gloo",
+                          init=f"file://{tmp}/store")
+    wall = time.perf_counter() - t0
+    a = {k: max(rk["a"]["check"][k] for rk in ranks)
+         for k in ("params", "m", "v")}
+    per_step = {"flash_attention": 2 * TPT_LAYERS,
+                "flash_attention_bwd": TPT_LAYERS}
+    counts = dict(w1["launches"])
+    for i, rk in enumerate(ranks):
+        check(rk["a"]["losses"] == ranks[0]["a"]["losses"],
+              f"tensor-parallel trainer rank {i}: losses differ from rank "
+              "0's")
+        for k, v in enumerate(rk["a"]["losses"]):
+            check(abs(v - w1["losses"][k]) <= STEP_LOSS_TOL *
+                  abs(w1["losses"][k]), f"tensor-parallel trainer rank "
+                  f"{i}: f32 loss {v} against world 1's {w1['losses'][k]}")
+        check(len({r["hash"] for r in rk["b"]}) == 1,
+              f"tensor-parallel trainer rank {i}: the bf16 runs differ")
+        for r in [rk["a"]] + rk["b"]:
+            for name, n in per_step.items():
+                check(r["launches"][name] == n * TPT_STEPS,
+                      f"tensor-parallel trainer rank {i}: {name} launched "
+                      f"{r['launches'][name]} times, expected {n} x "
+                      f"{TPT_STEPS}")
+            counts = _add_counts(counts, r["launches"])
+    print(f"tensor-parallel trainer, (data 2, model 2) over gloo: (a) f32, "
+          f"{TPT_STEPS} steps of {TPT_BATCH} x {TRAIN_SEQ} tokens: losses "
+          f"{ranks[0]['a']['losses']} against world 1's {w1['losses']} (2 "
+          f"microbatches; tol {STEP_LOSS_TOL} relative), each rank's blocks "
+          f"against world 1's: parameters at most {a['params']:.3g} of "
+          f"their bound (1e-6 of "
+          f"the leaf's largest + 2 lr), the moments off world 1's by "
+          f"{a['m']:.3g} (m), {a['v']:.3g} (v) of each leaf's largest "
+          f"(bound 1e-4; world 1 {w1['s']:.1f} s); (b) two bf16 runs "
+          f"bitwise equal on "
+          f"every rank; (c) flash launches a step a rank {per_step}",
+          flush=True)
+    print(f"tensor-parallel trainer bf16: {tpt_line(ranks, spec)}",
+          flush=True)
+    print(f"tensor-parallel training phase: {wall:.1f} s", flush=True)
     free_card(torch)
     return counts
 
@@ -4062,11 +4471,14 @@ def run_grad_compress(torch):
 # ---------------------------------------------------------------------------
 
 TREE_SAMPLES_PER_NODE = 2_000   # the tree fit's layout (printed cut)
-LINE_SAMPLES_PER_NODE = 1_000   # the JAX package's line_layout default
+# the baselines' depths, each half the JAX package's default (printed
+# cuts): line_layout 1,000 samples per node, tsne_layout 1,000
+# iterations, nn_descent 4 rounds
+LINE_SAMPLES_PER_NODE = 500
 N_SUBSET = 10_000               # exact t-SNE / SNE and the VP-tree
-TSNE_ITERS = 1_000              # the JAX package's tsne_layout default
+TSNE_ITERS = 500
 SNE_LR = 20.0                   # fig5's symmetric-SNE lr (t-SNE: 200)
-NND_ITERS = 4                   # the JAX package's nn_descent default
+NND_ITERS = 2
 VP_QUERIES = 200                # VP-tree queries on the host
 
 
@@ -4238,8 +4650,8 @@ def _subset_graph(torch, x, labels, cfg):
 
 
 def run_line(torch, res, labels, acc_fit, cfg):
-    """LINE from the fit's samplers at the JAX default depth, twice from
-    one seed (bitwise); one ordered scatter a step."""
+    """LINE from the fit's samplers at ``LINE_SAMPLES_PER_NODE``, twice
+    from one seed (bitwise); one ordered scatter a step."""
     from repro_torch.core import metrics
     from repro_torch.core.baselines.line import line_layout
     from repro_torch.core.largevis import seeded_generator
@@ -4359,6 +4771,10 @@ def run_vptree(torch, sub, k: int):
 def run_baselines(torch, x, labels, res, acc_fit, cfg):
     """LINE, exact t-SNE and SNE, NN-Descent and the VP-tree; returns the
     launch counts of the paths on the card."""
+    print(f"cut: LINE at {LINE_SAMPLES_PER_NODE} samples per node, exact "
+          f"t-SNE and SNE at {TSNE_ITERS} iterations, NN-Descent at "
+          f"{NND_ITERS} exploring rounds (the JAX package's defaults 1000, "
+          f"1000 and 4)", flush=True)
     counts = {}
     _add_counts(counts, run_line(torch, res, labels, acc_fit, cfg))
     sub, c = _counted(torch, lambda: _subset_graph(torch, x, labels, cfg))
@@ -4380,8 +4796,8 @@ PARENT_STEPS = 2_000
 # the distributed fit: world 1 over NCCL, world 2 over gloo on one card
 # ---------------------------------------------------------------------------
 
-DIST_CUT_SPN = 2_000          # world 2's local-SGD layout (a printed cut)
-DIST_SMALL_N = 20_000         # the fault and elastic phases' points
+DIST_CUT_SPN = 2_000          # the distributed layouts' depth (printed)
+DIST_SMALL_N = 20_000         # world 2's layout, fault and elastic points
 MARGINAL_TOL = 1e-4           # |m_P - m_1| * E: of one uniform slot's mass
 
 
@@ -4509,8 +4925,8 @@ def _counts_and_peak(torch):
 
 
 def run_distributed_fit(torch, x, labels, cfg):
-    """The distributed fit at world 1 over NCCL, at full width, twice
-    (bitwise), its sharded tables against the flat tables of its graph,
+    """The distributed fit at world 1 over NCCL, at full width (the
+    layout at ``cfg``'s cut depth), twice (bitwise), its sharded tables against the flat tables of its graph,
     and its timings, quality, peak memory and launches."""
     from repro_torch import largevis
     from repro_torch.core import metrics, sampler
@@ -4583,7 +4999,7 @@ def run_distributed_fit(torch, x, labels, cfg):
     return res, acc, _add_counts(dict(counts), more), peak
 
 
-def _world2_rank(rank, store, out_dir, xn, labels, cfg_fields, small):
+def _world2_rank(rank, store, out_dir, xn, cfg_fields, small):
     """One rank of the world-2 phase (a spawned process)."""
     import datetime
     import warnings as w
@@ -4633,11 +5049,14 @@ def _world2_rank(rank, store, out_dir, xn, labels, cfg_fields, small):
                                      t_graph["weights_s"]]),
                    graph_topk=np.array(graph_topk),
                    peak=np.array(torch.cuda.max_memory_allocated()))
-        # the local-SGD layout at the cut depth
+        # the local-SGD layout at the cut depth, of the first
+        # DIST_SMALL_N points' graph
+        xs, ls = small
         cut = LargeVisConfig(**{**cfg_fields, "samples_per_node":
                                 DIST_CUT_SPN})
+        gidx, _, gw, _ = build_graph(xs, cfg=cut, device="cuda")
         ops.reset_launch_counts()
-        res, _, timings = layout_graph(idx, wts, cfg=cut, device="cuda",
+        res, _, timings = layout_graph(gidx, gw, cfg=cut, device="cuda",
                                        return_samplers=True)
         fused = ops.launch_counts()["fused_edge_step"]
         move = torch.ones_like(res.y)
@@ -4648,18 +5067,16 @@ def _world2_rank(rank, store, out_dir, xn, labels, cfg_fields, small):
             mesh.all_reduce_sum(move)
         torch.cuda.synchronize()
         out.update(acc=np.array(metrics.knn_classifier_accuracy(
-            res.y, labels)), layout_s=np.array(timings["layout_s"]),
+            res.y, ls)), layout_s=np.array(timings["layout_s"]),
             sampler_s=np.array(timings["sampler_s"]),
             layout_steps=np.array(res.steps),
             sync_ms=np.array((time.perf_counter() - t0) / 50 * 1e3),
-            layout_fused=np.array(fused), y=res.y.cpu().numpy())
+            layout_fused=np.array(fused), y=res.y.cpu().numpy(),
+            sgd_idx=gidx.cpu().numpy(), sgd_w=gw.cpu().numpy())
         # a shard fault in the ring: 2 -> 1 with one DegradedModeWarning
-        xs, ls = small
-        scfg = LargeVisConfig(**{**cfg_fields,
-                                 "samples_per_node": DIST_CUT_SPN})
         with w.catch_warnings(record=True) as log:
             w.simplefilter("always")
-            sres = largevis(xs, cfg=scfg, device="cuda",
+            sres = largevis(xs, cfg=cut, device="cuda",
                             fault=FaultInjector(
                                 {"knn_ring_step:1": {0: "exception"}}))
         degraded = [m for m in log
@@ -4692,12 +5109,14 @@ def _world2_rank(rank, store, out_dir, xn, labels, cfg_fields, small):
         dist.destroy_process_group()
 
 
-def run_world2(torch, xn, labels, cfg, world1, small):
+def run_world2(torch, xn, cfg, world1, small):
     """World 2 over gloo, two processes on the one card (the kernels
     built by this process first): the ring graph, the weights and the
-    sharded tables' marginals against world 1's; the local-SGD layout at
-    a cut depth; a shard fault degrading 2 -> 1; a layout checkpoint of
-    world 2 resumed here at world 1.  Returns the ranks' launches."""
+    sharded tables' marginals against world 1's; the local-SGD layout of
+    the first ``DIST_SMALL_N`` points' graph at a cut depth, beside world
+    1's layout of that graph; a shard fault degrading 2 -> 1; a layout
+    checkpoint of world 2 resumed here at world 1.  Returns the ranks'
+    launches."""
     import numpy as np
     import torch.multiprocessing as mp
 
@@ -4710,15 +5129,10 @@ def run_world2(torch, xn, labels, cfg, world1, small):
     fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
               if f.name in ("distributed", "sync_every")}
     tmp = tempfile.TemporaryDirectory()
-    print(f"cut: world 2's local-SGD layout at samples_per_node "
-          f"{cfg.samples_per_node} -> {DIST_CUT_SPN} (sync_every "
-          f"{cfg.sync_every}, the default), beside world 1's layout of "
-          f"world 1's graph at that depth; the fault and checkpoint phases "
-          f"on the first {DIST_SMALL_N} points at that depth", flush=True)
     t0 = time.perf_counter()
     ctx = mp.start_processes(
         _world2_rank, args=(str(Path(tmp.name) / "store"), tmp.name, xn,
-                            labels, fields, small),
+                            fields, small),
         nprocs=2, join=False, start_method="spawn")
     deadline = time.perf_counter() + 900
     try:
@@ -4733,7 +5147,8 @@ def run_world2(torch, xn, labels, cfg, world1, small):
                 p.kill()
     wall = time.perf_counter() - t0
     r = [dict(np.load(Path(tmp.name) / f"rank{i}.npz")) for i in (0, 1)]
-    for key in ("idx", "dist", "w", "marg", "y", "small_idx", "small_w"):
+    for key in ("idx", "dist", "w", "marg", "y", "sgd_idx", "sgd_w",
+                "small_idx", "small_w"):
         check(np.array_equal(r[0][key], r[1][key]),
               f"the world-2 ranks' {key} differ")
     res1 = world1["res"]
@@ -4761,19 +5176,20 @@ def run_world2(torch, xn, labels, cfg, world1, small):
           f"knn_s {gs[0]:.3f} = ring {gs[1]:.3f} + explore {gs[2]:.3f}, "
           f"weights_s {gs[3]:.3f}, topk_sqdist launches a rank "
           f"{int(r[0]['graph_topk'])}, peak memory a rank "
-          f"{int(r[0]['peak']) / 2**30:.2f} GiB; local SGD at "
-          f"{DIST_CUT_SPN} samples per node, sync every {cfg.sync_every} "
-          f"step(s): sampler_s "
+          f"{int(r[0]['peak']) / 2**30:.2f} GiB; local SGD of the first "
+          f"{DIST_SMALL_N} points' graph at {DIST_CUT_SPN} samples per "
+          f"node, sync every {cfg.sync_every} step(s): sampler_s "
           f"{float(r[0]['sampler_s']):.3f}, layout_s "
           f"{float(r[0]['layout_s']):.3f} ({int(r[0]['layout_steps'])} "
           f"steps a rank, the replicas bitwise equal; one sync of y, "
           f"DataMesh.all_reduce_sum over gloo, {float(r[0]['sync_ms']):.3f}"
           f" ms), knn_classifier_accuracy {acc:.4f}", flush=True)
     flat, flat_counts = _counted(torch, lambda: layout_graph(
-        res1.knn_idx, res1.weights, cfg=dataclasses.replace(
+        torch.from_numpy(r[0]["sgd_idx"]).cuda(),
+        torch.from_numpy(r[0]["sgd_w"]).cuda(), cfg=dataclasses.replace(
             cfg, samples_per_node=DIST_CUT_SPN), device="cuda")[0])
-    acc_flat = metrics.knn_classifier_accuracy(flat.y, labels)
-    print(f"world 1 at the same cut: layout of world 1's graph at "
+    acc_flat = metrics.knn_classifier_accuracy(flat.y, small[1])
+    print(f"world 1 at the same cut: layout of that graph at "
           f"{DIST_CUT_SPN} samples per node ({flat.steps} steps of "
           f"{cfg.batch_size}, no sync), knn_classifier_accuracy "
           f"{acc_flat:.4f}, against world 2's {acc:.4f}", flush=True)
@@ -4825,7 +5241,14 @@ def run_distributed(torch, x, xn, labels, cfg):
     from repro_torch.core import sampler
     from repro_torch.launch.mesh import make_data_mesh
 
-    dcfg = dataclasses.replace(cfg, distributed=True)
+    dcfg = dataclasses.replace(cfg, distributed=True,
+                               samples_per_node=DIST_CUT_SPN)
+    print(f"cut: the distributed fits' layouts at samples_per_node "
+          f"{cfg.samples_per_node} -> {DIST_CUT_SPN} (sync_every "
+          f"{cfg.sync_every}, the default); world 2's ring graph, weights "
+          f"and samplers at N={x.shape[0]}, its local-SGD layout, shard "
+          f"fault and checkpoint on the first {DIST_SMALL_N} points",
+          flush=True)
     res, acc, counts, peak = run_distributed_fit(torch, x, labels, dcfg)
     mesh = make_data_mesh(0, device="cuda")
     es, _ = sampler.build_samplers_sharded(res.knn_idx, res.weights,
@@ -4836,7 +5259,7 @@ def run_distributed(torch, x, xn, labels, cfg):
         generator=torch.Generator(device="cuda").manual_seed(cfg.seed))
     world1 = {"res": res, "marg": sampler.edge_marginals(es), "ring": ring}
     small = (xn[:DIST_SMALL_N], labels[:DIST_SMALL_N])
-    more = run_world2(torch, xn, labels, dcfg, world1, small)
+    more = run_world2(torch, xn, dcfg, world1, small)
     return _add_counts(counts, more)
 
 
@@ -5101,6 +5524,13 @@ def main() -> None:
 
     smi = nvidia_smi()
     print(smi, flush=True)
+    start = time.perf_counter()
+
+    def lap(what: str) -> None:
+        # the run's clock after each group of phases, against the limit
+        print(f"elapsed: {time.perf_counter() - start:.1f} s after {what}",
+              flush=True)
+
     dev = resolve_device("cuda")           # also switches TF32 off
     t0 = time.perf_counter()
     reports = _build.build("knn_topk", "largevis_step", "largevis_grad",
@@ -5120,6 +5550,7 @@ def main() -> None:
     kernels = [check_topk(torch, x, cfg),
                check_edge_step(torch, N_POINTS, cfg),
                check_pairwise(torch, x)]
+    lap("the kernel build and the fit's kernel checks")
     res, acc_fit, counts = run_fit(torch, x, labels, cfg)
     for rec in kernels:
         rec["launches"] = counts[rec["name"]]
@@ -5128,6 +5559,7 @@ def main() -> None:
     robust, demoted = run_robust_fit(torch, x, res, labels, acc_fit, cfg)
     for rec in kernels:
         rec["launches"] += robust[rec["name"]]
+    lap("the fit, the second fit and the robust fit")
     replays = check_chunked(torch, res, cfg)
     grads = check_split_kernels(torch, cfg)
     layout_busy(res, replays, run_routes(torch, res, cfg),
@@ -5138,8 +5570,10 @@ def main() -> None:
                          + demoted["largevis_grads"])
     kernels.append(grads)
     run_autodiff(torch, res, cfg)
+    lap("the chunked, split and autodiff layouts")
     acc_tr = run_transform(torch, res, labels, acc_fit, cfg)
     run_projection_server(torch, res, labels, acc_tr, cfg)
+    lap("the transform and the projection server")
     paths = _add_counts({}, run_tree_fit(torch, x, labels, res, acc_fit,
                                          cfg))
     _add_counts(paths, run_autotuner(torch, x, res, cfg))
@@ -5151,12 +5585,14 @@ def main() -> None:
     # csrc/largevis_step.cu, fused_edge_step's source
     next(rec for rec in kernels if rec["name"] == "fused_edge_step")[
         "launches"] += base["scatter_add_ordered"]
+    lap("the tree fit, the tuner and the baselines")
     run_insert(torch, res, cfg)          # grows res: the last on the fit
     check_ring_fold(torch, x, cfg)
     torch.cuda.empty_cache()             # room for the world-2 ranks
     dist_counts = run_distributed(torch, x, xn, labels, cfg)
     for rec in kernels:
         rec["launches"] += dist_counts.get(rec["name"], 0)
+    lap("the insert and the distributed fits")
     acc_auto, y_auto = run_fixture(torch)
     acc_split, y_split = run_fixture(torch, "split")
     check(torch.equal(y_auto, y_split),
@@ -5180,18 +5616,22 @@ def main() -> None:
     time_prefill(torch, eng.params, eng.cfg)
     del eng
     check_decode_matches_prefill(torch)
+    lap("the flash checks and qwen's serving")
     flash["launches"] += run_gemma3(torch)
     flash["launches"] += run_mixtral(torch)
     flash["launches"] += run_tp_serve(torch)
+    lap("gemma3, mixtral and the sharded serving")
     flash["launches"] += run_jamba(torch)
     flash["launches"] += run_xlstm(torch)
     flash["launches"] += run_whisper(torch)
+    lap("jamba, xlstm and whisper")
     bwd, train_counts = run_training(torch)
     flash["launches"] += train_counts["flash_attention"]
     kernels += [flash, bwd]
 
     import torch.distributed as dist
     dist.destroy_process_group()         # the distributed fit's world of one
+    lap("the training phases")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

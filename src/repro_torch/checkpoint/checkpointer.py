@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import treedef
-from repro_torch.runtime.sharding import data_dim
+from repro_torch.runtime import sharding as sh
 
 # on-disk format version.  v1 has no "version"/"crc" fields and is still
 # readable (CRC verification is skipped for it); v2 adds them.
@@ -188,9 +188,9 @@ def _like(like, got, where=()):
 
 def _shard(shardings, got, where=()):
     """``got`` (numpy leaves, or ``like``'s) placed by ``shardings``: each
-    leaf's ``(mesh, spec)`` gives this rank's block along the spec's
-    ``"data"`` dimension, a tensor on the mesh's device; every other axis
-    is whole (the port's meshes have ``"model"`` = 1)."""
+    leaf's ``(mesh, spec)`` gives this rank's block along every dimension
+    the spec shards over the mesh's axes (``sharding.block``), a tensor on
+    the mesh's device."""
     if isinstance(shardings, dict):
         if not isinstance(got, dict) or sorted(shardings) != sorted(got):
             at = "/".join(where) or "<root>"
@@ -202,18 +202,19 @@ def _shard(shardings, got, where=()):
                 for k in shardings}
     mesh, spec = shardings
     t = got if torch.is_tensor(got) else torch.from_numpy(np.array(got))
-    d = data_dim(spec)
-    if d is not None and mesh.size > 1:
+    cut = [(d, sh._axis_size(mesh.shape, ax)) for d, ax in enumerate(spec)
+           if ax is not None and sh._axis_size(mesh.shape, ax) > 1]
+    if cut:
         if not mesh.in_mesh:
             raise ValueError("restore(shardings=): this rank is outside "
                              "the mesh and holds no block")
-        n = t.shape[d]
-        if n % mesh.size:
-            raise ValueError(f"restore(shardings=): {'/'.join(where)} has "
-                             f"{n} rows on dimension {d}, not a multiple "
-                             f"of the mesh's {mesh.size} ranks")
-        b = n // mesh.size
-        t = t.narrow(d, mesh.rank * b, b).contiguous()
+        for d, n in cut:
+            if t.shape[d] % n:
+                raise ValueError(f"restore(shardings=): {'/'.join(where)} "
+                                 f"has {t.shape[d]} rows on dimension {d}, "
+                                 f"not a multiple of the mesh's {n} ranks "
+                                 f"along {spec[d]}")
+        t = sh.block(t, spec, mesh).contiguous()
     return t.to(mesh.device)
 
 
@@ -268,8 +269,8 @@ def restore(ckpt_dir, step: Optional[int] = None, *, shardings=None,
 
     ``shardings``: a tree of ``(mesh, spec)`` of the checkpoint's
     structure (a ``DataMesh`` and a spec of ``runtime/sharding.py``).
-    Each leaf then comes back as this rank's block along its spec's
-    ``"data"`` dimension, on the mesh's device.  A checkpoint holds
+    Each leaf then comes back as this rank's block under its spec
+    (``"data"`` and ``"model"``), on the mesh's device.  A checkpoint holds
     global arrays, so a mesh of any size resumes it, whatever size wrote
     it.
 

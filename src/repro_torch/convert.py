@@ -81,18 +81,20 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def lm_params_from_numpy(tree: dict, cfg, device="cuda", mesh=None):
+def lm_params_from_numpy(tree: dict, cfg, device="cuda", mesh=None, *,
+                         train: bool = False):
     """The port's LM parameters (f32, as ``lm.init_lm`` makes them) from
     the JAX package's parameter pytree with numpy leaves (or tensors).
     With a ``mesh``, the rank's blocks of them by JAX's inference rules
     (``params_shardings(train=False)``: no FSDP, experts over ``"data"``),
-    each cut before it is copied to the device."""
+    or under ``train`` its training rules (FSDP over ``"data"``, experts
+    whole), each cut before it is copied to the device."""
     dev = resolve_device(device)
     lm.check_supported(cfg)
     lm.check_mesh(cfg, mesh)
     P = len(cfg.block_pattern)
     if mesh is not None:
-        tree = sh.blocks_of(tree, mesh, stacked=True)
+        tree = sh.blocks_of(tree, mesh, stacked=True, train=train)
 
     def t(a):        # a tensor is taken as it is, not copied
         if torch.is_tensor(a):
@@ -149,19 +151,31 @@ def opt_state_to_numpy(state: dict, cfg) -> dict:
             "step": np.asarray(_np(state["step"]), dtype=np.int32)}
 
 
-def opt_state_from_numpy(tree: dict, cfg, device="cuda") -> dict:
+def opt_state_from_numpy(tree: dict, cfg, device="cuda", mesh=None) -> dict:
     """The port's AdamW state from the JAX package's (numpy leaves, or a
     rank's blocks as tensors): the moments frozen f32 module trees,
-    ``step`` an int32 0-d tensor."""
+    ``step`` an int32 0-d tensor.  With a ``mesh``, the rank's blocks of
+    whole moments by the training rules."""
     dev = resolve_device(device)
-    return {"m": lm_params_from_numpy(tree["m"], cfg, dev),
-            "v": lm_params_from_numpy(tree["v"], cfg, dev),
+    kw = {"mesh": mesh, "train": True}
+    return {"m": lm_params_from_numpy(tree["m"], cfg, dev, **kw),
+            "v": lm_params_from_numpy(tree["v"], cfg, dev, **kw),
             "step": torch.tensor(int(tree["step"]), dtype=torch.int32,
                                  device=dev)}
 
 
-def train_state_to_numpy(params, opt_state: dict, cfg) -> dict:
+def train_state_to_numpy(params, opt_state: dict, cfg, mesh=None):
     """The trainer's checkpoint tree, the JAX trainer's: ``{"params":
-    <JAX layout>, "opt": {"m", "v", "step"}}`` with numpy leaves."""
+    <JAX layout>, "opt": {"m", "v", "step"}}`` with numpy leaves.  With a
+    ``mesh`` the parameters and moments are the rank's training blocks
+    (or whole leaves), gathered whole leaf by leaf to the host
+    (``sharding.gather_tree``): every rank of the mesh calls it, and
+    every rank gets the tree of whole leaves, the same file whatever the
+    mesh."""
+    if mesh is not None and mesh.size > 1:
+        params = sh.gather_tree(mesh, params, cfg, to_host=True)
+        opt_state = dict(opt_state, **{
+            k: sh.gather_tree(mesh, opt_state[k], cfg, to_host=True)
+            for k in ("m", "v")})
     return {"params": lm_params_to_numpy(params, cfg),
             "opt": opt_state_to_numpy(opt_state, cfg)}

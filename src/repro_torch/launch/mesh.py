@@ -19,6 +19,14 @@ process group a ``"model"`` row (the M ranks of its data index) and one a
 ``"data"`` column (the D ranks of its model index).  The pipeline's meshes
 are ``(P, 1)``: their ``size`` and ``rank`` are the data axis's.
 
+The training step differentiates through its collectives
+(:func:`model_sum`, whose backward is the identity; :func:`model_copy`,
+the identity whose backward is the ``"model"`` sum; :func:`gather_data`,
+the tiled gather over ``"data"`` whose backward is the rank-order
+reduce-scatter, :meth:`DataMesh.reduce_scatter_sum`), each adding in
+rank order as :meth:`DataMesh.all_reduce_sum` does, and times them by
+kind while a caller has set :attr:`DataMesh.clock`.
+
 The transport follows the group's backend.  NCCL moves the tensors on
 the card.  Gloo moves host tensors: a tensor on the card is copied to the
 host, moved, and copied back (processes that share one card can only
@@ -34,13 +42,33 @@ card of its ``LOCAL_RANK``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import time
 
 import torch
 import torch.distributed as dist
 
 _SUBGROUPS: dict = {}       # (world group id, ranks) -> their subgroup
+
+
+def mark(dev):
+    """A point in time: a CUDA event recorded on the current stream (read
+    later, without draining the card), or the host clock off the card."""
+    if dev.type != "cuda":
+        return time.perf_counter()
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def elapsed_ms(a, b) -> float:
+    """ms from mark ``a`` to mark ``b`` (waits for ``b`` on the card)."""
+    if isinstance(a, float):
+        return (b - a) * 1e3
+    b.synchronize()
+    return a.elapsed_time(b)
 
 
 @dataclasses.dataclass
@@ -57,6 +85,9 @@ class DataMesh:
     # {"data": (group, global ranks), "model": (...)}: this rank's column
     # and row, for a mesh with both axes above 1
     axes: dict = dataclasses.field(default_factory=dict)
+    # {kind: [(start mark, end mark), ...]} while a caller times the
+    # collectives (:meth:`timed`), else None
+    clock: dict = None
 
     @property
     def in_mesh(self) -> bool:
@@ -84,6 +115,17 @@ class DataMesh:
         if axis is None or self.axis_size(axis) == self.size:
             return self.group, list(range(self.size))
         return self.axes[axis]
+
+    @contextlib.contextmanager
+    def timed(self, kind: str):
+        """Record the time of the block under ``kind`` in :attr:`clock`
+        (nothing when the clock is off)."""
+        if self.clock is None:
+            yield
+            return
+        a = mark(self.device)
+        yield
+        self.clock.setdefault(kind, []).append((a, mark(self.device)))
 
     def _wire(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` as the backend moves it: on the card for NCCL, a host
@@ -155,6 +197,22 @@ class DataMesh:
         dist.all_gather(list(out.view(P, blk).unbind(0)), acc, group=group)
         return out[:n].view(t.shape).to(self.device)
 
+    def reduce_scatter_sum(self, t: torch.Tensor, axis) -> torch.Tensor:
+        """Block r of the rank-order sum over ``axis`` on rank r of it:
+        ``t`` is (P, n), row r this rank's term of block r.  Rank r adds
+        the rows it receives in rank order: the bits that
+        :meth:`all_reduce_sum` gives block r."""
+        P = self.axis_size(axis)
+        if P == 1:
+            return t[0]
+        w = self._wire(t)
+        parts = torch.empty_like(w)
+        dist.all_to_all_single(parts, w, group=self._group(axis)[0])
+        acc = parts[0]
+        for p in parts[1:]:
+            acc = acc + p
+        return acc.to(self.device)
+
     def all_to_all(self, t: torch.Tensor, axis, split_axis: int,
                    concat_axis: int) -> torch.Tensor:
         """JAX's ``all_to_all(t, axis, split_axis, concat_axis,
@@ -188,6 +246,134 @@ class DataMesh:
     def barrier(self) -> None:
         if self.size > 1:
             dist.barrier(group=self.group)
+
+
+# ---------------------------------------------------------------------------
+# Collectives that autograd differentiates (the training step's)
+# ---------------------------------------------------------------------------
+
+class _ModelSum(torch.autograd.Function):
+    """The rank-order sum over ``"model"``; its backward is the identity
+    (every rank of the axis holds the sum's gradient)."""
+
+    @staticmethod
+    def forward(ctx, mesh, t):
+        with mesh.timed("model_sum"):
+            return mesh.all_reduce_sum(t, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+class _ModelCopy(torch.autograd.Function):
+    """The identity on a tensor every rank of ``"model"`` holds alike and
+    uses for its own slice of the work (the input of a column-parallel
+    product); its backward is the rank-order sum of the ranks'
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, mesh, t):
+        ctx.mesh = mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        with ctx.mesh.timed("model_sum"):
+            return None, ctx.mesh.all_reduce_sum(g.contiguous(), "model")
+
+
+def model_sum(mesh, t: torch.Tensor) -> torch.Tensor:
+    """:meth:`DataMesh.all_reduce_sum` over ``"model"`` under autograd
+    (the same bits forward)."""
+    if mesh.shape["model"] == 1:
+        return t
+    return _ModelSum.apply(mesh, t)
+
+
+def model_copy(mesh, t: torch.Tensor) -> torch.Tensor:
+    """``t`` as it is, its gradient summed over ``"model"`` in rank
+    order."""
+    if mesh.shape["model"] == 1:
+        return t
+    return _ModelCopy.apply(mesh, t)
+
+
+class _DataGather(torch.autograd.Function):
+    """Whole tensors from the ranks' blocks along ``"data"`` (FSDP's
+    gather), several leaves in one collective.  A block with a dimension
+    (``dims``) is gathered tiled along it; its backward is the rank-order
+    reduce-scatter of the whole gradient, which hands rank r block r of
+    the sum.  A tensor with None every rank holds whole: forward the
+    identity, backward the rank-order all-reduce."""
+
+    @staticmethod
+    def forward(ctx, mesh, dims, *blocks):
+        ctx.mesh, ctx.dims = mesh, dims
+        ctx.shapes = [b.shape for b in blocks]
+        ctx.dtypes = [b.dtype for b in blocks]
+        cut = [b for b, d in zip(blocks, dims) if d is not None]
+        out = [b.view_as(b) for b in blocks]
+        if not cut:
+            return tuple(out)
+        with mesh.timed("data_gather"):
+            parts = mesh.all_gather_list(
+                torch.cat([b.reshape(-1) for b in cut]), "data")
+        off = 0
+        for i, (b, d) in enumerate(zip(blocks, dims)):
+            if d is None:
+                continue
+            n = b.numel()
+            out[i] = torch.cat([p[off:off + n].view(b.shape)
+                                for p in parts], dim=d)
+            off += n
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, dims = ctx.mesh, ctx.dims
+        D = mesh.shape["data"]
+        grads = [torch.zeros(s if d is None else _whole(s, d, D),
+                             dtype=t, device=mesh.device) if g is None
+                 else g for g, s, t, d in zip(grads, ctx.shapes, ctx.dtypes,
+                                              dims)]
+        out = [None] * len(grads)
+        cut = [i for i, d in enumerate(dims) if d is not None]
+        kept = [i for i, d in enumerate(dims) if d is None]
+        if cut:
+            rows = [torch.cat([grads[i].chunk(D, dim=dims[i])[r].reshape(-1)
+                               for i in cut]) for r in range(D)]
+            with mesh.timed("grad_reduce_scatter"):
+                mine = mesh.reduce_scatter_sum(torch.stack(rows), "data")
+            off = 0
+            for i in cut:
+                n = ctx.shapes[i].numel()
+                out[i] = mine[off:off + n].view(ctx.shapes[i])
+                off += n
+        if kept:
+            with mesh.timed("grad_all_reduce"):
+                flat = mesh.all_reduce_sum(
+                    torch.cat([grads[i].reshape(-1) for i in kept]), "data")
+            off = 0
+            for i in kept:
+                n = ctx.shapes[i].numel()
+                out[i] = flat[off:off + n].view(ctx.shapes[i])
+                off += n
+        return (None, None) + tuple(out)
+
+
+def _whole(shape, d: int, n: int) -> tuple:
+    return tuple(s * n if i == d else s for i, s in enumerate(shape))
+
+
+def gather_data(mesh, blocks: list, dims: list) -> list:
+    """The whole tensors of the rank's ``blocks`` over ``"data"``, each
+    gathered along its dimension in ``dims`` (None: held whole), in one
+    collective, under autograd (:class:`_DataGather`); the blocks
+    themselves on a data axis of one."""
+    if mesh.shape["data"] == 1:
+        return list(blocks)
+    return list(_DataGather.apply(mesh, tuple(dims), *blocks))
 
 
 def _local_device(device) -> torch.device:

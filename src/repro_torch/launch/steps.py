@@ -5,27 +5,33 @@
 JAX builds one jitted step over a ``(data, model)`` mesh, its parameters,
 moments and batch laid out by ``runtime/sharding.py``.  The port runs the
 step eagerly on each rank of a ``DataMesh`` (SPMD, one process a rank),
-or on the parameters' device alone when ``mesh`` is None.  On a mesh of
-P ranks a step:
+or on the parameters' device alone when ``mesh`` is None.  On a mesh a
+rank holds its blocks of the parameters, the gradients and both moments
+by JAX's training rules (``sharding.train_specs``: FSDP over ``"data"``,
+heads, ff and vocab over ``"model"``), and a step:
 
-1. takes the rank's contiguous block of the batch's rows (JAX's batch
-   sharding over ``"data"``), so rank r's rows are what one device's
-   microbatch r of P would be;
-2. sums its microbatches' gradients and losses in f32 in microbatch
-   order, from zero;
-3. adds the ranks' sums in rank order (``DataMesh.all_reduce_sum``) and
-   divides by the total microbatch count, a tensor;
-4. updates its blocks of the parameters and of the moments along each
-   leaf's FSDP dimension (``optim/adamw.py``), and all-gathers the blocks
-   so that every rank holds the whole parameters again.
+1. takes its data row's contiguous block of the batch's rows (JAX's
+   batch sharding over ``"data"``; the ranks of a row take the same
+   rows), so data row r's rows are what one device's microbatch r of D
+   would be;
+2. runs its microbatches in order through the sharded loss
+   (``make_model(cfg, mesh=)["loss"]``: each period's leaves gathered
+   over ``"data"`` just before it and dropped after, the blocks
+   tensor-parallel over ``"model"``); each gather's backward
+   reduce-scatters the leaves' gradients over ``"data"`` in rank order
+   as the backward reaches them, and autograd adds them into the rank's
+   f32 gradient blocks in microbatch order;
+3. adds the data rows' losses in rank order and divides the losses and
+   the gradients by the total microbatch count, a tensor;
+4. runs AdamW on its blocks (``optim/adamw.py``; the gradient norm
+   summed over both axes in a fixed order).
 
-So a step over P ranks with one microbatch each gives the bits of one
-device's step over P microbatches.  At rest the parameters are whole on
-every rank and ``m`` and ``v`` hold only the rank's blocks; JAX's FSDP
-also shards the parameters at rest and gathers them a layer at a time
-inside the step, which takes per-layer hooks in eager PyTorch, and
-tensor-parallel training is the same step's (ROADMAP Queue 1 item 7 step
-8b).
+Nothing whole is gathered after the step.  So a step over D data rows
+with one microbatch each gives the bits of one device's step over D
+microbatches at ``model`` = 1 (the norm's order does not depend on the
+mesh), and within f32 rounding at ``model`` > 1.  Whole leaves are
+gathered only for a save or a record (``convert.train_state_to_numpy(
+..., mesh=)``, ``sharding.gather_tree``).
 
 The serving steps run on every rank of a ``(data, model)`` mesh, each on
 its blocks: the weights by ``params_shardings(train=False)``, the batch
@@ -36,28 +42,32 @@ in the layouts of ``_out_tree_shardings``; ``sharding.block`` and
 """
 from __future__ import annotations
 
-import time
-
 import torch
 
+from repro_torch.launch.mesh import elapsed_ms
 from repro_torch.models.attention import kv_tp_repeat
 from repro_torch.models.factory import init_cache, make_model, param_shapes
-from repro_torch.models.lm import MESH_STEP, map_tree
-from repro_torch.optim.adamw import AdamWConfig, adamw_update, block_of
+from repro_torch.models.lm import MESH_STEP, check_mesh
+from repro_torch.optim.adamw import AdamWConfig, adamw_update
 from repro_torch.runtime import sharding as sh
 
-# the most f32 elements a collective of the step moves at once (256 MB),
-# which bounds the copies the sync holds beside the gradients
-SYNC_ELEMS = 1 << 26
+# the collectives a train step times (``train_step.sync_ms``)
+SYNC_KINDS = ("data_gather", "grad_reduce_scatter", "grad_all_reduce",
+              "model_sum", "grad_norm")
+
+
+def _data_size(mesh) -> int:
+    """The data axis's ranks (a mesh without a model axis: its size)."""
+    return mesh.size // getattr(mesh, "model", 1)
 
 
 def pick_microbatches(shape_cfg, *, mesh=None,
                       tokens_budget: int = 8192) -> int:
-    """The largest divisor of the per-rank batch (``global_batch //
-    mesh.size``, the whole batch without a mesh) that brings a
+    """The largest divisor of the per-rank batch (``global_batch`` over
+    the mesh's data axis, the whole batch without a mesh) that brings a
     microbatch's tokens under budget (activation memory is one
     microbatch's; gradients accumulate in f32 across microbatches)."""
-    dp_size = 1 if mesh is None else mesh.size
+    dp_size = 1 if mesh is None else _data_size(mesh)
     per_dev_batch = max(1, shape_cfg.global_batch // dp_size)
     target = max(1, per_dev_batch * shape_cfg.seq_len // tokens_budget)
     n = 1
@@ -82,177 +92,102 @@ def _split(batch: dict, n: int, i: int) -> dict:
 
 
 def rank_rows(batch: dict, mesh) -> dict:
-    """The mesh rank's block of every batch leaf's rows, by the batch's
-    partition specs; raises where a leaf's rows do not divide over the
-    mesh (JAX would replicate such a batch on every device)."""
+    """The rank's data row's block of every batch leaf's rows, by the
+    batch's partition specs over the DP axes; raises where a leaf's rows
+    do not divide over the data axis (JAX would replicate such a batch on
+    every device)."""
     rows = {t.shape[0] for t in batch.values()}
     if len(rows) != 1:
         raise ValueError(f"make_train_step: batch leaves of {sorted(rows)} "
                          "rows")
     B = rows.pop()
+    D = mesh.shape["data"]
     specs = sh.batch_shardings(batch, mesh.shape, global_batch=B)
     for name, spec in specs.items():
-        if sh.data_dim(spec) != 0:
+        if D > 1 and sh.data_dim(spec) != 0:
             raise ValueError(f"make_train_step: batch leaf {name!r} of {B} "
-                             f"rows does not divide over the mesh's "
-                             f"{mesh.size} ranks")
-    return _split(batch, mesh.size, mesh.rank)
-
-
-def _mark(dev):
-    """A point in the step's time: a CUDA event recorded on the current
-    stream (read after the step, without draining the card), or the host
-    clock on the CPU."""
-    if dev.type != "cuda":
-        return time.perf_counter()
-    ev = torch.cuda.Event(enable_timing=True)
-    ev.record()
-    return ev
-
-
-def _ms(a, b) -> float:
-    """ms from mark ``a`` to mark ``b`` (waits for ``b`` on the card)."""
-    if isinstance(a, float):
-        return (b - a) * 1e3
-    b.synchronize()
-    return a.elapsed_time(b)
-
-
-def all_reduce_flat(mesh, flat: torch.Tensor) -> None:
-    """``flat`` replaced in place by the rank-order sum over the mesh, in
-    pieces of at most ``SYNC_ELEMS`` (each element's sum is the same
-    whatever the pieces)."""
-    for lo in range(0, flat.numel(), SYNC_ELEMS):
-        piece = flat[lo:lo + SYNC_ELEMS]
-        piece.copy_(mesh.all_reduce_sum(piece))
-
-
-@torch.no_grad()
-def gather_blocks(mesh, params, blocks) -> None:
-    """Every rank's blocks written into the whole parameters, so that the
-    replicas are whole and equal again; the blocks go over the mesh in
-    buckets of whole leaves of at most ``SYNC_ELEMS`` elements a rank (a
-    larger leaf goes alone)."""
-    owned = [(p, blk) for p, blk in zip(params.parameters(), blocks)
-             if blk is not None]
-
-    def flush(bucket):
-        flat = torch.cat([block_of(p, blk).reshape(-1)
-                          for p, blk in bucket])
-        parts = mesh.all_gather_list(flat)
-        off = 0
-        for p, (d, _, b) in bucket:
-            shape = block_of(p, (d, 0, b)).shape
-            n = shape.numel()
-            for r, part in enumerate(parts):
-                p.narrow(d, r * b, b).copy_(part[off:off + n].view(shape))
-            off += n
-
-    bucket, size = [], 0
-    for p, blk in owned:
-        n = block_of(p, blk).numel()
-        if bucket and size + n > SYNC_ELEMS:
-            flush(bucket)
-            bucket, size = [], 0
-        bucket.append((p, blk))
-        size += n
-    if bucket:
-        flush(bucket)
-
-
-def gather_moments(mesh, params, moments, cfg):
-    """A module tree of ``moments`` (the rank's blocks, paired with
-    ``params``) gathered into whole leaves over the mesh, along each
-    leaf's FSDP dimension (``sharding.owned_blocks``); every rank of the
-    mesh must call it."""
-    blocks = dict(zip(map(id, moments.parameters()),
-                      sh.owned_blocks(params, cfg, mesh)))
-
-    def whole(m):
-        if blocks[id(m)] is None:
-            return m.detach()
-        return torch.cat(mesh.all_gather_list(m.detach()),
-                         dim=blocks[id(m)][0])
-
-    return map_tree(whole, moments)
+                             f"rows does not divide over the mesh's {D} "
+                             "data ranks")
+    return _split(batch, D, mesh.axis_index("data"))
 
 
 def make_train_step(cfg, shape_cfg, *, mesh=None,
                     opt_cfg: AdamWConfig = None, microbatches: int = 0):
     """The step ``train_step(params, opt_state, batch) -> (params,
     opt_state, loss)``: the mean loss and gradients over ``microbatches``
-    microbatches a rank (0: :func:`pick_microbatches`), summed in f32 in
+    microbatches a rank (0: :func:`pick_microbatches`), added in
     microbatch order and divided by their count, then one AdamW step, as
     JAX's step.  It turns the parameters' gradients on, updates them and
     the moments in place (``adamw_update``) and returns a 0-d f32 loss.
-    One body serves both cases: without a mesh it skips the rank's rows,
-    the all-reduce and the gather, and updates every leaf whole.
+    One body serves every mesh and none: without a mesh it takes every
+    row and gathers nothing.
 
-    With a ``mesh`` (a ``DataMesh``), ``batch`` is the global batch, which
-    every rank holds; ``opt_state`` holds the rank's blocks
-    (``adamw_init(params, sharding.owned_blocks(params, cfg, mesh))``);
+    With a ``mesh`` (a ``DataMesh``, any ``(data, model)`` shape the
+    config's heads divide; the recurrent blocks and the encoder-decoder
+    at ``model`` = 1 only), ``batch`` is the global batch, which every
+    rank holds; ``params`` and ``opt_state`` hold the rank's training
+    blocks (``init_lm(..., train=True)`` or
+    ``convert.lm_params_from_numpy(..., train=True)``; ``adamw_init``);
     the loss is the global mean, the same bits on every rank.
-    ``train_step.sync_ms()`` gives the last step's ``grad_all_reduce``
-    and ``param_gather`` ms, timed by CUDA events on the card, so the
-    step itself never waits for the card."""
+    ``train_step.sync_ms()`` gives the last step's collectives by kind
+    (:data:`SYNC_KINDS`: the ``"data"`` gathers, the gradients'
+    reduce-scatters and all-reduces over ``"data"``, the ``"model"``
+    sums and the gradient norm's), timed by CUDA events on the card, so
+    the step itself never waits for the card."""
     opt_cfg = opt_cfg or AdamWConfig()
-    loss_fn = make_model(cfg)["loss"]
+    if mesh is not None:
+        if not mesh.in_mesh:
+            raise ValueError("make_train_step: this rank is outside the "
+                             "mesh")
+        check_mesh(cfg, mesh)
+    loss_fn = make_model(cfg, mesh=mesh)["loss"]
     n_micro = microbatches or pick_microbatches(shape_cfg, mesh=mesh)
-    if mesh is not None and not mesh.in_mesh:
-        raise ValueError("make_train_step: this rank is outside the mesh")
-
-    def grads_of(params, plist, batch):
-        loss = loss_fn(params, batch)
-        gs = torch.autograd.grad(loss, plist, allow_unused=True)
-        return loss.detach(), [torch.zeros_like(p) if g is None else g
-                               for p, g in zip(plist, gs)]
-
-    blocks = None      # sharding.owned_blocks, made at the first step
-    marks = []
+    D = 1 if mesh is None else mesh.shape["data"]
+    clock = {}
 
     def train_step(params, opt_state, batch):
-        nonlocal blocks
         params.requires_grad_(True)
         plist = list(params.parameters())
         dev = plist[0].device
-        if mesh is not None and blocks is None:
-            blocks = sh.owned_blocks(params, cfg, mesh)
+        if mesh is not None:
+            mesh.clock = {}
         local = batch if mesh is None else rank_rows(batch, mesh)
-        # the gradients and the loss in one flat f32 buffer, summed from
-        # zero in microbatch order
-        sizes = [p.numel() for p in plist]
-        flat = torch.zeros(sum(sizes) + 1, dtype=torch.float32, device=dev)
+        lsum = torch.zeros((), dtype=torch.float32, device=dev)
+        for p in plist:
+            p.grad = None
         for i in range(n_micro):
-            loss_i, g = grads_of(params, plist, _split(local, n_micro, i))
-            for acc, gi in zip(flat[:-1].split(sizes), g):
-                acc.add_(gi.reshape(-1).float())
-            flat[-1].add_(loss_i)
-            del g
-        marks[:] = [_mark(dev)]
+            loss_i = loss_fn(params, _split(local, n_micro, i))
+            loss_i.backward()
+            lsum = lsum + loss_i.detach()
+        denom = torch.tensor(float(n_micro * D), dtype=torch.float32,
+                             device=dev)
+        specs = None
         if mesh is not None:
-            all_reduce_flat(mesh, flat)
-        marks.append(_mark(dev))
-        flat.div_(torch.tensor(float(n_micro * n_ranks),
-                               dtype=torch.float32, device=dev))
-        loss = flat[-1].clone()
-        grads = [v.view(p.shape) for v, p in
-                 zip(flat[:-1].split(sizes), plist)]
-        params, opt_state, _ = adamw_update(opt_cfg, params, grads,
-                                            opt_state, blocks=blocks)
-        del grads, flat
-        marks.append(_mark(dev))
+            with mesh.timed("grad_all_reduce"):
+                lsum = mesh.all_reduce_sum(lsum, "data")
+            table = sh.train_specs(cfg, mesh.shape)
+            specs = [table[n][1] for n, _ in params.named_parameters()]
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in plist]
+        for p, g in zip(plist, grads):
+            p.grad = None
+            g.div_(denom)
+        _, opt_state, _ = adamw_update(opt_cfg, params, grads, opt_state,
+                                       mesh=mesh, specs=specs)
+        del grads
         if mesh is not None:
-            gather_blocks(mesh, params, blocks)
-        marks.append(_mark(dev))
-        return params, opt_state, loss
+            clock.clear()
+            clock.update(mesh.clock)
+            mesh.clock = None
+        return params, opt_state, lsum / denom
 
     def sync_ms() -> dict:
-        """ms of the last step's ``grad_all_reduce`` and ``param_gather``
-        (0 without a mesh), read when asked: CUDA events on the card."""
-        return {"grad_all_reduce": _ms(*marks[:2]),
-                "param_gather": _ms(*marks[2:])}
+        """ms of the last step's collectives by kind (0 where none ran),
+        read when asked: CUDA events on the card; ``grad_all_reduce``
+        includes the loss's sum."""
+        return {k: sum(elapsed_ms(a, b) for a, b in clock.get(k, ()))
+                for k in SYNC_KINDS}
 
-    n_ranks = 1 if mesh is None else mesh.size
     train_step.microbatches = n_micro
     train_step.sync_ms = sync_ms
     return train_step
@@ -422,13 +357,11 @@ def decode_cache(cfg, mesh, shape_cfg, cache, layout, *,
 
 
 def make_step(cfg, mesh, shape_cfg):
-    """The step of ``shape_cfg.kind``: the sharded trainer at ``model`` =
-    1 (tensor-parallel training is ROADMAP's next step), the prefill or
-    decode step otherwise."""
+    """The step of ``shape_cfg.kind``: the sharded trainer (tensor-parallel
+    at ``model`` > 1 for the attention decoders; the recurrent blocks and
+    the encoder-decoder raise there, naming ``MESH_STEP``), the prefill
+    or decode step otherwise."""
     if shape_cfg.kind == "train":
-        if mesh.shape["model"] > 1:
-            raise ValueError(f"make_step: training at model="
-                             f"{mesh.shape['model']} is {MESH_STEP}")
         return make_train_step(cfg, shape_cfg, mesh=mesh)
     if shape_cfg.kind == "prefill":
         return make_prefill_step(cfg, mesh, shape_cfg)

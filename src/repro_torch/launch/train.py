@@ -1,5 +1,5 @@
 """Training driver: --arch <id> --steps N [--no-resume]
-[--production-mesh] — the JAX package's ``launch/train.py``.
+[--production-mesh [--mesh D M]] — the JAX package's ``launch/train.py``.
 
 Wires: model factory -> train step (``launch/steps.py``: microbatched
 gradients, AdamW) -> checkpoint manager (atomic, rotating, auto-resume;
@@ -11,12 +11,15 @@ card unless ``device="cpu"`` (the plain versions of the kernels).
 ``production=True`` trains data-parallel over ``make_data_mesh()``,
 every rank of the process group (``torchrun --nproc_per_node=P``; with no
 group, a world of one), the counterpart of the data axis of JAX's pod
-mesh: each rank takes its block of the batch's rows and its blocks of
-the moments (``launch/steps.py``), the parameters stay whole on every
-rank.  Every rank joins the gather of the moments at a save, and mesh
-rank 0 writes the checkpoint, which holds whole leaves in JAX's layout;
-every rank resumes through ``resume(shardings=)``, so a run saved at any
-world resumes at any other.
+mesh (its production mesh is ROADMAP's step 9): each rank takes its
+block of the batch's rows and holds its blocks of the parameters and the
+moments at rest, by JAX's FSDP rules (``launch/steps.py``).  Every rank
+joins the gather of the state at a save, and mesh rank 0 writes the
+checkpoint, which holds whole leaves in JAX's layout; every rank resumes
+its blocks through ``resume(shardings=)``, so a run saved at any world
+resumes at any other.  ``mesh_shape=(D, M)`` trains on ``make_host_mesh(D,
+M)`` instead: the same, with heads, ff and vocab over ``"model"`` (the
+attention decoders; README).
 
 Preemption: a SIGTERM is held until the step in flight ends; the loop
 then saves the step it has reached, ``step + 1`` (unless the cadence just
@@ -45,9 +48,10 @@ from repro_torch.convert import (lm_params_from_numpy, opt_state_from_numpy,
                                  train_state_to_numpy)
 from repro_torch.core.largevis import resolve_device, seeded_generator
 from repro_torch.data.synthetic import token_batch
-from repro_torch.launch.mesh import make_data_mesh
-from repro_torch.launch.steps import gather_moments, make_train_step
+from repro_torch.launch.mesh import make_data_mesh, make_host_mesh
+from repro_torch.launch.steps import make_train_step
 from repro_torch.models.factory import make_model
+from repro_torch.models.lm import init_lm
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
 from repro_torch.runtime import sharding as sh
 from repro_torch.runtime.fault_tolerance import PreemptionGuard, Watchdog
@@ -56,23 +60,21 @@ from repro_torch.runtime.fault_tolerance import PreemptionGuard, Watchdog
 def state_shardings(shapes: dict, mesh) -> dict:
     """The ``(mesh, spec)`` tree of a train checkpoint whose leaves have
     ``shapes`` (``checkpointer.shapes``), for ``resume(shardings=)``: the
-    parameters and the step whole, each moment by its parameter's
-    training spec, JAX's ``params_shardings`` (a leaf under ``blocks/``
-    or a layer list stacked)."""
-    def walk(tree, path, moment):
+    step whole, each parameter and moment by the parameter's training
+    spec on the mesh's axes, JAX's ``params_shardings(train=True)`` (a
+    leaf under ``blocks/`` or a layer list stacked)."""
+    def walk(tree, path):
         if isinstance(tree, dict):
-            return {k: walk(v, path + (k,), moment) for k, v in tree.items()}
-        if not moment:
-            return mesh, (None,) * len(tree)
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
         s = "/".join(path)
         return mesh, sh.param_pspec(s, tree, mesh.shape, train=True,
                                     stacked="blocks/" in s or
                                     "_layers/" in s)
 
     opt = shapes["opt"]
-    return {"params": walk(shapes["params"], (), False),
-            "opt": {"m": walk(opt["m"], (), True),
-                    "v": walk(opt["v"], (), True), "step": (mesh, ())}}
+    return {"params": walk(shapes["params"], ()),
+            "opt": {"m": walk(opt["m"], ()), "v": walk(opt["v"], ()),
+                    "step": (mesh, ())}}
 
 
 def _agree(mesh, flag: bool, dev) -> bool:
@@ -87,7 +89,7 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
           ckpt_dir: str = None, save_every: int = 20, resume: bool = True,
           reduced: bool = True, production: bool = False, seed: int = 0,
           log_every: int = 10, microbatches: int = 1, device="cuda",
-          opt_cfg: AdamWConfig = None):
+          opt_cfg: AdamWConfig = None, mesh_shape: tuple = None):
     """Train ``arch`` for ``steps`` steps on the synthetic Markov stream;
     returns (params, opt_state, [(step, loss), ...]) of the steps this call
     ran.  ``ckpt_dir`` defaults to ``$TMPDIR/repro_ckpt``; ``microbatches``
@@ -95,7 +97,8 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
     defaults to JAX's ``AdamWConfig()``, whose 100-step warmup moves a
     full-width model's loss very little in a few steps.  Under
     ``production`` every rank of the world calls it alike and gets the
-    same losses and parameters; its ``opt_state`` holds its blocks."""
+    same losses; its ``params`` and ``opt_state`` hold its blocks (on the
+    ``(data, model)`` mesh of ``mesh_shape`` where given)."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -104,8 +107,12 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
                          "batches, which the token stream does not make "
                          "(call make_train_step with them)")
     dev = resolve_device(device)
-    mesh = make_data_mesh(0, device=dev) if production else None
-    if mesh is not None:
+    if mesh_shape is not None and not production:
+        raise ValueError("train: mesh_shape= takes production=True")
+    mesh = None
+    if production:
+        mesh = make_data_mesh(0, device=dev) if mesh_shape is None else \
+            make_host_mesh(*mesh_shape, device=dev)
         dev = mesh.device
     writer = mesh is None or mesh.rank == 0
     step_fn = make_train_step(cfg, ShapeConfig("custom", "train", seq, batch),
@@ -119,13 +126,14 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
     last = ckpt.latest_step(mgr.directory) if resume else None
     if last is not None and mesh is None:
         state, start = mgr.resume()
-    elif last is not None:      # every rank its blocks of the moments
+    elif last is not None:      # every rank its blocks of the state
         state, start = mgr.resume(shardings=state_shardings(
             ckpt.shapes(mgr.directory, last), mesh))
     if state is None:
-        params = make_model(cfg)["init"](seeded_generator(dev, seed))
-        opt_state = adamw_init(params, sh.owned_blocks(params, cfg, mesh)
-                               if mesh else None)
+        gen = seeded_generator(dev, seed)
+        params = make_model(cfg)["init"](gen) if mesh is None else \
+            init_lm(gen, cfg, mesh=mesh, train=True)
+        opt_state = adamw_init(params)
     else:
         params = lm_params_from_numpy(state["params"], cfg, dev)
         opt_state = opt_state_from_numpy(state["opt"], cfg, dev)
@@ -136,14 +144,10 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
 
     def tree():
         """The train state in JAX's layout: on a mesh of ranks every rank
-        joins the gather of the moments, and only mesh rank 0 (which
-        writes) takes host copies."""
-        st = opt_state
-        if mesh is not None and mesh.size > 1:
-            st = dict(opt_state, **{k: gather_moments(mesh, params,
-                                                      opt_state[k], cfg)
-                                    for k in ("m", "v")})
-        return train_state_to_numpy(params, st, cfg) if writer else None
+        joins the gathers, and only mesh rank 0 (which writes) keeps the
+        tree."""
+        st = train_state_to_numpy(params, opt_state, cfg, mesh=mesh)
+        return st if writer else None
 
     losses = []
     try:
@@ -194,6 +198,9 @@ def main():
     ap.add_argument("--production-mesh", action="store_true",
                     help="data-parallel over every rank of the world "
                     "(torchrun --nproc_per_node=P)")
+    ap.add_argument("--mesh", type=int, nargs=2, default=None,
+                    metavar=("D", "M"), help="with --production-mesh: a "
+                    "(data, model) mesh of D x M ranks")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     group = args.production_mesh and "WORLD_SIZE" in os.environ
@@ -208,7 +215,8 @@ def main():
         train(args.arch, steps=args.steps, batch=args.batch, seq=args.seq,
               ckpt_dir=args.ckpt_dir, save_every=args.save_every,
               resume=not args.no_resume, reduced=not args.full_config,
-              production=args.production_mesh, device=args.device)
+              production=args.production_mesh, device=args.device,
+              mesh_shape=args.mesh)
     finally:
         if group:
             dist.destroy_process_group()

@@ -22,7 +22,8 @@ buffer ``attention_prefill`` leaves behind).  KV heads may be replicated
 (``kv_repeat``) and the cache stored in int8 with per-(token, head)
 scales (``kv_quant``); decode infers both from the cache it is given.
 With a ``(data, model)`` mesh (``mesh=``) the prefill and decode run on
-a rank's heads and its block of JAX's sharded cache layouts; with
+a rank's heads and its block of JAX's sharded cache layouts, and the
+training forward (``attention_fwd``) on its heads under autograd; with
 ``mesh=None`` they run on one device.
 """
 from __future__ import annotations
@@ -32,6 +33,7 @@ import math
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import model_copy, model_sum
 from repro_torch.models.layers import (apply_rope, dense_init,
                                        init_rmsnorm, rmsnorm)
 
@@ -274,16 +276,49 @@ def _window_for(cfg, kind: str) -> int:
     return cfg.sliding_window if kind == "local" else 0
 
 
-def attention_fwd(params, x, cfg, *, kind="attn", causal=True, impl="auto"):
+def attention_fwd(params, x, cfg, *, kind="attn", causal=True, impl="auto",
+                  mesh=None):
     """Self-attention over a whole sequence, no cache (the
     encoder-decoder's encoder runs it non-causal, ``impl="full"``).
-    x: (B,S,d) -> (B,S,d)."""
+    x: (B,S,d) -> (B,S,d).
+
+    On a rank of a ``(data, model)`` ``mesh`` (the training forward, the
+    weights the rank's training blocks gathered over ``"data"``): the
+    rank's query heads attend over the kv heads they read, its own where
+    the kv heads shard over ``"model"``, picked by global index from the
+    whole kv projection where they do not (:func:`attention_prefill`'s
+    rule); the flash kernels run on those heads.  ``x``, and each weight
+    every rank holds whole but uses only for its own heads (the whole
+    ``wk``/``wv``/``bk``/``bv``, the QK-norm scales), take their
+    gradients summed over ``"model"`` (``model_copy``); ``wo`` is
+    row-parallel, followed by the ``"model"`` sum."""
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
-    q, k, v = _project_qkv(params, x, cfg, positions, _theta_for(cfg, kind))
-    o = attend(q, k, v, causal=causal, window=_window_for(cfg, kind),
-               impl=impl)
-    return _out_proj(o, params["wo"])
+    M, m = _model_rank(mesh)
+    window = _window_for(cfg, kind)
+    if M == 1:
+        q, k, v = _project_qkv(params, x, cfg, positions,
+                               _theta_for(cfg, kind))
+        o = attend(q, k, v, causal=causal, window=window, impl=impl)
+        return _out_proj(o, params["wo"])
+    H, KVH = cfg.n_heads, cfg.n_kv_heads
+    check_mesh_heads(cfg, M)
+    kv_local = params["wk"].shape[1] < KVH
+    p = dict(params)
+    for name in ("wk", "wv", "bk", "bv"):
+        if name in p and not kv_local:
+            p[name] = model_copy(mesh, p[name])
+    for name in ("qnorm", "knorm"):
+        if name in p:
+            p[name] = {"scale": model_copy(mesh, p[name]["scale"])}
+    q, k, v = _project_qkv(p, model_copy(mesh, x), cfg, positions,
+                           _theta_for(cfg, kind))
+    n_q = q.shape[2]
+    if not kv_local:
+        k = _kv_for_heads(k, m * n_q, n_q, H // KVH)
+        v = _kv_for_heads(v, m * n_q, n_q, H // KVH)
+    o = attend(q, k, v, causal=causal, window=window, impl=impl)
+    return model_sum(mesh, _out_proj(o, params["wo"]))
 
 
 def check_mesh_heads(cfg, model_axis: int) -> None:
@@ -365,7 +400,7 @@ def attention_prefill(params, x, cfg, *, kind="attn", impl="auto",
     o = attend(q, ka, va, causal=True, window=window, impl=impl)
     out = _out_proj(o, params["wo"])
     if params["wo"].shape[0] < H:
-        out = mesh.all_reduce_sum(out, "model")
+        out = model_sum(mesh, out)
     if kv_repeat > 1:
         k = k.repeat_interleave(kv_repeat, dim=2)
         v = v.repeat_interleave(kv_repeat, dim=2)

@@ -23,7 +23,11 @@ share of a ``(data, model)`` mesh (``launch/mesh.py``): its blocks of the
 weights, its rows and its blocks of the cache (``models/lm.py``).  A
 decoder's prefill then takes ``seq_parallel`` and its decode ``sp_len``
 for a batch that does not cover ``"data"``; the encoder-decoder runs
-batch-sharded at ``model`` = 1.
+batch-sharded at ``model`` = 1.  Its ``loss`` is the sharded loss, on
+the rank's rows and its training blocks (``init(generator, train=True)``,
+JAX's training rules): a decoder's gathers a period at a time
+(``lm.lm_loss(mesh=)``), the encoder-decoder's (at ``model`` = 1)
+gathers its whole tree once.
 """
 from __future__ import annotations
 
@@ -48,8 +52,10 @@ def make_model(cfg, *, kv_repeat: int = 1, kv_quant: bool = False,
     lm.check_mesh(cfg, mesh)
     if mesh is not None:
         if cfg.is_encoder_decoder:      # at model 1: the rank's rows
-            return make_model(cfg)
+            return dict(make_model(cfg), loss=functools.partial(
+                _encdec_loss, cfg=cfg, mesh=mesh))
         return {"init": functools.partial(lm.init_lm, cfg=cfg, mesh=mesh),
+                "loss": functools.partial(_loss, cfg=cfg, mesh=mesh),
                 "prefill": functools.partial(_prefill, cfg=cfg,
                                              kv_repeat=kv_repeat,
                                              kv_quant=kv_quant, mesh=mesh),
@@ -71,11 +77,15 @@ def _init(generator, *, cfg):
     return lm.init_lm(generator, cfg)
 
 
-def _loss(params, batch, *, cfg):
-    return lm.lm_loss(params, cfg, batch["tokens"], batch["labels"])
+def _loss(params, batch, *, cfg, mesh=None):
+    return lm.lm_loss(params, cfg, batch["tokens"], batch["labels"],
+                      mesh=mesh)
 
 
-def _encdec_loss(params, batch, *, cfg):
+def _encdec_loss(params, batch, *, cfg, mesh=None):
+    if mesh is not None:
+        params, = lm.gathered(mesh, sh.train_specs(cfg, mesh.shape),
+                              [("", params)])
     return encdec.encdec_loss(params, cfg, batch["tokens"], batch["labels"],
                               batch["encoder_frames"])
 

@@ -11,7 +11,9 @@ On a ``(data, model)`` mesh a rank holds its blocks of the weights
 vocab-parallel table, :func:`mlp_sharded` runs the column- and
 row-parallel MLP, both followed by the ``"model"`` sum, and
 :func:`unembed` on a rank's rows of the table gives its vocab shard of the
-logits.
+logits, from which :func:`cross_entropy_sharded` takes the training loss.
+The sums are ``launch/mesh.py``'s differentiable ones (``model_sum``,
+``model_copy``), so the same code serves and trains.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.launch.mesh import model_copy, model_sum
 
 
 # ---------------------------------------------------------------------------
@@ -151,13 +155,14 @@ def mlp_sharded(params, x: torch.Tensor, mlp_type: str, d_ff: int,
     ``b_up``) and its rows of ``w_down``, the partial outputs summed over
     ``"model"`` in rank order; a replicated ``b_down`` is added once,
     after the sum.  Weights whose ff does not divide the model axis are
-    whole, and then nothing is summed."""
+    whole, and then nothing is summed.  Under autograd ``x``'s gradient
+    is summed over ``"model"`` (``model_copy``)."""
     w_in = params["w_gate" if "w_gate" in params else "w_up"]
     if w_in.shape[1] == d_ff:
         return mlp(params, x, mlp_type)
-    out = mlp({k: w for k, w in params.items() if k != "b_down"}, x,
-              mlp_type)
-    out = mesh.all_reduce_sum(out, "model")
+    out = mlp({k: w for k, w in params.items() if k != "b_down"},
+              model_copy(mesh, x), mlp_type)
+    out = model_sum(mesh, out)
     if "b_down" in params:
         out = out + params["b_down"].to(x.dtype)
     return out
@@ -195,7 +200,7 @@ def embed_sharded(params, tokens: torch.Tensor, dtype, vocab: int,
     rows = table[ids.clamp(0, v_loc - 1)].to(dtype)
     x = torch.where(inside[..., None], rows,
                     torch.zeros((), dtype=dtype, device=rows.device))
-    return mesh.all_reduce_sum(x, "model")
+    return model_sum(mesh, x)
 
 
 def unembed(params, x: torch.Tensor, table: torch.Tensor = None):
@@ -214,6 +219,33 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse.square()
+    return loss.mean()
+
+
+def cross_entropy_sharded(logits: torch.Tensor, labels: torch.Tensor, mesh,
+                          z_loss: float = 1e-4) -> torch.Tensor:
+    """:func:`cross_entropy` of vocab-parallel logits: ``logits`` is the
+    rank's shard (columns ``[m V/M, (m+1) V/M)``), never gathered.  The
+    row max is the max over ``"model"`` (exact, and held out of the
+    gradient, as a log-sum-exp's is); each rank's sum of exponentials is
+    added over ``"model"`` in rank order; the label's logit comes from
+    the rank that holds it, added over ``"model"`` as one nonzero term.
+    Every rank of the axis gets the same bits."""
+    logits = logits.float()
+    v_loc = logits.shape[-1]
+    mx = logits.detach().amax(dim=-1)
+    with mesh.timed("model_sum"):
+        for other in mesh.all_gather_list(mx, "model"):
+            mx = torch.maximum(mx, other)
+    s = model_sum(mesh, torch.exp(logits - mx[..., None]).sum(dim=-1))
+    lse = mx + torch.log(s)
+    ids = labels.long() - mesh.axis_index("model") * v_loc
+    inside = (ids >= 0) & (ids < v_loc)
+    ll = torch.gather(logits, -1, ids.clamp(0, v_loc - 1)[..., None])[..., 0]
+    ll = model_sum(mesh, torch.where(inside, ll, torch.zeros_like(ll)))
     loss = lse - ll
     if z_loss:
         loss = loss + z_loss * lse.square()

@@ -34,10 +34,24 @@ batch: ``lm_prefill`` and ``lm_decode`` run the vocab-parallel embedding,
 the rank's heads and ff slices with their ``"model"`` sums, the
 expert-parallel MoE, and return the rank's vocab shard of the logits.  A
 batch that does not cover ``"data"`` is sequence-parallel: every rank
-holds all rows, and the attention caches their sequence blocks.  The
-recurrent blocks and the encoder-decoder run at ``model`` = 1 only
-(:func:`check_mesh`).  With ``mesh=None`` the path is the one-device
-path.
+holds all rows, and the attention caches their sequence blocks.
+
+Training on a mesh (``lm_loss(..., mesh=)``), a rank holds its blocks by
+JAX's training rules (``init_lm(..., train=True)``: FSDP over
+``"data"``, heads, ff and vocab over ``"model"``, experts whole).  The
+embedding's leaves are gathered over ``"data"`` before the lookup, each
+period's just before the period (kept for its recompute under ``remat``,
+so a period is gathered once a microbatch), the final norm's and the
+head's after the last; each gather is one collective whose backward
+reduce-scatters the gradients in rank order
+(``launch/mesh.gather_data``).  The blocks run tensor-parallel
+under autograd: ``model_copy`` where a replicated activation enters the
+rank's slice of the work, ``model_sum`` after a row-parallel product,
+and the loss is the vocab-parallel cross-entropy
+(``layers.cross_entropy_sharded``): the rank's logits are never
+gathered.  The recurrent blocks and the encoder-decoder run at
+``model`` = 1 only (:func:`check_mesh`).  With ``mesh=None`` the path is
+the one-device path.
 """
 from __future__ import annotations
 
@@ -45,13 +59,14 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch.mesh import gather_data, model_copy
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm, xlstm
-from repro_torch.models.layers import (cross_entropy, embed, embed_sharded,
-                                       init_embedding, init_mlp,
-                                       init_rmsnorm, mlp, mlp_sharded,
-                                       rmsnorm, unembed)
+from repro_torch.models.layers import (cross_entropy, cross_entropy_sharded,
+                                       embed, embed_sharded, init_embedding,
+                                       init_mlp, init_rmsnorm, mlp,
+                                       mlp_sharded, rmsnorm, unembed)
 from repro_torch.runtime import sharding as sh
 
 ATTN_KINDS = ("attn", "local", "global")
@@ -78,9 +93,10 @@ MESH_STEP = "ROADMAP Queue 1 item 7 step 8b"
 
 
 def check_mesh(cfg, mesh) -> None:
-    """Raise for what the sharded serving path does not run: at ``model``
-    > 1 the mamba and xLSTM blocks and the encoder-decoder (JAX shards
-    their inner dimensions over ``"model"``; the port's next step)."""
+    """Raise for what the sharded serving and training paths do not run:
+    at ``model`` > 1 the mamba and xLSTM blocks and the encoder-decoder
+    (JAX shards their inner dimensions over ``"model"``; ROADMAP's step
+    8b)."""
     if mesh is None or mesh.shape["model"] == 1:
         return
     kinds = sorted(set(cfg.block_pattern) - set(ATTN_KINDS))
@@ -191,19 +207,21 @@ def init_block(generator, cfg, p: int) -> dict:
     return params
 
 
-def init_lm(generator: torch.Generator, cfg, mesh=None) -> nn.ModuleDict:
+def init_lm(generator: torch.Generator, cfg, mesh=None, *,
+            train: bool = False) -> nn.ModuleDict:
     """Random f32 master weights on ``generator.device``, with the JAX
     init's distributions (not its numbers: the generators differ).  With
     a ``mesh``, the rank's blocks of the same weights (JAX's inference
-    rules), each cut as soon as its block is drawn: a rank holds one
-    whole block at most beside its own blocks."""
+    rules, or its training rules under ``train``), each cut as soon as its
+    block is drawn: a rank holds one whole block at most beside its own
+    blocks."""
     check_supported(cfg)
     check_mesh(cfg, mesh)
     P = len(cfg.block_pattern)
 
     def cut(tree, prefix):
         return tree if mesh is None else \
-            sh.blocks_of(tree, mesh, prefix, stacked=False)
+            sh.blocks_of(tree, mesh, prefix, stacked=False, train=train)
 
     tree = {"embed": cut(init_embedding(generator, cfg.vocab_size,
                                         cfg.d_model), "embed"),
@@ -231,19 +249,18 @@ def apply_block(cfg, p: int, params, x, *, mode: str, cache=None,
     attention decode writes the cache in place and returns it; a
     recurrent decode returns new states (``lm_decode`` copies them in).
 
-    With a ``mesh`` (serving only) the block is the rank's share: the
-    recurrent blocks (at ``model`` = 1) run on the rank's rows as on one
-    device; attention runs on the rank's heads and its cache blocks
-    (``sp_len`` marks a sequence-parallel prefill or decode), the MLP
-    column- then row-parallel, the MoE expert-parallel
-    (``moe.moe_apply_sharded``)."""
+    With a ``mesh`` the block is the rank's share: the recurrent blocks
+    (at ``model`` = 1) run on the rank's rows as on one device; attention
+    runs on the rank's heads (and its cache blocks when serving:
+    ``sp_len`` marks a sequence-parallel prefill or decode), the MLP
+    column- then row-parallel; the MoE is expert-parallel when serving
+    (``moe.moe_apply_sharded``) and, in the training forward, runs every
+    expert on the rank's ff slice (``moe.moe_apply_tp``).  In training the
+    weights are the period's gathered leaves (:func:`lm_loss`)."""
     kind = cfg.block_pattern[p]
     if mode not in ("fwd", "prefill", "decode"):
         raise ValueError(f"apply_block: mode {mode!r}, expected fwd|"
                          "prefill|decode")
-    if mesh is not None and mode == "fwd":
-        raise ValueError("apply_block: the training forward runs on one "
-                         f"device or a data mesh; with a mesh, {MESH_STEP}")
     aux = 0.0
     new_cache = None
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
@@ -265,7 +282,7 @@ def apply_block(cfg, p: int, params, x, *, mode: str, cache=None,
             a, new_cache = ssm.mamba_decode(params["mamba"], h, cfg, cache)
     elif mode == "fwd":
         a = attn.attention_fwd(params["attn"], h, cfg, kind=kind,
-                               impl=attn_impl)
+                               impl=attn_impl, mesh=mesh)
     elif mode == "prefill":
         a, new_cache = attn.attention_prefill(
             params["attn"], h, cfg, kind=kind, impl=attn_impl,
@@ -277,11 +294,11 @@ def apply_block(cfg, p: int, params, x, *, mode: str, cache=None,
                                              sp_len=sp_len)
     x = x + a
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    if "moe" in params and mesh is not None:
+    if "moe" in params and mesh is not None and mode != "fwd":
         m, _ = moe_lib.moe_apply_sharded(params["moe"], h, cfg, mesh,
                                          batch_first=sp_len is None)
     elif "moe" in params:
-        m, moe_aux = moe_lib.moe_apply(params["moe"], h, cfg)
+        m, moe_aux = moe_lib.moe_apply_tp(params["moe"], h, cfg, mesh)
         if mode == "fwd":
             aux = moe_aux
     elif mesh is not None:
@@ -295,12 +312,12 @@ def apply_block(cfg, p: int, params, x, *, mode: str, cache=None,
 # Full stacks
 # ---------------------------------------------------------------------------
 
-def _embed_in(params, cfg, tokens, mesh=None):
+def _embed_in(emb, cfg, tokens, mesh=None):
+    """The embedding ``emb`` (``params["embed"]``) of ``tokens``."""
     if mesh is not None and mesh.shape["model"] > 1:
-        x = embed_sharded(params["embed"], tokens, cfg.dtype,
-                          cfg.vocab_size, mesh)
+        x = embed_sharded(emb, tokens, cfg.dtype, cfg.vocab_size, mesh)
     else:
-        x = embed(params["embed"], tokens, cfg.dtype)
+        x = embed(emb, tokens, cfg.dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype,
                              device=x.device)
@@ -313,48 +330,110 @@ def _logits(params, cfg, x):
     return unembed({}, x, table=table)
 
 
-def _period(cfg, blocks, x, attn_impl: str):
-    """One period's blocks in the training forward: (x, summed aux)."""
+def gathered(mesh, specs, items: list) -> list:
+    """The modules of ``items`` (``(name prefix, module)`` pairs; the
+    prefix "" for a whole tree) with their leaves gathered whole over
+    ``"data"`` in one collective (``launch/mesh.gather_data``, under
+    autograd), each as a nested dict (a list where the module is a list),
+    each leaf's dimension read off ``specs`` (``sharding.train_specs``).
+    The modules themselves without a mesh or on a data axis of one."""
+    if mesh is None or mesh.shape["data"] == 1:
+        return [m for _, m in items]
+    keys, leaves, dims = [], [], []
+    for i, (prefix, module) in enumerate(items):
+        for n, t in module.named_parameters():
+            keys.append((i, n))
+            leaves.append(t)
+            dims.append(sh.data_dim(specs[f"{prefix}.{n}" if prefix
+                                          else n][1]))
+    out = [{} for _ in items]
+    for (i, n), t in zip(keys, gather_data(mesh, leaves, dims)):
+        node = out[i]
+        *up, leaf = n.split(".")
+        for u in up:
+            node = node.setdefault(u, {})
+        node[leaf] = t
+    return [_lists(t) for t in out]
+
+
+def _lists(tree):
+    """A nested dict whose keys at a level are 0, 1, ... as a list."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _lists(v) for k, v in tree.items()}
+    if out and all(k.isdigit() for k in out):
+        return [out[str(i)] for i in range(len(out))]
+    return out
+
+
+def _period(cfg, blocks, x, attn_impl: str, mesh):
+    """One period's blocks (gathered on a mesh) in the training forward:
+    (x, summed aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, block in enumerate(blocks):
         x, _, a = apply_block(cfg, p, block, x, mode="fwd",
-                              attn_impl=attn_impl)
+                              attn_impl=attn_impl, mesh=mesh)
         aux = aux + a
     return x, aux
 
 
+def _backbone(params, cfg, tokens, attn_impl: str, remat: bool, mesh):
+    """:func:`lm_backbone`, and the head's table (gathered on a mesh)."""
+    check_supported(cfg)
+    check_mesh(cfg, mesh)
+    specs = None if mesh is None else sh.train_specs(cfg, mesh.shape)
+    emb, = gathered(mesh, specs, [("embed", params["embed"])])
+    x = _embed_in(emb, cfg, tokens, mesh)
+    if not cfg.tie_embeddings:
+        emb = None
+    P = len(cfg.block_pattern)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    blocks = list(params["blocks"])
+    for li in range(0, cfg.n_layers, P):
+        # gathered outside the checkpoint: its recompute reuses them
+        period = gathered(mesh, specs, [(f"blocks.{li + j}", b) for j, b in
+                                        enumerate(blocks[li:li + P])])
+        if remat:
+            x, a = checkpoint(_period, cfg, period, x, attn_impl, mesh,
+                              use_reentrant=False)
+        else:
+            x, a = _period(cfg, period, x, attn_impl, mesh)
+        aux = aux + a
+    tail = [("final_norm", params["final_norm"])]
+    if emb is None:
+        tail.append(("lm_head", params["lm_head"]))
+    got = gathered(mesh, specs, tail)
+    table = emb["table"] if emb is not None else got[1]["table"]
+    return rmsnorm(got[0], x, cfg.norm_eps), aux, table
+
+
 def lm_backbone(params, cfg, tokens, *, attn_impl: str = "auto",
-                remat: bool = False):
+                remat: bool = False, mesh=None):
     """(B, S) tokens -> ((B, S, d) hidden states after the final norm,
     the periods' summed MoE aux loss).  ``remat`` recomputes each period
     in the backward (``torch.utils.checkpoint``, non-reentrant), the JAX
     package's ``jax.checkpoint`` of its scanned period: activations are
     kept at period boundaries only, and a training step runs each period's
-    forward twice (flash forward launches too) and its backward once."""
-    check_supported(cfg)
-    x = _embed_in(params, cfg, tokens)
-    P = len(cfg.block_pattern)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    blocks = list(params["blocks"])
-    for li in range(0, cfg.n_layers, P):
-        period = blocks[li:li + P]
-        if remat:
-            x, a = checkpoint(_period, cfg, period, x, attn_impl,
-                              use_reentrant=False)
-        else:
-            x, a = _period(cfg, period, x, attn_impl)
-        aux = aux + a
-    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+    forward twice (flash forward launches too) and its backward once.
+    With a ``mesh``, the rank's rows from its training blocks (the module
+    docstring)."""
+    x, aux, _ = _backbone(params, cfg, tokens, attn_impl, remat, mesh)
+    return x, aux
 
 
 def lm_loss(params, cfg, tokens, labels, *, attn_impl: str = "auto",
-            aux_coef: float = 0.01, remat: bool = True):
+            aux_coef: float = 0.01, remat: bool = True, mesh=None):
     """Mean token cross-entropy (with z-loss) of the next-token labels,
     plus ``aux_coef * aux / n_periods`` for a MoE model, as the JAX
-    package's ``lm_loss``; a 0-d f32 tensor."""
-    x, aux = lm_backbone(params, cfg, tokens, attn_impl=attn_impl,
-                         remat=remat)
-    loss = cross_entropy(_logits(params, cfg, x), labels)
+    package's ``lm_loss``; a 0-d f32 tensor.  With a ``mesh``, of the
+    rank's rows from its training blocks: the same bits on every rank of
+    a data row."""
+    x, aux, table = _backbone(params, cfg, tokens, attn_impl, remat, mesh)
+    if mesh is not None and table.shape[0] < cfg.vocab_size:
+        loss = cross_entropy_sharded(
+            unembed({}, model_copy(mesh, x), table=table), labels, mesh)
+    else:
+        loss = cross_entropy(unembed({}, x, table=table), labels)
     if cfg.n_experts:
         loss = loss + aux_coef * aux / max(cfg.n_periods, 1)
     return loss
@@ -371,7 +450,7 @@ def lm_prefill(params, cfg, tokens, *, attn_impl: str = "auto",
     check_supported(cfg)
     check_mesh(cfg, mesh)
     sp_len = tokens.shape[1] if mesh is not None and seq_parallel else None
-    x = _embed_in(params, cfg, tokens, mesh)
+    x = _embed_in(params["embed"], cfg, tokens, mesh)
     P = len(cfg.block_pattern)
     entries = [[] for _ in range(P)]
     for li, block in enumerate(params["blocks"]):
@@ -398,7 +477,7 @@ def lm_decode(params, cfg, tokens, cache, position, *, mesh=None,
     ``"data"``)."""
     check_supported(cfg)
     check_mesh(cfg, mesh)
-    x = _embed_in(params, cfg, tokens, mesh)
+    x = _embed_in(params["embed"], cfg, tokens, mesh)
     P = len(cfg.block_pattern)
     for li, block in enumerate(params["blocks"]):
         layer = {name: t[li // P]

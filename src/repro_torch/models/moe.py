@@ -19,7 +19,9 @@ steps of a MoE model on the card are bitwise equal (``chip_smoke.py``).
 On a ``(data, model)`` mesh, :func:`moe_apply_sharded` is JAX's
 ``_moe_apply_sharded`` with ``_dispatch_ep_a2a``: experts over
 ``"data"`` (EP), their ff over ``"model"``, the route chosen by
-:func:`moe_route`.
+:func:`moe_route`.  Training follows JAX's training rule instead
+(:func:`moe_apply_tp`): every expert on every rank, its ff over
+``"model"``, no all-to-all.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.mesh import model_copy, model_sum
 from repro_torch.models.layers import dense_init
 
 
@@ -124,11 +127,29 @@ def _combine(out, state, T: int, K: int):
 
 def moe_apply(params, x, cfg, capacity_factor: float = 1.25):
     """x: (B,S,d) -> (y (B,S,d) in x's dtype, aux loss f32 scalar)."""
+    return moe_apply_tp(params, x, cfg, None, capacity_factor)
+
+
+def moe_apply_tp(params, x, cfg, mesh, capacity_factor: float = 1.25):
+    """:func:`moe_apply` on a rank of a ``(data, model)`` mesh in
+    training, JAX's training rule: the experts whole on every rank (no
+    all-to-all), ``w_gate``/``w_up`` the rank's ff columns and ``w_down``
+    its ff rows.  The rank routes its own tokens at their capacity (a
+    microbatch as on one device), runs every expert on its ff slice, and
+    the partial outputs are summed over ``"model"`` in rank order; the
+    dispatched slots take their gradient summed over ``"model"``
+    (``model_copy``).  Weights whose ff is whole (or no mesh): the
+    one-device MoE."""
     B, S, d = x.shape
     g, state, aux = _dispatch(params, x.reshape(B * S, d), cfg,
                               capacity_factor)
     E, C = g.shape[:2]
+    split = mesh is not None and params["w_gate"].shape[2] < cfg.d_ff
+    if split:
+        g = model_copy(mesh, g)
     out = _experts(g, params["w_gate"], params["w_up"], params["w_down"])
+    if split:
+        out = model_sum(mesh, out)
     y = _combine(out.reshape(E * C, d), state, B * S, cfg.topk_experts)
     return y.reshape(B, S, d), aux
 
@@ -191,7 +212,7 @@ def moe_apply_sharded(params, x, cfg, mesh, capacity_factor: float = 1.25,
         g = mesh.all_to_all(g, "data", 0, 1)     # (E/D, D*C, d)
     out = _experts(g, wg, wu, wd)
     if wg.shape[2] < cfg.d_ff:
-        out = mesh.all_reduce_sum(out, "model")
+        out = model_sum(mesh, out)
     if kind == "a2a":
         out = mesh.all_to_all(out, "data", 1, 0)     # (E, C, d)
     y = _combine(out.reshape(E * C, d), state, T, K)

@@ -28,6 +28,7 @@ construction.
 """
 from __future__ import annotations
 
+import functools
 import re
 from typing import Mapping, Optional
 
@@ -195,21 +196,69 @@ def data_dim(spec) -> Optional[int]:
     return None
 
 
+@functools.lru_cache(maxsize=32)
+def _train_specs(cfg, data: int, model: int) -> tuple:
+    from repro_torch.models.factory import param_shapes
+
+    whole = param_shapes(cfg)
+    specs = params_shardings(whole, cfg, {"data": data, "model": model},
+                             train=True)
+    return tuple((n, tuple(p.shape), specs[n])
+                 for n, p in whole.named_parameters())
+
+
+def train_specs(cfg, sizes: Mapping) -> dict:
+    """{name: (whole shape, spec)} of every parameter of ``cfg`` by the
+    training rules (JAX's ``params_shardings(train=True)``), in
+    ``named_parameters`` order; made once a config and mesh shape."""
+    return {n: (shape, spec) for n, shape, spec in
+            _train_specs(cfg, sizes["data"], sizes["model"])}
+
+
 def owned_blocks(params, cfg, mesh) -> list:
-    """A ``(dim, start, length)`` or None a parameter, in ``parameters()``
-    order: the mesh rank's block along the dimension that the leaf's spec
-    (:func:`params_shardings`, train) shards over ``"data"``; None
-    everywhere on a mesh of one."""
-    specs = params_shardings(params, cfg, mesh.shape, train=True)
+    """The mesh rank's block of each parameter (``parameters()`` order)
+    under its training spec (:func:`train_specs`): None for a leaf the
+    spec keeps whole, else a flat tuple of one ``(dim, start, length)``
+    triple a cut dimension, ``"data"`` by the data axis's size and the
+    rank's index on it, ``"model"`` likewise.  ``params`` may hold whole
+    leaves or the rank's blocks."""
+    specs = train_specs(cfg, mesh.shape)
     out = []
-    for name, p in params.named_parameters():
-        d = data_dim(specs[name])
-        if d is None or mesh.size == 1:
-            out.append(None)
-        else:
-            b = p.shape[d] // mesh.size
-            out.append((d, mesh.rank * b, b))
+    for name, _ in params.named_parameters():
+        shape, spec = specs[name]
+        cuts = ()
+        for d, ax in enumerate(spec):
+            if ax is None:
+                continue
+            names = ax if isinstance(ax, tuple) else (ax,)
+            n, idx = 1, 0
+            for a in names:
+                idx = idx * mesh.axis_size(a) + mesh.axis_index(a)
+                n *= mesh.axis_size(a)
+            if n > 1:
+                b = shape[d] // n
+                cuts += (d, idx * b, b)
+        out.append(cuts or None)
     return out
+
+
+def block_of(t: torch.Tensor, block) -> torch.Tensor:
+    """The view of a whole ``t`` that an :func:`owned_blocks` entry names
+    (``t`` itself for None)."""
+    for i in range(0, len(block or ()), 3):
+        t = t.narrow(*block[i:i + 3])
+    return t
+
+
+def row_dim(name: str, shape) -> Optional[int]:
+    """The dimension of a parameter whose rule proposes FSDP (the one its
+    training spec shards over ``"data"`` wherever the data axis divides
+    it), or None: the rows by which the gradient norm is summed
+    (``optim/adamw.py``), whatever the mesh."""
+    spec = param_pspec(name.replace(".", "/"), shape, {"data": 1,
+                                                       "model": 1},
+                       train=True, stacked=False)
+    return data_dim(spec)
 
 
 def _walk(tree, fn, path=""):
@@ -340,10 +389,11 @@ def block(x, spec, mesh):
 
 
 def blocks_of(tree: Mapping, mesh, prefix: str = "", *,
-              stacked: bool) -> dict:
+              stacked: bool, train: bool = False) -> dict:
     """The rank's blocks of every leaf of a nested dict of parameters
     (tensors or arrays) at JAX path ``prefix``, by the inference rules
-    (``param_pspec(train=False)``).  ``stacked``: the tree is JAX's,
+    (``param_pspec(train=False)``), or the training rules under ``train``
+    (FSDP over ``"data"``, experts whole).  ``stacked``: the tree is JAX's,
     whose leaves under ``blocks/`` and the layer lists carry a leading
     layer axis, never cut.  A cut tensor is copied, so that the whole leaf
     can be freed."""
@@ -351,15 +401,58 @@ def blocks_of(tree: Mapping, mesh, prefix: str = "", *,
     for k, v in tree.items():
         path = f"{prefix}/{k}" if prefix else k
         if isinstance(v, Mapping):
-            out[k] = blocks_of(v, mesh, path, stacked=stacked)
+            out[k] = blocks_of(v, mesh, path, stacked=stacked, train=train)
             continue
         lead = stacked and ("blocks/" in path or "_layers/" in path)
-        spec = param_pspec(path, v.shape, mesh.shape, train=False,
+        spec = param_pspec(path, v.shape, mesh.shape, train=train,
                            stacked=lead)
         b = block(v, spec, mesh)
         cut = torch.is_tensor(v) and b.numel() < v.numel()
         out[k] = b.clone() if cut else b
     return out
+
+
+def gather_tree(mesh, tree, cfg, *, to_host: bool = False,
+                bucket: int = 1 << 26):
+    """A module tree of the parameters' structure (the parameters or a
+    moment) whose leaves are the rank's training blocks
+    (:func:`train_specs`), with every leaf gathered whole over the mesh,
+    the blocks in buckets of whole leaves of at most ``bucket`` elements
+    a rank, one collective a bucket (host copies under ``to_host``); a
+    leaf already whole is taken as it is.  A collective: every rank of
+    the mesh calls it."""
+    from repro_torch.models.lm import map_tree
+
+    specs = train_specs(cfg, mesh.shape)
+    wholes, todo = {}, []
+    for name, t in tree.named_parameters():
+        shape, spec = specs[name]
+        if tuple(t.shape) == shape:
+            wholes[id(t)] = t.detach().cpu() if to_host else t.detach()
+        else:
+            todo.append((t, spec))
+
+    def flush(group):
+        parts = mesh.all_gather_list(torch.cat(
+            [t.detach().reshape(-1) for t, _ in group]))
+        off = 0
+        for t, spec in group:
+            n = t.numel()
+            w = assemble([p[off:off + n].view(t.shape) for p in parts],
+                         spec, mesh.shape)
+            wholes[id(t)] = w.cpu() if to_host else w
+            off += n
+
+    group, size = [], 0
+    for t, spec in todo:
+        if group and size + t.numel() > bucket:
+            flush(group)
+            group, size = [], 0
+        group.append((t, spec))
+        size += t.numel()
+    if group:
+        flush(group)
+    return map_tree(lambda t: wholes[id(t)], tree)
 
 
 def gather(mesh, t, spec):

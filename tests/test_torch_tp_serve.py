@@ -250,7 +250,9 @@ def test_moe_route_matches_jax(name):
 
 def test_mesh_past_model_1_refuses_mamba_xlstm_whisper():
     """(iii) The recurrent blocks and the encoder-decoder at model > 1
-    raise naming ROADMAP's step; at model 1 they build."""
+    raise naming ROADMAP's step; at model 1 they build.  At model 2
+    ``make_step`` gives a training step for an attention decoder and still
+    raises for a recurrent one."""
     from repro_torch.models.factory import make_model
     for name in OTHERS:
         cfg = get_config(name + "-reduced")
@@ -259,11 +261,13 @@ def test_mesh_past_model_1_refuses_mamba_xlstm_whisper():
                 shape={"data": 1, "model": 2}))
         make_model(cfg, mesh=types.SimpleNamespace(
             shape={"data": 2, "model": 1}))
+    mesh = types.SimpleNamespace(shape={"data": 1, "model": 2}, size=2,
+                                 model=2, in_mesh=True)
+    train = ShapeConfig("c", "train", 16, 2)
+    assert callable(tsteps.make_step(get_config("qwen1.5-0.5b-reduced"),
+                                     mesh, train))
     with pytest.raises(ValueError, match="step 8b"):
-        tsteps.make_step(get_config("qwen1.5-0.5b-reduced"),
-                         types.SimpleNamespace(shape={"data": 1,
-                                                      "model": 2}),
-                         ShapeConfig("c", "train", 16, 2))
+        tsteps.make_step(get_config("jamba-v0.1-52b-reduced"), mesh, train)
 
 
 def test_block_and_assemble_round_trip():

@@ -272,9 +272,10 @@ def _flat(tree, prefix: str) -> dict:
 
 
 def sharded_train_world(mesh, pl):
-    """The sharded trainer at world P: two steps of each architecture at
-    1 and 2 microbatches a rank (loss, parameters, the moments gathered
-    and the rank's own blocks), ``restore(shardings=)`` of a tree mesh
+    """The sharded trainer at world P, each rank holding its training
+    blocks: two steps of each architecture at 1 and 2 microbatches a rank
+    (loss, the state gathered whole, the rank's own moment blocks, the
+    final parameters gathered whole), ``restore(shardings=)`` of a tree mesh
     rank 0 saved, ``make_host_mesh``, and ``train(production=True)``: a
     world-1 save resumed here, and a fresh run that saves for the test
     to resume at world 1."""
@@ -288,18 +289,17 @@ def sharded_train_world(mesh, pl):
                                      train_state_to_numpy)
     from repro_torch.launch import train as ttrain
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.steps import gather_moments, make_train_step
+    from repro_torch.launch.steps import make_train_step
     from repro_torch.optim.adamw import adamw_init
-    from repro_torch.runtime.sharding import owned_blocks
+    from repro_torch.runtime.sharding import gather_tree
 
     out = {}
     for name, jp in pl["params"].items():
         cfg = get_config(name + "-reduced")
         B, S = pl["batches"][0].shape[0], pl["batches"][0].shape[1] - 1
         for micro in (1, 2):
-            p = lm_params_from_numpy(jp, cfg, "cpu")
-            blocks = owned_blocks(p, cfg, mesh)
-            st = adamw_init(p, blocks)
+            p = lm_params_from_numpy(jp, cfg, "cpu", mesh=mesh, train=True)
+            st = adamw_init(p)
             step = make_train_step(cfg, ShapeConfig("c", "train", S, B),
                                    mesh=mesh, microbatches=micro)
             tag = f"{name}/m{micro}"
@@ -308,18 +308,12 @@ def sharded_train_world(mesh, pl):
                 p, st, loss = step(p, st, {"tokens": t[:, :-1],
                                            "labels": t[:, 1:]})
                 out[f"{tag}/loss{i}"] = np.asarray(float(loss))
-                state = train_state_to_numpy(p, dict(st, **{
-                    k: gather_moments(mesh, p, st[k], cfg)
-                    for k in ("m", "v")}), cfg)
+                state = train_state_to_numpy(p, st, cfg, mesh=mesh)
                 out.update(_flat(state, f"{tag}/state{i}"))
                 out.update(_flat(opt_state_to_numpy(st, cfg)["m"],
                                  f"{tag}/own_m{i}"))
-            out[f"{tag}/blocks"] = np.array(
-                [(-1, -1, -1) if b is None else b for b in blocks])
-            sync = step.sync_ms()
-            out[f"{tag}/sync"] = np.array([sync["grad_all_reduce"],
-                                           sync["param_gather"]])
-            out.update(_flat(lm_params_to_numpy(p, cfg), f"{tag}/final"))
+            out.update(_flat(lm_params_to_numpy(gather_tree(mesh, p, cfg),
+                                                cfg), f"{tag}/final"))
     # restore(shardings=): every rank its block of a tree rank 0 saved
     if mesh.rank == 0:
         ck.save(pl["ckpt"] / "tree", 1, pl["tree"])
@@ -500,4 +494,89 @@ def tp_serve_world(_, pl):
         except ValueError as e:
             errs.append(str(e))
     out["refused"] = np.array(errs)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the world of tests/test_torch_tp_train.py
+# ---------------------------------------------------------------------------
+
+def tp_train_world(_, pl):
+    """The tensor-parallel trainer on each case's ``(data, model)`` mesh,
+    the rank's training blocks of JAX-layout weights: ``steps`` steps of
+    ``make_train_step`` (the state gathered whole after each, the rank's
+    own blocks after the last, the losses, ``sync_ms``), a second run
+    where asked; a case with ``blocks_only`` gives its blocks as cut and
+    one step.  Then a (2, 2) save after two steps (mesh rank 0 writes)
+    and a world-1 save resumed here for one step."""
+    import torch
+
+    from repro_torch.checkpoint import checkpointer as ck
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.convert import (lm_params_from_numpy,
+                                     lm_params_to_numpy, opt_state_from_numpy,
+                                     opt_state_to_numpy, train_state_to_numpy)
+    from repro_torch.launch import train as ttrain
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_step, make_train_step
+    from repro_torch.optim.adamw import adamw_init
+
+    torch.set_num_threads(1)
+    B, S = pl["B"], pl["S"]
+    shape = ShapeConfig("c", "train", S, B)
+
+    def batch(i):
+        t = torch.from_numpy(pl["batches"][i])
+        return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+    def own(p, st):
+        return {"params": lm_params_to_numpy(p, cfg),
+                "m": opt_state_to_numpy(st, cfg)["m"]}
+
+    out = {}
+    for c in pl["cases"]:
+        D, M = c["mesh"]
+        mesh = make_host_mesh(D, M, device="cpu")
+        tag, cfg = c["tag"], c["cfg"]
+        for run in range(c["runs"]):
+            p = lm_params_from_numpy(pl["weights"][c["name"]], cfg, "cpu",
+                                     mesh=mesh, train=True)
+            st = adamw_init(p)
+            if run == 0:
+                out.update(_flat(own(p, st), f"{tag}/init"))
+            step = make_train_step(cfg, shape, mesh=mesh,
+                                   microbatches=c["micro"])
+            for i in range(c["steps"]):
+                p, st, loss = step(p, st, batch(i))
+                out[f"{tag}/run{run}/loss{i}"] = np.asarray(float(loss))
+                out.update(_flat(train_state_to_numpy(p, st, cfg, mesh=mesh),
+                                 f"{tag}/run{run}/state{i}"))
+            if run == 0:
+                out.update(_flat(own(p, st), f"{tag}/own"))
+                sync = step.sync_ms()
+                out[f"{tag}/sync"] = np.array([sync[k] for k in
+                                               sorted(sync)])
+                out[f"{tag}/sync_kinds"] = np.array(sorted(sync))
+        if c.get("save"):
+            tree = train_state_to_numpy(p, st, cfg, mesh=mesh)
+            if mesh.rank == 0:
+                ck.save(c["save"], c["steps"], tree)
+            mesh.barrier()
+    # a world-1 save of the resume case, resumed on (2, 2) for one step
+    r = pl["resume"]
+    mesh = make_host_mesh(2, 2, device="cpu")
+    cfg = r["cfg"]
+    state, at = ck.restore(r["dir"], shardings=ttrain.state_shardings(
+        ck.shapes(r["dir"], r["step"]), mesh))
+    p = lm_params_from_numpy(state["params"], cfg, "cpu")
+    st = opt_state_from_numpy(state["opt"], cfg, "cpu")
+    step = make_step(cfg, mesh, shape)
+    _, _, loss = step(p, st, batch(at))
+    out["resumed/loss"] = np.asarray(float(loss))
+    out["resumed/at"] = np.asarray(at)
+    # the trainer on (2, 2): saves, for the test to resume at world 1
+    _, _, losses = ttrain.train(**pl["train"], device="cpu",
+                                production=True, mesh_shape=(2, 2),
+                                log_every=10**6)
+    out["train/losses"] = np.array(losses)
     return out

@@ -4,6 +4,7 @@ over NCCL, held against a world of one.
     python3 tools/distributed_check.py --world 4
     python3 tools/distributed_check.py --world 4 --train
     python3 tools/distributed_check.py --world 4 --serve
+    python3 tools/distributed_check.py --train --mesh 2 2
 
 Spawns P ranks, one a card, joined over NCCL (``tcp://localhost`` on a
 free port, a timeout on the group and on the joins); each calls
@@ -27,6 +28,15 @@ microbatch a rank; this process then trains on card 0 at world 1 with P
 microbatches, and the ranks' losses and every final leaf must be its
 bits.  It prints each world's ms a step, the ranks' sync ms
 (the gradient all-reduce, the parameter gather) and peak memory.
+
+``--train --mesh 2 2`` (four cards): the tensor-parallel trainer over
+NCCL, one rank a card on a (data 2, model 2) mesh
+(``chip_smoke.py::_tpt_rank``): llama3-8b at full width and depth (8.03B
+parameters; each rank holds its training blocks of the parameters, the
+gradients and both moments, about 32 GB), ``MESH_STEPS`` steps of 4 x 4096
+tokens, two microbatches of one row a rank, bf16 with f32 master
+weights: ms a step, the collectives' ms (``sync_ms``), peak memory and
+the losses a rank, the flash launches.
 
 ``--serve`` (four cards): ``chip_smoke.py``'s sharded serving phase over
 NCCL, one rank a card on a (data 2, model 2) mesh: mixtral-8x7b at full
@@ -58,6 +68,7 @@ import chip_smoke as smoke  # noqa: E402  (the trainer's settings, helpers)
 N_POINTS, DIM, CLUSTERS = 100_000, 100, 10
 TIMEOUT_S = 600
 SYNC_REPS = 50
+MESH_STEPS = 3            # --train --mesh 2 2: llama3-8b's steps
 
 
 def _free_port() -> int:
@@ -135,6 +146,7 @@ def _train_run(torch, **kw) -> dict:
     """``train(**kw)`` at ``chip_smoke.py``'s trainer settings: the losses,
     a hash of every final leaf, ms a step, the sharded step's sync ms,
     peak memory."""
+    from repro_torch.configs import get_config
     from repro_torch.launch import train as train_mod
     from repro_torch.optim.adamw import AdamWConfig
 
@@ -148,9 +160,11 @@ def _train_run(torch, **kw) -> dict:
             resume=False, ckpt_dir=tmp, log_every=10**6,
             opt_cfg=AdamWConfig(lr=smoke.TRAIN_LR,
                                 warmup_steps=smoke.TRAIN_WARMUP), **kw)
-    return {"losses": [x for _, x in losses],
-            "hashes": smoke.leaf_hashes(params), "step_ms": step_ms,
-            "sync": sync, "peak": torch.cuda.max_memory_allocated()}
+    hashes = smoke.whole_hashes(params, get_config(smoke.TRAIN_ARCH)) \
+        if kw.get("production") else smoke.leaf_hashes(params)
+    return {"losses": [x for _, x in losses], "hashes": hashes,
+            "step_ms": step_ms, "sync": sync,
+            "peak": torch.cuda.max_memory_allocated()}
 
 
 def _train_rank(rank: int, world: int, port: int, out_dir: str):
@@ -199,14 +213,12 @@ def main_train(torch, mp, P: int) -> None:
     ranks = [json.loads(Path(tmp.name, f"rank{r}.json").read_text())
              for r in range(P)]
     tmp.cleanup()
-    red = [x["grad_all_reduce"] for x in ranks[0]["sync"][1:]]
-    gat = [x["param_gather"] for x in ranks[0]["sync"][1:]]
     print(f"world {P} over NCCL, {smoke.TRAIN_ARCH} at full width and "
           f"depth, batch {smoke.TRAIN_BATCH} x {smoke.TRAIN_SEQ}, 1 "
-          f"microbatch a rank, {smoke.TRAIN_STEPS} steps: {_steady(ranks[0])}; sync a step: the "
-          f"gradient all-reduce {sum(red) / len(red):.1f} ms, the parameter "
-          f"gather {sum(gat) / len(gat):.1f} ms; losses {ranks[0]['losses']}",
-          flush=True)
+          f"microbatch a rank, {smoke.TRAIN_STEPS} steps: "
+          f"{_steady(ranks[0])}; sync ms a step "
+          f"{smoke.sync_line(ranks[0]['sync'][1:])}; losses "
+          f"{ranks[0]['losses']}", flush=True)
     one = _train_run(torch, microbatches=P)
     print(f"world 1 on card 0, {P} microbatches: {_steady(one)}; losses "
           f"{one['losses']}", flush=True)
@@ -220,10 +232,53 @@ def main_train(torch, mp, P: int) -> None:
           f"rank 0: {len(differ)} {differ[:5]}", flush=True)
     print(json.dumps({"world": P, "train": True, "ok": all(same),
                       "world_ms": ranks[0]["step_ms"],
-                      "one_ms": one["step_ms"], "grad_all_reduce_ms": red,
-                      "param_gather_ms": gat, "peak": ranks[0]["peak"],
+                      "one_ms": one["step_ms"], "sync_ms": ranks[0]["sync"],
+                      "peak": ranks[0]["peak"],
                       "one_peak": one["peak"]}))
     if not all(same):
+        sys.exit(1)
+
+
+def main_train_mesh(torch) -> None:
+    """``--train --mesh 2 2``: llama3-8b at full depth trained
+    tensor-parallel over NCCL, one rank a card."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.largevis import resolve_device
+    from repro_torch.kernels import _build
+
+    arch, mesh, steps = "llama3-8b", smoke.TPT_MESH, MESH_STEPS
+    layers = get_config(arch).n_layers
+    resolve_device("cuda")
+    _build.build("flash_attention", "flash_attention_bwd")
+    spec = smoke.tpt_spec(arch, layers, batch=4, steps=steps,
+                          microbatches=2, check_a=False, bf16_runs=1)
+    tmp = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    ranks = smoke.spawn_tpt(torch, tmp.name, spec, backend="nccl",
+                            init=f"tcp://localhost:{_free_port()}")
+    tmp.cleanup()
+    runs = [rk["b"][0] for rk in ranks]
+    per_step = {"flash_attention": 2 * 2 * layers,
+                "flash_attention_bwd": 2 * layers}
+    same = all(r["losses"] == runs[0]["losses"] for r in runs)
+    ok = same and all(r["launches"][k] == n * steps for r in runs
+                      for k, n in per_step.items()) and \
+        all(np.isfinite(r["losses"]).all() for r in runs)
+    print(f"tensor-parallel trainer over NCCL, (data 2, model 2), {arch} "
+          f"at full width and depth ({layers} layers), {steps} steps of 4 x "
+          f"{smoke.TRAIN_SEQ} tokens, 2 microbatches of 1 row a rank "
+          f"({time.perf_counter() - t0:.1f} s with the ranks' start and "
+          f"init; init {runs[0]['init_s']:.1f} s): "
+          f"{smoke.tpt_line(ranks, spec)}; the ranks' losses equal: "
+          f"{same}; flash launches a step expected {per_step}", flush=True)
+    print(json.dumps({"mesh": list(mesh), "train": True, "arch": arch,
+                      "layers": layers, "ok": ok,
+                      "step_ms": [r["step_ms"] for r in runs],
+                      "sync_ms": [r["sync"] for r in runs],
+                      "peak_gib": [r["peak_gib"] for r in runs],
+                      "state_gib": [r["state_gib"] for r in runs],
+                      "losses": runs[0]["losses"]}))
+    if not ok:
         sys.exit(1)
 
 
@@ -303,19 +358,25 @@ def main() -> None:
                     help="the sharded trainer instead of the fit")
     ap.add_argument("--serve", action="store_true",
                     help="the sharded serving mesh (data 2, model 2)")
+    ap.add_argument("--mesh", nargs=2, choices=["2"], default=None,
+                    help="with --train: the tensor-parallel trainer on the "
+                    "(data 2, model 2) mesh, the only one it runs")
     args = ap.parse_args()
     import torch
     import torch.multiprocessing as mp
 
     if not torch.cuda.is_available():
         sys.exit("CUDA is not available")
-    P = args.world
+    P = 4 if args.mesh else args.world
     if torch.cuda.device_count() < P:
         sys.exit(f"{P} ranks need {P} cards; {torch.cuda.device_count()} "
                  "found")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
+    if args.train and args.mesh:
+        main_train_mesh(torch)
+        return
     if args.train:
         main_train(torch, mp, P)
         return

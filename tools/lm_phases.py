@@ -10,14 +10,17 @@ check, as the smoke does.
     python3 tools/lm_phases.py --phases flash_bwd     # the backward kernel
     python3 tools/lm_phases.py --phases train         # the training phase
     python3 tools/lm_phases.py --phases sharded       # the sharded trainer
+    python3 tools/lm_phases.py --phases tp_train      # the (2, 2) trainer
 
 Phases: ``flash`` (``check_flash``), ``flash_bwd`` (``check_flash_bwd``),
 ``gemma3``, ``mixtral``, ``jamba``, ``xlstm``, ``whisper``
 (``run_<phase>``), ``train`` (``run_training``: the backward kernel's
 checks, the full-width trainer, the resume check, every architecture's
-step, then the sharded trainer's phases), ``sharded`` (the full-width
-trainer and the resume check, the world-1 runs the sharded phases hold
-world 2 to, then ``run_sharded_training`` and ``run_grad_compress``).
+step, then the sharded trainer's phases), ``sharded`` (the resume
+check, the world-1 runs the sharded phases hold world 2 to, then
+``run_sharded_training`` and ``run_grad_compress``),
+``tp_train`` (``run_tp_training``: the tensor-parallel trainer on a
+(2, 2) mesh of four processes on the card against world 1).
 Prints each phase's lines and seconds, then the flash launches each phase
 made, as JSON.
 """
@@ -35,7 +38,7 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 PHASES = ("flash", "flash_bwd", "gemma3", "mixtral", "jamba", "xlstm",
-          "whisper", "train", "sharded")
+          "whisper", "train", "sharded", "tp_train")
 
 
 def main() -> None:
@@ -75,15 +78,17 @@ def main() -> None:
             launches[name] = counts
             print(json.dumps(record))
         elif name == "sharded":
+            from repro_torch.configs import get_config
+            from repro_torch.models.factory import param_shapes
+            n_params = sum(p.numel() for p in param_shapes(
+                get_config(cs.TRAIN_ARCH)).parameters())
             with tempfile.TemporaryDirectory() as tmp:
-                counts, n_params, world1 = cs.run_trainer(
-                    torch, str(Path(tmp) / "main"))
-                more, resumed = cs.run_resume(torch, tmp, n_params)
-                counts = cs._add_counts(counts, more)
+                counts, resumed = cs.run_resume(torch, tmp, n_params)
                 launches[name] = cs._add_counts(
-                    counts, cs.run_sharded_training(torch, tmp, world1,
-                                                    resumed))
+                    counts, cs.run_sharded_training(torch, tmp, resumed))
             cs.run_grad_compress(torch)
+        elif name == "tp_train":
+            launches[name] = cs.run_tp_training(torch)
         else:
             launches[name] = getattr(cs, f"run_{name}")(torch)
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
