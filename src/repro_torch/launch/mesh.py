@@ -23,9 +23,12 @@ The training step differentiates through its collectives
 (:func:`model_sum`, whose backward is the identity; :func:`model_copy`,
 the identity whose backward is the ``"model"`` sum; :func:`gather_data`,
 the tiled gather over ``"data"`` whose backward is the rank-order
-reduce-scatter, :meth:`DataMesh.reduce_scatter_sum`), each adding in
-rank order as :meth:`DataMesh.all_reduce_sum` does, and times them by
-kind while a caller has set :attr:`DataMesh.clock`.
+reduce-scatter, :meth:`DataMesh.reduce_scatter_sum`; :func:`model_gather`,
+the same along ``"model"``; :func:`model_halves`, the re-blocking of two
+tensors cut over ``"model"`` as one, an exchange of pieces
+(:meth:`DataMesh.exchange`) whose backward is the inverse exchange),
+each adding in rank order as :meth:`DataMesh.all_reduce_sum` does, and
+times them by kind while a caller has set :attr:`DataMesh.clock`.
 
 The transport follows the group's backend.  NCCL moves the tensors on
 the card.  Gloo moves host tensors: a tensor on the card is copied to the
@@ -44,6 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import os
 import time
 
@@ -230,6 +234,30 @@ class DataMesh:
         dist.all_to_all_single(recv, send, group=self._group(axis)[0])
         return torch.cat(recv.to(self.device).unbind(0), dim=concat_axis)
 
+    def exchange(self, sends: list, recvs: list, axis) -> list:
+        """Point-to-point blocks along ``axis`` in one all-to-all: each
+        ``(peer, tensor)`` of ``sends`` goes to that peer (an index along
+        the axis, this rank's own included), and the tensors of ``recvs``
+        (``(peer, shape)`` pairs; the dtype of ``sends``) come back from
+        theirs, in that order.  A rank sends and receives at most one
+        tensor a peer; every rank of the axis calls it."""
+        P = self.axis_size(axis)
+        out_n, in_n = [0] * P, [0] * P
+        for peer, t in sends:
+            in_n[peer] = t.numel()
+        for peer, shape in recvs:
+            out_n[peer] = math.prod(shape)
+        flat = torch.cat([t.reshape(-1) for _, t in
+                          sorted(sends, key=lambda s: s[0])])
+        send = self._wire(flat)
+        recv = send.new_empty(sum(out_n))
+        dist.all_to_all_single(recv, send, out_n, in_n,
+                               group=self._group(axis)[0])
+        recv = recv.to(self.device)
+        off = [sum(out_n[:p]) for p in range(P)]
+        return [recv[off[peer]:off[peer] + out_n[peer]].view(shape)
+                for peer, shape in recvs]
+
     def broadcast(self, t: torch.Tensor, src: int = 0,
                   axis=None) -> torch.Tensor:
         """Rank ``src``'s ``t`` (an index along ``axis``) on every rank
@@ -283,6 +311,12 @@ class _ModelCopy(torch.autograd.Function):
             return None, ctx.mesh.all_reduce_sum(g.contiguous(), "model")
 
 
+def model_split(mesh) -> bool:
+    """Whether ``mesh`` has a ``"model"`` axis above 1, on which a block
+    runs on the rank's slice of its heads or inner dimension."""
+    return mesh is not None and mesh.shape["model"] > 1
+
+
 def model_sum(mesh, t: torch.Tensor) -> torch.Tensor:
     """:meth:`DataMesh.all_reduce_sum` over ``"model"`` under autograd
     (the same bits forward)."""
@@ -297,6 +331,93 @@ def model_copy(mesh, t: torch.Tensor) -> torch.Tensor:
     if mesh.shape["model"] == 1:
         return t
     return _ModelCopy.apply(mesh, t)
+
+
+class _ModelGather(torch.autograd.Function):
+    """The rank's blocks along ``"model"`` concatenated along ``dim`` in
+    rank order (the tiled all-gather); its backward hands rank m block m
+    of the rank-order sum of the ranks' gradients (the reduce-scatter),
+    since each rank uses the whole tensor for its own slice of the
+    work."""
+
+    @staticmethod
+    def forward(ctx, mesh, t, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        with mesh.timed("model_exchange"):
+            return mesh.all_gather(t, "model", dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        M = mesh.shape["model"]
+        parts = g.chunk(M, dim=ctx.dim)
+        with mesh.timed("model_exchange"):
+            mine = mesh.reduce_scatter_sum(torch.stack(
+                [p.reshape(-1) for p in parts]), "model")
+        return None, mine.view(parts[0].shape), None
+
+
+def model_gather(mesh, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The whole tensor of the rank's blocks of ``t`` along ``"model"``
+    (tiled along ``dim``), under autograd (:class:`_ModelGather`)."""
+    if mesh.shape["model"] == 1:
+        return t
+    return _ModelGather.apply(mesh, t, dim % t.dim())
+
+
+def _halves_plan(M: int, m: int):
+    """Rank ``m``'s part in re-blocking ``[a | b]``, two tensors of width
+    n side by side and cut over ``"model"`` as one (rank r holds columns
+    ``[2rn/M, 2(r+1)n/M)``), into each one's block (rank m: columns ``[mn/M,
+    (m+1)n/M)`` of a and of b).  In pieces of n/M columns, piece s of the
+    2M is a's block s for s < M and b's block s - M after it, owned by
+    rank s mod M; rank m holds pieces 2m and 2m + 1.  Returns (the ranks
+    its two pieces go to, the ranks its a and b blocks come from)."""
+    return ((2 * m) % M, (2 * m + 1) % M), (m // 2, (M + m) // 2)
+
+
+class _Halves(torch.autograd.Function):
+    """:func:`model_halves` forward; its backward sends the gradients
+    back the way the pieces came (the inverse exchange)."""
+
+    @staticmethod
+    def forward(ctx, mesh, t):
+        ctx.mesh = mesh
+        M, m = mesh.shape["model"], mesh.axis_index("model")
+        dst, src = _halves_plan(M, m)
+        pieces = t.chunk(2, dim=-1)
+        shape = pieces[0].shape
+        with mesh.timed("model_exchange"):
+            a, b = mesh.exchange(
+                [(dst[0], pieces[0].contiguous()),
+                 (dst[1], pieces[1].contiguous())],
+                [(src[0], shape), (src[1], shape)], "model")
+        return torch.cat([a, b], dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        M, m = mesh.shape["model"], mesh.axis_index("model")
+        dst, src = _halves_plan(M, m)
+        ga, gb = g.chunk(2, dim=-1)
+        shape = ga.shape
+        with mesh.timed("model_exchange"):
+            p0, p1 = mesh.exchange(
+                [(src[0], ga.contiguous()), (src[1], gb.contiguous())],
+                [(dst[0], shape), (dst[1], shape)], "model")
+        return None, torch.cat([p0, p1], dim=-1)
+
+
+def model_halves(mesh, t: torch.Tensor) -> torch.Tensor:
+    """The rank's block of ``[a | b]`` (its last dimension the rank's
+    ``2n/M`` columns of the two tensors side by side, cut over
+    ``"model"`` as one) re-blocked as ``[a_m | b_m]``, rank m's n/M
+    columns of each: one exchange of two pieces a rank along
+    ``"model"`` (:func:`_halves_plan`), under autograd.  ``t`` itself at
+    ``model`` = 1."""
+    if mesh.shape["model"] == 1:
+        return t
+    return _Halves.apply(mesh, t)
 
 
 class _DataGather(torch.autograd.Function):

@@ -4,15 +4,21 @@ device.
 
     torchrun --nproc_per_node=4 -m repro_torch.launch.serve_mesh \\
         --arch mixtral-8x7b --mesh 2 2
+    torchrun --nproc_per_node=4 -m repro_torch.launch.serve_mesh \\
+        --arch jamba-v0.1-52b --mesh 2 2      # or xlstm-125m, whisper-tiny
 
 Each rank takes the card of its ``LOCAL_RANK`` (NCCL), or the CPU with
 ``--device cpu`` (gloo); the world's address comes from ``torchrun``'s
 environment.  The model is the config at its full depth (or its reduced
 form, ``--reduced``), with random weights drawn from seed 0 layer by
-layer (each rank keeps its blocks) and cast to the compute dtype; the
+layer (each rank keeps its blocks, each cast to the compute dtype as it
+is cut); the
 batch is 2 random prompts of ``--prompt`` tokens, of which 8 new tokens
 are decoded (a batch that does not cover ``"data"`` decodes
-sequence-parallel).  Mesh rank 0 prints the prefill's and the decode
+sequence-parallel); an encoder-decoder (whisper-tiny) also takes random
+encoder frames (2, its 1,500 positions, d) from the seed.  Any of the ten
+architectures serves (jamba's mamba layers take a prompt of at most 256
+tokens or a multiple of 256).  Mesh rank 0 prints the prefill's and the decode
 steps' ms, tokens/s, peak memory a rank and the first row's new tokens.
 """
 from __future__ import annotations
@@ -29,7 +35,7 @@ from repro_torch.core.largevis import resolve_device, seeded_generator
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import (decode_cache, make_decode_step,
                                       make_prefill_step)
-from repro_torch.models.factory import cast_for_inference, make_model
+from repro_torch.models.factory import make_model
 from repro_torch.runtime import sharding as sh
 
 # the batch's rows, the tokens each row decodes, and the weights' seed
@@ -63,12 +69,9 @@ def main(argv=None) -> None:
 
 
 def _serve(cfg, mesh, S: int) -> None:
-    if cfg.is_encoder_decoder:
-        raise ValueError(f"serve_mesh: {cfg.name} is an encoder-decoder; "
-                         "this script serves a decoder")
     B, n, dev = BATCH, NEW_TOKENS, mesh.device
-    params = make_model(cfg, mesh=mesh)["init"](seeded_generator(dev, SEED))
-    cast_for_inference(params, cfg)
+    params = make_model(cfg, mesh=mesh)["init"](seeded_generator(dev, SEED),
+                                                inference=True)
     prefill, _, (_, pl), pout = make_prefill_step(
         cfg, mesh, ShapeConfig("serve", "prefill", S, B))
     dshape = ShapeConfig("serve", "decode", S + n, B)
@@ -79,6 +82,12 @@ def _serve(cfg, mesh, S: int) -> None:
         torch.cuda.reset_peak_memory_stats(dev)
 
     batch = {"tokens": sh.block(toks, pl["tokens"], mesh)}
+    if cfg.is_encoder_decoder:
+        frames = torch.randn((B, cfg.enc_positions, cfg.d_model),
+                             device=dev, generator=seeded_generator(
+                                 dev, SEED + 2)).to(cfg.dtype)
+        batch["encoder_frames"] = sh.block(frames, pl["encoder_frames"],
+                                           mesh)
     prefill(params, batch)      # warm-up: the collectives' communicators
     _sync(dev)
     t0 = time.perf_counter()

@@ -47,13 +47,13 @@ import torch
 from repro_torch.launch.mesh import elapsed_ms
 from repro_torch.models.attention import kv_tp_repeat
 from repro_torch.models.factory import init_cache, make_model, param_shapes
-from repro_torch.models.lm import MESH_STEP, check_mesh
+from repro_torch.models.lm import check_mesh
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 from repro_torch.runtime import sharding as sh
 
 # the collectives a train step times (``train_step.sync_ms``)
 SYNC_KINDS = ("data_gather", "grad_reduce_scatter", "grad_all_reduce",
-              "model_sum", "grad_norm")
+              "model_sum", "model_exchange", "grad_norm")
 
 
 def _data_size(mesh) -> int:
@@ -123,16 +123,16 @@ def make_train_step(cfg, shape_cfg, *, mesh=None,
     row and gathers nothing.
 
     With a ``mesh`` (a ``DataMesh``, any ``(data, model)`` shape the
-    config's heads divide; the recurrent blocks and the encoder-decoder
-    at ``model`` = 1 only), ``batch`` is the global batch, which every
-    rank holds; ``params`` and ``opt_state`` hold the rank's training
-    blocks (``init_lm(..., train=True)`` or
+    config's heads divide, ``lm.check_mesh``), ``batch`` is the global
+    batch, which every rank holds; ``params`` and ``opt_state`` hold the
+    rank's training blocks (``init_lm(..., train=True)`` or
     ``convert.lm_params_from_numpy(..., train=True)``; ``adamw_init``);
     the loss is the global mean, the same bits on every rank.
     ``train_step.sync_ms()`` gives the last step's collectives by kind
     (:data:`SYNC_KINDS`: the ``"data"`` gathers, the gradients'
     reduce-scatters and all-reduces over ``"data"``, the ``"model"``
-    sums and the gradient norm's), timed by CUDA events on the card, so
+    sums, the ``"model"`` exchanges and gathers of the recurrent blocks
+    and the gradient norm's), timed by CUDA events on the card, so
     the step itself never waits for the card."""
     opt_cfg = opt_cfg or AdamWConfig()
     if mesh is not None:
@@ -253,10 +253,6 @@ def _serving_step(cfg, mesh, shape_cfg, kv_quant: bool):
     kv_rep = kv_tp_repeat(cfg, sizes["model"])
     B = shape_cfg.global_batch
     batch_first = sh.covers_dp(sizes, B)
-    if cfg.is_encoder_decoder and not batch_first:
-        raise ValueError(f"{cfg.name}: a batch of {B} does not cover "
-                         f"data={sizes['data']}; the encoder-decoder's "
-                         f"sequence-parallel decode is {MESH_STEP}")
     model = make_model(cfg, kv_repeat=kv_rep, kv_quant=kv_quant, mesh=mesh)
     batch = _serve_batch(cfg, shape_cfg, kv_repeat=kv_rep,
                          kv_quant=kv_quant)
@@ -280,15 +276,14 @@ def _serving_step(cfg, mesh, shape_cfg, kv_quant: bool):
 
     if shape_cfg.kind == "prefill":
         def step(params, batch):
-            if cfg.is_encoder_decoder:
-                return finish(*model["prefill"](params, batch["tokens"],
-                                                batch["encoder_frames"]))
+            frames = (batch["encoder_frames"],) if cfg.is_encoder_decoder \
+                else ()
             return finish(*model["prefill"](params, batch["tokens"],
+                                            *frames,
                                             seq_parallel=not batch_first))
     else:
         def step(params, batch):
-            kw = {} if cfg.is_encoder_decoder or batch_first else \
-                {"sp_len": shape_cfg.seq_len}
+            kw = {} if batch_first else {"sp_len": shape_cfg.seq_len}
             return finish(*model["decode"](params, batch["tokens"],
                                            batch["cache"], batch["position"],
                                            **kw))
@@ -357,10 +352,11 @@ def decode_cache(cfg, mesh, shape_cfg, cache, layout, *,
 
 
 def make_step(cfg, mesh, shape_cfg):
-    """The step of ``shape_cfg.kind``: the sharded trainer (tensor-parallel
-    at ``model`` > 1 for the attention decoders; the recurrent blocks and
-    the encoder-decoder raise there, naming ``MESH_STEP``), the prefill
-    or decode step otherwise."""
+    """The step of ``shape_cfg.kind``: the sharded trainer
+    (tensor-parallel at ``model`` > 1 for all ten architectures; an
+    encoder-decoder whose heads do not divide the model axis raises,
+    naming ``lm.ENCDEC_HEADS_STEP``), the prefill or decode step
+    otherwise."""
     if shape_cfg.kind == "train":
         return make_train_step(cfg, shape_cfg, mesh=mesh)
     if shape_cfg.kind == "prefill":

@@ -20,14 +20,14 @@ encoder-decoder's prefill takes neither, as in JAX).  Its
 
 ``make_model(cfg, mesh=)`` and ``init_cache(..., mesh=)`` are a rank's
 share of a ``(data, model)`` mesh (``launch/mesh.py``): its blocks of the
-weights, its rows and its blocks of the cache (``models/lm.py``).  A
-decoder's prefill then takes ``seq_parallel`` and its decode ``sp_len``
-for a batch that does not cover ``"data"``; the encoder-decoder runs
-batch-sharded at ``model`` = 1.  Its ``loss`` is the sharded loss, on
-the rank's rows and its training blocks (``init(generator, train=True)``,
-JAX's training rules): a decoder's gathers a period at a time
-(``lm.lm_loss(mesh=)``), the encoder-decoder's (at ``model`` = 1)
-gathers its whole tree once.
+weights, its rows and its blocks of the cache (``models/lm.py``).  The
+prefill then takes ``seq_parallel`` and the decode ``sp_len`` for a
+batch that does not cover ``"data"``.  Its ``loss`` is the sharded loss,
+on the rank's rows and its training blocks (``init(generator,
+train=True)``, JAX's training rules): a decoder's gathers a period at a
+time (``lm.lm_loss(mesh=)``), the encoder-decoder's gathers its whole
+tree over ``"data"`` once, and both run tensor-parallel over
+``"model"``.
 """
 from __future__ import annotations
 
@@ -51,9 +51,15 @@ def make_model(cfg, *, kv_repeat: int = 1, kv_quant: bool = False,
     lm.check_supported(cfg)
     lm.check_mesh(cfg, mesh)
     if mesh is not None:
-        if cfg.is_encoder_decoder:      # at model 1: the rank's rows
-            return dict(make_model(cfg), loss=functools.partial(
-                _encdec_loss, cfg=cfg, mesh=mesh))
+        if cfg.is_encoder_decoder:
+            return {"init": functools.partial(encdec.init_encdec, cfg=cfg,
+                                              mesh=mesh),
+                    "loss": functools.partial(_encdec_loss, cfg=cfg,
+                                              mesh=mesh),
+                    "prefill": functools.partial(_encdec_prefill, cfg=cfg,
+                                                 mesh=mesh),
+                    "decode": functools.partial(_encdec_decode, cfg=cfg,
+                                                mesh=mesh)}
         return {"init": functools.partial(lm.init_lm, cfg=cfg, mesh=mesh),
                 "loss": functools.partial(_loss, cfg=cfg, mesh=mesh),
                 "prefill": functools.partial(_prefill, cfg=cfg,
@@ -87,7 +93,7 @@ def _encdec_loss(params, batch, *, cfg, mesh=None):
         params, = lm.gathered(mesh, sh.train_specs(cfg, mesh.shape),
                               [("", params)])
     return encdec.encdec_loss(params, cfg, batch["tokens"], batch["labels"],
-                              batch["encoder_frames"])
+                              batch["encoder_frames"], mesh=mesh)
 
 
 def _prefill(params, tokens, *, cfg, attn_impl: str = "auto",
@@ -105,13 +111,25 @@ def _decode(params, tokens, cache, position, *, cfg, mesh=None,
 
 
 def _encdec_prefill(params, tokens, encoder_frames, *, cfg,
-                    attn_impl: str = "auto"):
+                    attn_impl: str = "auto", mesh=None,
+                    seq_parallel: bool = False):
     return encdec.encdec_prefill(params, cfg, tokens, encoder_frames,
-                                 attn_impl=attn_impl)
+                                 attn_impl=attn_impl, mesh=mesh,
+                                 seq_parallel=seq_parallel)
 
 
-def _encdec_decode(params, tokens, cache, position, *, cfg):
-    return encdec.encdec_decode(params, cfg, tokens, cache, position)
+def _encdec_decode(params, tokens, cache, position, *, cfg, mesh=None,
+                   sp_len=None):
+    return encdec.encdec_decode(params, cfg, tokens, cache, position,
+                                mesh=mesh, sp_len=sp_len)
+
+
+def keeps_f32(leaf: str, t) -> bool:
+    """Whether a weight named ``leaf`` (the last part of its path) stays
+    f32 when served: the norm scales and biases (ndim < 2) and the
+    matrices of :data:`F32_MATRICES`; the rule of
+    :func:`cast_for_inference` and of ``lm.cast_tree``."""
+    return t.dim() < 2 or leaf in F32_MATRICES
 
 
 def cast_for_inference(params, cfg):
@@ -125,7 +143,7 @@ def cast_for_inference(params, cfg):
     MoE routers (a bf16 router would change which experts are chosen) and
     the recurrent blocks' f32 products."""
     for name, p in params.named_parameters():
-        if p.dim() >= 2 and name.rsplit(".", 1)[-1] not in F32_MATRICES:
+        if not keeps_f32(name.rsplit(".", 1)[-1], p):
             p.data = p.data.to(cfg.dtype)
     return params
 

@@ -107,7 +107,7 @@ def dense_init(generator: torch.Generator, shape, scale: float = None):
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     return torch.randn(shape, generator=generator, dtype=torch.float32,
-                       device=generator.device) * scale
+                       device=generator.device).mul_(scale)
 
 
 def init_mlp(generator, d_model: int, d_ff: int, mlp_type: str,

@@ -49,9 +49,9 @@ under autograd: ``model_copy`` where a replicated activation enters the
 rank's slice of the work, ``model_sum`` after a row-parallel product,
 and the loss is the vocab-parallel cross-entropy
 (``layers.cross_entropy_sharded``): the rank's logits are never
-gathered.  The recurrent blocks and the encoder-decoder run at
-``model`` = 1 only (:func:`check_mesh`).  With ``mesh=None`` the path is
-the one-device path.
+gathered.  The mamba, mLSTM and sLSTM blocks run on the rank's inner
+blocks or heads (``models/ssm.py``, ``models/xlstm.py``), serving and
+training alike.  With ``mesh=None`` the path is the one-device path.
 """
 from __future__ import annotations
 
@@ -59,7 +59,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.launch.mesh import gather_data, model_copy
+from repro_torch.launch.mesh import gather_data, model_copy, model_split
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm, xlstm
@@ -88,25 +88,33 @@ def check_supported(cfg) -> None:
                              f"one of {BLOCK_KINDS}")
 
 
-# where the blocks the sharded path leaves at model 1 get their model axis
-MESH_STEP = "ROADMAP Queue 1 item 7 step 8b"
+# where the encoder-decoder whose heads do not divide the model axis
+# (whisper-tiny's 6 at model 4) gets its tensor parallelism
+ENCDEC_HEADS_STEP = "ROADMAP Queue 1 item 7 step 8c"
 
 
 def check_mesh(cfg, mesh) -> None:
-    """Raise for what the sharded serving and training paths do not run:
-    at ``model`` > 1 the mamba and xLSTM blocks and the encoder-decoder
-    (JAX shards their inner dimensions over ``"model"``; ROADMAP's step
-    8b)."""
+    """Raise for what the sharded serving and training paths do not run
+    at ``model`` > 1: query heads (or the head dimension) that do not
+    divide the model axis (the encoder-decoder's names
+    :data:`ENCDEC_HEADS_STEP`), a mamba inner width, or mLSTM and sLSTM
+    heads, that do not."""
     if mesh is None or mesh.shape["model"] == 1:
         return
-    kinds = sorted(set(cfg.block_pattern) - set(ATTN_KINDS))
-    if kinds or cfg.is_encoder_decoder:
-        what = "the encoder-decoder" if cfg.is_encoder_decoder else \
-            f"blocks {kinds}"
-        raise ValueError(f"{cfg.name}: {what} at model="
-                         f"{mesh.shape['model']}: tensor parallelism over "
-                         f"'model' for these is {MESH_STEP}")
-    attn.check_mesh_heads(cfg, mesh.shape["model"])
+    M = mesh.shape["model"]
+    try:
+        attn.check_mesh_heads(cfg, M)
+    except ValueError as e:
+        if cfg.is_encoder_decoder:
+            raise ValueError(f"{e}: tensor parallelism over 'model' for "
+                             f"this encoder-decoder is {ENCDEC_HEADS_STEP}"
+                             ) from None
+        raise
+    kinds = set(cfg.block_pattern)
+    if "mamba" in kinds and (cfg.d_model * cfg.ssm_expand) % M:
+        raise ValueError(f"{cfg.name}: mamba's inner width "
+                         f"{cfg.d_model * cfg.ssm_expand} does not divide "
+                         f"over model={M}")
 
 
 def _position_is_moe(cfg, p: int) -> bool:
@@ -207,21 +215,36 @@ def init_block(generator, cfg, p: int) -> dict:
     return params
 
 
+def cast_tree(tree: dict, cfg) -> dict:
+    """A nested dict of weights with its matrices cast to the compute
+    dtype by ``factory.cast_for_inference``'s rule
+    (``factory.keeps_f32``)."""
+    from repro_torch.models.factory import keeps_f32
+
+    return {k: cast_tree(v, cfg) if isinstance(v, dict) else
+            v if keeps_f32(k, v) else v.to(cfg.dtype)
+            for k, v in tree.items()}
+
+
 def init_lm(generator: torch.Generator, cfg, mesh=None, *,
-            train: bool = False) -> nn.ModuleDict:
+            train: bool = False, inference: bool = False) -> nn.ModuleDict:
     """Random f32 master weights on ``generator.device``, with the JAX
     init's distributions (not its numbers: the generators differ).  With
     a ``mesh``, the rank's blocks of the same weights (JAX's inference
     rules, or its training rules under ``train``), each cut as soon as its
     block is drawn: a rank holds one whole block at most beside its own
-    blocks."""
+    blocks.  ``inference`` casts each block as it is cut
+    (:func:`cast_tree`), so that no f32 copy of the whole model is ever
+    held: the weights ``factory.cast_for_inference`` would leave."""
     check_supported(cfg)
     check_mesh(cfg, mesh)
     P = len(cfg.block_pattern)
 
     def cut(tree, prefix):
-        return tree if mesh is None else \
-            sh.blocks_of(tree, mesh, prefix, stacked=False, train=train)
+        if mesh is not None:
+            tree = sh.blocks_of(tree, mesh, prefix, stacked=False,
+                                train=train)
+        return cast_tree(tree, cfg) if inference else tree
 
     tree = {"embed": cut(init_embedding(generator, cfg.vocab_size,
                                         cfg.d_model), "embed"),
@@ -250,7 +273,7 @@ def apply_block(cfg, p: int, params, x, *, mode: str, cache=None,
     recurrent decode returns new states (``lm_decode`` copies them in).
 
     With a ``mesh`` the block is the rank's share: the recurrent blocks
-    (at ``model`` = 1) run on the rank's rows as on one device; attention
+    run on the rank's inner blocks or heads (``ssm``, ``xlstm``); attention
     runs on the rank's heads (and its cache blocks when serving:
     ``sp_len`` marks a sequence-parallel prefill or decode), the MLP
     column- then row-parallel; the MoE is expert-parallel when serving
@@ -267,19 +290,21 @@ def apply_block(cfg, p: int, params, x, *, mode: str, cache=None,
     if kind in RECURRENT:
         fwd, prefill, decode = RECURRENT[kind]
         if mode == "fwd":
-            a = fwd(params["core"], h, cfg)
+            a = fwd(params["core"], h, cfg, mesh=mesh)
         elif mode == "prefill":
-            a, new_cache = prefill(params["core"], h, cfg)
+            a, new_cache = prefill(params["core"], h, cfg, mesh=mesh)
         else:
-            a, new_cache = decode(params["core"], h, cfg, cache)
+            a, new_cache = decode(params["core"], h, cfg, cache, mesh=mesh)
         return x + a, new_cache, aux
     if kind == "mamba":
         if mode == "fwd":
-            a = ssm.mamba_fwd(params["mamba"], h, cfg)
+            a = ssm.mamba_fwd(params["mamba"], h, cfg, mesh=mesh)
         elif mode == "prefill":
-            a, new_cache = ssm.mamba_prefill(params["mamba"], h, cfg)
+            a, new_cache = ssm.mamba_prefill(params["mamba"], h, cfg,
+                                             mesh=mesh)
         else:
-            a, new_cache = ssm.mamba_decode(params["mamba"], h, cfg, cache)
+            a, new_cache = ssm.mamba_decode(params["mamba"], h, cfg, cache,
+                                            mesh=mesh)
     elif mode == "fwd":
         a = attn.attention_fwd(params["attn"], h, cfg, kind=kind,
                                impl=attn_impl, mesh=mesh)
@@ -314,7 +339,7 @@ def apply_block(cfg, p: int, params, x, *, mode: str, cache=None,
 
 def _embed_in(emb, cfg, tokens, mesh=None):
     """The embedding ``emb`` (``params["embed"]``) of ``tokens``."""
-    if mesh is not None and mesh.shape["model"] > 1:
+    if model_split(mesh):
         x = embed_sharded(emb, tokens, cfg.dtype, cfg.vocab_size, mesh)
     else:
         x = embed(emb, tokens, cfg.dtype)

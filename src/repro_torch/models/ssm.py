@@ -18,6 +18,31 @@ is the last K-1 raw inputs, left-padded with zeros below K-1 tokens: the
 context ``_causal_conv`` assumes without ``prev`` (the JAX package keeps
 fewer rows there, ROADMAP Queue 3).
 
+On a ``(data, model)`` mesh (``mesh=``, ``model`` > 1) a rank holds
+JAX's blocks (``runtime/sharding.py``): ``w_in`` (d, 2 inner) cut over
+``"model"`` along its last dimension as one block, and the rank's block of
+the inner dimension of ``conv_w``, ``conv_b``, ``dt_bias``, ``d_skip``,
+``a_log``, ``w_b``, ``w_c``, ``w_dt_down``, ``w_dt_up`` and ``w_out``
+(and of the ``ssm``/``conv`` cache).  ``w_in``'s block is not the rank's
+inner block of u and of z: at model 2 rank 0 holds all of u's columns
+and rank 1 all of z's.  The rank re-blocks its product ``x @ w_in`` into
+its inner blocks of u and z with one exchange of two pieces along
+``"model"`` a layer (``launch/mesh.model_halves``; (B, S, 2 inner / M)
+values a rank, the inverse exchange in the backward).  The other way,
+holding u's and z's inner blocks of ``w_in`` instead of JAX's block,
+moves about as many bytes once at load (a 33.5 MB block a layer at
+jamba's d 4096, inner 8192, model 4, against 67 MB of bf16 activations
+for 2 x 4096 tokens) but leaves the rank holding other weights than
+JAX's at rest, so that checkpoints, the training blocks and the
+optimizer's moments would need a second layout; the activations are
+re-blocked instead (their cost on the card: ``model_exchange`` in the
+timed collectives of ``tools/distributed_check.py --serve``).  The
+selective products ``u @ w_dt_down``, ``u @ w_b`` and ``u @ w_c`` are
+sums over inner: the rank's partial products of the whole sequence are
+summed over ``"model"`` once, before the chunk loop, and the chunked scan
+then runs on the rank's inner block with no collective.  ``w_out`` is
+row-parallel, followed by the ``"model"`` sum.
+
 No Pallas kernel sits behind this layer; the JAX package computes it in
 jnp.  ``mamba_flops`` and its cost-book record wait for
 ``models/costbook.py`` (ROADMAP Queue 1).
@@ -29,6 +54,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.mesh import (model_copy, model_halves,
+                                     model_split, model_sum)
 from repro_torch.models.layers import dense_init, softplus
 
 CHUNK = 256
@@ -82,18 +109,38 @@ def _causal_conv(u, w, b, prev=None):
     return out + b.to(u.dtype)
 
 
-def _ssm_params(params, u, cfg):
-    """Selective dt/B/C from the (conv'd, silu'd) input u: (B,L,inner), in
-    f32 on the f32 matrices."""
+def _uz(params, x, mesh):
+    """The conv's raw input u and the gate z, (B, L, inner) each, or the
+    rank's inner blocks of both on a mesh (:func:`model_halves` of the
+    rank's block of ``x @ w_in``)."""
+    w = params["w_in"].to(x.dtype)
+    if not model_split(mesh):
+        return (x @ w).chunk(2, dim=-1)
+    return model_halves(mesh, model_copy(mesh, x) @ w).chunk(2, dim=-1)
+
+
+def _selective(params, u, mesh):
+    """The low-rank dt, B and C of the (conv'd, silu'd) input u: (B, L,
+    dt_rank), (B, L, state) x2, the f32 products on the f32 matrices.  On
+    a mesh each is a sum over inner: the rank's partial products, summed
+    over ``"model"`` in one collective."""
     uf = u.float()
-    dt = uf @ params["w_dt_down"] @ params["w_dt_up"]
-    dt = softplus(dt + params["dt_bias"])                  # (B,L,inner)
-    bm = uf @ params["w_b"]                                 # (B,L,state)
-    cm = uf @ params["w_c"]                                 # (B,L,state)
+    parts = [uf @ params[name] for name in ("w_dt_down", "w_b", "w_c")]
+    if not model_split(mesh):
+        return parts
+    sizes = [t.shape[-1] for t in parts]
+    whole = model_copy(mesh, model_sum(mesh, torch.cat(parts, dim=-1)))
+    return whole.split(sizes, dim=-1)
+
+
+def _ssm_params(params, u, dt_low, bm):
+    """The chunk's decay and input terms from u (B, L, inner) and its
+    rows of the selective products: da, dbu (B, L, inner, state)."""
+    dt = softplus(dt_low @ params["w_dt_up"] + params["dt_bias"])
     a = -torch.exp(params["a_log"])                         # (inner,state)
     da = torch.exp(dt[..., None] * a)                       # (B,L,in,st)
-    dbu = (dt * uf)[..., None] * bm[:, :, None, :]          # (B,L,in,st)
-    return da, dbu, cm, dt
+    dbu = (dt * u.float())[..., None] * bm[:, :, None, :]   # (B,L,in,st)
+    return da, dbu
 
 
 def _chunk_scan(da, dbu, h0):
@@ -112,54 +159,68 @@ def _chunk_scan(da, dbu, h0):
     return h, h[:, -1]
 
 
-def _mamba(params, x, cfg, chunk: int):
+def _out(params, y, u, z, mesh):
+    """The skip, the gate and ``w_out`` (row-parallel on a mesh, then the
+    ``"model"`` sum)."""
+    dtype = u.dtype
+    y = (y + u * params["d_skip"].to(dtype)) * F.silu(z)
+    out = y @ params["w_out"].to(dtype)
+    return model_sum(mesh, out) if model_split(mesh) else out
+
+
+def _mamba(params, x, cfg, chunk: int, mesh=None):
     """The chunked forward: (out, raw conv input u, final state)."""
     B, S, d = x.shape
     check_chunks(S, chunk)
     dtype = x.dtype
-    inner = d * cfg.ssm_expand
-    u_raw, z = (x @ params["w_in"].to(dtype)).chunk(2, dim=-1)
+    u_raw, z = _uz(params, x, mesh)
     u = F.silu(_causal_conv(u_raw, params["conv_w"], params["conv_b"]))
+    dt_low, bm, cm = _selective(params, u, mesh)
     L = min(chunk, S)
-    h = torch.zeros((B, inner, cfg.ssm_state), dtype=torch.float32,
+    h = torch.zeros((B, u.shape[-1], cfg.ssm_state), dtype=torch.float32,
                     device=x.device)
     ys = []
     for c in range(S // L):
-        da, dbu, cm, _ = _ssm_params(params, u[:, c * L:(c + 1) * L], cfg)
+        rows = slice(c * L, (c + 1) * L)
+        da, dbu = _ssm_params(params, u[:, rows], dt_low[:, rows],
+                              bm[:, rows])
         h_all, h = _chunk_scan(da, dbu, h)
-        ys.append(torch.einsum("blis,bls->bli", h_all, cm).to(dtype))
+        ys.append(torch.einsum("blis,bls->bli", h_all, cm[:, rows]
+                               ).to(dtype))
         del da, dbu, h_all
     y = torch.cat(ys, dim=1)
-    y = (y + u * params["d_skip"].to(dtype)) * F.silu(z)
-    return y @ params["w_out"].to(dtype), u_raw, h
+    return _out(params, y, u, z, mesh), u_raw, h
 
 
-def mamba_fwd(params, x, cfg, chunk: int = CHUNK):
-    """Full-sequence forward.  x: (B,S,d) -> (B,S,d)."""
-    return _mamba(params, x, cfg, chunk)[0]
+def mamba_fwd(params, x, cfg, chunk: int = CHUNK, mesh=None):
+    """Full-sequence forward.  x: (B,S,d) -> (B,S,d); on a mesh, the
+    rank's inner blocks (module docstring)."""
+    return _mamba(params, x, cfg, chunk, mesh)[0]
 
 
-def mamba_prefill(params, x, cfg, chunk: int = CHUNK):
+def mamba_prefill(params, x, cfg, chunk: int = CHUNK, mesh=None):
     """Returns (out, cache): the final f32 state ``ssm`` (B,inner,state)
     and the conv tail ``conv`` (B,K-1,inner), zero rows first when the
-    sequence is shorter than K-1."""
-    out, u_raw, h = _mamba(params, x, cfg, chunk)
+    sequence is shorter than K-1; on a mesh the rank's inner blocks of
+    both (JAX's ``_cache_pspec``)."""
+    out, u_raw, h = _mamba(params, x, cfg, chunk, mesh)
     K1 = cfg.ssm_conv - 1
     tail = u_raw[:, max(x.shape[1] - K1, 0):]
     tail = F.pad(tail, (0, 0, K1 - tail.shape[1], 0))
     return out, {"ssm": h, "conv": tail}
 
 
-def mamba_decode(params, x, cfg, cache):
+def mamba_decode(params, x, cfg, cache, mesh=None):
     """One token.  x: (B,1,d); cache: {ssm: (B,inner,state), conv:
-    (B,K-1,inner)}.  Returns (out, new cache)."""
+    (B,K-1,inner)} (the rank's inner blocks on a mesh).  Returns (out,
+    new cache)."""
     dtype = x.dtype
-    u_raw, z = (x @ params["w_in"].to(dtype)).chunk(2, dim=-1)  # (B,1,in)
+    u_raw, z = _uz(params, x, mesh)                          # (B,1,in)
     new_conv = torch.cat([cache["conv"], u_raw], dim=1)[:, 1:]
     u = F.silu(_causal_conv(u_raw, params["conv_w"], params["conv_b"],
                             prev=cache["conv"].to(dtype)))
-    da, dbu, cm, _ = _ssm_params(params, u, cfg)             # (B,1,...)
+    dt_low, bm, cm = _selective(params, u, mesh)
+    da, dbu = _ssm_params(params, u, dt_low, bm)             # (B,1,...)
     h = cache["ssm"] * da[:, 0] + dbu[:, 0]                  # (B,in,st)
     y = torch.einsum("bis,bs->bi", h, cm[:, 0])[:, None, :].to(dtype)
-    y = (y + u * params["d_skip"].to(dtype)) * F.silu(z)
-    return y @ params["w_out"].to(dtype), {"ssm": h, "conv": new_conv}
+    return _out(params, y, u, z, mesh), {"ssm": h, "conv": new_conv}

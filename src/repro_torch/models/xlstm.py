@@ -11,6 +11,39 @@ package's ``lax.scan`` does, with the states in f32: ``C`` (B,nh,dh,dh),
 ``m`` (B,nh,dh) for the sLSTM.  The gate and recurrent matrices (``w_i``,
 ``w_f``, ``w_x``, ``r``) are read in f32, as the JAX package reads them.
 
+On a ``(data, model)`` mesh (``mesh=``, ``model`` > 1) a rank holds
+JAX's blocks (``runtime/sharding.py``) and computes its heads:
+
+* mLSTM.  ``w_up`` (d, 2 inner) is cut over ``"model"`` as one block
+  (so at model 2 rank 0 holds u's columns and rank 1 z's); the rank's
+  product is re-blocked to its inner blocks of u and z by one exchange
+  (``mesh.model_halves``, as mamba's), and u's blocks are gathered whole
+  over ``"model"`` (``mesh.model_gather``: ``w_q``/``w_k``/``w_v``, cut
+  by their output columns, take the whole u); no rank receives z's other
+  blocks.  Its columns of the q, k,
+  v products are whole heads (``n_heads`` must divide the model axis).
+  ``w_i``/``w_f`` are row-parallel: the rank's partial gates are summed
+  over ``"model"``; ``b_i``/``b_f`` are the rank's heads.  The
+  token-by-token recurrence runs on the rank's heads with no collective
+  inside the loop; the norm over the whole inner width sums the squares
+  over ``"model"`` in f32; ``w_down`` is row-parallel, then the
+  ``"model"`` sum.  JAX's cache holds ``C`` (B, nh, dh, dh) cut on its
+  key dimension and ``n``, ``m`` whole: the prefill re-blocks its final
+  ``C`` from heads to key blocks with one all-to-all and gathers ``n``
+  and ``m``, once at the end; the decode gathers the new token's q, k, v
+  and gates over ``"model"`` (small), updates the key blocks of ``C``
+  and the whole ``n``, ``m`` on every rank, and sums the partial
+  numerators over ``"model"``.
+* sLSTM.  ``w_x`` (d, 4d) and ``b_x`` are cut contiguously, and the
+  pre-activations are head-major (each head's z, i, f, o side by side),
+  so the rank's block is its whole heads with all four gates and the
+  recurrence is head-parallel; the recurrent ``r``, whole on every rank,
+  is read for the rank's heads (``model_copy``: its gradient summed over
+  ``"model"``).  JAX's cache holds ``h``, ``c``, ``n``, ``m`` whole: they
+  are gathered over ``"model"`` at the prefill's end and after each
+  decode step.  The norm over d sums its squares over ``"model"``;
+  ``w_out`` is row-parallel, then the ``"model"`` sum.
+
 No Pallas kernel sits behind these blocks; the JAX package's docstring
 names a chunked ``mlstm_fwd_chunked`` that it does not have, so it has no
 counterpart here.  The cost-book records wait for ``models/costbook.py``
@@ -23,6 +56,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.mesh import (model_copy, model_gather,
+                                     model_halves, model_split, model_sum)
 from repro_torch.models.layers import (dense_init, init_rmsnorm,
                                        log_sigmoid, rmsnorm)
 
@@ -52,35 +87,66 @@ def init_mlstm(generator, cfg) -> dict:
     }
 
 
-def _mlstm_qkvgates(params, x, cfg):
+def _norm(params, h, eps: float, width: int, mesh):
+    """:func:`rmsnorm` over ``width`` features of which ``h`` holds the
+    rank's block on a mesh: the squares summed over ``"model"`` in f32,
+    the rank's block of the scale."""
+    if not model_split(mesh):
+        return rmsnorm(params, h, eps)
+    x = h.float()
+    ss = model_copy(mesh, model_sum(mesh, x.square().sum(-1, keepdim=True)))
+    x = x * torch.rsqrt(ss / width + eps)
+    return (x * params["scale"]).to(h.dtype)
+
+
+def _mlstm_qkvgates(params, x, cfg, mesh=None):
     """q, v in the compute dtype; k in f32 (the JAX package divides the
     product by ``np.sqrt(dh)``, a float64 scalar that is not weakly typed,
     so k comes out f32 under bf16: here the product cast to f32 over an
     f32 sqrt(dh) on the device, a true division, where a Python scalar on
     CUDA would multiply by its reciprocal); the gates ``it``, ``ft``
-    (B,S,nh) in f32."""
+    (B,S,nh) in f32.  On a mesh: the rank's heads of each, and its inner
+    block of z (module docstring)."""
     dtype = x.dtype
     inner = 2 * cfg.d_model
     nh = cfg.n_heads
     dh = inner // nh
-    u, z = (x @ params["w_up"].to(dtype)).chunk(2, dim=-1)   # (B,S,inner)
+    w_up = params["w_up"].to(dtype)
+    if model_split(mesh):
+        u_own, z = model_halves(mesh, model_copy(mesh, x) @ w_up).chunk(
+            2, -1)
+        u = model_gather(mesh, u_own)
+    else:
+        u, z = (x @ w_up).chunk(2, dim=-1)                  # (B,S,inner)
+        u_own = u
     B, S, _ = u.shape
-    q = (u @ params["w_q"].to(dtype)).reshape(B, S, nh, dh)
-    k = (u @ params["w_k"].to(dtype)).reshape(B, S, nh, dh).float()
+    nh_l = params["w_q"].shape[1] // dh
+    q = (u @ params["w_q"].to(dtype)).reshape(B, S, nh_l, dh)
+    k = (u @ params["w_k"].to(dtype)).reshape(B, S, nh_l, dh).float()
     k = k / k.new_full((), math.sqrt(dh))
-    v = (u @ params["w_v"].to(dtype)).reshape(B, S, nh, dh)
-    uf = u.float()
-    it = uf @ params["w_i"] + params["b_i"]                   # (B,S,nh)
-    ft = uf @ params["w_f"] + params["b_f"]
-    return q, k, v, it, ft, z
+    v = (u @ params["w_v"].to(dtype)).reshape(B, S, nh_l, dh)
+    uf = u_own.float()
+    it, ft = uf @ params["w_i"], uf @ params["w_f"]          # (B,S,nh)
+    if model_split(mesh):
+        gates = model_copy(mesh, model_sum(mesh, torch.cat([it, ft], -1)))
+        lo = mesh.axis_index("model") * nh_l
+        it = gates[..., lo:lo + nh_l]
+        ft = gates[..., nh + lo:nh + lo + nh_l]
+    return q, k, v, it + params["b_i"], ft + params["b_f"], z
 
 
-def _mlstm_inputs(params, x, cfg):
+def _mlstm_inputs(params, x, cfg, mesh=None):
     """The step's inputs for every token at once (elementwise, so the
     same values as the JAX package's inside its scan): q, k, v (B,S,nh,dh)
-    in f32, it and log sigmoid(ft) (B,S,nh); and z."""
-    q, k, v, it, ft, z = _mlstm_qkvgates(params, x, cfg)
+    in f32, it and log sigmoid(ft) (B,S,nh); and z (the rank's heads and
+    inner block on a mesh)."""
+    q, k, v, it, ft, z = _mlstm_qkvgates(params, x, cfg, mesh)
     return (q.float(), k, v.float(), it, log_sigmoid(ft)), z
+
+
+def _mlstm_gates(m, it, logf):
+    m_new = torch.maximum(logf + m, it)
+    return m_new, torch.exp(it - m_new), torch.exp(logf + m - m_new)
 
 
 def _mlstm_step(carry, inp):
@@ -88,9 +154,7 @@ def _mlstm_step(carry, inp):
     inputs from :func:`_mlstm_inputs`."""
     C, n, m = carry
     qf, kf, vf, it, logf = inp                 # (B,nh,dh) x3, (B,nh) x2
-    m_new = torch.maximum(logf + m, it)
-    i_p = torch.exp(it - m_new)
-    f_p = torch.exp(logf + m - m_new)
+    m_new, i_p, f_p = _mlstm_gates(m, it, logf)
     C = f_p[..., None, None] * C + i_p[..., None, None] * (
         kf[..., :, None] * vf[..., None, :])
     n = f_p[..., None] * n + i_p[..., None] * kf
@@ -100,44 +164,93 @@ def _mlstm_step(carry, inp):
     return (C, n, m_new), num / den
 
 
-def _mlstm(params, x, cfg):
-    """The token-by-token scan from zero states: (out, (C, n, m))."""
+def _mlstm_out(params, h, z, cfg, mesh):
+    """The norm over the inner width, the gate and ``w_down``; h and z
+    (B, S, inner) or the rank's inner blocks."""
+    h = _norm(params["norm"], h, cfg.norm_eps, 2 * cfg.d_model, mesh) * \
+        F.silu(z)
+    out = h @ params["w_down"].to(h.dtype)
+    return model_sum(mesh, out) if model_split(mesh) else out
+
+
+def _mlstm(params, x, cfg, mesh=None):
+    """The token-by-token scan from zero states on the rank's heads:
+    (out, (C, n, m))."""
     B, S, d = x.shape
     dtype = x.dtype
-    inner = 2 * d
-    nh = cfg.n_heads
-    dh = inner // nh
-    inp, z = _mlstm_inputs(params, x, cfg)
-    carry = (x.new_zeros((B, nh, dh, dh), dtype=_F32),
-             x.new_zeros((B, nh, dh), dtype=_F32),
-             x.new_zeros((B, nh), dtype=_F32))
+    inp, z = _mlstm_inputs(params, x, cfg, mesh)
+    nh_l, dh = inp[0].shape[2], inp[0].shape[3]
+    carry = (x.new_zeros((B, nh_l, dh, dh), dtype=_F32),
+             x.new_zeros((B, nh_l, dh), dtype=_F32),
+             x.new_zeros((B, nh_l), dtype=_F32))
     hs = []
     for t in range(S):
         carry, h = _mlstm_step(carry, [a[:, t] for a in inp])
         hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(B, S, inner).to(dtype)
-    h = rmsnorm(params["norm"], h, cfg.norm_eps) * F.silu(z)
-    return h @ params["w_down"].to(dtype), carry
+    h = torch.stack(hs, dim=1).reshape(B, S, nh_l * dh).to(dtype)
+    return _mlstm_out(params, h, z, cfg, mesh), carry
 
 
-def mlstm_fwd(params, x, cfg):
-    return _mlstm(params, x, cfg)[0]
+def mlstm_fwd(params, x, cfg, mesh=None):
+    return _mlstm(params, x, cfg, mesh)[0]
 
 
-def mlstm_prefill(params, x, cfg):
-    out, (C, n, m) = _mlstm(params, x, cfg)
+def mlstm_prefill(params, x, cfg, mesh=None):
+    """(out, cache); on a mesh the cache is the rank's block of JAX's:
+    ``C`` by key blocks over ``"model"`` (heads whole), re-blocked from
+    the rank's heads with one all-to-all (gathered by heads where the key
+    dimension does not divide the axis), ``n`` and ``m`` whole."""
+    out, (C, n, m) = _mlstm(params, x, cfg, mesh)
+    if model_split(mesh):
+        M = mesh.shape["model"]
+        dh = C.shape[-1]
+        if dh % M == 0 and dh >= M:
+            C = mesh.all_to_all(C, "model", 2, 1)
+        else:
+            C = mesh.all_gather(C, "model", dim=1)
+        nm = mesh.all_gather(torch.cat([n, m[..., None]], -1), "model",
+                             dim=1)
+        n, m = nm[..., :-1], nm[..., -1]
     return out, {"C": C, "n": n, "m": m}
 
 
-def mlstm_decode(params, x, cfg, cache):
+def mlstm_decode(params, x, cfg, cache, mesh=None):
+    """One token against the cache.  On a mesh the cache is the rank's
+    block of JAX's (``C``'s key block, whole ``n``, ``m``): the rank's
+    heads of the token's q, k, v and gates are gathered over ``"model"``,
+    every rank updates its key block of ``C`` and the whole ``n`` and
+    ``m`` for every head, and the partial numerators over the key blocks
+    are summed over ``"model"``."""
     B = x.shape[0]
     dtype = x.dtype
-    inp, z = _mlstm_inputs(params, x, cfg)
-    (C, n, m), h = _mlstm_step((cache["C"], cache["n"], cache["m"]),
-                               [a[:, 0] for a in inp])
-    h = h.reshape(B, 1, 2 * cfg.d_model).to(dtype)
-    h = rmsnorm(params["norm"], h, cfg.norm_eps) * F.silu(z)
-    return h @ params["w_down"].to(dtype), {"C": C, "n": n, "m": m}
+    inp, z = _mlstm_inputs(params, x, cfg, mesh)
+    if not model_split(mesh):
+        (C, n, m), h = _mlstm_step((cache["C"], cache["n"], cache["m"]),
+                                   [a[:, 0] for a in inp])
+        h = h.reshape(B, 1, 2 * cfg.d_model).to(dtype)
+        return _mlstm_out(params, h, z, cfg, mesh), {"C": C, "n": n, "m": m}
+    qf, kf, vf, it, logf = (a[:, 0] for a in inp)
+    nh_l, dh = qf.shape[1], qf.shape[2]
+    got = mesh.all_gather(torch.cat([qf, kf, vf, it[..., None],
+                                     logf[..., None]], -1), "model", dim=1)
+    qf, kf, vf = got[..., :dh], got[..., dh:2 * dh], got[..., 2 * dh:3 * dh]
+    it, logf = got[..., 3 * dh], got[..., 3 * dh + 1]
+    C, n, m = cache["C"], cache["n"], cache["m"]
+    kb = C.shape[-2]                              # the rank's key rows
+    lo = mesh.axis_index("model") * kb if kb < dh else 0
+    m_new, i_p, f_p = _mlstm_gates(m, it, logf)
+    C = f_p[..., None, None] * C + i_p[..., None, None] * (
+        kf[..., lo:lo + kb, None] * vf[..., None, :])
+    n = f_p[..., None] * n + i_p[..., None] * kf
+    num = torch.einsum("bhde,bhd->bhe", C, qf[..., lo:lo + kb])
+    if kb < dh:
+        num = mesh.all_reduce_sum(num, "model")
+    den = torch.maximum(torch.einsum("bhd,bhd->bh", n, qf).abs(),
+                        torch.exp(-m_new))[..., None]
+    h0 = mesh.axis_index("model") * nh_l
+    h = (num / den)[:, h0:h0 + nh_l].reshape(B, 1, nh_l * dh).to(dtype)
+    return _mlstm_out(params, h, z, cfg, mesh), {"C": C, "n": n,
+                                                 "m": m_new}
 
 
 # ---------------------------------------------------------------------------
@@ -160,14 +273,12 @@ def init_slstm(generator, cfg) -> dict:
     }
 
 
-def _slstm_step(params, cfg, carry, xproj):
-    """carry: (h, c, n, m) each (B,nh,dh); xproj: (B,4d) input
-    pre-activation."""
+def _slstm_step(r, carry, xproj):
+    """carry: (h, c, n, m) each (B,nh,dh); xproj: (B,4 nh dh) input
+    pre-activation; r: (nh,dh,4dh) the heads' recurrent matrices."""
     h, c, n, m = carry
-    B = h.shape[0]
-    nh = cfg.n_heads
-    dh = cfg.d_model // nh
-    rec = torch.einsum("bhd,hde->bhe", h, params["r"])      # (B,nh,4dh)
+    B, nh, dh = h.shape
+    rec = torch.einsum("bhd,hde->bhe", h, r)                 # (B,nh,4dh)
     pre = xproj.reshape(B, nh, 4 * dh) + rec
     zt, it, ft, ot = pre.chunk(4, dim=-1)                   # (B,nh,dh)
     zt = torch.tanh(zt)
@@ -181,39 +292,70 @@ def _slstm_step(params, cfg, carry, xproj):
     return ot * c / n.clamp_min(1e-6), c, n, m_new
 
 
-def _slstm(params, x, cfg):
-    """The token-by-token scan from zero states: (out, (h, c, n, m))."""
+def _slstm_in(params, x, mesh):
+    """The rank's input pre-activations (B, S, 4 nh_l dh) in f32 and its
+    heads' recurrent matrices (every head without a mesh)."""
+    r = params["r"]
+    if not model_split(mesh):
+        return x.float() @ params["w_x"] + params["b_x"], r
+    nh_l = params["w_x"].shape[1] // (4 * r.shape[1])
+    lo = mesh.axis_index("model") * nh_l
+    xp = model_copy(mesh, x).float() @ params["w_x"] + params["b_x"]
+    return xp, model_copy(mesh, r)[lo:lo + nh_l]
+
+
+def _slstm_out(params, h, cfg, mesh):
+    h = _norm(params["norm"], h, cfg.norm_eps, cfg.d_model, mesh)
+    out = h @ params["w_out"].to(h.dtype)
+    return model_sum(mesh, out) if model_split(mesh) else out
+
+
+def _gather_states(mesh, states):
+    """The rank's heads of (h, c, n, m) gathered whole over ``"model"``
+    in one collective."""
+    if not model_split(mesh):
+        return states
+    return mesh.all_gather(torch.stack(states), "model", dim=2).unbind(0)
+
+
+def _slstm(params, x, cfg, mesh=None):
+    """The token-by-token scan from zero states on the rank's heads:
+    (out, (h, c, n, m))."""
     B, S, d = x.shape
     dtype = x.dtype
-    nh = cfg.n_heads
-    xp = x.float() @ params["w_x"] + params["b_x"]           # (B,S,4d)
-    zero = x.new_zeros((B, nh, d // nh), dtype=_F32)
+    xp, r = _slstm_in(params, x, mesh)                       # (B,S,4d)
+    zero = x.new_zeros((B, r.shape[0], r.shape[1]), dtype=_F32)
     carry = (zero, zero, zero, zero)
     hs = []
     for t in range(S):
-        carry = _slstm_step(params, cfg, carry, xp[:, t])
+        carry = _slstm_step(r, carry, xp[:, t])
         hs.append(carry[0])
-    h = torch.stack(hs, dim=1).reshape(B, S, d).to(dtype)
-    h = rmsnorm(params["norm"], h, cfg.norm_eps)
-    return h @ params["w_out"].to(dtype), carry
+    h = torch.stack(hs, dim=1).reshape(B, S, -1).to(dtype)
+    return _slstm_out(params, h, cfg, mesh), carry
 
 
-def slstm_fwd(params, x, cfg):
-    return _slstm(params, x, cfg)[0]
+def slstm_fwd(params, x, cfg, mesh=None):
+    return _slstm(params, x, cfg, mesh)[0]
 
 
-def slstm_prefill(params, x, cfg):
-    out, (h, c, n, m) = _slstm(params, x, cfg)
+def slstm_prefill(params, x, cfg, mesh=None):
+    """(out, cache); on a mesh the states gathered whole over
+    ``"model"`` (JAX's cache holds them whole)."""
+    out, states = _slstm(params, x, cfg, mesh)
+    h, c, n, m = _gather_states(mesh, states)
     return out, {"h": h, "c": c, "n": n, "m": m}
 
 
-def slstm_decode(params, x, cfg, cache):
-    B, _, d = x.shape
+def slstm_decode(params, x, cfg, cache, mesh=None):
+    """One token; on a mesh the rank's heads of the whole states step, and
+    the new states are gathered whole again."""
+    B = x.shape[0]
     dtype = x.dtype
-    xp = x[:, 0].float() @ params["w_x"] + params["b_x"]
-    h_new, c, n, m = _slstm_step(params, cfg, (cache["h"], cache["c"],
-                                               cache["n"], cache["m"]), xp)
-    h = rmsnorm(params["norm"], h_new.reshape(B, 1, d).to(dtype),
-                cfg.norm_eps)
-    return h @ params["w_out"].to(dtype), {"h": h_new, "c": c, "n": n,
-                                           "m": m}
+    xp, r = _slstm_in(params, x, mesh)
+    nh_l = r.shape[0]
+    lo = mesh.axis_index("model") * nh_l if model_split(mesh) else 0
+    states = tuple(cache[k][:, lo:lo + nh_l] for k in ("h", "c", "n", "m"))
+    new = _slstm_step(r, states, xp[:, 0])
+    h = _slstm_out(params, new[0].reshape(B, 1, -1).to(dtype), cfg, mesh)
+    h_new, c, n, m = _gather_states(mesh, new)
+    return h, {"h": h_new, "c": c, "n": n, "m": m}

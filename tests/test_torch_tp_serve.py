@@ -28,10 +28,15 @@ the seven attention decoders at all four meshes (qwen with 4 kv heads,
 MHA; at model 4 the reduced configs' 2 kv heads repeat to 4, and JAX's
 cache is compared repeated likewise, ``jnp.repeat``'s order); 6 query
 heads over 3 kv heads at model 2, whose cache shards the head dimension,
-in f32 and int8; jamba, xlstm and whisper at (4, 1) and (2, 1);
-sequence-parallel decodes (global batch 1 on data 2) of gemma3 and
-mixtral.  MoE whole models run with total routing, so that no token drops
-and each data shard's own routing (what ``moe_apply_sharded`` computes
+in f32 and int8; jamba, xlstm and whisper at all four meshes (at
+``model`` > 1 the mamba inner blocks, the mLSTM's and sLSTM's heads and
+whisper's heads and ff over ``"model"``; each rank's parameter and cache
+blocks are JAX's blocks of the whole leaves, no rank holds a whole
+``w_in``/``w_up``/``w_x`` and no step gathers a weight block);
+sequence-parallel decodes (global batch 1 on data 2) of gemma3, mixtral
+and whisper; a reduced whisper with an odd vocab (509) at (1, 2), whose
+table JAX keeps whole.  MoE whole models run with total routing, so
+that no token drops and each data shard's own routing (what ``moe_apply_sharded`` computes
 there) equals JAX's on the whole batch; at top-2 one MoE layer is held per
 data shard to JAX's ``_dispatch_and_compute`` on that shard's rows, at
 both routes.  At (P, 1) the dense decoders are bitwise the port's one
@@ -81,6 +86,8 @@ DECODERS = ("qwen1.5-0.5b", "llama3-8b", "phi3-medium-14b", "gemma3-12b",
 OTHERS = ("jamba-v0.1-52b", "xlstm-125m", "whisper-tiny")
 TP_MESHES = [(2, 2), (1, 4), (4, 1), (2, 1)]
 DP_MESHES = [(4, 1), (2, 1)]
+MODEL_MESHES = [(2, 2), (1, 4)]     # the recurrent blocks' and whisper's TP
+ODD_VOCAB = {"vocab_size": 509}     # whisper's table whole at model 2
 B, S, STEPS = 4, 72, 4          # S past the reduced window of 64
 TOL, TOL_INT8 = 1e-5, 1e-4
 OVERRIDES = {"qwen1.5-0.5b": {"n_kv_heads": 4}}
@@ -249,25 +256,25 @@ def test_moe_route_matches_jax(name):
 
 
 def test_mesh_past_model_1_refuses_mamba_xlstm_whisper():
-    """(iii) The recurrent blocks and the encoder-decoder at model > 1
-    raise naming ROADMAP's step; at model 1 they build.  At model 2
-    ``make_step`` gives a training step for an attention decoder and still
-    raises for a recurrent one."""
+    """(iii) The recurrent blocks and the encoder-decoder build at model 2
+    (and at model 1), and ``make_step`` gives a training step for them as
+    for an attention decoder; the one refusal left is whisper-tiny at
+    model 4 (6 heads over 4 ranks), naming ROADMAP's step 8c."""
     from repro_torch.models.factory import make_model
     for name in OTHERS:
-        cfg = get_config(name + "-reduced")
-        with pytest.raises(ValueError, match="step 8b"):
-            make_model(cfg, mesh=types.SimpleNamespace(
-                shape={"data": 1, "model": 2}))
-        make_model(cfg, mesh=types.SimpleNamespace(
-            shape={"data": 2, "model": 1}))
+        for shape in ({"data": 1, "model": 2}, {"data": 2, "model": 1}):
+            cfg = get_config(name + "-reduced")
+            assert callable(make_model(cfg, mesh=types.SimpleNamespace(
+                shape=shape))["prefill"])
     mesh = types.SimpleNamespace(shape={"data": 1, "model": 2}, size=2,
                                  model=2, in_mesh=True)
     train = ShapeConfig("c", "train", 16, 2)
-    assert callable(tsteps.make_step(get_config("qwen1.5-0.5b-reduced"),
-                                     mesh, train))
-    with pytest.raises(ValueError, match="step 8b"):
-        tsteps.make_step(get_config("jamba-v0.1-52b-reduced"), mesh, train)
+    for name in ("qwen1.5-0.5b",) + OTHERS:
+        step = tsteps.make_step(get_config(name + "-reduced"), mesh, train)
+        assert callable(step) and step.microbatches == 1
+    with pytest.raises(ValueError, match="step 8c"):
+        make_model(get_config("whisper-tiny"), mesh=types.SimpleNamespace(
+            shape={"data": 1, "model": 4}))
 
 
 def test_block_and_assemble_round_trip():
@@ -306,14 +313,21 @@ def _cases():
         for mesh in DP_MESHES:
             out.append((f"{name}@{mesh}", name, {}, mesh, B, False,
                         name == "xlstm-125m"))
+        for mesh in MODEL_MESHES:
+            out.append((f"{name}@{mesh}", name, {}, mesh, B, False, False))
     out += [("hd-split@(2, 2)", "llama3-8b", HD_SPLIT, (2, 2), B, False,
              False),
             ("hd-split-int8@(1, 2)", "llama3-8b", HD_SPLIT, (1, 2), B, True,
              False),
             ("sp-gemma3@(2, 2)", "gemma3-12b", {}, (2, 2), 1, False, False),
             ("sp-mixtral@(2, 2)", "mixtral-8x7b", {}, (2, 2), 1, False,
-             False)]
+             False),
+            ("sp-whisper@(2, 2)", "whisper-tiny", {}, (2, 2), 1, False,
+             False),
+            ("odd-vocab-whisper@(1, 2)", "whisper-tiny", ODD_VOCAB, (1, 2),
+             B, False, False)]
     return out
+
 
 
 def _jax_run(jcfg, jp, toks, frames, kv_quant):
@@ -372,7 +386,8 @@ def _world(tmp_path_factory):
         toks = tokens(gb, S + STEPS, tcfg.vocab_size, seed=gb)
         case = {"tag": tag, "cfg": tcfg, "weights": wkey, "mesh": mesh,
                 "B": gb, "S": S, "steps": STEPS, "tokens": toks,
-                "kv_quant": quant, "plain": plain}
+                "kv_quant": quant, "plain": plain,
+                "own": name in OTHERS and mesh[1] > 1}
         if tcfg.is_encoder_decoder:
             case["frames"] = normal((gb, tcfg.enc_positions, tcfg.d_model),
                                     seed=gb)
@@ -389,7 +404,9 @@ def _world(tmp_path_factory):
     payload = {"cases": payload_cases, "weights": weights,
                "moe": {"cfg": tm, "layer": layer, "xs": xs,
                        "mesh": (2, 2)},
-               "refused": [get_config(n + "-reduced") for n in OTHERS]}
+               "refused": [(get_config(n + "-reduced"), (2, 2))
+                           for n in OTHERS] +
+               [(get_config("whisper-tiny"), (1, 4))]}
     wait = start_world("tp_serve_world", 4, tmp_path_factory.mktemp("tp"),
                        payload)
     jw = {k: jax.tree.map(jnp.asarray, v) for k, v in weights.items()}
@@ -416,7 +433,7 @@ def _world(tmp_path_factory):
     moe_refs = [r.result() for r in moe_runs]
     ranks = wait()
     return {"ranks": ranks, "refs": refs, "moe": moe_refs,
-            "cases": {c[0]: c for c in _cases()}}
+            "cases": {c[0]: c for c in _cases()}, "weights": weights}
 
 
 def _rel(got, want):
@@ -425,13 +442,20 @@ def _rel(got, want):
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
 
 
+def _rep(name, kw, mesh) -> int:
+    """The case's KV-head repeat: ``kv_tp_repeat``'s for a decoder, none
+    for the encoder-decoder (its prefill takes none, as JAX's)."""
+    tcfg = _case_cfgs(name, **kw)[1]
+    return 1 if tcfg.is_encoder_decoder else kv_tp_repeat(tcfg, mesh[1])
+
+
 def _check_case(world, tag):
     _, name, kw, mesh, gb, quant, _ = world["cases"][tag]
     r0 = world["ranks"][0]
     logits, cache = world["refs"][tag]
     tol = TOL_INT8 if quant else TOL
     assert _rel(r0[f"{tag}/logits"], logits) < tol, tag
-    rep = kv_tp_repeat(_case_cfgs(name, **kw)[1], mesh[1])
+    rep = _rep(name, kw, mesh)
     for path, want in _flat(cache).items():
         got = r0[f"{tag}/cache/{path}"]
         if rep > 1 and path.endswith(("/k", "/v", "_scale")):
@@ -461,6 +485,126 @@ def test_sharded_decoders_match_jax(world, name, mesh):
 def test_batch_split_of_the_others_matches_jax(world, name, mesh):
     """jamba (EP over "data"), xlstm and whisper at (P, 1)."""
     _check_case(world, f"{name}@{mesh}")
+
+
+@pytest.mark.parametrize("name", OTHERS)
+@pytest.mark.parametrize("mesh", MODEL_MESHES)
+def test_tensor_parallel_others_match_jax(world, name, mesh):
+    """jamba (mamba's inner blocks, attention heads, the expert-parallel
+    MoE), xlstm (the mLSTM's and sLSTM's heads) and whisper (heads and ff)
+    at model 2 and 4: every step's logits and the final cache against
+    JAX's one-device ``lm_prefill``/``lm_decode`` and
+    ``encdec_prefill``/``encdec_decode``."""
+    _check_case(world, f"{name}@{mesh}")
+
+
+def _jax_blocks(whole: dict, specs: dict, mesh, rank: int) -> dict:
+    """{path: mesh rank ``rank``'s block of each whole leaf} by its spec
+    in ``specs`` (a {path: spec} dict)."""
+    at = types.SimpleNamespace(shape={"data": mesh[0], "model": mesh[1]},
+                               rank=rank)
+    return {k: tsh.block(v, specs[k], at) for k, v in whole.items()}
+
+
+def _param_specs(name, kw, mesh, train: bool) -> dict:
+    jcfg = _case_cfgs(name, **kw)[0]
+    amesh = AbstractMesh(mesh, ("data", "model"))
+    return _flat(_specs(jsh.params_shardings(jfactory.param_specs(jcfg),
+                                             amesh, train=train)))
+
+
+@pytest.mark.parametrize("name", OTHERS)
+@pytest.mark.parametrize("mesh", MODEL_MESHES)
+def test_others_rank_blocks_are_jax_blocks(world, name, mesh):
+    """Each rank's parameters are its blocks of the whole weights by JAX's
+    inference specs, bit for bit, and its final cache leaves are its blocks
+    of JAX's cache by JAX's ``_cache_pspec`` (``batch_shardings``), within
+    the logits' bound."""
+    tag = f"{name}@{mesh}"
+    _, _, kw, _, gb, _, _ = world["cases"][tag]
+    wkey = f"{name}{sorted(kw.items())}"
+    specs = _param_specs(name, kw, mesh, train=False)
+    _, cache = world["refs"][tag]
+    rep = _rep(name, kw, mesh)
+    cache = {k: np.repeat(v, rep, axis=3) if rep > 1 and
+             k.endswith(("/k", "/v")) else v for k, v in _flat(cache).items()}
+    amesh = AbstractMesh(mesh, ("data", "model"))
+    cspecs = _flat(_specs(jsh.batch_shardings(
+        {"cache": jax.tree.map(lambda a: jax.ShapeDtypeStruct(
+            a.shape, a.dtype), _unflat(cache))}, amesh,
+        global_batch=gb)))
+    cspecs = {k.removeprefix("cache/"): v for k, v in cspecs.items()}
+    for r in range(mesh[0] * mesh[1]):
+        rank = world["ranks"][r]
+        got = {k[len(f"{tag}/own/params/"):]: v for k, v in rank.items()
+               if k.startswith(f"{tag}/own/params/")}
+        want = _jax_blocks(_flat(world["weights"][wkey]), specs, mesh, r)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert got[k].shape == want[k].shape and \
+                got[k].tobytes() == want[k].tobytes(), (tag, r, k)
+        want = _jax_blocks(cache, cspecs, mesh, r)
+        for k, w in want.items():
+            g = rank[f"{tag}/own/cache/{k}"]
+            assert g.shape == w.shape, (tag, r, k, g.shape, w.shape)
+            assert _rel(g, w) < TOL, (tag, r, k)
+
+
+def _unflat(flat: dict) -> dict:
+    out = {}
+    for k, v in flat.items():
+        node = out
+        *up, leaf = k.split("/")
+        for u in up:
+            node = node.setdefault(u, {})
+        node[leaf] = v
+    return out
+
+
+def test_no_rank_holds_or_gathers_a_whole_weight(world):
+    """At model > 1 no rank holds a whole ``w_in``, ``w_up`` or ``w_x``
+    (each its 1/M of the columns), every parameter that JAX's rules cut
+    over "model" is smaller on each rank than whole, and no gather of the
+    steps along "model" takes a tensor of the shape of a rank's cut
+    weight block: the blocks run tensor-parallel, never as whole weights
+    (the MoE's expert weights gathered over "data" at a long prefill are
+    the expert-parallel route, not this)."""
+    seen = set()
+    for tag, (_, name, kw, mesh, *_) in world["cases"].items():
+        if name not in OTHERS or mesh[1] == 1:
+            continue
+        wkey = f"{name}{sorted(kw.items())}"
+        whole = _flat(world["weights"][wkey])
+        specs = _param_specs(name, kw, mesh, train=False)
+        for r in range(mesh[0] * mesh[1]):
+            rank = world["ranks"][r]
+            gathered = {str(s) for s in rank[f"{tag}/gathered_shapes"]}
+            for k, w in whole.items():
+                got = rank[f"{tag}/own/params/{k}"]
+                if k.endswith(("w_in", "w_up", "w_x")):
+                    assert got.shape[-1] * mesh[1] == w.shape[-1], (tag, k)
+                    seen.add(k.rsplit("/", 1)[-1])
+                if "model" in specs[k]:
+                    assert got.size < w.size, (tag, r, k)
+                    assert str(tuple(got.shape[1:])) not in gathered and \
+                        str(tuple(got.shape)) not in gathered, (tag, r, k)
+    assert seen == {"w_in", "w_up", "w_x"}
+
+
+@pytest.mark.parametrize("tag", ["sp-whisper@(2, 2)",
+                                 "odd-vocab-whisper@(1, 2)"])
+def test_whisper_sequence_parallel_and_whole_table(world, tag):
+    """whisper's sequence-parallel decode (global batch 1 on data 2: the
+    self-attention cache's sequence over "data", ``encoder_out`` whole on
+    every rank), and a vocab of 509 at model 2, whose table JAX keeps
+    whole: the whole-table lookup and the whole logits."""
+    _check_case(world, tag)
+    r0 = world["ranks"][0]
+    if tag.startswith("sp-"):
+        assert r0[f"{tag}/own/cache/encoder_out"].shape[0] == 1
+        assert r0[f"{tag}/own/cache/self/k"].shape[2] == (S + STEPS) // 2
+    else:
+        assert r0[f"{tag}/own/params/embed/table"].shape[0] == 509
 
 
 @pytest.mark.parametrize("tag", ["hd-split@(2, 2)", "hd-split-int8@(1, 2)"])
@@ -551,7 +695,9 @@ def test_mesh_collectives_along_each_axis(world):
 
 
 def test_refusals_on_the_mesh(world):
-    """(iii) On the (2, 2) mesh of the world, mamba, xLSTM and whisper
-    configs raise naming ROADMAP's step."""
-    for msg in world["ranks"][0]["refused"]:
-        assert "step 8b" in str(msg), msg
+    """(iii) On the world's (2, 2) mesh the reduced jamba, xLSTM and
+    whisper build; on its (1, 4) mesh whisper-tiny (6 heads) raises
+    naming ROADMAP's step 8c."""
+    *built, refused = [str(m) for m in world["ranks"][0]["refused"]]
+    assert built == [""] * len(OTHERS)
+    assert "step 8c" in refused and "6 heads" in refused, refused

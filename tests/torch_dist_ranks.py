@@ -6,7 +6,8 @@ concurrent test workers never share a port or a store), each with a
 60 s timeout on the group; every rank calls ``fn(mesh, payload)`` (a
 function of this module, picked by name) and its dict of numpy arrays
 comes back through an ``.npz`` file.  A rank that raises, or a world that
-outlives its deadline, fails the call.  This module imports no JAX, so a
+outlives its deadline (twice the group's timeout unless the caller gives
+one), fails the call.  This module imports no JAX, so a
 rank starts with torch alone.
 """
 from __future__ import annotations
@@ -46,9 +47,11 @@ def run_world(fn_name: str, P: int, tmp_path, payload) -> list:
     return start_world(fn_name, P, tmp_path, payload)()
 
 
-def start_world(fn_name: str, P: int, tmp_path, payload):
+def start_world(fn_name: str, P: int, tmp_path, payload,
+                deadline_s: float = 2 * WORLD_TIMEOUT_S):
     """Start the world and return a function that waits for it and gives
-    :func:`run_world`'s result (the caller works meanwhile)."""
+    :func:`run_world`'s result (the caller works meanwhile); the world
+    fails as hung ``deadline_s`` after its start."""
     import torch.multiprocessing as mp
 
     tmp = Path(tmp_path) / f"world{P}_{fn_name}"
@@ -56,7 +59,7 @@ def start_world(fn_name: str, P: int, tmp_path, payload):
     ctx = mp.start_processes(_rank_main, args=(P, str(tmp), fn_name,
                                                payload),
                              nprocs=P, join=False, start_method="spawn")
-    deadline = time.monotonic() + 2 * WORLD_TIMEOUT_S
+    deadline = time.monotonic() + deadline_s
 
     def wait() -> list:
         try:
@@ -380,8 +383,8 @@ def tp_serve_world(_, pl):
     import torch
 
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.convert import lm_params_from_numpy
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.launch.mesh import DataMesh, make_host_mesh
     from repro_torch.launch.steps import (decode_cache, make_decode_step,
                                           make_prefill_step)
     from repro_torch.models import lm, moe
@@ -410,6 +413,19 @@ def tp_serve_world(_, pl):
         tag, cfg, B, S, n = c["tag"], c["cfg"], c["B"], c["S"], c["steps"]
         params = lm_params_from_numpy(pl["weights"][c["weights"]], cfg,
                                       "cpu", mesh=mesh)
+        gathered_shapes = set()
+        if c.get("own"):
+            # the rank's blocks as held, and every tensor the steps
+            # gather along "model" (by its block's shape)
+            out.update(_flat(lm_params_to_numpy(params, cfg),
+                             f"{tag}/own/params"))
+
+            def logged(t, axis=None, _real=DataMesh.all_gather_list.__get__(
+                    mesh)):
+                if axis == "model":
+                    gathered_shapes.add(tuple(t.shape))
+                return _real(t, axis)
+            mesh.all_gather_list = logged
         toks = torch.from_numpy(c["tokens"])
         shape = ShapeConfig("c", "prefill", S, B)
         step, _, (_, bl), outl = make_prefill_step(cfg, mesh, shape)
@@ -463,6 +479,11 @@ def tp_serve_world(_, pl):
             bits += [torch.equal(p_cache[p][k], cache[p][k])
                      for p in cache for k in cache[p]]
             out[f"{tag}/plain_bitwise"] = np.array(bits)
+        if c.get("own"):
+            del mesh.all_gather_list
+            out.update(_flat(cache, f"{tag}/own/cache"))
+            out[f"{tag}/gathered_shapes"] = np.array(
+                sorted(str(s_) for s_ in gathered_shapes) or [""])
         out[f"{tag}/logits"] = torch.stack(logit_list).numpy()
         out.update({f"{tag}/cache{k}": v.numpy()
                     for k, v in gathered(cache, doutl[1]).items()})
@@ -485,11 +506,11 @@ def tp_serve_world(_, pl):
         out[f"moe{i}/route"] = np.array(list(moe.ROUTES))
         moe.ROUTES.clear()
     out.update({f"mesh/{k}": v for k, v in _mesh_collectives(mesh).items()})
-    # a model axis over a mamba, xLSTM or whisper config raises
+    # each (config, mesh) builds, or raises with its message
     errs = []
-    for cfg in pl["refused"]:
+    for cfg, shape in pl["refused"]:
         try:
-            make_model(cfg, mesh=mesh)
+            make_model(cfg, mesh=make_host_mesh(*shape, device="cpu"))
             errs.append("")
         except ValueError as e:
             errs.append(str(e))
@@ -504,7 +525,8 @@ def tp_serve_world(_, pl):
 def tp_train_world(_, pl):
     """The tensor-parallel trainer on each case's ``(data, model)`` mesh,
     the rank's training blocks of JAX-layout weights: ``steps`` steps of
-    ``make_train_step`` (the state gathered whole after each, the rank's
+    ``make_train_step`` on the case's batches (the state gathered whole
+    after each, the rank's
     own blocks after the last, the losses, ``sync_ms``), a second run
     where asked; a case with ``blocks_only`` gives its blocks as cut and
     one step.  Then a (2, 2) save after two steps (mesh rank 0 writes)
@@ -525,9 +547,12 @@ def tp_train_world(_, pl):
     B, S = pl["B"], pl["S"]
     shape = ShapeConfig("c", "train", S, B)
 
-    def batch(i):
-        t = torch.from_numpy(pl["batches"][i])
-        return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    def batch(i, batches=pl["batches"]):
+        t = torch.from_numpy(batches[i])
+        b = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+        if cfg.is_encoder_decoder:
+            b["encoder_frames"] = torch.from_numpy(pl["frames"])
+        return b
 
     def own(p, st):
         return {"params": lm_params_to_numpy(p, cfg),
@@ -547,7 +572,7 @@ def tp_train_world(_, pl):
             step = make_train_step(cfg, shape, mesh=mesh,
                                    microbatches=c["micro"])
             for i in range(c["steps"]):
-                p, st, loss = step(p, st, batch(i))
+                p, st, loss = step(p, st, batch(i, c["batches"]))
                 out[f"{tag}/run{run}/loss{i}"] = np.asarray(float(loss))
                 out.update(_flat(train_state_to_numpy(p, st, cfg, mesh=mesh),
                                  f"{tag}/run{run}/state{i}"))
@@ -557,10 +582,10 @@ def tp_train_world(_, pl):
                 out[f"{tag}/sync"] = np.array([sync[k] for k in
                                                sorted(sync)])
                 out[f"{tag}/sync_kinds"] = np.array(sorted(sync))
-        if c.get("save"):
+        for save in c.get("saves", ()):
             tree = train_state_to_numpy(p, st, cfg, mesh=mesh)
             if mesh.rank == 0:
-                ck.save(c["save"], c["steps"], tree)
+                ck.save(save, c["steps"], tree)
             mesh.barrier()
     # a world-1 save of the resume case, resumed on (2, 2) for one step
     r = pl["resume"]

@@ -5,6 +5,7 @@ over NCCL, held against a world of one.
     python3 tools/distributed_check.py --world 4 --train
     python3 tools/distributed_check.py --world 4 --serve
     python3 tools/distributed_check.py --train --mesh 2 2
+    python3 tools/distributed_check.py --serve --arch jamba-v0.1-52b
 
 Spawns P ranks, one a card, joined over NCCL (``tcp://localhost`` on a
 free port, a timeout on the group and on the joins); each calls
@@ -37,6 +38,17 @@ gradients and both moments, about 32 GB), ``MESH_STEPS`` steps of 4 x 4096
 tokens, two microbatches of one row a rank, bf16 with f32 master
 weights: ms a step, the collectives' ms (``sync_ms``), peak memory and
 the losses a rank, the flash launches.
+
+``--serve --arch ARCH`` (four cards): ARCH at full width and depth on a
+(data 2, model 2) mesh over NCCL, one rank a card (jamba-v0.1-52b: its
+32 layers, about 26 GB of bf16 weights a rank, drawn from a seed and cast
+as each block is cut): 2 prompts of 4096 tokens and 8 greedy decode
+steps, three runs (a warm-up, a timed run, one with each collective
+synchronised and timed): the weights and peak a rank, prefill ms, decode
+ms a step, tokens/s, the collectives' ms by kind and axis (the
+``"model"`` sums, the ``"data"`` all-to-alls, the ``"model"`` exchanges
+of mamba's u and z), the flash launches a prefill a rank (its attention
+layers'), and every rank's greedy tokens, which must be the same.
 
 ``--serve`` (four cards): ``chip_smoke.py``'s sharded serving phase over
 NCCL, one rank a card on a (data 2, model 2) mesh: mixtral-8x7b at full
@@ -336,6 +348,192 @@ def main_serve(torch, P: int) -> None:
         sys.exit(1)
 
 
+SERVE_ARCH_PROMPT = 4096      # --serve --arch: 2 prompts of 4096 tokens
+
+
+def _serve_arch_rank(rank: int, world: int, port: int, out_dir: str,
+                     arch: str) -> None:
+    """One rank of ``--serve --arch``: ``arch`` at full width and depth on
+    the (data 2, model 2) mesh over NCCL, bf16 (its blocks drawn from a
+    seed and cast as they are cut), two prompts of ``SERVE_ARCH_PROMPT``
+    tokens and ``smoke.TP_DECODE`` greedy decode steps, three runs: a
+    warm-up, a timed run, and a run with each collective synchronised and
+    timed.  Writes the ms, tokens, peak, flash launches and collectives'
+    ms."""
+    import torch
+    import torch.distributed as dist
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    out = {}
+    try:
+        from repro_torch.configs import get_config
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.core.largevis import resolve_device, seeded_generator
+        from repro_torch.kernels import ops
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.launch.steps import (decode_cache,
+                                              make_decode_step,
+                                              make_prefill_step)
+        from repro_torch.models.factory import make_model
+        from repro_torch.runtime import sharding as sh
+
+        resolve_device("cuda")
+        mesh = make_host_mesh(*smoke.TP_MESH, device="cuda")
+        dev = mesh.device
+        cfg = get_config(arch)
+        B, S, n = 2, SERVE_ARCH_PROMPT, smoke.TP_DECODE
+        t0 = time.perf_counter()
+        params = make_model(cfg, mesh=mesh)["init"](
+            seeded_generator(dev, 7), inference=True)
+        torch.cuda.synchronize()
+        out["init_s"] = time.perf_counter() - t0
+        out["weights_gib"] = sum(p.numel() * p.element_size()
+                                 for p in params.parameters()) / 2**30
+        torch.cuda.empty_cache()
+        pstep, _, (_, pl), pout = make_prefill_step(
+            cfg, mesh, ShapeConfig("serve", "prefill", S, B))
+        dshape = ShapeConfig("serve", "decode", S + n, B)
+        dstep, _, (_, dl), dout = make_decode_step(cfg, mesh, dshape)
+        toks = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                             generator=seeded_generator(dev, 11))
+        frames = {}
+        if cfg.is_encoder_decoder:
+            f = torch.randn((B, cfg.enc_positions, cfg.d_model), device=dev,
+                            generator=seeded_generator(dev, 13))
+            frames = {"encoder_frames": sh.block(f.to(cfg.dtype),
+                                                 pl["encoder_frames"], mesh)}
+
+        def run(ms):
+            ms.clear()
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t = time.perf_counter()
+            logits, pre = pstep(params, {
+                "tokens": sh.block(toks, pl["tokens"], mesh), **frames})
+            nxt = sh.gather(mesh, logits, pout[0]).argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            r = {"prefill_ms": (time.perf_counter() - t) * 1e3,
+                 "launches": ops.launch_counts()["flash_attention"],
+                 "prefill_coll_ms": dict(ms)}
+            ms.clear()
+            cache = decode_cache(cfg, mesh, dshape, pre, pout[1])
+            del pre
+            got, dec = [nxt], []
+            for i in range(n - 1):
+                pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                logits, cache = dstep(params, {
+                    "tokens": sh.block(nxt, dl["tokens"], mesh),
+                    "cache": cache,
+                    "position": sh.block(pos, dl["position"], mesh)})
+                nxt = sh.gather(mesh, logits, dout[0]).argmax(-1,
+                                                              keepdim=True)
+                torch.cuda.synchronize()
+                dec.append((time.perf_counter() - t) * 1e3)
+                got.append(nxt)
+            r["decode_ms"] = dec
+            r["decode_coll_ms"] = {k: v / len(dec) for k, v in ms.items()}
+            r["tokens"] = torch.cat(got, 1).tolist()
+            r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            return r
+
+        ms = {}
+        runs = []
+        for timed in (False, False, True):
+            if timed:
+                smoke._timed_collectives(torch, mesh, ms)
+            torch.cuda.reset_peak_memory_stats()
+            runs.append(run(ms))
+        out["runs"] = runs
+        out["coords"] = [mesh.axis_index("data"), mesh.axis_index("model")]
+    finally:
+        Path(out_dir, f"serve_rank{rank}.json").write_text(json.dumps(out))
+        dist.destroy_process_group()
+
+
+def main_serve_arch(torch, mp, arch: str) -> None:
+    """``--serve --arch ARCH``: ``arch`` at full width and depth on four
+    cards over NCCL, (data 2, model 2); every rank's greedy tokens must be
+    the same, and the flash launches a prefill a rank its attention
+    layers'."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+
+    _build.build("flash_attention")
+    cfg = get_config(arch)
+    attn_layers = sum(k in ("attn", "local", "global")
+                      for k in cfg.block_pattern) * cfg.n_periods
+    if cfg.is_encoder_decoder:
+        attn_layers = cfg.n_layers
+    P = smoke.TP_MESH[0] * smoke.TP_MESH[1]
+    tmp = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_serve_arch_rank,
+                             args=(P, _free_port(), tmp.name, arch),
+                             nprocs=P, join=False, start_method="spawn")
+    deadline = time.monotonic() + 2 * TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                sys.exit(f"the {P} ranks did not finish in {2 * TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [json.loads(Path(tmp.name, f"serve_rank{r}.json").read_text())
+             for r in range(P)]
+    tmp.cleanup()
+    wall = time.perf_counter() - t0
+    tokens = [r["tokens"] for rk in ranks for r in rk["runs"]]
+    same = all(t == tokens[0] for t in tokens)
+    launches = [r["launches"] for rk in ranks for r in rk["runs"]]
+    ok = same and all(x == attn_layers for x in launches)
+    B, S = 2, SERVE_ARCH_PROMPT
+    parts = []
+    for i, rk in enumerate(ranks):
+        _, r, t = rk["runs"]
+        dec = sum(r["decode_ms"]) / len(r["decode_ms"])
+        pre = {k: round(v, 2) for k, v in sorted(t["prefill_coll_ms"].items())}
+        dco = {k: round(v, 3) for k, v in sorted(t["decode_coll_ms"].items())}
+        parts.append(
+            f"rank {i} {tuple(rk['coords'])}: weights "
+            f"{rk['weights_gib']:.2f} GiB (init {rk['init_s']:.1f} s), peak "
+            f"{r['peak_gib']:.2f} GiB; prefill {r['prefill_ms']:.1f} ms "
+            f"({B * S / r['prefill_ms'] * 1e3:.0f} tokens/s for the mesh), "
+            f"decode {dec:.2f} ms a step ({B / dec * 1e3:.1f} tokens/s); "
+            f"timed run: prefill {t['prefill_ms']:.1f} ms, collectives ms "
+            f"{pre}, decode {sum(t['decode_ms']) / len(t['decode_ms']):.2f} "
+            f"ms a step, collectives ms a step {dco}; flash launches "
+            f"{r['launches']} a prefill")
+    print(f"{arch} at full width and depth ({cfg.n_layers} layers), bf16, "
+          f"(data 2, model 2) over NCCL, 2 x {S} tokens + "
+          f"{smoke.TP_DECODE} greedy tokens ({wall:.1f} s with the ranks' "
+          f"start and init): " + "; ".join(parts) + f"; every rank's and "
+          f"run's greedy tokens the same: {same} (row 0: "
+          f"{tokens[0][0]}); flash launches a prefill a rank expected "
+          f"{attn_layers}", flush=True)
+    _, r, t = ranks[0]["runs"]
+    print(json.dumps({"serve": True, "arch": arch, "ok": ok,
+                      "layers": cfg.n_layers,
+                      "prefill_ms": [rk["runs"][1]["prefill_ms"]
+                                     for rk in ranks],
+                      "decode_ms": [sum(rk["runs"][1]["decode_ms"]) /
+                                    len(rk["runs"][1]["decode_ms"])
+                                    for rk in ranks],
+                      "peak_gib": [rk["runs"][1]["peak_gib"] for rk in ranks],
+                      "weights_gib": [rk["weights_gib"] for rk in ranks],
+                      "prefill_coll_ms": t["prefill_coll_ms"],
+                      "decode_coll_ms": t["decode_coll_ms"],
+                      "launches": launches, "tokens": tokens[0]}))
+    if not ok:
+        sys.exit(1)
+
+
 def _line(what: str, r: dict) -> str:
     return (f"{what}: {float(r['fit_s']):.2f} s (knn_s "
             f"{float(r['knn_s']):.3f} = ring {float(r['knn_ring_s']):.3f} "
@@ -358,6 +556,10 @@ def main() -> None:
                     help="the sharded trainer instead of the fit")
     ap.add_argument("--serve", action="store_true",
                     help="the sharded serving mesh (data 2, model 2)")
+    ap.add_argument("--arch", default=None,
+                    help="with --serve: this architecture at full width "
+                    "and depth on the (2, 2) mesh instead of chip_smoke's "
+                    "mixtral phase (e.g. jamba-v0.1-52b)")
     ap.add_argument("--mesh", nargs=2, choices=["2"], default=None,
                     help="with --train: the tensor-parallel trainer on the "
                     "(data 2, model 2) mesh, the only one it runs")
@@ -379,6 +581,9 @@ def main() -> None:
         return
     if args.train:
         main_train(torch, mp, P)
+        return
+    if args.serve and args.arch:
+        main_serve_arch(torch, mp, args.arch)
         return
     if args.serve:
         main_serve(torch, P)

@@ -11,6 +11,7 @@ check, as the smoke does.
     python3 tools/lm_phases.py --phases train         # the training phase
     python3 tools/lm_phases.py --phases sharded       # the sharded trainer
     python3 tools/lm_phases.py --phases tp_train      # the (2, 2) trainer
+    python3 tools/lm_phases.py --phases tp_serve      # the (2, 2) servers
 
 Phases: ``flash`` (``check_flash``), ``flash_bwd`` (``check_flash_bwd``),
 ``gemma3``, ``mixtral``, ``jamba``, ``xlstm``, ``whisper``
@@ -20,7 +21,10 @@ step, then the sharded trainer's phases), ``sharded`` (the resume
 check, the world-1 runs the sharded phases hold world 2 to, then
 ``run_sharded_training`` and ``run_grad_compress``),
 ``tp_train`` (``run_tp_training``: the tensor-parallel trainer on a
-(2, 2) mesh of four processes on the card against world 1).
+(2, 2) mesh of four processes on the card against world 1, then xlstm
+and whisper trained there), ``tp_serve`` (``run_tp_serve``: mixtral on
+the (2, 2) serving mesh, then xlstm, whisper, a jamba mamba layer and
+jamba at one period there).
 Prints each phase's lines and seconds, then the flash launches each phase
 made, as JSON.
 """
@@ -38,7 +42,7 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 PHASES = ("flash", "flash_bwd", "gemma3", "mixtral", "jamba", "xlstm",
-          "whisper", "train", "sharded", "tp_train")
+          "whisper", "train", "sharded", "tp_train", "tp_serve")
 
 
 def main() -> None:
