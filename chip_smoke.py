@@ -154,7 +154,21 @@ within the backward's bf16 limit).  Without it, in order:
    world 1 with one ``TopologyChangeWarning``;
 11. runs the 2000-point quality fixture (accuracy >= 0.95), by the fused
    and by the split route: the two layouts bitwise equal;
-12. the LM serving path, the fit's state released first:
+12. the LargeVis production cell (``run_production_cell``, JAX's
+   ``layout_4m``), the fit's state released first: a graph of 4,000,000
+   nodes with 150 random neighbours each (600,000,000 edges, weights from
+   ``--seed``), its edge and negative samplers built on the card (the
+   alias pairing's peak reckoned first, 106 bytes an edge with the graph
+   and the tables; a printed cut to the largest graph that fits), the
+   ``fused_edge_step`` kernel bitwise its plain version on one step's
+   draws at B = 2^20, M = 5; ``launch.steps.make_largevis_step`` for 20
+   steps and ``make_largevis_step_local`` for 3 rounds of H = 8 at world
+   1, with the launch counts reset just before and read just after (one
+   ``fused_edge_step`` a step, no other kernel), ms a step, the layout
+   finite and moved; the kernel's device ms a launch beside its plain
+   version, ``index_add_`` and its bound at that shape; then the serve
+   command line (``launch.serve.main``) once on the card;
+13. the LM serving path:
    ``flash_attention`` against its plain version in bf16 and f32 at the
    serve paths' shapes, (1, 8192, 16, 256) causal and with gemma3's
    window 1024, (1, 8192, 32, 128) with mixtral's window 4096 and
@@ -223,7 +237,7 @@ within the backward's bf16 limit).  Without it, in order:
    and 8 of 32 layers (a printed cut) in bf16, the ranks drawing their
    blocks in turns, three runs bitwise equal, 1 flash launch a prefill a
    rank, ms and peak a rank;
-13. the LM training path, the serving phases' state released first
+14. the LM training path, the serving phases' state released first
    (``run_training``): ``flash_attention_bwd`` against its plain version
    on the forward kernel's own out and lse (that lse against the plain
    version's) at the architectures' training shapes in bf16, qwen's
@@ -241,7 +255,7 @@ within the backward's bf16 limit).  Without it, in order:
    steps against 3 resumed to 4, the losses after step 2 bitwise equal;
    every architecture's reduced f32 step on the card against the CPU's
    from one state, twice on the card, bitwise;
-14. the sharded trainer (``run_sharded_training``): ``train(production=
+15. the sharded trainer (``run_sharded_training``): ``train(production=
    True)`` at world 2 over gloo, two processes on the one card, on
    qwen1.5-0.5b at full width and the resume check's 2 layers (2 rows
    and 1 microbatch a rank, 2 steps, a printed cut; each rank holds its
@@ -2647,6 +2661,189 @@ def check_decode_matches_prefill(torch, arch: str = LM_ARCH,
           f"max |diff| / max |logit| {rel:.3g} (tol {DECODE_REL_TOL})",
           flush=True)
     check(rel <= DECODE_REL_TOL, f"{arch} decode vs prefill rel {rel}")
+
+
+# The paper's production cell, layout_4m (JAX's launch/dryrun.py): a
+# LiveJournal-sized graph of 4M nodes and K = 150 edges a node, a batch of
+# 2^20 edges, M = 5, local SGD syncing every 8 steps
+PROD_NODES = 4_000_000
+PROD_K = 150
+PROD_BATCH = 1 << 20
+PROD_NEGATIVES = 5
+PROD_SYNC_EVERY = 8
+PROD_STEPS = 20                   # make_largevis_step calls
+PROD_ROUNDS = 3                   # make_largevis_step_local calls (24 steps)
+PROD_HEADROOM = 4 << 30           # bytes kept free beside the reckoning
+
+
+def _prod_nodes(free: int) -> int:
+    """The largest node count (of at most PROD_NODES, K = PROD_K) whose
+    edge-table build fits the card's ``free`` bytes by the reckoning, in
+    bytes an edge: the graph (ids and weights, 8), the edge tables (src,
+    dst, threshold, alias, 16) and the alias pairing's peak
+    (``sampler.ALIAS_PEAK_BYTES``)."""
+    from repro_torch.core import sampler
+
+    per_edge = 8 + 16 + sampler.ALIAS_PEAK_BYTES
+    n = PROD_NODES
+    while n > 1000 and n * PROD_K * per_edge + PROD_HEADROOM > free:
+        n = n * 9 // 10
+    print(f"production cell: alias build reckoned {per_edge} bytes an edge "
+          f"(the graph 8, the edge tables 16, the pairing's peak "
+          f"{sampler.ALIAS_PEAK_BYTES}; about 170 before its intermediates "
+          f"were freed as they die): {PROD_NODES * PROD_K * per_edge / 1e9:.1f}"
+          f" GB at {PROD_NODES * PROD_K:,} edges against {free / 1e9:.1f} GB "
+          "free", flush=True)
+    if n < PROD_NODES:
+        print(f"cut: the production cell at {n:,} nodes ({n * PROD_K:,} "
+              f"edges): {PROD_NODES * PROD_K:,} edges need "
+              f"{PROD_NODES * PROD_K * per_edge / 1e9:.1f} GB by the "
+              "reckoning", flush=True)
+    return n
+
+
+def run_production_cell(torch, seed: int) -> dict:
+    """``launch.steps.make_largevis_step`` and ``make_largevis_step_local``
+    at the paper's production cell on one card (world 1): N = 4,000,000
+    nodes, K = 150 random neighbours a node (600,000,000 directed edges),
+    edge weights drawn from ``seed``, the samplers built on the card,
+    B = 2^20 edges a step, M = 5, H = 8.  The fused_edge_step kernel
+    against its plain version on one step's draws (bitwise, on a CPU
+    copy); PROD_STEPS steps of the global step and PROD_ROUNDS rounds of
+    the local one with the launch counts reset just before and read just
+    after, ms a step; the kernel's device ms a launch (profiler), plain
+    and library ms and its bound at B = 2^20; the layout finite and moved.
+    Then the serve CLI (``launch.serve.main``) once on the card.  Returns
+    the kernel's launches in the two runs."""
+    from repro_torch.core import sampler
+    from repro_torch.kernels import largevis_step, ops, ref
+    from repro_torch.launch import serve, steps
+    from repro_torch.launch.mesh import make_data_mesh
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    free, _ = torch.cuda.mem_get_info()
+    n = _prod_nodes(free)
+    E = n * PROD_K
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    knn = torch.randint(0, n, (n, PROD_K), generator=gen, device=dev,
+                        dtype=torch.int32)
+    w = torch.rand((n, PROD_K), generator=gen, device=dev) + 1e-3
+    torch.cuda.reset_peak_memory_stats()
+    es = sampler.build_edge_sampler(knn, w)
+    torch.cuda.synchronize()
+    t_edge = time.perf_counter() - t0
+    peak_edge = torch.cuda.max_memory_allocated()
+    ns = sampler.build_negative_sampler(knn, w)
+    del knn, w
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    print(f"production cell: graph of {n:,} nodes, {E:,} edges; edge "
+          f"sampler {t_edge:.2f} s (peak {peak_edge / 2**30:.2f} GiB), both "
+          f"samplers {t_build:.2f} s; edge tables "
+          f"{4 * 4 * E / 1e9:.2f} GB", flush=True)
+
+    mesh = make_data_mesh(1, device="cuda")
+    B, Mn, H = PROD_BATCH, PROD_NEGATIVES, PROD_SYNC_EVERY
+    tables = (es.src, es.dst, es.threshold, es.alias, ns.threshold, ns.alias)
+    y = torch.randn((n, 2), generator=gen, device=dev) * 1e-4
+    y_start = y.clone()
+    kw = dict(gamma=7.0, a=1.0, clip=5.0)
+
+    # the kernel against its plain version on one step's draws
+    dgen = torch.Generator(device=dev).manual_seed(seed + 1)
+    i, j = es.sample(dgen, B)
+    negs = ns.sample(dgen, (B, Mn))
+    mask = ((negs != i[:, None]) & (negs != j[:, None])).float()
+    want = ref.fused_edge_step_ref(y.cpu(), i.cpu(), j.cpu(), negs.cpu(),
+                                   mask.cpu(), 0.5, **kw)
+    got = largevis_step.fused_edge_step(y.clone(), i, j, negs, mask, 0.5,
+                                        **kw).cpu()
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want), f"fused_edge_step at B={B}, N={n}: not "
+          f"bitwise its plain version (max err {err})")
+    del got, want
+
+    seed_t = torch.tensor([seed], dtype=torch.int32, device=dev)
+    step, *_ = steps.make_largevis_step(mesh, n_nodes=n, n_edges=E, batch=B,
+                                        n_negatives=Mn)
+    local, *_ = steps.make_largevis_step_local(
+        mesh, n_nodes=n, n_edges=E, batch=B, n_negatives=Mn, sync_every=H)
+    sgen = torch.Generator(device=dev).manual_seed(seed + 2)
+    lgen = torch.Generator(device=dev).manual_seed(seed + 3)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for t in range(PROD_STEPS):
+        step(y, seed_t, torch.tensor(t / PROD_STEPS), *tables,
+             generator=sgen)
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) / PROD_STEPS * 1e3
+    made_step = ops.launch_counts()["fused_edge_step"]
+    lrs = torch.linspace(1.0, 0.5, PROD_ROUNDS * H, device=dev)
+    t0 = time.perf_counter()
+    local(y, seed_t, None, *tables, generator=lgen, lrs=lrs[:H])
+    torch.cuda.synchronize()
+    first_round = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for r in range(1, PROD_ROUNDS):
+        local(y, seed_t, None, *tables, generator=lgen,
+              lrs=lrs[r * H:(r + 1) * H])
+    torch.cuda.synchronize()
+    ms_round = (time.perf_counter() - t0) / (PROD_ROUNDS - 1) * 1e3
+    counts = ops.launch_counts()
+    made = counts["fused_edge_step"]
+    check(made_step == PROD_STEPS and made == PROD_STEPS + PROD_ROUNDS * H,
+          f"production cell: fused_edge_step launched {made_step} times in "
+          f"{PROD_STEPS} global steps and {made - made_step} in "
+          f"{PROD_ROUNDS * H} local steps")
+    others = {k: c for k, c in counts.items()
+              if c and k != "fused_edge_step"}
+    check(not others, f"production cell: other kernels launched: {others}")
+    check(bool(torch.isfinite(y).all()), "production cell: the layout is "
+          "not finite")
+    moved = float((y - y_start).abs().max())
+    check(moved > 0, "production cell: the layout did not move")
+    del y_start
+
+    # the kernel alone at B = 2^20: device time, plain, library, bound
+    yk = y.clone()
+    ms = time_ms(torch, lambda: largevis_step.fused_edge_step(
+        yk, i, j, negs, mask, 0.5, **kw), reps=10)
+    prof = device_profile(torch, lambda: largevis_step.fused_edge_step(
+        yk, i, j, negs, mask, 0.5, **kw), n=10)
+    kern_ms, seen, made_p = prof.kernel("fused_edge_step")
+    plain = time_ms(torch, lambda: ref.fused_edge_step_ref(
+        yk, i, j, negs, mask, 0.5, **kw), reps=3, warmup=1)
+    lib, bms, by = edge_step_yardsticks(torch, dgen, y, i, j, negs)
+    print(f"production cell (N={n:,}, E={E:,}, B={B}, M={Mn}, H={H}, world "
+          f"1): make_largevis_step {ms_step:.3f} ms a step ({PROD_STEPS} "
+          f"steps); make_largevis_step_local {ms_round:.3f} ms a round of "
+          f"{H} steps ({ms_round / H:.3f} ms a step; the first round, eager "
+          f"with the graph capture after it, {first_round:.1f} ms); "
+          f"fused_edge_step launches {made} made in the two runs "
+          f"({PROD_STEPS} + {PROD_ROUNDS * H} steps), bitwise its plain "
+          f"version on one step's draws; kernel {ms:.4f} ms a call by CUDA "
+          f"events, {kern_ms:.4f} ms of device time a launch ({seen} of "
+          f"{made_p} launches seen), plain {plain:.3f} ms, index_add_ {lib:.4f}"
+          f" ms, bound {bms:.5f} ms ({by}); layout finite, moved up to "
+          f"{moved:.3e}", flush=True)
+    del yk, y, es, ns, tables, i, j, negs, mask
+    free_card(torch)
+
+    # the serve CLI on the card
+    t0 = time.perf_counter()
+    reqs = serve.main(["--device", "cuda"])
+    n_tok = sum(len(r.out) for r in reqs)
+    check(len(reqs) == 8 and n_tok == 8 * 12, f"serve CLI: {len(reqs)} "
+          f"requests served {n_tok} tokens, expected 8 and 96")
+    print(f"serve CLI: launch.serve.main on the card, {len(reqs)} requests, "
+          f"{n_tok} tokens in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"production cell phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return dict(name="fused_edge_step", launches=made, ms=ms, kern_ms=kern_ms,
+                plain_ms=plain, bound_ms=bms, library_ms=lib, max_abs_err=err)
 
 
 def free_card(torch) -> None:
@@ -6075,6 +6272,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--samples-per-node", type=int,
                     default=PAPER_SAMPLES_PER_NODE)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the production cell's edge weights and draws")
     ap.add_argument("--parent", type=Path, default=None,
                     help="a checkout of the parent commit: time its "
                     "package and this one in turns, and nothing else")
@@ -6188,6 +6387,10 @@ def main() -> None:
     # the LM phases hold large models: release the fit's state first
     del res, x, xn, labels, y_auto, y_split
     free_card(torch)
+    prod = run_production_cell(torch, args.seed)
+    next(rec for rec in kernels if rec["name"] == "fused_edge_step")[
+        "launches"] += prod["launches"]
+    lap("the production cell and the serve CLI")
     t0 = time.perf_counter()
     flash = check_flash(torch)
     print(f"flash checks: {time.perf_counter() - t0:.1f} s", flush=True)

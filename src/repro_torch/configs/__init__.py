@@ -13,7 +13,9 @@ from repro_torch.configs import (chameleon_34b, dbrx_132b, gemma3_12b,
                                  jamba_v01_52b, llama3_8b, mixtral_8x7b,
                                  phi3_medium_14b, qwen15_05b, whisper_tiny,
                                  xlstm_125m)
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import (ArchConfig, SHAPES,  # noqa: F401
+                                      ShapeConfig, cell_applicable,
+                                      input_specs, kv_cache_specs)
 
 _ARCHS = {cfg.name: cfg for cfg in (
     qwen15_05b.CONFIG, gemma3_12b.CONFIG, llama3_8b.CONFIG,
@@ -30,3 +32,8 @@ def get_config(name: str) -> ArchConfig:
     if name not in _ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCHS)}")
     return _ARCHS[name]
+
+
+def all_configs() -> dict:
+    """{name: config} of every architecture, in the JAX package's order."""
+    return {name: get_config(name) for name in ARCH_NAMES}

@@ -108,18 +108,18 @@ def _collision_capped_batch(batch_size: int, n_nodes: int,
     return min(batch_size, cap)
 
 
-def _first_fused_chunk(unit, generator, lrs, split_step):
-    """Run the first chunk of the fused route, which runs eagerly (the
-    graph recipe's warm-up), so a failure of the fused kernel (its build,
-    no kernel image for the card, a launch configuration) surfaces here.
-    On such a failure y and the generator go back to their state before
-    the chunk, and the run continues on the split route with one
-    :class:`DegradedModeWarning`.  Returns the unit that ran."""
-    y = unit.y
+def fused_or_demoted(y, generator, fused, split) -> bool:
+    """Run ``fused()``, the fused route's first eager steps on ``y`` from
+    ``generator``, so that a failure of the fused kernel (its build, no
+    kernel image for the card, a launch configuration) surfaces here.  On
+    such a failure y and the generator go back to their state before it,
+    ``split()`` runs the same steps on the split route, and one
+    :class:`DegradedModeWarning` is raised.  Returns whether it
+    demoted."""
     y_before, rng = y.to("cpu", copy=True), generator.get_state()
     try:
-        unit.run(generator, lrs)
-        return unit
+        fused()
+        return False
     except InjectedFault:
         raise
     except Exception as e:          # a backend failure of the fused step
@@ -129,12 +129,27 @@ def _first_fused_chunk(unit, generator, lrs, split_step):
             # is demoted past it
             torch.cuda.synchronize(y.device)
         warnings.warn(DegradedModeWarning("layout_step", "fused", "split", e),
-                      stacklevel=3)
+                      stacklevel=4)
         y.copy_(y_before)
         generator.set_state(rng)
-        unit = layout_engine.StepChunks(split_step, y, unit.H)
-        unit.run(generator, lrs)
-        return unit
+        split()
+        return True
+
+
+def _first_fused_chunk(unit, generator, lrs, split_step):
+    """Run the first chunk of the fused route, which runs eagerly (the
+    graph recipe's warm-up), through :func:`fused_or_demoted`: on a
+    failure the run continues on the split route.  Returns the unit that
+    ran."""
+    ran = [unit]
+
+    def split():
+        ran[0] = layout_engine.StepChunks(split_step, unit.y, unit.H)
+        ran[0].run(generator, lrs)
+
+    fused_or_demoted(unit.y, generator, lambda: unit.run(generator, lrs),
+                     split)
+    return ran[0]
 
 
 def _defer_signals(stage_ckpt):
@@ -396,6 +411,46 @@ def _rank_generator(device, seed: int, rank: int, round_: int = 0):
     return torch.Generator(device=device).manual_seed(mixed)
 
 
+def round_step(edge_sampler, neg_sampler, *, n_negatives: int, batch: int,
+               prob_fn: str = "inv_quadratic", a: float = 1.0,
+               gamma: float = 7.0, clip: float = 5.0,
+               layout_step: str = "auto"):
+    """The step of a local-SGD round, ``step(y, generator, lr=)``: one
+    ``layout_engine.sgd_edge_step`` of ``batch`` edges from the rank's
+    ``edge_sampler`` and its negatives."""
+    return functools.partial(
+        layout_engine.sgd_edge_step, edge_sampler=edge_sampler,
+        neg_sampler=neg_sampler, n_negatives=n_negatives, prob_fn=prob_fn,
+        a=a, gamma=gamma, clip=clip, batch=batch, layout_step=layout_step)
+
+
+def local_sgd_round(unit, y0, mesh, generator, lrs, *, split_step=None):
+    """One round of the local-SGD layout on this rank: ``len(lrs)`` steps
+    of ``unit`` (a ``layout_engine.StepChunks`` over the rank's replica
+    ``unit.y``, one dispatch) drawing from ``generator``, then the
+    replicas' sync ``y0 + sum_r (y_r - y0)`` over the mesh's ``"data"``
+    ranks in rank order (``DataMesh.all_reduce_sum``), outside the
+    dispatch: a sum, not a mean, so every sampled edge's update lands at
+    the full lr, as in the paper's Hogwild.  ``y0`` is scratch of y's
+    shape.  A data axis of one rank has nothing to add and keeps the
+    replica as it is (the ranks of a ``"model"`` row hold the same
+    replica, as JAX's ``psum`` over the DP axes leaves them).
+
+    ``split_step`` (the round's step on the split route) marks the fused
+    route's first dispatch, which runs through :func:`_first_fused_chunk`
+    (a backend failure demotes the run to the split route).  Returns the
+    unit that ran, which the next round takes."""
+    y = unit.y
+    y0.copy_(y)
+    if split_step is not None:
+        unit = _first_fused_chunk(unit, generator, lrs, split_step)
+    else:
+        unit.run(generator, lrs)
+    if mesh.shape["data"] > 1:
+        y.copy_(y0 + mesh.all_reduce_sum(y - y0, "data"))  # Hogwild sum
+    return unit
+
+
 def run_layout_local_sgd(generator, edge_sampler, neg_sampler, n_nodes: int,
                          cfg, mesh, *, fault=None,
                          weights=None) -> LayoutResult:
@@ -477,11 +532,10 @@ def run_layout_local_sgd(generator, edge_sampler, neg_sampler, n_nodes: int,
                 warnings.warn(TopologyChangeWarning("layout", saved, P,
                                                     start), stacklevel=2)
     start = min(start, n_rounds)
-    step = functools.partial(
-        layout_engine.sgd_edge_step, edge_sampler=es,
-        neg_sampler=neg_sampler, n_negatives=cfg.n_negatives,
-        prob_fn=cfg.prob_fn, a=cfg.prob_a, gamma=cfg.gamma,
-        clip=cfg.grad_clip, batch=batch, layout_step=cfg.routing.layout_step)
+    step = round_step(es, neg_sampler, n_negatives=cfg.n_negatives,
+                      prob_fn=cfg.prob_fn, a=cfg.prob_a, gamma=cfg.gamma,
+                      clip=cfg.grad_clip, batch=batch,
+                      layout_step=cfg.routing.layout_step)
     lrs = layout_engine.lr_table(cfg.rho0, steps, dev)
     unit = layout_engine.StepChunks(step, y, H)
     fused = (cfg.prob_fn == "inv_quadratic"
@@ -512,14 +566,10 @@ def run_layout_local_sgd(generator, edge_sampler, neg_sampler, n_nodes: int,
         while r < n_rounds:
             chunk = lrs[r * H:(r + 1) * H]
             t0 = time.perf_counter()
-            y0.copy_(y)
-            if fused and r == start:
-                unit = _first_fused_chunk(
-                    unit, rank_gen, chunk,
-                    functools.partial(step, layout_step="split"))
-            else:
-                unit.run(rank_gen, chunk)
-            y.copy_(y0 + mesh.all_reduce_sum(y - y0))  # the Hogwild sum
+            unit = local_sgd_round(
+                unit, y0, mesh, rank_gen, chunk,
+                split_step=functools.partial(step, layout_step="split")
+                if fused and r == start else None)
             r += 1
             if monitored:
                 if y.is_cuda:

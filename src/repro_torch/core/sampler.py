@@ -109,6 +109,9 @@ def _alias_pairing(probs: torch.Tensor, *, hi_dtype=torch.float64,
     dev = probs.device
     if ordered is None:
         ordered = dev.type == "cuda"
+    # each intermediate is dropped once it is dead (the same ops in the
+    # same order), so the peak stays at ALIAS_PEAK_BYTES an entry instead
+    # of about 170 with every name kept to the end
     p = probs.float().reshape(-1).to(hi_dtype).clamp_min(0.0)
     n = p.shape[0]
     total = ordered_cumsum(p)[-1] if ordered else p.sum()
@@ -117,16 +120,20 @@ def _alias_pairing(probs: torch.Tensor, *, hi_dtype=torch.float64,
     total = torch.where(total > 0, total, n_t)
     # a tensor numerator: ``int / tensor`` is reciprocal-then-multiply
     scaled = p * (n_t / total)
+    del p
 
     is_small = scaled < 1.0
     m = is_small.sum()                       # partition point
     rank_small = torch.cumsum(is_small.int(), 0) - 1
     rank_large = m + torch.cumsum((~is_small).int(), 0) - 1
     dest = torch.where(is_small, rank_small, rank_large)
+    del is_small, rank_small, rank_large
     pos = torch.arange(n, device=dev)
     order = torch.empty(n, dtype=torch.int64, device=dev)
     order[dest] = pos                        # partitioned -> original
+    del dest
     ss = scaled[order]
+    del scaled
     small = pos < m
     zero = torch.zeros((), dtype=hi_dtype, device=dev)
     d = torch.where(small, 1.0 - ss, zero)   # deficits, small prefix
@@ -134,24 +141,44 @@ def _alias_pairing(probs: torch.Tensor, *, hi_dtype=torch.float64,
     scan = ordered_cumsum if ordered else functools.partial(torch.cumsum,
                                                             dim=0)
     D = scan(d)
+    del d
     SE = scan(e)
 
     tgt = torch.minimum(torch.maximum(torch.searchsorted(SE, D, side="left"),
                                       m), torch.tensor(n - 1, device=dev))
     prev_se = SE - e
+    del SE, e
     hi = torch.searchsorted(D, prev_se, side="right") - 1
     covered = torch.where(hi >= 0, D[hi.clamp(0, n - 1)], zero)
+    del hi, D
     beta = (prev_se - covered).clamp(0.0, 1.0)
+    del prev_se, covered
 
     thr_sorted = torch.where(small, ss, 1.0 - beta).float()
+    del ss, beta
     prev = torch.minimum(torch.maximum(pos - 1, m),
                          torch.tensor(n - 1, device=dev))
+    del pos
     alias_sorted = torch.where(small, order[tgt], order[prev])
+    del small, tgt, prev
     threshold = torch.empty(n, dtype=torch.float32, device=dev)
     threshold[order] = thr_sorted
+    del thr_sorted
     alias = torch.empty(n, dtype=torch.int32, device=dev)
     alias[order] = alias_sorted.to(torch.int32)
     return threshold, alias
+
+
+# the pairing's reckoned peak, bytes an entry, at ``covered``: order, pos,
+# tgt, hi (int64), ss, D, prev_se (f64) and small (bool) live, 57 bytes,
+# and the where's mask, clamped index, gathered D and result, 25 more
+ALIAS_PEAK_BYTES = 57 + 25
+
+
+def alias_peak_bytes(n: int) -> int:
+    """The reckoned device bytes :func:`_alias_pairing` holds at its peak
+    for ``n`` entries, beside its input and outputs."""
+    return ALIAS_PEAK_BYTES * int(n)
 
 
 def sample_alias(generator, threshold, alias, shape):

@@ -2,21 +2,30 @@
 
 A CUDA tensor goes to the hand-written kernel, which launches or raises;
 a CPU tensor goes to the plain version in ``kernels/ref.py``.  Nothing
-falls back from one to the other.  The kernels choose their own tiles;
-the tuned tiles of the plain stages are ``runtime/autotune.py``'s.
+falls back from one to the other.  A tensor on the meta device (the dry
+run's, ``launch/dryrun.py``) gets the kernel's outputs as shapes and
+dtypes alone, on the meta device: the edge step, the scatter and the
+flash kernels, which the dry run's steps reach.  The kernels choose their
+own tiles; the tuned tiles of the plain stages are
+``runtime/autotune.py``'s.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import (flash_attention as flash, knn_topk,
                                  largevis_grad, largevis_step, ref)
 
 
-def _route(t) -> bool:
-    """True for the kernel (CUDA), False for the plain version (CPU)."""
+def _route(t, shapes: bool = False):
+    """True for the kernel (CUDA), False for the plain version (CPU); None
+    for the meta device where the caller gives its outputs' ``shapes``."""
     if t.device.type == "cuda":
         return True
     if t.device.type == "cpu":
         return False
+    if shapes and t.device.type == "meta":
+        return None
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
@@ -37,7 +46,10 @@ def topk_sqdist(a, b, k, **kw):
 def largevis_edge_step(y, i, j, negs, neg_mask, lr, *, gamma=7.0, a=1.0,
                        clip=5.0, eps=0.1, n_frozen: int = 0):
     """One fused SGD edge step on ``y``, in place; returns ``y``."""
-    if _route(y):
+    route = _route(y, shapes=True)
+    if route is None:
+        return y
+    if route:
         return largevis_step.fused_edge_step(
             y, i, j, negs, neg_mask, lr, gamma=gamma, a=a, clip=clip,
             eps=eps, n_frozen=n_frozen)
@@ -62,7 +74,12 @@ def largevis_grads_stream(y, i, j, negs, neg_mask, lr, n_frozen: int = 0,
     forces from y read at the batch's rows; see
     ``ref.largevis_grads_stream_ref``."""
     kw = dict(gamma=gamma, a=a, clip=clip, eps=eps)
-    if _route(y):
+    route = _route(y, shapes=True)
+    if route is None:
+        U = i.shape[0] * (2 + negs.shape[1])
+        return (y.new_empty((U,), dtype=torch.int32),
+                y.new_empty((U, y.shape[1])))
+    if route:
         return largevis_grad.largevis_grads_stream(y, i, j, negs, neg_mask,
                                                    lr, n_frozen, **kw)
     return ref.largevis_grads_stream_ref(y, i, j, negs, neg_mask, lr,
@@ -71,7 +88,10 @@ def largevis_grads_stream(y, i, j, negs, neg_mask, lr, n_frozen: int = 0,
 
 def scatter_add_ordered(y, idx, upd):
     """``y[idx] += upd`` in place, duplicates in stream order; returns y."""
-    if _route(y):
+    route = _route(y, shapes=True)
+    if route is None:
+        return y
+    if route:
         return largevis_step.scatter_add_ordered(y, idx, upd)
     return ref.scatter_add_ordered_ref(y, idx, upd)
 
@@ -79,7 +99,10 @@ def scatter_add_ordered(y, idx, upd):
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Forward attention, heads pre-broadcast, top-left causal mask and
     an optional sliding window; see ``ref.flash_attention_ref``."""
-    if _route(q):
+    route = _route(q, shapes=True)
+    if route is None:
+        return torch.empty_like(q)
+    if route:
         return flash.flash_attention(q, k, v, causal=causal, window=window)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
 
@@ -88,7 +111,12 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0):
     """The training forward: (out, lse), lse (B, H, S) f32; see
     ``ref.flash_attention_fwd_ref``.  On the card the forward kernel,
     counted as ``flash_attention``."""
-    if _route(q):
+    route = _route(q, shapes=True)
+    if route is None:
+        B, S, H, _ = q.shape
+        return torch.empty_like(q), q.new_empty((B, H, S),
+                                                dtype=torch.float32)
+    if route:
         return flash.flash_attention(q, k, v, causal=causal, window=window,
                                      return_lse=True)
     return ref.flash_attention_fwd_ref(q, k, v, causal=causal, window=window)
@@ -98,7 +126,10 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                         window: int = 0):
     """(dq, dk, dv) of the forward from its ``out`` and ``lse``; see
     ``ref.flash_attention_bwd_ref``."""
-    if _route(q):
+    route = _route(q, shapes=True)
+    if route is None:
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if route:
         return flash.flash_attention_bwd(q, k, v, out, dout, lse,
                                          causal=causal, window=window)
     return ref.flash_attention_bwd_ref(q, k, v, out, dout, lse,

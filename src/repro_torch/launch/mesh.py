@@ -588,3 +588,106 @@ def broadcast_from_mesh(mesh: DataMesh, tensors: list, obj=None):
                                device=mesh.device if mesh.backend == "nccl"
                                else None)
     return out, box[0]
+
+
+# ---------------------------------------------------------------------------
+# The production mesh of the dry run: a recording mesh
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class RecordingMesh(DataMesh):
+    """One rank's view of a ``(data, model)`` mesh with no processes
+    behind it, for the dry run (``launch/dryrun.py``): the axis sizes, this
+    rank's index, and :class:`DataMesh`'s collectives, each returning
+    tensors of the right shapes and dtypes on the meta device (no values)
+    and logging ``(kind, axis, bytes)`` in :attr:`log`, ``bytes`` the
+    tensors the rank hands the collective."""
+    log: list = dataclasses.field(default_factory=list)
+
+    def _note(self, kind: str, axis, *ts) -> None:
+        n = sum(t.numel() * t.element_size() for t in ts)
+        self.log.append((kind, axis or "mesh", int(n)))
+
+    def ring_shift(self, t):
+        if self.size > 1:
+            self._note("ring_shift", None, t)
+        return torch.empty_like(t, device="meta")
+
+    def all_gather_list(self, t, axis=None) -> list:
+        if self.axis_size(axis) > 1:
+            self._note("all_gather", axis, t)
+        return [torch.empty_like(t, device="meta")
+                for _ in range(self.axis_size(axis))]
+
+    def all_gather(self, t, axis=None, dim: int = 0):
+        n = self.axis_size(axis)
+        if n == 1:
+            return t
+        self._note("all_gather", axis, t)
+        shape = list(t.shape)
+        shape[dim] *= n
+        return t.new_empty(shape, device="meta")
+
+    def all_reduce_sum(self, t, axis=None):
+        if self.axis_size(axis) == 1:
+            return t
+        self._note("all_reduce", axis, t)
+        return torch.empty_like(t, device="meta")
+
+    def reduce_scatter_sum(self, t, axis):
+        if self.axis_size(axis) == 1:
+            return t[0]
+        self._note("reduce_scatter", axis, t)
+        return torch.empty_like(t[0], device="meta")
+
+    def all_to_all(self, t, axis, split_axis: int, concat_axis: int):
+        P = self.axis_size(axis)
+        if P == 1:
+            return t
+        if t.shape[split_axis] % P:
+            raise ValueError(f"all_to_all: dimension {split_axis} of "
+                             f"{tuple(t.shape)} does not split over {P}")
+        self._note("all_to_all", axis, t)
+        shape = list(t.shape)
+        shape[split_axis] //= P
+        shape[concat_axis] *= P
+        return t.new_empty(shape, device="meta")
+
+    def exchange(self, sends: list, recvs: list, axis) -> list:
+        self._note("exchange", axis, *(t for _, t in sends))
+        dtype = sends[0][1].dtype
+        return [torch.empty(shape, dtype=dtype, device="meta")
+                for _, shape in recvs]
+
+    def broadcast(self, t, src: int = 0, axis=None):
+        if self.axis_size(axis) > 1:
+            self._note("broadcast", axis, t)
+        return torch.empty_like(t, device="meta")
+
+    def barrier(self) -> None:
+        pass
+
+    def collectives(self) -> dict:
+        """{kind:axis: {"calls": n, "bytes": total}} of the log."""
+        out: dict = {}
+        for kind, axis, n in self.log:
+            rec = out.setdefault(f"{kind}:{axis}", {"calls": 0, "bytes": 0})
+            rec["calls"] += 1
+            rec["bytes"] += n
+        return out
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         rank: int = 0) -> RecordingMesh:
+    """The JAX package's production mesh, as a :class:`RecordingMesh` of
+    mesh rank ``rank``: ``(data 16, model 16)``, or with ``multi_pod``
+    JAX's ``(pod 2, data 16, model 16)`` with ``"pod"`` folded into
+    ``"data"`` as 32 (JAX's DP axes are ``("pod", "data")``, and every
+    rule that cuts over ``"data"`` cuts over both, so each rank's blocks
+    are the same).  Nothing runs across processes: the dry run builds one
+    rank's step on the meta device and records the collectives it would
+    make."""
+    D, M = (32, 16) if multi_pod else (16, 16)
+    return RecordingMesh(group=None, rank=rank, size=D * M,
+                         device=torch.device("meta"), backend="record",
+                         world_rank=rank, world_size=D * M, model=M)

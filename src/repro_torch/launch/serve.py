@@ -15,12 +15,22 @@ It runs on the card unless the caller passes ``device="cpu"``, and raises
 without CUDA; there is no fallback from one to the other.  On the card a
 prompt longer than 2048 tokens prefills through the flash-attention
 kernel (``models/attention.py``'s ``attend``).
+
+The command line serves seeded requests with a reduced model (the JAX
+package's ``main``: 4 slots, ``max_len`` 64, prompts of 4-11 tokens drawn
+from ``numpy.random.default_rng(0)``, random weights from seed 0):
+
+    python -m repro_torch.launch.serve --arch qwen1.5-0.5b
+    python -m repro_torch.launch.serve --arch qwen1.5-0.5b --device cpu
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import time
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.largevis import resolve_device, seeded_generator
@@ -160,3 +170,39 @@ def _splice(full: dict, one: dict, slot: int) -> None:
             full[name][slot] = leaf[0]
         else:
             full[name][:, slot, :leaf.shape[2]] = leaf[:, 0]
+
+
+def main(argv=None) -> list:
+    """Serve ``--requests`` seeded requests on ``--device`` (the card by
+    default, the CPU only when asked) and print what was served; returns
+    the requests, their tokens in ``out``."""
+    ap = argparse.ArgumentParser(description="serve seeded requests with "
+                                 "a reduced model")
+    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=12)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    from repro_torch.configs import get_config
+
+    cfg = get_config(args.arch).reduced()
+    eng = ServeEngine(cfg, slots=4, max_len=64, device=args.device)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, rng.integers(4, 12))
+                    .tolist(), max_new=args.max_new)
+            for i in range(args.requests)]
+    t0 = time.time()
+    for r in reqs:
+        eng.submit(r)
+    steps = eng.run()
+    dt = time.time() - t0
+    n_tokens = sum(len(r.out) for r in reqs)
+    print(f"served {len(reqs)} requests, {n_tokens} tokens, {steps} engine "
+          f"steps, {dt:.1f}s on {eng.device}")
+    for r in reqs[:3]:
+        print(f"  req {r.rid}: prompt[{len(r.prompt)}] -> {r.out}")
+    return reqs
+
+
+if __name__ == "__main__":
+    main()

@@ -42,6 +42,8 @@ in the layouts of ``_out_tree_shardings``; ``sharding.block`` and
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.launch.mesh import elapsed_ms
@@ -353,12 +355,335 @@ def decode_cache(cfg, mesh, shape_cfg, cache, layout, *,
 
 def make_step(cfg, mesh, shape_cfg):
     """The step of ``shape_cfg.kind``: the sharded trainer
-    (tensor-parallel at ``model`` > 1 for all ten architectures; an
-    encoder-decoder whose heads do not divide the model axis raises,
-    naming ``lm.ENCDEC_HEADS_STEP``), the prefill or decode step
-    otherwise."""
+    (tensor-parallel at ``model`` > 1 for all ten architectures, query
+    heads that do not divide it whole on every rank; mLSTM/sLSTM heads
+    that do not divide it raise, naming ``lm.RECURRENT_HEADS_STEP``), the
+    prefill or decode step otherwise."""
     if shape_cfg.kind == "train":
         return make_train_step(cfg, shape_cfg, mesh=mesh)
     if shape_cfg.kind == "prefill":
         return make_prefill_step(cfg, mesh, shape_cfg)
     return make_decode_step(cfg, mesh, shape_cfg)
+
+
+# ---------------------------------------------------------------------------
+# The LargeVis layout steps: the paper technique's own production cells
+# ---------------------------------------------------------------------------
+#
+# Each builder returns JAX's 4-tuple in the port's form, ``(step,
+# arg_specs, in_blocks, out_blocks)``: ``arg_specs`` the whole arguments
+# as tensors on the meta device (JAX's ShapeDtypeStructs), ``in_blocks``
+# and ``out_blocks`` each argument's and the result's per-rank block
+# shape under JAX's shardings.  ``step`` runs on a rank of ``mesh`` (a
+# ``DataMesh``, or the dry run's recording mesh) on the rank's blocks,
+# updates ``y`` in place and returns it: on the card through the
+# ``fused_edge_step`` kernel (the fused route), on the CPU its plain
+# version.  ``seed`` (1,) and ``t_frac`` () are JAX's: the rank's stream
+# and one lr for the call's steps; ``generator=`` (advanced in place) and
+# ``lrs=`` (the call's per-step lrs) give them explicitly, as a fit's
+# round has them.
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _dp_size(mesh) -> int:
+    return mesh.shape["data"]
+
+
+def _lrs(t_frac, steps: int, rho0: float, dev) -> torch.Tensor:
+    """(steps,) f32: JAX's one lr of ``t_frac`` for every step."""
+    from repro_torch.core.layout_engine import step_lr
+
+    lr = step_lr(rho0, 0.0 if t_frac.device.type == "meta"
+                 else float(t_frac))
+    return torch.full((steps,), lr, dtype=torch.float32, device=dev)
+
+
+def _round_builder(mesh, n_nodes: int, b_loc: int, n_negatives: int,
+                   sync_every: int, fused_step: bool, rho0: float):
+    """The body of the local-SGD builders: ``run(y, seed, t_frac,
+    edge_sampler, neg_sampler, generator, lrs)``, one round of
+    ``core/layout.py::local_sgd_round`` (H steps of ``sgd_edge_step`` on
+    the rank's replica, one ``StepChunks`` dispatch, then the rank-order
+    sum of the replicas' moves over ``"data"``).  The unit is kept across
+    calls on the same tensors, so the card captures a round's graph once
+    and replays it; the first call's first dispatch takes the fused
+    route's demotion (``run_layout``'s contract)."""
+    from repro_torch.core import layout, layout_engine
+
+    units: dict = {}
+    layout_step = "fused" if fused_step else "split"
+
+    def run(y, seed, t_frac, es, ns, generator, lrs):
+        dev = y.device
+        if generator is None and dev.type != "meta":
+            generator = layout._rank_generator(
+                dev, int(seed.reshape(-1)[0]), mesh.axis_index("data"))
+        if lrs is None:
+            lrs = _lrs(t_frac, sync_every, rho0, dev)
+        key = (y.data_ptr(), es.src.data_ptr(), ns.threshold.data_ptr())
+        step = layout.round_step(es, ns, n_negatives=n_negatives,
+                                 batch=b_loc, layout_step=layout_step)
+        first = key not in units
+        if first:
+            units.clear()
+            units[key] = (layout_engine.StepChunks(step, y, sync_every),
+                          torch.empty_like(y))
+        unit, y0 = units[key]
+        split = (functools.partial(step, layout_step="split")
+                 if first and fused_step and dev.type != "meta" else None)
+        units[key] = (layout.local_sgd_round(unit, y0, mesh, generator,
+                                             lrs, split_step=split), y0)
+        return y
+
+    return run
+
+
+def make_largevis_step_local(mesh, *, n_nodes: int, n_edges: int,
+                             batch: int, out_dim: int = 2,
+                             n_negatives: int = 5, sync_every: int = 8,
+                             fused_step: bool = True, rho0: float = 1.0):
+    """Per-shard edge sampling and local SGD: one call is one round of
+    ``run_layout_local_sgd`` (``core/layout.py::local_sgd_round``, shared
+    with the fit), ``sync_every`` steps of ``batch / D`` edges on the
+    rank's replica of y from its block of the edge tables, then ``y0 +
+    sum_r (y_r - y0)`` over ``"data"`` (D ranks).
+
+    The edge tables are cut over ``"data"`` in D contiguous blocks; each
+    block must be an alias table of its own edges (its alias entries local
+    indices), as a ``ShardedEdgeSampler``'s rows flattened are: a block of
+    one flat table built over all edges would point outside itself (JAX's
+    builder leaves those pointers dangling).  The negative tables are
+    whole on every rank.  Wire format (JAX's): y (N, s) f32, seed (1,)
+    i32, t_frac () f32, edge src/dst/thr/alias (E,), neg thr/alias (N,).
+    A rank's stream is ``layout._rank_generator(seed, data rank)``."""
+    from repro_torch.core.sampler import EdgeSampler, NodeSampler
+
+    D = _dp_size(mesh)
+    b_loc = max(1, batch // D)
+    f32, i32 = torch.float32, torch.int32
+    sizes = mesh.shape
+    arg_specs = (_meta((n_nodes, out_dim), f32), _meta((1,), i32),
+                 _meta((), f32), _meta((n_edges,), i32),
+                 _meta((n_edges,), i32), _meta((n_edges,), f32),
+                 _meta((n_edges,), i32), _meta((n_nodes,), f32),
+                 _meta((n_nodes,), i32))
+    table = sh.block_shape((n_edges,), sh._guard(sizes, (n_edges,),
+                                                 [sh.dp_axes(sizes)]), sizes)
+    in_blocks = tuple(tuple(a.shape) for a in arg_specs[:3]) + \
+        (table,) * 4 + ((n_nodes,),) * 2
+    run = _round_builder(mesh, n_nodes, b_loc, n_negatives, sync_every,
+                         fused_step, rho0)
+
+    def step(y, seed, t_frac, edge_src, edge_dst, edge_thr, edge_alias,
+             neg_thr, neg_alias, *, generator=None, lrs=None):
+        es = EdgeSampler(edge_src, edge_dst, edge_thr, edge_alias,
+                         int(edge_src.shape[0]))
+        ns = NodeSampler(neg_thr, neg_alias, n_nodes)
+        return run(y, seed, t_frac, es, ns, generator, lrs)
+
+    return step, arg_specs, in_blocks, (n_nodes, out_dim)
+
+
+def make_largevis_step_sharded(mesh, *, n_nodes: int, n_edges: int,
+                               batch: int, out_dim: int = 2,
+                               n_negatives: int = 5, sync_every: int = 8,
+                               fused_step: bool = True, rho0: float = 1.0):
+    """Local SGD over the per-shard tables ``sampler.
+    build_samplers_sharded`` gives: the stacked (D, E_loc) edge tables,
+    whose alias entries are local indices, cut over ``"data"`` by rows
+    (a rank's block (1, E_loc) is a table of its own edges, the reference
+    implementation's per-thread sampling range), and the negatives drawn
+    globally through the two-level ``ShardedNodeSampler`` (its stacked
+    (D, n_loc) tables and (D,) shard tables whole on every rank), P_n(j)
+    ∝ deg(j)^0.75 over all nodes.  One call is one round, as
+    :func:`make_largevis_step_local`'s.  Raises as JAX's builder does:
+    ``n_edges`` not a multiple of D, or fewer nodes than ranks."""
+    from repro_torch.core.sampler import EdgeSampler, ShardedNodeSampler
+
+    D = _dp_size(mesh)
+    if n_edges % D:
+        raise ValueError(f"n_edges={n_edges} not a multiple of the DP "
+                         f"size {D} (pad rows first)")
+    if n_nodes < D:
+        raise ValueError(f"n_nodes={n_nodes} < DP size {D}: rows cannot "
+                         "cover the mesh one block per device")
+    e_loc = n_edges // D
+    n_loc = -(-n_nodes // D)
+    b_loc = max(1, batch // D)
+    f32, i32 = torch.float32, torch.int32
+    sizes = mesh.shape
+    arg_specs = (_meta((n_nodes, out_dim), f32), _meta((1,), i32),
+                 _meta((), f32), _meta((D, e_loc), i32),
+                 _meta((D, e_loc), i32), _meta((D, e_loc), f32),
+                 _meta((D, e_loc), i32), _meta((D, n_loc), f32),
+                 _meta((D, n_loc), i32), _meta((D,), f32), _meta((D,), i32))
+    table = sh.block_shape((D, e_loc), sh._guard(
+        sizes, (D, e_loc), [sh.dp_axes(sizes), None]), sizes)
+    in_blocks = tuple(tuple(a.shape) for a in arg_specs[:3]) + \
+        (table,) * 4 + tuple(tuple(a.shape) for a in arg_specs[7:])
+    run = _round_builder(mesh, n_nodes, b_loc, n_negatives, sync_every,
+                         fused_step, rho0)
+
+    def step(y, seed, t_frac, edge_src, edge_dst, edge_thr, edge_alias,
+             neg_thr, neg_alias, neg_sthr, neg_sali, *, generator=None,
+             lrs=None):
+        es = EdgeSampler(edge_src[0], edge_dst[0], edge_thr[0],
+                         edge_alias[0], e_loc)
+        ns = ShardedNodeSampler(neg_thr, neg_alias, neg_sthr, neg_sali, D,
+                                n_nodes)
+        return run(y, seed, t_frac, es, ns, generator, lrs)
+
+    return step, arg_specs, in_blocks, (n_nodes, out_dim)
+
+
+class _BlockTables:
+    """Alias tables cut over ``"data"`` in equal contiguous blocks (this
+    rank's ``blocks``), drawn from globally: every rank draws the same
+    indices over the whole table, reads the entries in its block (zeros
+    elsewhere), and a rank-order sum over ``"data"`` of the entries' bits
+    (int32, each added to zeros: exact) hands every rank the whole draw,
+    the cross-shard gathers XLA inserts for JAX's sharded tables.  At
+    one data rank the blocks are the tables and the draws
+    ``sampler.sample_alias``'s, op for op."""
+
+    def __init__(self, mesh, n: int, threshold, alias, *payload):
+        self.mesh, self.n = mesh, n
+        self.threshold, self.alias, self.payload = threshold, alias, payload
+
+    def _read(self, idx, tables) -> list:
+        mesh = self.mesh
+        if mesh.shape["data"] == 1:
+            return [t[idx] for t in tables]
+        n_loc = tables[0].shape[0]
+        loc = idx.long() - mesh.axis_index("data") * n_loc
+        mine = (loc >= 0) & (loc < n_loc)
+        loc = loc.clamp(0, n_loc - 1)
+        bits = torch.stack([torch.where(
+            mine, t[loc].view(torch.int32), 0) for t in tables])
+        bits = mesh.all_reduce_sum(bits, "data")
+        return [b.view(t.dtype) for b, t in zip(bits.unbind(0), tables)]
+
+    def _draw(self, generator, shape):
+        dev = self.threshold.device
+        idx = torch.randint(0, self.n, shape, generator=generator,
+                            device=dev, dtype=torch.int32)
+        u = torch.rand(shape, generator=generator, device=dev)
+        thr, ali = self._read(idx, (self.threshold, self.alias))
+        return torch.where(u < thr, idx, ali)
+
+    def sample(self, generator, shape):
+        """A node table's draws (``NodeSampler.sample``); an edge table's
+        (``EdgeSampler.sample``, ``shape`` the batch): its endpoints."""
+        e = self._draw(generator, shape if isinstance(shape, tuple)
+                       else (shape,))
+        if not self.payload:
+            return e
+        return tuple(self._read(e, self.payload))
+
+
+def make_largevis_step(mesh, *, n_nodes: int, n_edges: int, batch: int,
+                       out_dim: int = 2, n_negatives: int = 5,
+                       rho0: float = 1.0):
+    """One layout step over the whole batch: y whole on every rank, the
+    edge and node tables cut over ``"data"`` (:class:`_BlockTables`), the
+    same ``batch`` edges drawn on every rank from one stream (seeded by
+    ``seed`` alone, JAX's ``key(seed)``), and one
+    ``layout_engine.sgd_edge_step`` on the fused route, so every rank's y
+    stays the same.  At one data rank it is the fit's step on the flat
+    samplers.  The first call takes ``run_layout``'s demotion contract
+    (``layout.fused_or_demoted``): a failing fused kernel moves the step
+    to the split route for good, with one ``DegradedModeWarning``."""
+    from repro_torch.core import layout, layout_engine
+
+    f32, i32 = torch.float32, torch.int32
+    sizes = mesh.shape
+    dp = sh.dp_axes(sizes)
+    arg_specs = (_meta((n_nodes, out_dim), f32), _meta((1,), i32),
+                 _meta((), f32), _meta((n_edges,), i32),
+                 _meta((n_edges,), i32), _meta((n_edges,), f32),
+                 _meta((n_edges,), i32), _meta((n_nodes,), f32),
+                 _meta((n_nodes,), i32))
+    table = sh.block_shape((n_edges,), sh._guard(sizes, (n_edges,), [dp]),
+                           sizes)
+    node_t = sh.block_shape((n_nodes,), sh._guard(sizes, (n_nodes,), [dp]),
+                            sizes)
+    in_blocks = tuple(tuple(a.shape) for a in arg_specs[:3]) + \
+        (table,) * 4 + (node_t,) * 2
+    route = {"first": True, "layout_step": "fused"}
+
+    def step(y, seed, t_frac, edge_src, edge_dst, edge_thr, edge_alias,
+             neg_thr, neg_alias, *, generator=None, lr=None):
+        dev = y.device
+        if generator is None and dev.type != "meta":
+            generator = torch.Generator(device=dev).manual_seed(
+                int(seed.reshape(-1)[0]))
+        if lr is None:
+            lr = _lrs(t_frac, 1, rho0, dev)[0]
+        es = _BlockTables(mesh, n_edges, edge_thr, edge_alias, edge_src,
+                          edge_dst)
+        ns = _BlockTables(mesh, n_nodes, neg_thr, neg_alias)
+        one = functools.partial(
+            layout_engine.sgd_edge_step, y, generator, edge_sampler=es,
+            neg_sampler=ns, n_negatives=n_negatives, batch=batch, lr=lr)
+        if route.pop("first", False) and dev.type != "meta":
+            if layout.fused_or_demoted(
+                    y, generator, lambda: one(layout_step="fused"),
+                    lambda: one(layout_step="split")):
+                route["layout_step"] = "split"
+            return y
+        return one(layout_step=route["layout_step"])
+
+    return step, arg_specs, in_blocks, (n_nodes, out_dim)
+
+
+def make_largevis_transform_step(mesh, *, n_corpus: int, n_slots: int,
+                                 k: int, out_dim: int = 2,
+                                 n_negatives: int = 5, steps: int = 48,
+                                 rho0: float = 1.0):
+    """The projection server's lockstep step as a launch-harness cell:
+    every slot draws one positive edge from its neighbor distribution and
+    M negatives (``transform.sample_query_edges``) and takes one fused
+    edge step at its own age's lr (``serve_projection.slot_lr_table``,
+    the engine's table: the JAX builder's inline ``rho0 * max(1 - age /
+    steps, 1e-4)`` is reciprocal-then-multiply under ``jax.jit``, ROADMAP
+    Queue 3), the corpus rows frozen (``n_frozen``), through
+    ``serve_projection._lockstep_apply``, the engine's own update: the
+    active slots' ``ages`` advance in place.  Everything is whole on
+    every rank.  Wire format (JAX's): y_full (N+S, s) f32, seed (1,),
+    p (S, k) f32 (the engine's neighbor probabilities; JAX passes their
+    logs to its categorical draw), nn_idx (S, k), ages (S,) i32, active
+    (S,) i32, neg thr/alias (N,)."""
+    from repro_torch.core.sampler import NodeSampler
+    from repro_torch.core.transform import sample_query_edges
+    from repro_torch.launch import serve_projection as sp
+
+    f32, i32 = torch.float32, torch.int32
+    arg_specs = (_meta((n_corpus + n_slots, out_dim), f32),
+                 _meta((1,), i32), _meta((n_slots, k), f32),
+                 _meta((n_slots, k), i32), _meta((n_slots,), i32),
+                 _meta((n_slots,), i32), _meta((n_corpus,), f32),
+                 _meta((n_corpus,), i32))
+    tables: dict = {}
+
+    def step(y_full, seed, p, nn_idx, ages, active, neg_thr, neg_alias, *,
+             generator=None):
+        dev = y_full.device
+        if generator is None and dev.type != "meta":
+            generator = torch.Generator(device=dev).manual_seed(
+                int(seed.reshape(-1)[0]))
+        if dev not in tables:
+            tables[dev] = (sp.slot_lr_table(rho0, steps, dev),
+                           n_corpus + torch.arange(n_slots, dtype=i32,
+                                                   device=dev))
+        lrs, i = tables[dev]
+        j, negs, neg_mask = sample_query_edges(
+            generator, p, nn_idx, NodeSampler(neg_thr, neg_alias, n_corpus),
+            n_negatives)
+        return sp._lockstep_apply(y_full, i, j, negs, neg_mask, ages,
+                                  active.bool(), lrs, n_frozen=n_corpus,
+                                  layout_step="fused")
+
+    in_blocks = tuple(tuple(a.shape) for a in arg_specs)
+    return step, arg_specs, in_blocks, (n_corpus + n_slots, out_dim)

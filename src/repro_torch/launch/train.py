@@ -11,7 +11,8 @@ card unless ``device="cpu"`` (the plain versions of the kernels).
 ``production=True`` trains data-parallel over ``make_data_mesh()``,
 every rank of the process group (``torchrun --nproc_per_node=P``; with no
 group, a world of one), the counterpart of the data axis of JAX's pod
-mesh (its production mesh is ROADMAP's step 9): each rank takes its
+mesh (whose full (16, 16) shape only the dry run's recording mesh has,
+``launch/mesh.py::make_production_mesh``): each rank takes its
 block of the batch's rows and holds its blocks of the parameters and the
 moments at rest, by JAX's FSDP rules (``launch/steps.py``).  Every rank
 joins the gather of the state at a save, and mesh rank 0 writes the

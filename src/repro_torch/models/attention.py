@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import model_copy, model_sum
+from repro_torch.models import costbook
 from repro_torch.models.layers import (apply_rope, dense_init,
                                        init_rmsnorm, rmsnorm)
 
@@ -127,6 +128,10 @@ def _mask_bias(q_pos, k_pos, causal: bool, window: int) -> torch.Tensor:
 # Core attention (full / chunked)
 # ---------------------------------------------------------------------------
 
+def _gqa_scores_flops(B, Sq, Sk, H, hd):
+    return 4.0 * B * H * Sq * Sk * hd  # qk^T + pv
+
+
 def mha_full(q, k, v, q_pos, k_pos, *, causal=True, window=0):
     """q: (B,Sq,H,hd); k/v: (B,Sk,KVH,hd). Returns (B,Sq,H,hd).
 
@@ -189,6 +194,12 @@ def mha_chunked(q, k, v, *, causal=True, window=0):
                          f"min({Q_BLOCK}, Sq) and Sk={Sk} of "
                          f"min({KV_BLOCK}, Sk)")
     G = H // KVH
+    # JAX's entry: its blocks' trips, and q, k, v read and out written once
+    costbook.record(
+        "mha_chunked", total_flops=_gqa_scores_flops(B, Sq, Sk, H, hd),
+        total_bytes=float((2 * q.numel() + k.numel() + v.numel())
+                          * q.element_size()),
+        trips=(Sq // min(Q_BLOCK, Sq)) * (Sk // min(KV_BLOCK, Sk)))
     if G > 1:
         k = k.repeat_interleave(G, dim=2)
         v = v.repeat_interleave(G, dim=2)
@@ -291,12 +302,15 @@ def attention_fwd(params, x, cfg, *, kind="attn", causal=True, impl="auto",
     every rank holds whole but uses only for its own heads (the whole
     ``wk``/``wv``/``bk``/``bv``, the QK-norm scales), take their
     gradients summed over ``"model"`` (``model_copy``); ``wo`` is
-    row-parallel, followed by the ``"model"`` sum."""
+    row-parallel, followed by the ``"model"`` sum.  Query heads that do not
+    divide the model axis stay whole on every rank (:func:`heads_whole`):
+    every rank computes all heads as one device does, and the weights'
+    gradients are whole on every rank, not summed over ``"model"``."""
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     M, m = _model_rank(mesh)
     window = _window_for(cfg, kind)
-    if M == 1:
+    if M == 1 or heads_whole(params, cfg):
         q, k, v = _project_qkv(params, x, cfg, positions,
                                _theta_for(cfg, kind))
         o = attend(q, k, v, causal=causal, window=window, impl=impl)
@@ -322,14 +336,25 @@ def attention_fwd(params, x, cfg, *, kind="attn", causal=True, impl="auto",
 
 
 def check_mesh_heads(cfg, model_axis: int) -> None:
-    """The sharded attention splits the query heads, and the head
-    dimension of a cache whose heads do not divide, over ``"model"``:
-    both must divide it (every attention decoder of the JAX package's
-    does at ``model`` <= 4)."""
+    """The sharded attention splits the head dimension of a cache whose
+    heads do not divide the model axis over ``"model"`` (JAX's
+    ``_cache_pspec``): it must divide it (every attention architecture's
+    does at ``model`` 16).  Query heads that do not divide stay whole on
+    every rank (:func:`heads_whole`)."""
     hd = cfg.resolved_head_dim
-    if cfg.n_heads % model_axis or hd % model_axis:
-        raise ValueError(f"{cfg.name}: {cfg.n_heads} heads of dimension "
-                         f"{hd} do not divide over model={model_axis}")
+    if hd % model_axis:
+        raise ValueError(f"{cfg.name}: the head dimension {hd} does not "
+                         f"divide over model={model_axis}")
+
+
+def heads_whole(params, cfg) -> bool:
+    """Whether a rank holds every query head (``wq`` whole): JAX's rule
+    for ``attn/w[qkv]`` cuts the heads over ``"model"`` only where they
+    divide it (``_guard``), else leaves ``wq``/``wk``/``wv``/``wo`` whole,
+    and the attention is replicated: every rank computes all heads, and no
+    ``"model"`` collective runs (whisper-tiny's 6 heads and phi3-medium's
+    40 at ``model`` 16)."""
+    return params["wq"].shape[1] == cfg.n_heads
 
 
 def _model_rank(mesh):
@@ -551,3 +576,14 @@ def attention_decode(params, x, cfg, cache, position, *, kind="attn",
     if params["wo"].shape[0] < H:
         out = mesh.all_reduce_sum(out, "model")
     return out, cache
+
+
+def attention_flops(cfg, B, Sq, Sk, *, train: bool) -> float:
+    """JAX's analytic flops of an attention layer: the q, k, v and out
+    products and the scores (three times that for a training step)."""
+    hd = cfg.resolved_head_dim
+    proj = 2.0 * B * Sq * cfg.d_model * hd * (2 * cfg.n_heads +
+                                              2 * cfg.n_kv_heads)
+    core = _gqa_scores_flops(B, Sq, Sk, cfg.n_heads, hd)
+    total = proj + core
+    return total * (3.0 if train else 1.0)

@@ -66,8 +66,12 @@ def cross_attention(params, x, enc_out, cfg, mesh=None):
     query heads over the kv heads they read (its own where the kv heads
     shard over ``"model"``, picked by index from the whole projection
     where they do not, as ``attention.attention_fwd``); ``wo``
-    row-parallel, then the ``"model"`` sum."""
+    row-parallel, then the ``"model"`` sum.  Heads that do not divide the
+    model axis are whole on every rank and attend as on one device
+    (``attention.heads_whole``)."""
     M, m = attn._model_rank(mesh)
+    if M > 1 and attn.heads_whole(params, cfg):
+        M = 1
     p = dict(params)
     kv_whole = M > 1 and params["wk"].shape[1] == cfg.n_kv_heads
     if M > 1:

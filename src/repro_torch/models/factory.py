@@ -12,11 +12,13 @@ prefill takes the encoder frames).  ``batch`` is JAX's dict: ``tokens``
 and ``labels`` (B, S), and ``encoder_frames`` (B, F, d) for the
 encoder-decoder.  ``make_model(cfg, kv_repeat=,
 kv_quant=)`` fixes a decoder's prefill cache storage, as JAX's does (the
-encoder-decoder's prefill takes neither, as in JAX).  Its
-``cache_specs`` (shapes by ``eval_shape`` of the prefill) becomes
-:func:`init_cache`, a direct allocation of the same tree, and
-``param_specs(inference=True)`` becomes :func:`cast_for_inference`
-(and :func:`param_shapes` the shapes alone, on no memory).
+encoder-decoder's prefill takes neither, as in JAX).  JAX's
+``cache_specs`` (shapes by ``eval_shape`` of the prefill) is
+:func:`cache_specs`, :func:`init_cache` on the meta device, a direct
+allocation of the same tree; ``param_specs`` is :func:`param_specs`, the
+tree on the meta device (:func:`param_shapes` the same with fake
+tensors, cached), and its ``inference=True`` cast is
+:func:`cast_for_inference`.
 
 ``make_model(cfg, mesh=)`` and ``init_cache(..., mesh=)`` are a rank's
 share of a ``(data, model)`` mesh (``launch/mesh.py``): its blocks of the
@@ -157,6 +159,31 @@ def param_shapes(cfg):
 
     with FakeTensorMode():
         return make_model(cfg)["init"](torch.Generator())
+
+
+def param_specs(cfg, *, inference: bool = False):
+    """The parameter module tree of ``cfg`` on the meta device (shapes
+    and dtypes, no memory), JAX's ``param_specs``: ``inference`` casts
+    the matrices as :func:`cast_for_inference` does (JAX's rule casts
+    every f32 matrix; the port keeps :data:`F32_MATRICES` f32, as the
+    model reads them)."""
+    tree = param_shapes.__wrapped__(cfg)
+    for mod in tree.modules():
+        for name, p in list(mod._parameters.items()):
+            if p is not None:       # the fake leaf, swapped for a meta one
+                mod._parameters[name] = torch.nn.Parameter(
+                    torch.empty(p.shape, dtype=p.dtype, device="meta"),
+                    requires_grad=False)
+    return cast_for_inference(tree, cfg) if inference else tree
+
+
+def cache_specs(cfg, batch: int, seq_len: int, kv_repeat: int = 1,
+                kv_quant: bool = False) -> dict:
+    """A decode cell's cache tree on the meta device: :func:`init_cache`,
+    the tree the prefill returns and the decode reads (JAX's
+    ``cache_specs`` takes it from its prefill by ``eval_shape``)."""
+    return init_cache(cfg, batch, seq_len, "meta", kv_repeat=kv_repeat,
+                      kv_quant=kv_quant)
 
 
 def init_cache(cfg, batch: int, max_len: int, device, *, kv_repeat: int = 1,

@@ -168,6 +168,12 @@ def mlp_sharded(params, x: torch.Tensor, mlp_type: str, d_ff: int,
     return out
 
 
+def mlp_flops(d_model: int, d_ff: int, mlp_type: str, n_tokens: int) -> float:
+    """JAX's analytic flops of the MLP over ``n_tokens``."""
+    n_mats = 3 if mlp_type in ("swiglu", "geglu") else 2
+    return 2.0 * n_mats * d_model * d_ff * n_tokens
+
+
 # ---------------------------------------------------------------------------
 # Embedding / unembedding
 # ---------------------------------------------------------------------------

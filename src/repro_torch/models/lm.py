@@ -88,33 +88,34 @@ def check_supported(cfg) -> None:
                              f"one of {BLOCK_KINDS}")
 
 
-# where the encoder-decoder whose heads do not divide the model axis
-# (whisper-tiny's 6 at model 4) gets its tensor parallelism
-ENCDEC_HEADS_STEP = "ROADMAP Queue 1 item 7 step 8c"
+# where the recurrent blocks whose heads or inner width do not divide the
+# model axis (xlstm-125m's 4 heads at model 16: JAX cuts the mLSTM's
+# core/w_[qkv] by columns, mid-head) get their tensor parallelism
+RECURRENT_HEADS_STEP = "ROADMAP Queue 1 item 7 step 11"
 
 
 def check_mesh(cfg, mesh) -> None:
     """Raise for what the sharded serving and training paths do not run
-    at ``model`` > 1: query heads (or the head dimension) that do not
-    divide the model axis (the encoder-decoder's names
-    :data:`ENCDEC_HEADS_STEP`), a mamba inner width, or mLSTM and sLSTM
-    heads, that do not."""
+    at ``model`` > 1, naming :data:`RECURRENT_HEADS_STEP` where it is
+    lifted: mLSTM and sLSTM heads, or a mamba inner width, that do not
+    divide the model axis, and an attention head dimension that does not
+    (``attention.check_mesh_heads``).  Query heads that do not divide are
+    run whole on every rank (``attention.heads_whole``)."""
     if mesh is None or mesh.shape["model"] == 1:
         return
     M = mesh.shape["model"]
-    try:
-        attn.check_mesh_heads(cfg, M)
-    except ValueError as e:
-        if cfg.is_encoder_decoder:
-            raise ValueError(f"{e}: tensor parallelism over 'model' for "
-                             f"this encoder-decoder is {ENCDEC_HEADS_STEP}"
-                             ) from None
-        raise
     kinds = set(cfg.block_pattern)
+    if kinds & {"mlstm", "slstm"} and cfg.n_heads % M:
+        raise ValueError(f"{cfg.name}: the mLSTM/sLSTM's {cfg.n_heads} "
+                         f"heads do not divide over model={M}: their "
+                         f"tensor parallelism is {RECURRENT_HEADS_STEP}")
     if "mamba" in kinds and (cfg.d_model * cfg.ssm_expand) % M:
         raise ValueError(f"{cfg.name}: mamba's inner width "
                          f"{cfg.d_model * cfg.ssm_expand} does not divide "
-                         f"over model={M}")
+                         f"over model={M}: its tensor parallelism is "
+                         f"{RECURRENT_HEADS_STEP}")
+    if kinds & set(ATTN_KINDS) or cfg.is_encoder_decoder:
+        attn.check_mesh_heads(cfg, M)
 
 
 def _position_is_moe(cfg, p: int) -> bool:

@@ -220,3 +220,13 @@ def moe_apply_sharded(params, x, cfg, mesh, capacity_factor: float = 1.25,
         aux = mesh.all_reduce_sum(aux.reshape(1), "data")[0] / \
             mesh.shape["data"]
     return y.reshape(B, S, d), aux
+
+
+def moe_flops(cfg, n_tokens: int, capacity_factor: float = 1.25) -> float:
+    """JAX's analytic flops of an MoE layer over ``n_tokens``: every
+    expert's capacity of rows through its three matrices, and the
+    router."""
+    C = capacity(n_tokens, cfg.n_experts, cfg.topk_experts, capacity_factor)
+    per_expert = 2.0 * 3 * C * cfg.d_model * cfg.d_ff
+    router = 2.0 * n_tokens * cfg.d_model * cfg.n_experts
+    return per_expert * cfg.n_experts + router

@@ -44,8 +44,9 @@ then runs on the rank's inner block with no collective.  ``w_out`` is
 row-parallel, followed by the ``"model"`` sum.
 
 No Pallas kernel sits behind this layer; the JAX package computes it in
-jnp.  ``mamba_flops`` and its cost-book record wait for
-``models/costbook.py`` (ROADMAP Queue 1).
+jnp.  ``mamba_fwd`` records its chunk scan in the cost book
+(``models/costbook.py``, JAX's label, totals and trips, on the rank's
+inner block), and ``mamba_flops`` is JAX's analytic count.
 """
 from __future__ import annotations
 
@@ -56,6 +57,7 @@ import torch.nn.functional as F
 
 from repro_torch.launch.mesh import (model_copy, model_halves,
                                      model_split, model_sum)
+from repro_torch.models import costbook
 from repro_torch.models.layers import dense_init, softplus
 
 CHUNK = 256
@@ -195,7 +197,26 @@ def _mamba(params, x, cfg, chunk: int, mesh=None):
 def mamba_fwd(params, x, cfg, chunk: int = CHUNK, mesh=None):
     """Full-sequence forward.  x: (B,S,d) -> (B,S,d); on a mesh, the
     rank's inner blocks (module docstring)."""
-    return _mamba(params, x, cfg, chunk, mesh)[0]
+    out, _, h = _mamba(params, x, cfg, chunk, mesh)
+    B, S = x.shape[:2]
+    inner, state = h.shape[1], h.shape[2]
+    costbook.record("mamba_scan", total_flops=10.0 * B * S * inner * state,
+                    total_bytes=8.0 * B * S * inner * state,
+                    trips=S // min(chunk, S))
+    return out
+
+
+def mamba_flops(cfg, n_tokens: int) -> float:
+    """JAX's analytic flops of a mamba block over ``n_tokens``: the in
+    and out products, the selective products, the scan."""
+    d = cfg.d_model
+    inner = d * cfg.ssm_expand
+    state = cfg.ssm_state
+    dt_rank = max(8, int(math.ceil(d / 16)))
+    proj = 2.0 * n_tokens * d * 3 * inner                       # in + out
+    sel = 2.0 * n_tokens * inner * (2 * state + 2 * dt_rank)
+    scan = 10.0 * n_tokens * inner * state
+    return proj + sel + scan
 
 
 def mamba_prefill(params, x, cfg, chunk: int = CHUNK, mesh=None):

@@ -46,8 +46,10 @@ JAX's blocks (``runtime/sharding.py``) and computes its heads:
 
 No Pallas kernel sits behind these blocks; the JAX package's docstring
 names a chunked ``mlstm_fwd_chunked`` that it does not have, so it has no
-counterpart here.  The cost-book records wait for ``models/costbook.py``
-(ROADMAP Queue 1).
+counterpart here.  ``mlstm_fwd`` and ``slstm_fwd`` record their token
+recurrences in the cost book (``models/costbook.py``, JAX's labels,
+totals and trips, on the rank's heads), and ``xlstm_flops`` is JAX's
+analytic count.
 """
 from __future__ import annotations
 
@@ -58,6 +60,7 @@ import torch.nn.functional as F
 
 from repro_torch.launch.mesh import (model_copy, model_gather,
                                      model_halves, model_split, model_sum)
+from repro_torch.models import costbook
 from repro_torch.models.layers import (dense_init, init_rmsnorm,
                                        log_sigmoid, rmsnorm)
 
@@ -192,7 +195,12 @@ def _mlstm(params, x, cfg, mesh=None):
 
 
 def mlstm_fwd(params, x, cfg, mesh=None):
-    return _mlstm(params, x, cfg, mesh)[0]
+    out, (C, _, _) = _mlstm(params, x, cfg, mesh)
+    B, S = x.shape[:2]
+    nh, dh = C.shape[1], C.shape[2]
+    costbook.record("mlstm_scan", total_flops=6.0 * B * S * nh * dh * dh,
+                    total_bytes=8.0 * B * S * nh * dh * dh, trips=S)
+    return out
 
 
 def mlstm_prefill(params, x, cfg, mesh=None):
@@ -335,7 +343,12 @@ def _slstm(params, x, cfg, mesh=None):
 
 
 def slstm_fwd(params, x, cfg, mesh=None):
-    return _slstm(params, x, cfg, mesh)[0]
+    out, (h, _, _, _) = _slstm(params, x, cfg, mesh)
+    B, S = x.shape[:2]
+    nh, dh = h.shape[1], h.shape[2]
+    costbook.record("slstm_scan", total_flops=2.0 * B * S * nh * dh * 4 * dh,
+                    total_bytes=4.0 * B * S * nh * dh, trips=S)
+    return out
 
 
 def slstm_prefill(params, x, cfg, mesh=None):
@@ -359,3 +372,21 @@ def slstm_decode(params, x, cfg, cache, mesh=None):
     h = _slstm_out(params, new[0].reshape(B, 1, -1).to(dtype), cfg, mesh)
     h_new, c, n, m = _gather_states(mesh, new)
     return h, {"h": h_new, "c": c, "n": n, "m": m}
+
+
+def xlstm_flops(cfg, n_tokens: int, kind: str) -> float:
+    """JAX's analytic flops of an mLSTM (``kind`` "mlstm") or sLSTM block
+    over ``n_tokens``: its products and its recurrence."""
+    d = cfg.d_model
+    nh = cfg.n_heads
+    if kind == "mlstm":
+        inner = 2 * d
+        dh = inner // nh
+        proj = 2.0 * n_tokens * d * (2 * inner) + \
+            2.0 * n_tokens * inner * (3 * inner + d)
+        rec = 6.0 * n_tokens * nh * dh * dh
+        return proj + rec
+    dh = d // nh
+    proj = 2.0 * n_tokens * d * 4 * d + 2.0 * n_tokens * d * d
+    rec = 2.0 * n_tokens * nh * dh * 4 * dh
+    return proj + rec

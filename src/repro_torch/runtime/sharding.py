@@ -382,6 +382,13 @@ def _slices(shape, spec, sizes: Mapping, rank: int) -> tuple:
     return tuple(out)
 
 
+def block_shape(shape, spec, sizes: Mapping) -> tuple:
+    """The shape of every rank's block of a whole ``shape`` under
+    ``spec`` (JAX's per-device shard shape)."""
+    return tuple(d if ax is None else d // _axis_size(sizes, ax)
+                 for d, ax in zip(shape, spec))
+
+
 def block(x, spec, mesh):
     """Mesh rank ``mesh.rank``'s block of the whole tensor (or array)
     ``x`` under ``spec`` (a view where the tensor allows)."""

@@ -92,6 +92,13 @@ B, S, STEPS = 4, 72, 4          # S past the reduced window of 64
 TOL, TOL_INT8 = 1e-5, 1e-4
 OVERRIDES = {"qwen1.5-0.5b": {"n_kv_heads": 4}}
 HD_SPLIT = {"n_heads": 6, "n_kv_heads": 3}      # over llama3's reduced
+# query heads that do not divide model 4, whole on every rank: whisper's
+# 6 (whisper-tiny's own count) and a GQA decoder's 6 over 2 kv heads
+WHOLE_HEADS = {"whisper-tiny": {"n_heads": 6, "n_kv_heads": 6},
+               "llama3-8b": {"n_heads": 6, "n_kv_heads": 2}}
+# a reduced xLSTM whose 2 heads do not divide model 4 (xlstm-125m's 4 at
+# model 16): refused, naming the step that lifts it
+XLSTM_2_HEADS = {"n_heads": 2}
 
 
 def _jdtype(t):
@@ -258,8 +265,10 @@ def test_moe_route_matches_jax(name):
 def test_mesh_past_model_1_refuses_mamba_xlstm_whisper():
     """(iii) The recurrent blocks and the encoder-decoder build at model 2
     (and at model 1), and ``make_step`` gives a training step for them as
-    for an attention decoder; the one refusal left is whisper-tiny at
-    model 4 (6 heads over 4 ranks), naming ROADMAP's step 8c."""
+    for an attention decoder; whisper-tiny builds at model 4 (its 6 heads
+    whole on every rank), and the refusal left at the production mesh's
+    model 16 is xlstm-125m (4 mLSTM/sLSTM heads over 16 ranks), naming
+    ROADMAP's step 11."""
     from repro_torch.models.factory import make_model
     for name in OTHERS:
         for shape in ({"data": 1, "model": 2}, {"data": 2, "model": 1}):
@@ -272,9 +281,12 @@ def test_mesh_past_model_1_refuses_mamba_xlstm_whisper():
     for name in ("qwen1.5-0.5b",) + OTHERS:
         step = tsteps.make_step(get_config(name + "-reduced"), mesh, train)
         assert callable(step) and step.microbatches == 1
-    with pytest.raises(ValueError, match="step 8c"):
-        make_model(get_config("whisper-tiny"), mesh=types.SimpleNamespace(
-            shape={"data": 1, "model": 4}))
+    assert callable(make_model(get_config("whisper-tiny"),
+                               mesh=types.SimpleNamespace(
+                                   shape={"data": 1, "model": 4}))["loss"])
+    with pytest.raises(ValueError, match="step 11"):
+        make_model(get_config("xlstm-125m"), mesh=types.SimpleNamespace(
+            shape={"data": 16, "model": 16}))
 
 
 def test_block_and_assemble_round_trip():
@@ -326,6 +338,8 @@ def _cases():
              False),
             ("odd-vocab-whisper@(1, 2)", "whisper-tiny", ODD_VOCAB, (1, 2),
              B, False, False)]
+    out += [(f"whole-heads-{name}@(1, 4)", name, kw, (1, 4), B, False, False)
+            for name, kw in WHOLE_HEADS.items()]
     return out
 
 
@@ -387,7 +401,8 @@ def _world(tmp_path_factory):
         case = {"tag": tag, "cfg": tcfg, "weights": wkey, "mesh": mesh,
                 "B": gb, "S": S, "steps": STEPS, "tokens": toks,
                 "kv_quant": quant, "plain": plain,
-                "own": name in OTHERS and mesh[1] > 1}
+                "own": (name in OTHERS or tag.startswith("whole-heads"))
+                and mesh[1] > 1}
         if tcfg.is_encoder_decoder:
             case["frames"] = normal((gb, tcfg.enc_positions, tcfg.d_model),
                                     seed=gb)
@@ -406,7 +421,8 @@ def _world(tmp_path_factory):
                        "mesh": (2, 2)},
                "refused": [(get_config(n + "-reduced"), (2, 2))
                            for n in OTHERS] +
-               [(get_config("whisper-tiny"), (1, 4))]}
+               [(get_config("whisper-tiny"), (1, 4)),
+                (_case_cfgs("xlstm-125m", **XLSTM_2_HEADS)[1], (1, 4))]}
     wait = start_world("tp_serve_world", 4, tmp_path_factory.mktemp("tp"),
                        payload)
     jw = {k: jax.tree.map(jnp.asarray, v) for k, v in weights.items()}
@@ -696,8 +712,27 @@ def test_mesh_collectives_along_each_axis(world):
 
 def test_refusals_on_the_mesh(world):
     """(iii) On the world's (2, 2) mesh the reduced jamba, xLSTM and
-    whisper build; on its (1, 4) mesh whisper-tiny (6 heads) raises
-    naming ROADMAP's step 8c."""
+    whisper build, and on its (1, 4) mesh whisper-tiny (6 heads, whole on
+    every rank); a reduced xLSTM with 2 heads raises there, naming
+    ROADMAP's step 11."""
     *built, refused = [str(m) for m in world["ranks"][0]["refused"]]
-    assert built == [""] * len(OTHERS)
-    assert "step 8c" in refused and "6 heads" in refused, refused
+    assert built == [""] * (len(OTHERS) + 1)
+    assert "step 11" in refused and "2 heads" in refused, refused
+
+
+@pytest.mark.parametrize("name", list(WHOLE_HEADS))
+def test_whole_heads_match_jax(world, name):
+    """Query heads that do not divide model 4 (whisper's 6, a GQA
+    decoder's 6 over 2 kv heads): every rank holds ``wq``/``wk``/``wv``/
+    ``wo`` whole, as JAX's ``_guard`` leaves them, and computes all heads
+    beside the ff-sharded MLP and the hd-over-"model" cache; prefill and
+    4 decode steps against JAX's one device (1e-5), the cache's head
+    dimension a rank's quarter."""
+    tag = f"whole-heads-{name}@(1, 4)"
+    _check_case(world, tag)
+    r0 = world["ranks"][0]
+    wq = [k for k in r0 if k.startswith(f"{tag}/own/params/")
+          and k.endswith("attn/wq")]
+    assert wq and all(r0[k].shape[-2] == 6 for k in wq), wq
+    k = "self/k" if name == "whisper-tiny" else "pos0/k"
+    assert r0[f"{tag}/own/cache/{k}"].shape[-1] == 16 // 4

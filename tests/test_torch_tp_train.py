@@ -92,7 +92,13 @@ DECODERS = MAIN + OTHER
 # the reduced whisper with a vocab that divides neither model size: its
 # table stays whole over "model", the loss takes the whole logits
 ODD = "whisper-tiny-odd-vocab"
-VARIANTS = {ODD: ("whisper-tiny", {"vocab_size": 509})}
+# query heads that do not divide model 4, whole on every rank (trained on
+# (1, 4) only): whisper's 6 and a GQA decoder's 6 over 2 kv heads
+WHOLE_HEADS = ("whisper-tiny-6-heads", "llama3-8b-6-heads")
+VARIANTS = {ODD: ("whisper-tiny", {"vocab_size": 509}),
+            WHOLE_HEADS[0]: ("whisper-tiny", {"n_heads": 6,
+                                              "n_kv_heads": 6}),
+            WHOLE_HEADS[1]: ("llama3-8b", {"n_heads": 6, "n_kv_heads": 2})}
 RECURRENT = ("jamba-v0.1-52b", "xlstm-125m", "whisper-tiny", ODD)
 TWO_STEPS = MAIN + RECURRENT     # two steps, two runs on (2, 2)
 ALL = DECODERS + RECURRENT
@@ -221,9 +227,19 @@ def _world1(tcfg, jp, batches, steps):
     return out
 
 
+def _no_policy():
+    """JAX's activation policy patched to a null context for the steps
+    run under it (its sharding constraints name make_mesh's Explicit
+    axes and fail under JAX 0.9), once for all the threads that run
+    them: a patch a thread would restore the real policy under another
+    thread's step when the two overlap."""
+    return mock.patch.object(jsh, "activation_policy",
+                             lambda *a, **kw: contextlib.nullcontext())
+
+
 def _jax_step(jcfg, jp, toks, frames=None):
     """JAX's first step at two microbatches: (loss, parameters, first
-    moments, second moments)."""
+    moments, second moments); run under :func:`_no_policy`."""
     jstep, *_ = jmake_train_step(jcfg, jmake_host_mesh(),
                                  JShapeConfig("c", "train", S, B),
                                  microbatches=2)
@@ -232,10 +248,8 @@ def _jax_step(jcfg, jp, toks, frames=None):
     if frames is not None:
         jb["encoder_frames"] = jnp.asarray(frames)
     jparams = jax.tree.map(jnp.asarray, jp)
-    with mock.patch.object(jsh, "activation_policy",
-                           lambda *a, **kw: contextlib.nullcontext()):
-        jparams, jopt, jloss = jax.jit(jstep)(
-            jparams, jadamw.adamw_init(jparams), jb)
+    jparams, jopt, jloss = jax.jit(jstep)(jparams, jadamw.adamw_init(jparams),
+                                          jb)
     return (float(jloss),) + tuple(jax.tree.map(np.asarray, t) for t in
                                    (jparams, jopt["m"], jopt["v"]))
 
@@ -257,10 +271,12 @@ def world(world_started):
 def _world(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("tp_train")
     weights, jcfgs, tcfgs, batches_of = {}, {}, {}, {}
-    with few_threads():
-        for i, name in enumerate(ALL):
+    with few_threads(), ThreadPoolExecutor(4) as pool:   # XLA off the GIL
+        made = {name: pool.submit(params, *_cfgs(name), seed=10 + i)
+                for i, name in enumerate(ALL + WHOLE_HEADS)}
+        for name in ALL + WHOLE_HEADS:
             jcfg, tcfg = _cfgs(name)
-            jp, _ = params(jcfg, tcfg, seed=10 + i)
+            jp, _ = made[name].result()
             weights[name] = _scaled_routers(jax.tree.map(np.asarray, jp))
             jcfgs[name], tcfgs[name] = jcfg, tcfg
             batches_of[name] = _batches(tcfg.vocab_size)
@@ -281,6 +297,10 @@ def _world(tmp_path_factory):
                 "batches": batches_of[name],
                 "saves": [str(tmp / d) for d in saves.get(name, ())
                           if mesh == (2, 2)]})
+    cases += [{"tag": _tag(name, (1, 4)), "name": name, "cfg": tcfgs[name],
+               "mesh": (1, 4), "micro": 2, "steps": STEPS, "runs": 1,
+               "batches": batches_of[name], "saves": []}
+              for name in WHOLE_HEADS]
     payload = {"cases": cases, "weights": weights, "batches": batches,
                "B": B, "S": S, "frames": _frames(tcfgs["whisper-tiny"]),
                "resume": {"cfg": tcfgs[RESUME], "dir": str(tmp / "world1"),
@@ -289,14 +309,15 @@ def _world(tmp_path_factory):
                              ckpt_dir=str(tmp / "train22"))}
     wait = start_world("tp_train_world", 4, tmp, payload,
                        deadline_s=WORLD_DEADLINE_S)
-    with few_threads(), ThreadPoolExecutor(4) as pool:  # XLA off the GIL
+    with few_threads(), _no_policy(), \
+            ThreadPoolExecutor(4) as pool:            # XLA off the GIL
         jax_runs = {n: pool.submit(_jax_step, jcfgs[n], weights[n],
                                    batches_of[n][0], _frames(tcfgs[n]))
-                    for n in TWO_STEPS}
+                    for n in TWO_STEPS + WHOLE_HEADS}
         one = {n: _world1(tcfgs[n], weights[n], batches_of[n],
                           3 if n in (RESUME, RESUME_22) else
-                          STEPS if n in TWO_STEPS else 1)
-               for n in ALL}
+                          STEPS if n in TWO_STEPS + WHOLE_HEADS else 1)
+               for n in ALL + WHOLE_HEADS}
         jax_ref = {n: r.result() for n, r in jax_runs.items()}
     ranks = wait()
     return {"ranks": ranks, "one": one, "jax": jax_ref, "tmp": tmp,
@@ -346,6 +367,36 @@ def test_tp_first_step_matches_jax(world, name, mesh):
         tol = MOMENT_TOL.get(name, 1e-4)
         _close(got["opt"]["m"], jm, tol)
         _close(got["opt"]["v"], jv, tol)
+
+
+@pytest.mark.parametrize("name", WHOLE_HEADS)
+def test_whole_heads_train_on_model_4(world, name):
+    """Query heads that do not divide model 4 (whisper's 6, a GQA
+    decoder's 6 over 2 kv heads), whole on every rank: the attention runs
+    replicated, so its weights' gradients are whole on every rank and not
+    summed over "model", beside the ff-sharded MLP.  Two steps on (1, 4)
+    against world 1, and the first against JAX's ``make_train_step``,
+    within the tolerances of the other architectures (moments 1e-4); each
+    rank's ``wq`` and its first moment whole."""
+    tag = _tag(name, (1, 4))
+    jloss, jparams, jm, jv = world["jax"][name]
+    for rank in world["ranks"]:
+        for i, (loss, state) in enumerate(world["one"][name]):
+            np.testing.assert_allclose(float(rank[f"{tag}/run0/loss{i}"]),
+                                       loss, rtol=1e-5)
+            got = _tree(rank, f"{tag}/run0/state{i}")
+            _params_close(got["params"], state["params"], _lr(i + 1))
+            _close(got["opt"]["m"], state["opt"]["m"], 1e-4)
+            _close(got["opt"]["v"], state["opt"]["v"], 1e-4)
+        np.testing.assert_allclose(float(rank[f"{tag}/run0/loss0"]), jloss,
+                                   rtol=1e-5)
+        got = _tree(rank, f"{tag}/run0/state0")
+        _params_close(got["params"], jparams, _lr(1))
+        _close(got["opt"]["m"], jm, 1e-4)
+        _close(got["opt"]["v"], jv, 1e-4)
+        own = _paths(_tree(rank, f"{tag}/own"))
+        wq = [k for k in own if k.endswith("attn/wq")]
+        assert wq and all(own[k].shape[-2] == 6 for k in wq), wq
 
 
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")

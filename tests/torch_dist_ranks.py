@@ -605,3 +605,57 @@ def tp_train_world(_, pl):
                                 log_every=10**6)
     out["train/losses"] = np.array(losses)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the world of tests/test_torch_launch.py
+# ---------------------------------------------------------------------------
+
+def largevis_round_world(mesh, pl):
+    """One round of ``run_layout_local_sgd`` on the edge tables of
+    ``build_samplers_sharded``, with its two-level negative sampler and
+    with the flat one, and the same round through
+    ``make_largevis_step_sharded`` and ``make_largevis_step_local`` (the
+    rank's rows of the stacked tables, flattened for the local builder)
+    from the fit's start, stream and lrs: the four layouts."""
+    import torch
+
+    from repro_torch.core import layout, layout_engine
+    from repro_torch.core.sampler import (build_negative_sampler,
+                                          build_samplers_sharded)
+    from repro_torch.launch import steps
+
+    cfg = pl["cfg"]
+    knn = torch.from_numpy(pl["knn"])
+    w = torch.from_numpy(pl["w"])
+    n = knn.shape[0]
+    P, r = mesh.size, mesh.rank
+    es, ns = build_samplers_sharded(knn, w, mesh=mesh)
+    flat_ns = build_negative_sampler(knn, w)
+    batch = max(1, layout._collision_capped_batch(cfg.batch_size * P, n)
+                // P)
+    total = max(1, int(cfg.samples_per_node) * n // (batch * P))
+    lrs = layout_engine.lr_table(cfg.rho0, total, "cpu")[:cfg.sync_every]
+    kw = dict(n_nodes=n, n_edges=es.src.numel(), batch=batch * P,
+              n_negatives=cfg.n_negatives, sync_every=cfg.sync_every)
+    edge = (es.src, es.dst, es.threshold, es.alias)
+    out = {}
+    for name, neg, builder, tables in (
+            ("sharded", ns, steps.make_largevis_step_sharded,
+             [t[r:r + 1] for t in edge] + [ns.threshold, ns.alias,
+                                           ns.shard_threshold,
+                                           ns.shard_alias]),
+            ("local", flat_ns, steps.make_largevis_step_local,
+             [t[r] for t in edge] + [flat_ns.threshold, flat_ns.alias])):
+        fit = layout.run_layout_local_sgd(
+            torch.Generator().manual_seed(pl["seed"]), es, neg, n, cfg, mesh)
+        out[f"fit_{name}"] = fit.y.numpy().copy()
+        out[f"steps_{name}"] = np.asarray(fit.steps)
+        step, *_ = builder(mesh, **kw)
+        gen = torch.Generator().manual_seed(pl["seed"])
+        y = torch.randn((n, cfg.out_dim), generator=gen) * cfg.init_scale
+        seed = int(torch.randint(0, 2**62, (1,), generator=gen))
+        step(y, torch.tensor([0], dtype=torch.int32), None, *tables,
+             generator=layout._rank_generator("cpu", seed, r), lrs=lrs)
+        out[name] = y.numpy().copy()
+    return out

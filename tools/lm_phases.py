@@ -12,6 +12,7 @@ check, as the smoke does.
     python3 tools/lm_phases.py --phases sharded       # the sharded trainer
     python3 tools/lm_phases.py --phases tp_train      # the (2, 2) trainer
     python3 tools/lm_phases.py --phases tp_serve      # the (2, 2) servers
+    python3 tools/lm_phases.py --phases production    # layout_4m, serve CLI
 
 Phases: ``flash`` (``check_flash``), ``flash_bwd`` (``check_flash_bwd``),
 ``gemma3``, ``mixtral``, ``jamba``, ``xlstm``, ``whisper``
@@ -24,7 +25,9 @@ check, the world-1 runs the sharded phases hold world 2 to, then
 (2, 2) mesh of four processes on the card against world 1, then xlstm
 and whisper trained there), ``tp_serve`` (``run_tp_serve``: mixtral on
 the (2, 2) serving mesh, then xlstm, whisper, a jamba mamba layer and
-jamba at one period there).
+jamba at one period there), ``production`` (``run_production_cell``:
+the LargeVis production cell's steps at layout_4m on the card, then the
+serve CLI).
 Prints each phase's lines and seconds, then the flash launches each phase
 made, as JSON.
 """
@@ -42,7 +45,8 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 PHASES = ("flash", "flash_bwd", "gemma3", "mixtral", "jamba", "xlstm",
-          "whisper", "train", "sharded", "tp_train", "tp_serve")
+          "whisper", "train", "sharded", "tp_train", "tp_serve",
+          "production")
 
 
 def main() -> None:
@@ -93,6 +97,8 @@ def main() -> None:
             cs.run_grad_compress(torch)
         elif name == "tp_train":
             launches[name] = cs.run_tp_training(torch)
+        elif name == "production":
+            print(json.dumps(cs.run_production_cell(torch, 0)))
         else:
             launches[name] = getattr(cs, f"run_{name}")(torch)
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
