@@ -49,7 +49,7 @@ within the backward's bf16 limit).  Without it, in order:
    bitwise on the main fit's y (its launches counted with the fit's);
    graphs captured while another thread copies to the host, bitwise;
    ``layout_s`` plain, with ``checkpoint``, with ``health`` and with
-   both, in turns there and back at 1,000 samples per node (a printed
+   both, in turns there and back at 500 samples per node (a printed
    cut), all eight bitwise equal; at 2,000 samples per node (a printed
    cut), a NaN payload rolled back once (finite, 5-NN accuracy within
    0.05 of the split route's layout at that depth) and the fused step failing
@@ -209,7 +209,7 @@ within the backward's bf16 limit).  Without it, in order:
    ``ServeEngine`` (prompts of 4096, 256, 4096 and 200 tokens: the flash
    kernel at (1, 4096, 32, 128) once a long prompt, 2 launches);
    ``xlstm-125m`` at full width and depth: decode against prefill in f32
-   (S = 256) and ``ServeEngine`` with prompts of 512, 300, 512 and 64
+   (S = 256) and ``ServeEngine`` with prompts of 256, 300, 256 and 64
    tokens (a printed cut; token-by-token recurrences, no attention; the profiled
    prefill's device events a token); ``whisper-tiny`` at full width and
    depth (4 encoder and 4 decoder layers, 1500 frames): on random frames
@@ -284,6 +284,21 @@ within the backward's bf16 limit).  Without it, in order:
    step a rank) trained 2 f32 steps against world 1 (losses within 1e-5
    relative; the moments within the larger of 1e-4 and ten times world
    1's own spread between one and two microbatches);
+15. the dry run's cells on the card: the flash forward at the body
+   cells' per-rank shapes ((2, 32768, 1, 256) causal and W 1024, (2,
+   4096, 2, 128) causal) and the backward at the last, against their
+   plain versions beside SDPA and the bound (``check_body_flash``); the
+   "period" body of llama3-8b ``train_4k``, gemma3-12b ``prefill_32k``,
+   qwen1.5-0.5b ``decode_32k``, jamba-v0.1-52b ``long_500k`` and
+   xlstm-125m ``train_4k`` counted on the meta device and timed on the
+   card at mesh rank 0's blocks of (data 16, model 16), then
+   qwen1.5-0.5b ``decode_32k``'s whole step the same way
+   (``run_body_cells``: ms, peak, flash launches, finite outputs); and
+   xlstm-125m at 2 of 12 layers (a printed cut) on a (data 1, model 8)
+   world of eight gloo processes, its 4 heads whole on every rank,
+   against world 1 on the card: prefill and 8 decode steps within 1e-4
+   of the largest magnitude, 2 f32 training steps' losses within 1e-5
+   relative and each rank's moments within 1e-4 (``run_xlstm_model8``);
 
 then prints a JSON line of the kernel records and, last, the device line.
 Any failed check exits with status 1 and prints no result.  Device times
@@ -343,7 +358,7 @@ JAMBA_ARCH, JAMBA_PERIODS, JAMBA_LONG = "jamba-v0.1-52b", 1, 4096
 # multiples of mamba's chunk of 256, or at most one chunk
 JAMBA_LENGTHS = [JAMBA_LONG, 256, JAMBA_LONG, 200]
 JAMBA_DECODE_S = 200              # prefill(200) + decode vs prefill(201)
-XLSTM_ARCH, XLSTM_LENGTHS = "xlstm-125m", [512, 300, 512, 64]
+XLSTM_ARCH, XLSTM_LENGTHS = "xlstm-125m", [256, 300, 256, 64]
 XLSTM_DECODE_S = 256
 WHISPER_ARCH, WHISPER_LONG = "whisper-tiny", 4096
 WHISPER_LENGTHS = [WHISPER_LONG, 700, WHISPER_LONG, 100]
@@ -1813,7 +1828,7 @@ ROBUST_KILL_CHUNK = 1_200       # the layout_chunk hit that kills the fit
 ROBUST_NAN_CHUNK = 240          # the layout_chunk hit poisoned under health
 # the timed layouts' depth: eight in turns there and back at 1,000 take
 # the time of four at the split layout's 2,000 (a printed cut)
-ROBUST_TURN_SAMPLES_PER_NODE = 1_000
+ROBUST_TURN_SAMPLES_PER_NODE = 500
 
 
 def relayout(torch, res, cfg, spn: int, **kw):
@@ -3796,12 +3811,12 @@ def run_xlstm(torch):
     """xlstm-125m at full width and depth (12 layers, alternating mLSTM
     and sLSTM), random weights from a seed: decode vs prefill in f32 (S =
     256), then ``ServeEngine`` in bf16 with prompts of ``XLSTM_LENGTHS``
-    tokens (the long ones cut from 1024 to 512, printed).  No attention:
-    the recurrences run token by token, and the profiled prefill prints
-    the device events a token (the shortest prompt alone: profiling the
-    300-token prefill as well, about 90,000 device events, made the phase
-    about 50 s longer on an H100).  Returns the flash launches of the
-    serve run (none)."""
+    tokens (the long ones cut from 1024 to 512, then 256, printed).  No
+    attention: the recurrences run token by token, and the profiled
+    prefill prints the device events a token (the shortest prompt alone:
+    profiling the 300-token prefill as well, about 90,000 device events,
+    made the phase about 50 s longer on an H100).  Returns the flash
+    launches of the serve run (none)."""
     from repro_torch.configs import get_config
 
     t0 = time.perf_counter()
@@ -3811,7 +3826,7 @@ def run_xlstm(torch):
                                  S=XLSTM_DECODE_S)
     free_card(torch)
     print(f"cut: {XLSTM_ARCH} serves prompts of {XLSTM_LENGTHS} tokens "
-          f"(the long ones 1024 before)", flush=True)
+          f"(the long ones 1024, then 512 before)", flush=True)
     eng, launches = run_serve(torch, cfg, XLSTM_LENGTHS,
                               max(XLSTM_LENGTHS) + 32, profiled=(64,),
                               prof_n=1)
@@ -5180,6 +5195,436 @@ def tpo_train_lines(ranks: list, w1: dict) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The dry run's per-period bodies on the card, and xlstm-125m at model 8
+# ---------------------------------------------------------------------------
+
+# single-mesh body cells run on the card (mesh rank 0 of (data 16, model
+# 16), its "period" body): the flash forward and backward launches of one
+# timed run of the period
+BODY_CELLS = {("llama3-8b", "train_4k"): (2, 1),     # forward, recompute
+              ("gemma3-12b", "prefill_32k"): (6, 0),  # 5 local, 1 global
+              ("qwen1.5-0.5b", "decode_32k"): (0, 0),
+              ("jamba-v0.1-52b", "long_500k"): (0, 0),
+              ("xlstm-125m", "train_4k"): (0, 0)}
+# a full step of the dry run on the card (run_cell, device="cuda"): mesh
+# rank 0's decode step of qwen1.5-0.5b at decode_32k, every layer
+FULL_CELL = ("qwen1.5-0.5b", "decode_32k")
+# the flash shapes those bodies launch that no other phase does
+BODY_FLASH = {((2, 32768, 1, 256), 0): "gemma3-12b prefill_32k a rank, "
+                                       "its global layer",
+              ((2, 32768, 1, 256), 1024): "gemma3-12b prefill_32k a rank, "
+                                          "its local layers",
+              ((2, 4096, 2, 128), 0): "llama3-8b train_4k a rank"}
+BODY_BWD = ((2, 4096, 2, 128), 0)     # the backward's new shape
+
+
+def check_body_flash(torch) -> None:
+    """The flash kernels at the body cells' new per-rank shapes
+    (:data:`BODY_FLASH`) in bf16: the forward against its plain version at
+    ``check_flash``'s tolerances (the first run at S = 32,768), the
+    backward at llama3's shape against its plain version at
+    ``check_flash_bwd``'s (the forward's lse first, two calls bitwise);
+    each timed by CUDA events beside the plain version, SDPA and its
+    bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(29)
+    bf16 = torch.bfloat16
+    for ((b, s, h, d), w), what in BODY_FLASH.items():
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev)
+                   .to(bf16) for _ in range(3))
+        got = fa.flash_attention(q, k, v, causal=True, window=w)
+        want = ref.flash_attention_ref(q, k, v, causal=True, window=w)
+        diff = (got.float() - want.float()).abs()
+        limit = FLASH_F32_TOL + FLASH_BF16_ULPS * bf16_ulp(torch, want)
+        err, worst = float(diff.max()), float((diff / limit).max())
+        del want, diff, limit
+        check(bool(torch.isfinite(got).all()) and worst <= 1.0,
+              f"flash_attention {(b, s, h, d)} W={w}: max |err| {err}, "
+              f"{worst:.3g} x its limit")
+        torch.cuda.empty_cache()
+        ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, window=w))
+        plain = time_ms(torch, lambda: ref.flash_attention_ref(
+            q, k, v, window=w), reps=1, warmup=1)
+        torch.cuda.empty_cache()
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if w:
+            i = torch.arange(s, device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask), reps=3)
+            lib_what = "SDPA with the window's boolean mask"
+            del mask
+        else:
+            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True))
+            lib_what = "SDPA is_causal"
+        bms, by = flash_bound(b, s, h, d, w)
+        print(f"body flash_attention {(b, s, h, d)}{f' W={w}' if w else ''} "
+              f"causal bf16 ({what}): max |err| {err:.3g} ({worst:.3g} x "
+              f"limit); kernel {ms:.4f} ms by CUDA events; plain "
+              f"{plain:.4f} ms; {lib_what} {lib:.4f} ms; bound {bms:.5f} ms "
+              f"({by}; {flash_pairs(s, w) * b * h} pairs under the mask)",
+              flush=True)
+        if ((b, s, h, d), w) == BODY_BWD:
+            dout = torch.randn_like(q.float()).to(bf16)
+            out, lse = fa.flash_attention(q, k, v, return_lse=True)
+            _, want_lse = ref.flash_attention_fwd_ref(q, k, v)
+            lse_err = float(((lse - want_lse).abs() /
+                             want_lse.abs().clamp_min(1.0)).max())
+            check(lse_err <= LSE_TOL, f"flash_attention lse {(b, s, h, d)}: "
+                  f"{lse_err:.3g} > {LSE_TOL}")
+            grads = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+            again = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+            want = ref.flash_attention_bwd_ref(q, k, v, out, dout, lse)
+            rel = _bwd_errs(grads, want)
+            check(all(bool(torch.isfinite(g).all()) for g in grads) and
+                  max(rel) <= BWD_BF16_TOL and
+                  all(torch.equal(a, b_) for a, b_ in zip(grads, again)),
+                  f"flash_attention_bwd {(b, s, h, d)}: dq, dk, dv max "
+                  f"|err| / max |plain| {rel} (limit {BWD_BF16_TOL}), or "
+                  "two calls differ")
+            del grads, again, want
+            bw = time_ms(torch, lambda: fa.flash_attention_bwd(
+                q, k, v, out, dout, lse))
+            bplain = time_ms(torch, lambda: ref.flash_attention_bwd_ref(
+                q, k, v, out, dout, lse), reps=2, warmup=1)
+            qg, kg, vg = (x.detach().requires_grad_(True)
+                          for x in (qt, kt, vt))
+            o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+            g = dout.transpose(1, 2)
+            blib = time_ms(torch, lambda: torch.autograd.grad(
+                o, (qg, kg, vg), g, retain_graph=True))
+            bbms, bby = flash_bwd_bound(b, s, h, d, w, "bfloat16")
+            print(f"body flash_attention_bwd {(b, s, h, d)} causal bf16 "
+                  f"({what}): dq, dk, dv max |err| / max |plain| "
+                  f"{max(rel):.3g} (limit {BWD_BF16_TOL}), lse {lse_err:.3g}"
+                  f", two calls bitwise equal; kernel {bw:.4f} ms by CUDA "
+                  f"events; plain {bplain:.4f} ms; SDPA backward is_causal "
+                  f"{blib:.4f} ms; bound {bbms:.5f} ms ({bby})", flush=True)
+            del dout, out, lse, o, qg, kg, vg, g
+        del q, k, v, qt, kt, vt, got
+        torch.cuda.empty_cache()
+
+
+def run_body_cells(torch) -> dict:
+    """``launch.dryrun.run_body_cell(..., device="cuda")``: the "period"
+    body of each of :data:`BODY_CELLS` counted on the meta device (flops,
+    bytes accessed, transcendentals, collectives' bytes), then run once on
+    the card at mesh rank 0's blocks of the single-pod production mesh
+    (data 16, model 16) drawn from a seed, the recording mesh's
+    collectives stand-ins on the card (their bytes checked equal to the
+    meta device's; no time or value of a real mesh): ms by CUDA events,
+    the peak less what was allocated before, the flash launches, the
+    outputs finite.  Then ``run_cell(..., device="cuda")`` of
+    :data:`FULL_CELL`, the whole step the same way.  Returns the kernels'
+    launches of the phase."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+
+    free_card(torch)
+    t0 = time.perf_counter()
+    before = ops.launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        for (arch, shape), (n_fwd, n_bwd) in BODY_CELLS.items():
+            t1 = time.perf_counter()
+            rec = dryrun.run_body_cell(arch, shape, "single", Path(tmp),
+                                       quiet=True, device="cuda",
+                                       bodies=("period",))
+            check(rec["status"] == "ok", f"body cell {arch} x {shape}: "
+                  f"{rec['status']} {rec.get('error') or rec.get('reason')}")
+            b = rec["bodies"]["period"]
+            got = (b["launches"].get("flash_attention", 0),
+                   b["launches"].get("flash_attention_bwd", 0))
+            check(got == (n_fwd, n_bwd), f"body cell {arch} x {shape}: "
+                  f"flash launches {got}, expected {(n_fwd, n_bwd)}")
+            check(b["finite"], f"body cell {arch} x {shape}: outputs not "
+                  "finite")
+            mem, cost = b["memory"], b["cost"]
+            print(f"body cell {arch} x {shape} (period of "
+                  f"{rec['n_periods']}, mesh rank 0 of (data 16, model 16) "
+                  f"on the card): {b['ms']:.1f} ms by CUDA events; peak "
+                  f"{mem['temp_size_in_bytes'] / 2**30:.2f} GiB over the "
+                  f"arguments' {mem['argument_size_in_bytes'] / 2**30:.2f} "
+                  f"GiB; counted on the meta device: flops "
+                  f"{cost['flops']:.4g} (kernels {cost['kernel_flops']:.4g})"
+                  f", bytes accessed {cost['bytes_accessed']:.4g}, "
+                  f"transcendentals {cost['transcendentals']:.4g}; flash "
+                  f"launches {got[0]} forward, {got[1]} backward; "
+                  f"collectives' bytes a rank {b['collectives']['total']} "
+                  f"(stand-ins, not timed); "
+                  f"{time.perf_counter() - t1:.1f} s with its init",
+                  flush=True)
+            free_card(torch)
+        t1 = time.perf_counter()
+        arch, shape = FULL_CELL
+        rec = dryrun.run_cell(arch, shape, "single", Path(tmp), quiet=True,
+                              device="cuda")
+        check(rec["status"] == "ok", f"full cell {arch} x {shape}: "
+              f"{rec['status']} {rec.get('error') or rec.get('reason')}")
+        check(rec["finite"] and not rec["launches"], f"full cell {arch} x "
+              f"{shape}: outputs finite {rec['finite']}, launches "
+              f"{rec['launches']} (a decode step launches no kernel)")
+        mem = rec["memory"]
+        print(f"full cell {arch} x {shape} (its whole decode step, mesh rank "
+              f"0 of (data 16, model 16) on the card): {rec['ms']:.1f} ms by "
+              f"CUDA events; peak {mem['temp_size_in_bytes'] / 2**30:.2f} GiB"
+              f" over the arguments' "
+              f"{mem['argument_size_in_bytes'] / 2**30:.2f} GiB (parameters "
+              f"and cache {rec['bytes']}); counted on "
+              f"the meta device: flops {rec['flops']:.4g}, bytes accessed "
+              f"{rec['cost']['bytes_accessed']:.4g}; collectives' bytes a "
+              f"rank {sum(v['bytes'] for v in rec['collectives'].values())} "
+              f"(stand-ins, not timed); {time.perf_counter() - t1:.1f} s "
+              f"with its init", flush=True)
+        free_card(torch)
+    after = ops.launch_counts()
+    print(f"body cells: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {k: after[k] - before[k] for k in after}
+
+
+XL8_MESH, XL8_LAYERS = (1, 8), 2    # xlstm-125m at 2 of 12 layers
+XL8_PROMPT = 256                    # 2 prompts of 256 tokens + decode
+XL8_TRAIN = (4, 256)                # 2 f32 steps of 4 x 256 tokens
+XL8_TIMEOUT_S = 600
+
+
+def _xl8_cfg(torch):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(XLSTM_ARCH), dtype=torch.float32,
+                               n_layers=XL8_LAYERS)
+
+
+def xl8_world1(torch, out_dir: str) -> float:
+    """World 1 on the card for the (1, 8) world: xlstm-125m in f32 at
+    :data:`XL8_LAYERS` layers (seed 7): two prompts' prefill and
+    ``TP_DECODE`` greedy decode steps, and two training steps; writes the
+    outputs, caches, losses and state.  Returns its seconds."""
+    import numpy as np
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.convert import train_state_to_numpy
+    from repro_torch.core.largevis import seeded_generator
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.factory import init_cache, make_model
+    from repro_torch.optim.adamw import adamw_init
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = _xl8_cfg(torch)
+    model = make_model(cfg)
+    params = model["init"](seeded_generator(dev, 7))
+    toks, _ = _tpo_inputs(torch, cfg, XL8_PROMPT, dev)
+    logits, pre = model["prefill"](params, toks)
+    cache = init_cache(cfg, 2, XL8_PROMPT + TP_DECODE, dev)
+    for path, t in _flat_state(pre).items():
+        *up, leaf = path.split("/")
+        node = cache
+        for u in up:
+            node = node[u]
+        node[leaf].copy_(t)
+    outs, fed = [logits], []
+    for i in range(TP_DECODE):
+        nxt = outs[-1].argmax(-1, keepdim=True)
+        fed.append(nxt)
+        logits, cache = model["decode"](params, nxt, cache, torch.full(
+            (2,), XL8_PROMPT + i, device=dev))
+        outs.append(logits)
+    _tpo_save(out_dir, "xl8_w1_serve.npz", outs, cache, torch.cat(fed, 1))
+    B, S = XL8_TRAIN
+    params = model["init"](seeded_generator(dev, 7))
+    opt = adamw_init(params)
+    step = make_train_step(cfg, ShapeConfig("c", "train", S, B),
+                           microbatches=1)
+    losses = []
+    for i in range(2):
+        params, opt, loss = step(params, opt, _tpo_batch(torch, cfg, B, S,
+                                                         i, dev))
+        losses.append(float(loss))
+    np.savez(os.path.join(out_dir, "xl8_w1_train.npz"),
+             losses=np.array(losses),
+             **_flat_state(train_state_to_numpy(params, opt, cfg)))
+    del params, opt, cache
+    free_card(torch)
+    return time.perf_counter() - t0
+
+
+def _xl8_rank(rank, world, init, out_dir):
+    """One rank of xlstm-125m on the (data 1, model 8) mesh over gloo:
+    its 4 mLSTM/sLSTM heads whole on every rank, from its blocks at rest.
+    The prefill and decode steps fed world 1's tokens (logits and cache
+    gathered whole for the parent on rank 0), then two f32 training steps
+    of one microbatch, its blocks of the state held to its blocks of
+    world 1's (``tpt_check_a``)."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=XL8_TIMEOUT_S))
+    out = {}
+    try:
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.convert import lm_params_to_numpy, opt_state_to_numpy
+        from repro_torch.core.largevis import resolve_device, seeded_generator
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.launch.steps import (decode_cache, make_decode_step,
+                                              make_prefill_step,
+                                              make_train_step)
+        from repro_torch.models.factory import make_model
+        from repro_torch.optim.adamw import AdamWConfig, _schedule, adamw_init
+        from repro_torch.runtime import sharding as sh
+
+        resolve_device("cuda")
+        mesh = make_host_mesh(*XL8_MESH, device="cuda")
+        dev = mesh.device
+        cfg = _xl8_cfg(torch)
+        S, Bs = XL8_PROMPT, 2
+        params = make_model(cfg, mesh=mesh)["init"](seeded_generator(dev, 7))
+        toks, _ = _tpo_inputs(torch, cfg, S, dev)
+        fed = torch.from_numpy(np.load(os.path.join(
+            out_dir, "xl8_w1_serve.npz"))["fed"]).to(dev)
+        pstep, _, (_, pl), pout = make_prefill_step(
+            cfg, mesh, ShapeConfig("serve", "prefill", S, Bs))
+        dshape = ShapeConfig("serve", "decode", S + TP_DECODE, Bs)
+        dstep, _, (_, dl), dout = make_decode_step(cfg, mesh, dshape)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = pstep(params, {"tokens": sh.block(toks, pl["tokens"],
+                                                          mesh)})
+        torch.cuda.synchronize()
+        out["prefill_ms"] = (time.perf_counter() - t) * 1e3
+        out["shapes"] = _tpo_block_shapes(torch, cfg, mesh, cache, pout[1],
+                                          Bs, S)
+        cache = decode_cache(cfg, mesh, dshape, cache, pout[1])
+        outs = [sh.gather(mesh, logits, pout[0])]
+        for i in range(TP_DECODE):
+            pos = torch.full((Bs,), S + i, dtype=torch.int32, device=dev)
+            logits, cache = dstep(params, {
+                "tokens": sh.block(fed[:, i:i + 1], dl["tokens"], mesh),
+                "cache": cache, "position": sh.block(pos, dl["position"],
+                                                     mesh)})
+            outs.append(sh.gather(mesh, logits, dout[0]))
+        out["shapes"] = out["shapes"] and _tpo_block_shapes(
+            torch, cfg, mesh, cache, dout[1], Bs, S + TP_DECODE)
+        whole = _tp_whole(mesh, cache, dout[1])
+        if mesh.rank == 0:
+            _tpo_save(out_dir, "xl8_mesh_serve.npz", outs, whole)
+        del params, cache, whole
+        B, St = XL8_TRAIN
+        params = make_model(cfg, mesh=mesh)["init"](
+            seeded_generator(dev, 7), train=True)
+        opt = adamw_init(params)
+        step = make_train_step(cfg, ShapeConfig("c", "train", St, B),
+                               mesh=mesh, microbatches=1)
+        out["losses"], out["step_ms"] = [], []
+        for i in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, opt, loss = step(params, opt, _tpo_batch(
+                torch, cfg, B, St, i, dev))
+            torch.cuda.synchronize()
+            out["step_ms"].append((time.perf_counter() - t) * 1e3)
+            out["losses"].append(float(loss))
+        own = _flat_state({"params": lm_params_to_numpy(params, cfg),
+                           "opt": opt_state_to_numpy(opt, cfg)})
+        out["check"] = tpt_check_a(out_dir, own, mesh, float(_schedule(
+            AdamWConfig(), torch.tensor(2))), "xl8_w1_train.npz")
+        out["w_q_cols"] = int(params["blocks"][0]["core"]["w_q"].shape[1])
+    finally:
+        Path(out_dir, f"xl8_rank{rank}.json").write_text(json.dumps(out))
+        dist.destroy_process_group()
+
+
+def run_xlstm_model8(torch) -> None:
+    """xlstm-125m at full width and :data:`XL8_LAYERS` of 12 layers (a
+    printed cut) on a (data 1, model 8) mesh of eight gloo processes on
+    the one card: 8 ranks over its 4 heads, which run whole on every
+    rank.  Prefill of 2 x 256 tokens and ``TP_DECODE`` decode steps, the
+    logits and the cache rebuilt whole against world 1 on the card within
+    ``TP_REL_TOL`` of their largest magnitude (the smoke's model-2 xLSTM
+    bound), every cache leaf JAX's block shape; two f32 training steps of
+    4 x 256 against world 1 (losses within ``STEP_LOSS_TOL`` relative,
+    each rank's blocks of the parameters and moments within the bounds of
+    ``tpt_check_a``)."""
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    free_card(torch)
+    t0 = time.perf_counter()
+    print(f"cut: xlstm-125m on the (data 1, model 8) mesh at {XL8_LAYERS} "
+          f"of 12 layers (full width), eight processes sharing one card "
+          f"over gloo", flush=True)
+    world = XL8_MESH[0] * XL8_MESH[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        w1_s = xl8_world1(torch, tmp)
+        ctx = mp.start_processes(
+            _xl8_rank, args=(world, f"file://{tmp}/store", tmp),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = time.perf_counter() + XL8_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                check(time.perf_counter() < deadline, "the (1, 8) ranks did "
+                      f"not finish in {XL8_TIMEOUT_S} s")
+        except Exception as e:            # a rank's exception or exit code
+            fail(f"a (1, 8) rank failed: {type(e).__name__}: {e}")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks = [json.loads(Path(tmp, f"xl8_rank{r}.json").read_text())
+                 for r in range(world)]
+        want = dict(np.load(os.path.join(tmp, "xl8_w1_serve.npz")))
+        got = dict(np.load(os.path.join(tmp, "xl8_mesh_serve.npz")))
+        want.pop("fed")
+        w1_losses = np.load(os.path.join(tmp, "xl8_w1_train.npz"))["losses"]
+    check(sorted(got) == sorted(want), "xlstm on (1, 8): cache leaves "
+          f"{sorted(got)}, world 1's {sorted(want)}")
+    rels = {k: float(np.abs(got[k] - w).max() / max(np.abs(w).max(), 1e-30))
+            for k, w in want.items()}
+    check(all(np.isfinite(got[k]).all() for k in got) and
+          max(rels.values()) <= TP_REL_TOL, f"xlstm on (1, 8) against world "
+          f"1: {rels} (bound {TP_REL_TOL})")
+    worst = {k: max(rk["check"][k] for rk in ranks) for k in ("params", "m",
+                                                            "v")}
+    for i, rk in enumerate(ranks):
+        check(rk["shapes"], f"xlstm (1, 8) rank {i}: a cache leaf without "
+              "JAX's block shape")
+        check(rk["w_q_cols"] == 2 * 768 // 8, f"xlstm (1, 8) rank {i}: w_q "
+              f"{rk['w_q_cols']} columns, expected {2 * 768 // 8}")
+        for k, v in enumerate(rk["losses"]):
+            check(abs(v - w1_losses[k]) <= STEP_LOSS_TOL * abs(w1_losses[k]),
+                  f"xlstm (1, 8) rank {i}: f32 loss {v} against world 1's "
+                  f"{w1_losses[k]}")
+    fmt = {k: float(f"{v:.3g}") for k, v in rels.items()}
+    print(f"xlstm-125m on (data 1, model 8) over gloo, its 4 heads whole on "
+          f"every rank: (a) 2 x {XL8_PROMPT} tokens + {TP_DECODE} decode "
+          f"steps against world 1 ({w1_s:.1f} s): max |diff| / max |want| "
+          f"{fmt} (bound {TP_REL_TOL}), every cache leaf JAX's block shape; "
+          f"(b) 2 f32 steps of {XL8_TRAIN[0]} x {XL8_TRAIN[1]}: losses "
+          f"{ranks[0]['losses']} against world 1's {w1_losses.tolist()} "
+          f"(tol {STEP_LOSS_TOL} relative), each rank's blocks: parameters "
+          f"at most {worst['params']:.3g} of their bound, moments off by "
+          f"{worst['m']:.3g} (m), {worst['v']:.3g} (v) of each leaf's "
+          f"largest (bound {TP_REL_TOL}); rank 0 prefill "
+          f"{ranks[0]['prefill_ms']:.1f} ms, step ms "
+          f"{[round(x, 1) for x in ranks[0]['step_ms']]}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    free_card(torch)
+
+
 def run_grad_compress(torch):
     """``compressed_grads_with_ef`` on qwen1.5-0.5b's full gradient tree
     (one microbatch of ``COMPRESS_BATCH`` x ``TRAIN_SEQ``) on the card:
@@ -6415,11 +6860,19 @@ def main() -> None:
     lap("jamba, xlstm and whisper")
     bwd, train_counts = run_training(torch)
     flash["launches"] += train_counts["flash_attention"]
+    lap("the training phases")
+    t0 = time.perf_counter()
+    check_body_flash(torch)
+    print(f"body flash checks: {time.perf_counter() - t0:.1f} s", flush=True)
+    body = run_body_cells(torch)
+    flash["launches"] += body["flash_attention"]
+    bwd["launches"] += body["flash_attention_bwd"]
+    run_xlstm_model8(torch)
     kernels += [flash, bwd]
 
     import torch.distributed as dist
     dist.destroy_process_group()         # the distributed fit's world of one
-    lap("the training phases")
+    lap("the body cells and xlstm at model 8")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -27,6 +27,8 @@ instead of freezing a host float.
 """
 from __future__ import annotations
 
+import gc
+
 import numpy as np
 import torch
 
@@ -217,9 +219,19 @@ def capture(fn, generator: torch.Generator):
     def record():
         # thread-local: the checkpoint writer's thread copies snapshots to
         # the host on a stream of its own while a chunk may be captured; in
-        # the default global mode that copy would invalidate the capture
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            fn()
+        # the default global mode that copy would invalidate the capture.
+        # Python's collector stays off while capturing (torch.cuda.graph
+        # collects just before it begins): a collection inside could free
+        # an earlier unit's graph, whose destructor resets it, a call the
+        # capturing thread may not make
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                fn()
+        finally:
+            if collecting:
+                gc.enable()
 
     return graph, ops.capture_launches(record)
 

@@ -41,6 +41,32 @@ _ARGTYPES = [_P] * 5 + [_I] * 8 + [_F, _P]
 _BWD_ARGTYPES = [_P] * 12 + [_I] * 8 + [_F, _P]
 
 
+def pairs(S: int, T: int, *, causal: bool = True, window: int = 0) -> int:
+    """(query, key) pairs under the mask of S query rows and T keys, each
+    at its index (top-left causal: row i sees keys 0..i, and with a
+    window W > 0 the last W of those)."""
+    if not causal:
+        return S * T
+    L = min(T, window) if window > 0 else T
+    if S <= L:
+        return S * (S + 1) // 2
+    return L * (L + 1) // 2 + (S - L) * L
+
+
+def work(q, k, *, causal: bool, window: int, backward: bool = False):
+    """(operations, bytes) of one forward (``backward``: one backward)
+    call: 2 hd operations a product a pair under the mask, two products
+    forward and five backward; q, k, v and out (and dout, dq, dk, dv and
+    the lse backward) read or written once."""
+    B, S, H, hd = q.shape
+    n = pairs(S, k.shape[1], causal=causal, window=window)
+    size = q.element_size()
+    if backward:
+        return (10.0 * B * H * n * hd,
+                float(4 * q.numel() + 4 * k.numel()) * size + B * H * S * 4)
+    return 4.0 * B * H * n * hd, float(2 * q.numel() + 2 * k.numel()) * size
+
+
 def _lib() -> ctypes.CDLL:
     return _build.load("flash_attention", {"flash_attention_launch": _ARGTYPES})
 

@@ -8,13 +8,24 @@ dtypes alone, on the meta device: the edge step, the scatter and the
 flash kernels, which the dry run's steps reach.  The kernels choose their
 own tiles; the tuned tiles of the plain stages are
 ``runtime/autotune.py``'s.
+
+Inside :func:`recording_work` a flash call that goes to the kernel or, on
+the meta device, to its shapes records its work (operations, bytes),
+which no operation counter sees (``launch/hlo_analysis.py`` adds it to
+its counts); on the CPU the plain version's ops are counted like any
+other.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
 from repro_torch.kernels import (flash_attention as flash, knn_topk,
                                  largevis_grad, largevis_step, ref)
+
+_WORK = threading.local()
 
 
 def _route(t, shapes: bool = False):
@@ -96,10 +107,32 @@ def scatter_add_ordered(y, idx, upd):
     return ref.scatter_add_ordered_ref(y, idx, upd)
 
 
+@contextlib.contextmanager
+def recording_work():
+    """Yields a list that collects ``(label, operations, bytes)`` of each
+    flash call in the block that goes to the kernel or to its shapes
+    (thread-local)."""
+    prev = getattr(_WORK, "log", None)
+    _WORK.log = log = []
+    try:
+        yield log
+    finally:
+        _WORK.log = prev
+
+
+def _flash_work(label, q, k, causal, window, backward=False) -> None:
+    log = getattr(_WORK, "log", None)
+    if log is not None:
+        log.append((label, *flash.work(q, k, causal=causal, window=window,
+                                       backward=backward)))
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Forward attention, heads pre-broadcast, top-left causal mask and
     an optional sliding window; see ``ref.flash_attention_ref``."""
     route = _route(q, shapes=True)
+    if route is not False:
+        _flash_work("flash_attention", q, k, causal, window)
     if route is None:
         return torch.empty_like(q)
     if route:
@@ -112,6 +145,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0):
     ``ref.flash_attention_fwd_ref``.  On the card the forward kernel,
     counted as ``flash_attention``."""
     route = _route(q, shapes=True)
+    if route is not False:
+        _flash_work("flash_attention", q, k, causal, window)
     if route is None:
         B, S, H, _ = q.shape
         return torch.empty_like(q), q.new_empty((B, H, S),
@@ -127,6 +162,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     """(dq, dk, dv) of the forward from its ``out`` and ``lse``; see
     ``ref.flash_attention_bwd_ref``."""
     route = _route(q, shapes=True)
+    if route is not False:
+        _flash_work("flash_attention_bwd", q, k, causal, window, True)
     if route is None:
         return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if route:

@@ -24,9 +24,12 @@ The training step differentiates through its collectives
 the identity whose backward is the ``"model"`` sum; :func:`gather_data`,
 the tiled gather over ``"data"`` whose backward is the rank-order
 reduce-scatter, :meth:`DataMesh.reduce_scatter_sum`; :func:`model_gather`,
-the same along ``"model"``; :func:`model_halves`, the re-blocking of two
-tensors cut over ``"model"`` as one, an exchange of pieces
-(:meth:`DataMesh.exchange`) whose backward is the inverse exchange),
+the same along ``"model"``; :func:`model_unshard`, the same gather for
+work replicated on every rank after it, whose backward takes the rank's
+block, and its dual :func:`model_shard`; :func:`model_halves`, the
+re-blocking of two tensors cut over ``"model"`` as one, an exchange of
+pieces (:meth:`DataMesh.exchange`) whose backward is the inverse
+exchange),
 each adding in rank order as :meth:`DataMesh.all_reduce_sum` does, and
 times them by kind while a caller has set :attr:`DataMesh.clock`.
 
@@ -365,6 +368,65 @@ def model_gather(mesh, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return _ModelGather.apply(mesh, t, dim % t.dim())
 
 
+class _ModelUnshard(torch.autograd.Function):
+    """The rank's blocks along ``"model"`` concatenated along ``dim`` in
+    rank order, for work that every rank then does alike on the whole
+    tensor; its backward takes the rank's block of the gradient, which
+    every rank holds alike, and sums nothing (a sum would count the same
+    gradient M times)."""
+
+    @staticmethod
+    def forward(ctx, mesh, t, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        with mesh.timed("model_exchange"):
+            return mesh.all_gather(t, "model", dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        block = g.shape[ctx.dim] // mesh.shape["model"]
+        return None, g.narrow(ctx.dim, mesh.axis_index("model") * block,
+                              block), None
+
+
+class _ModelShard(torch.autograd.Function):
+    """The rank's block along ``dim`` of a tensor every rank of
+    ``"model"`` holds alike (the dual of :class:`_ModelUnshard`); its
+    backward gathers the ranks' gradient blocks, so that the work before
+    it gets the whole gradient alike on every rank."""
+
+    @staticmethod
+    def forward(ctx, mesh, t, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        block = t.shape[dim] // mesh.shape["model"]
+        return t.narrow(dim, mesh.axis_index("model") * block, block)
+
+    @staticmethod
+    def backward(ctx, g):
+        with ctx.mesh.timed("model_exchange"):
+            return None, ctx.mesh.all_gather(g.contiguous(), "model",
+                                             dim=ctx.dim), None
+
+
+def model_unshard(mesh, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The whole tensor of the rank's blocks of ``t`` along ``"model"``,
+    for a computation replicated on every rank after it (the mLSTM's and
+    sLSTM's heads that do not divide the axis): forward the tiled gather,
+    backward the rank's block of the gradient (:class:`_ModelUnshard`)."""
+    if mesh.shape["model"] == 1:
+        return t
+    return _ModelUnshard.apply(mesh, t, dim % t.dim())
+
+
+def model_shard(mesh, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The rank's block along ``dim`` of ``t``, which every rank of
+    ``"model"`` holds alike; its backward gathers the blocks' gradients
+    whole (:class:`_ModelShard`)."""
+    if mesh.shape["model"] == 1:
+        return t
+    return _ModelShard.apply(mesh, t, dim % t.dim())
+
+
 def _halves_plan(M: int, m: int):
     """Rank ``m``'s part in re-blocking ``[a | b]``, two tensors of width
     n side by side and cut over ``"model"`` as one (rank r holds columns
@@ -599,31 +661,47 @@ class RecordingMesh(DataMesh):
     """One rank's view of a ``(data, model)`` mesh with no processes
     behind it, for the dry run (``launch/dryrun.py``): the axis sizes, this
     rank's index, and :class:`DataMesh`'s collectives, each returning
-    tensors of the right shapes and dtypes on the meta device (no values)
-    and logging ``(kind, axis, bytes)`` in :attr:`log`, ``bytes`` the
-    tensors the rank hands the collective."""
+    tensors of the right shapes and dtypes on :attr:`device` and logging
+    ``(kind, axis, bytes)`` in :attr:`log`, ``bytes`` the tensors the rank
+    hands the collective.  On the meta device the results hold no values.
+    On the card they hold stand-in values: a gather tiles the rank's own
+    block, a sum returns the rank's own term, an all-to-all the rank's own
+    chunk in every slot, an exchange the rank's own pieces; nothing moves
+    between processes, so neither a collective's time nor its values are
+    those of a real mesh."""
     log: list = dataclasses.field(default_factory=list)
+
+    @property
+    def _meta(self) -> bool:
+        return self.device.type == "meta"
 
     def _note(self, kind: str, axis, *ts) -> None:
         n = sum(t.numel() * t.element_size() for t in ts)
         self.log.append((kind, axis or "mesh", int(n)))
 
+    def _same(self, t):
+        """A tensor like ``t``: no values on the meta device, ``t``'s own
+        values (a copy) on the card."""
+        return torch.empty_like(t, device="meta") if self._meta else \
+            t.clone()
+
     def ring_shift(self, t):
         if self.size > 1:
             self._note("ring_shift", None, t)
-        return torch.empty_like(t, device="meta")
+        return self._same(t)
 
     def all_gather_list(self, t, axis=None) -> list:
         if self.axis_size(axis) > 1:
             self._note("all_gather", axis, t)
-        return [torch.empty_like(t, device="meta")
-                for _ in range(self.axis_size(axis))]
+        return [self._same(t) for _ in range(self.axis_size(axis))]
 
     def all_gather(self, t, axis=None, dim: int = 0):
         n = self.axis_size(axis)
         if n == 1:
             return t
         self._note("all_gather", axis, t)
+        if not self._meta:
+            return torch.cat([t] * n, dim=dim)
         shape = list(t.shape)
         shape[dim] *= n
         return t.new_empty(shape, device="meta")
@@ -632,13 +710,13 @@ class RecordingMesh(DataMesh):
         if self.axis_size(axis) == 1:
             return t
         self._note("all_reduce", axis, t)
-        return torch.empty_like(t, device="meta")
+        return self._same(t)
 
     def reduce_scatter_sum(self, t, axis):
         if self.axis_size(axis) == 1:
             return t[0]
         self._note("reduce_scatter", axis, t)
-        return torch.empty_like(t[0], device="meta")
+        return self._same(t[self.axis_index(axis)])
 
     def all_to_all(self, t, axis, split_axis: int, concat_axis: int):
         P = self.axis_size(axis)
@@ -648,6 +726,9 @@ class RecordingMesh(DataMesh):
             raise ValueError(f"all_to_all: dimension {split_axis} of "
                              f"{tuple(t.shape)} does not split over {P}")
         self._note("all_to_all", axis, t)
+        if not self._meta:
+            own = t.chunk(P, dim=split_axis)[self.axis_index(axis)]
+            return torch.cat([own] * P, dim=concat_axis)
         shape = list(t.shape)
         shape[split_axis] //= P
         shape[concat_axis] *= P
@@ -656,13 +737,16 @@ class RecordingMesh(DataMesh):
     def exchange(self, sends: list, recvs: list, axis) -> list:
         self._note("exchange", axis, *(t for _, t in sends))
         dtype = sends[0][1].dtype
-        return [torch.empty(shape, dtype=dtype, device="meta")
-                for _, shape in recvs]
+        if self._meta:
+            return [torch.empty(shape, dtype=dtype, device="meta")
+                    for _, shape in recvs]
+        return [sends[i % len(sends)][1].reshape(shape).clone()
+                for i, (_, shape) in enumerate(recvs)]
 
     def broadcast(self, t, src: int = 0, axis=None):
         if self.axis_size(axis) > 1:
             self._note("broadcast", axis, t)
-        return torch.empty_like(t, device="meta")
+        return self._same(t)
 
     def barrier(self) -> None:
         pass
@@ -677,17 +761,17 @@ class RecordingMesh(DataMesh):
         return out
 
 
-def make_production_mesh(*, multi_pod: bool = False,
-                         rank: int = 0) -> RecordingMesh:
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0,
+                         device="meta") -> RecordingMesh:
     """The JAX package's production mesh, as a :class:`RecordingMesh` of
     mesh rank ``rank``: ``(data 16, model 16)``, or with ``multi_pod``
     JAX's ``(pod 2, data 16, model 16)`` with ``"pod"`` folded into
     ``"data"`` as 32 (JAX's DP axes are ``("pod", "data")``, and every
     rule that cuts over ``"data"`` cuts over both, so each rank's blocks
     are the same).  Nothing runs across processes: the dry run builds one
-    rank's step on the meta device and records the collectives it would
-    make."""
+    rank's step on ``device`` (the meta device, or the card with stand-in
+    collectives) and records the collectives it would make."""
     D, M = (32, 16) if multi_pod else (16, 16)
     return RecordingMesh(group=None, rank=rank, size=D * M,
-                         device=torch.device("meta"), backend="record",
+                         device=torch.device(device), backend="record",
                          world_rank=rank, world_size=D * M, model=M)

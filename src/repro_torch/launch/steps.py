@@ -355,10 +355,10 @@ def decode_cache(cfg, mesh, shape_cfg, cache, layout, *,
 
 def make_step(cfg, mesh, shape_cfg):
     """The step of ``shape_cfg.kind``: the sharded trainer
-    (tensor-parallel at ``model`` > 1 for all ten architectures, query
-    heads that do not divide it whole on every rank; mLSTM/sLSTM heads
-    that do not divide it raise, naming ``lm.RECURRENT_HEADS_STEP``), the
-    prefill or decode step otherwise."""
+    (tensor-parallel at ``model`` > 1 for all ten architectures; query
+    heads and mLSTM/sLSTM heads that do not divide it, and a mamba inner
+    width that does not, whole on every rank), the prefill or decode step
+    otherwise."""
     if shape_cfg.kind == "train":
         return make_train_step(cfg, shape_cfg, mesh=mesh)
     if shape_cfg.kind == "prefill":

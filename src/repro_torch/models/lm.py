@@ -51,7 +51,9 @@ and the loss is the vocab-parallel cross-entropy
 (``layers.cross_entropy_sharded``): the rank's logits are never
 gathered.  The mamba, mLSTM and sLSTM blocks run on the rank's inner
 blocks or heads (``models/ssm.py``, ``models/xlstm.py``), serving and
-training alike.  With ``mesh=None`` the path is the one-device path.
+training alike, or whole on every rank where the heads (the inner width)
+do not divide ``"model"``.  With ``mesh=None`` the path is the one-device
+path.
 """
 from __future__ import annotations
 
@@ -88,32 +90,21 @@ def check_supported(cfg) -> None:
                              f"one of {BLOCK_KINDS}")
 
 
-# where the recurrent blocks whose heads or inner width do not divide the
-# model axis (xlstm-125m's 4 heads at model 16: JAX cuts the mLSTM's
-# core/w_[qkv] by columns, mid-head) get their tensor parallelism
-RECURRENT_HEADS_STEP = "ROADMAP Queue 1 item 7 step 11"
-
-
 def check_mesh(cfg, mesh) -> None:
     """Raise for what the sharded serving and training paths do not run
-    at ``model`` > 1, naming :data:`RECURRENT_HEADS_STEP` where it is
-    lifted: mLSTM and sLSTM heads, or a mamba inner width, that do not
-    divide the model axis, and an attention head dimension that does not
-    (``attention.check_mesh_heads``).  Query heads that do not divide are
-    run whole on every rank (``attention.heads_whole``)."""
+    at ``model`` > 1: an mLSTM/sLSTM whose widths (the mLSTM's inner 2d,
+    the sLSTM's d) do not divide the model axis, and an attention head
+    dimension that does not (``attention.check_mesh_heads``).  Query
+    heads that do not divide are run whole on every rank
+    (``attention.heads_whole``), and so are the mLSTM's and sLSTM's heads
+    (``xlstm.heads_whole``) and a mamba inner width (``ssm``)."""
     if mesh is None or mesh.shape["model"] == 1:
         return
     M = mesh.shape["model"]
     kinds = set(cfg.block_pattern)
-    if kinds & {"mlstm", "slstm"} and cfg.n_heads % M:
-        raise ValueError(f"{cfg.name}: the mLSTM/sLSTM's {cfg.n_heads} "
-                         f"heads do not divide over model={M}: their "
-                         f"tensor parallelism is {RECURRENT_HEADS_STEP}")
-    if "mamba" in kinds and (cfg.d_model * cfg.ssm_expand) % M:
-        raise ValueError(f"{cfg.name}: mamba's inner width "
-                         f"{cfg.d_model * cfg.ssm_expand} does not divide "
-                         f"over model={M}: its tensor parallelism is "
-                         f"{RECURRENT_HEADS_STEP}")
+    if kinds & {"mlstm", "slstm"} and cfg.d_model % M:
+        raise ValueError(f"{cfg.name}: the mLSTM/sLSTM width "
+                         f"{cfg.d_model} does not divide over model={M}")
     if kinds & set(ATTN_KINDS) or cfg.is_encoder_decoder:
         attn.check_mesh_heads(cfg, M)
 

@@ -41,7 +41,11 @@ selective products ``u @ w_dt_down``, ``u @ w_b`` and ``u @ w_c`` are
 sums over inner: the rank's partial products of the whole sequence are
 summed over ``"model"`` once, before the chunk loop, and the chunked scan
 then runs on the rank's inner block with no collective.  ``w_out`` is
-row-parallel, followed by the ``"model"`` sum.
+row-parallel, followed by the ``"model"`` sum.  An inner width that does
+not divide ``"model"`` runs whole on every rank (:func:`inner_mesh`):
+JAX's ``_guard`` leaves the inner-cut leaves whole, and a ``w_in`` still
+cut by its 2 inner columns has its product gathered whole
+(``mesh.model_unshard``).
 
 No Pallas kernel sits behind this layer; the JAX package computes it in
 jnp.  ``mamba_fwd`` records its chunk scan in the cost book
@@ -56,7 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.launch.mesh import (model_copy, model_halves,
-                                     model_split, model_sum)
+                                     model_split, model_sum, model_unshard)
 from repro_torch.models import costbook
 from repro_torch.models.layers import dense_init, softplus
 
@@ -111,13 +115,30 @@ def _causal_conv(u, w, b, prev=None):
     return out + b.to(u.dtype)
 
 
-def _uz(params, x, mesh):
+def inner_mesh(cfg, mesh):
+    """``mesh`` where the layer runs on the rank's inner blocks, None where
+    the inner width does not divide ``"model"``: JAX's ``_guard`` leaves
+    every inner-cut leaf whole there, and the layer runs whole on every
+    rank (only ``w_in``, whose 2 inner columns may divide, can still be
+    cut: :func:`_uz` gathers its product)."""
+    if not model_split(mesh) or \
+            (cfg.d_model * cfg.ssm_expand) % mesh.shape["model"]:
+        return None
+    return mesh
+
+
+def _uz(params, x, cfg, mesh):
     """The conv's raw input u and the gate z, (B, L, inner) each, or the
     rank's inner blocks of both on a mesh (:func:`model_halves` of the
-    rank's block of ``x @ w_in``)."""
+    rank's block of ``x @ w_in``); both whole where the inner width does
+    not divide ``"model"`` (a cut ``w_in``'s product gathered whole)."""
     w = params["w_in"].to(x.dtype)
-    if not model_split(mesh):
+    if not model_split(mesh) or w.shape[1] == 2 * cfg.d_model * \
+            cfg.ssm_expand:
         return (x @ w).chunk(2, dim=-1)
+    if inner_mesh(cfg, mesh) is None:
+        return model_unshard(mesh, model_copy(mesh, x) @ w, -1).chunk(
+            2, dim=-1)
     return model_halves(mesh, model_copy(mesh, x) @ w).chunk(2, dim=-1)
 
 
@@ -175,7 +196,8 @@ def _mamba(params, x, cfg, chunk: int, mesh=None):
     B, S, d = x.shape
     check_chunks(S, chunk)
     dtype = x.dtype
-    u_raw, z = _uz(params, x, mesh)
+    u_raw, z = _uz(params, x, cfg, mesh)
+    mesh = inner_mesh(cfg, mesh)
     u = F.silu(_causal_conv(u_raw, params["conv_w"], params["conv_b"]))
     dt_low, bm, cm = _selective(params, u, mesh)
     L = min(chunk, S)
@@ -236,7 +258,8 @@ def mamba_decode(params, x, cfg, cache, mesh=None):
     (B,K-1,inner)} (the rank's inner blocks on a mesh).  Returns (out,
     new cache)."""
     dtype = x.dtype
-    u_raw, z = _uz(params, x, mesh)                          # (B,1,in)
+    u_raw, z = _uz(params, x, cfg, mesh)                     # (B,1,in)
+    mesh = inner_mesh(cfg, mesh)
     new_conv = torch.cat([cache["conv"], u_raw], dim=1)[:, 1:]
     u = F.silu(_causal_conv(u_raw, params["conv_w"], params["conv_b"],
                             prev=cache["conv"].to(dtype)))

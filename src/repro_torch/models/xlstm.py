@@ -44,6 +44,34 @@ JAX's blocks (``runtime/sharding.py``) and computes its heads:
   decode step.  The norm over d sums its squares over ``"model"``;
   ``w_out`` is row-parallel, then the ``"model"`` sum.
 
+Heads that do not divide ``"model"`` (xlstm-125m's 4 at model 16) run
+whole on every rank (:func:`heads_whole`), from JAX's blocks at rest.
+The mLSTM's ``w_q``/``w_k``/``w_v`` are cut by columns, mid-head (96 of
+a head's 384 at model 16): each rank computes its column blocks of q, k
+and v from the whole u and gathers them over ``"model"``
+(``mesh.model_unshard``, whose backward takes the rank's block of a
+gradient every rank holds alike); the gates are the ``"model"`` sum of
+the row-parallel partial products (``w_i``/``w_f``), ``b_i``/``b_f`` are
+whole.  The recurrence then runs on every head with no collective
+inside the loop, and the norm, the gate and ``w_down`` read the rank's
+inner block of its output (``mesh.model_shard``, whose backward gathers
+the blocks' gradients, so that the recurrence's backward runs on the
+whole gradient alike on every rank).  The cache's ``C`` is JAX's key
+block: every rank holds ``C`` whole after the prefill and keeps its
+slice; the decode steps as above.  The sLSTM gathers its pre-activations
+(B, S, 4d) f32 over ``"model"`` (the rank's block of ``w_x`` is a gate
+of a head or less), runs every head with the whole ``r`` (its gradient
+not summed over ``"model"``), and the norm and ``w_out`` read the rank's
+block of d.  JAX's own design keeps the heads cut and sums the partial
+numerators over each head's ranks every token; the whole heads keep the
+collectives outside the token loops, at the price of every rank saving
+every head's states for the backward (``PERF.md`` §6 has the peak).
+
+On the meta device (the dry run) a token loop runs as two trips, the
+first token's and one of B x (S - 1) rows for the rest
+(:func:`_folded`): the operation counters see every trip's work, and
+the dry run of a long sequence costs two trips' ops.
+
 No Pallas kernel sits behind these blocks; the JAX package's docstring
 names a chunked ``mlstm_fwd_chunked`` that it does not have, so it has no
 counterpart here.  ``mlstm_fwd`` and ``slstm_fwd`` record their token
@@ -59,12 +87,48 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.launch.mesh import (model_copy, model_gather,
-                                     model_halves, model_split, model_sum)
+                                     model_halves, model_shard,
+                                     model_split, model_sum, model_unshard)
 from repro_torch.models import costbook
 from repro_torch.models.layers import (dense_init, init_rmsnorm,
                                        log_sigmoid, rmsnorm)
 
 _F32 = torch.float32
+
+
+def heads_whole(cfg, mesh) -> bool:
+    """Whether the mLSTM's and sLSTM's heads run whole on every rank of
+    ``mesh``: its ``"model"`` axis is above 1 and does not divide the
+    heads (xlstm-125m's 4 at model 16; the module docstring)."""
+    return model_split(mesh) and cfg.n_heads % mesh.shape["model"] != 0
+
+
+def _fold(x) -> bool:
+    """Whether a token loop over ``x`` runs folded into two trips (the
+    meta device: :func:`_folded`)."""
+    return x.device.type == "meta" and x.shape[1] > 1
+
+
+def _folded(step, carry0, inputs, S: int):
+    """A token loop on the meta device in two trips: the first token's
+    from the zero states, as the loop's first trip, then the other S - 1
+    tokens' as one trip over (B (S - 1), ...) rows from the first trip's
+    states repeated, so that the operation counters of the dry run see
+    every trip's products and elementwise work (each op of a step is
+    linear in its rows, and the states take gradients in every trip but
+    the first, as in the loop); returns (the final states (B, ...), the
+    outputs (B, S, ...)).  The shapes follow the loop's; the meta device
+    holds no values to be wrong."""
+    B = inputs[0].shape[0]
+    carry, h0 = step(carry0, [a[:, 0] for a in inputs])
+    rest = [a[:, 1:].reshape((B * (S - 1),) + tuple(a.shape[2:]))
+            for a in inputs]
+    carry, h = step(tuple(c.repeat_interleave(S - 1, 0) for c in carry),
+                    rest)
+    carry = tuple(c.view((B, S - 1) + tuple(c.shape[1:]))[:, -1]
+                  for c in carry)
+    h = h.view((B, S - 1) + tuple(h.shape[1:]))
+    return carry, torch.cat([h0[:, None], h], dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -108,8 +172,9 @@ def _mlstm_qkvgates(params, x, cfg, mesh=None):
     so k comes out f32 under bf16: here the product cast to f32 over an
     f32 sqrt(dh) on the device, a true division, where a Python scalar on
     CUDA would multiply by its reciprocal); the gates ``it``, ``ft``
-    (B,S,nh) in f32.  On a mesh: the rank's heads of each, and its inner
-    block of z (module docstring)."""
+    (B,S,nh) in f32.  On a mesh: the rank's heads of each, or every head
+    where the heads run whole (:func:`heads_whole`), and its inner block
+    of z (module docstring)."""
     dtype = x.dtype
     inner = 2 * cfg.d_model
     nh = cfg.n_heads
@@ -123,14 +188,21 @@ def _mlstm_qkvgates(params, x, cfg, mesh=None):
         u, z = (x @ w_up).chunk(2, dim=-1)                  # (B,S,inner)
         u_own = u
     B, S, _ = u.shape
-    nh_l = params["w_q"].shape[1] // dh
-    q = (u @ params["w_q"].to(dtype)).reshape(B, S, nh_l, dh)
-    k = (u @ params["w_k"].to(dtype)).reshape(B, S, nh_l, dh).float()
+    qkv = [u @ params[name].to(dtype) for name in ("w_q", "w_k", "w_v")]
+    whole = heads_whole(cfg, mesh)
+    if whole:
+        # the rank's column blocks, which cut the heads: gathered whole
+        qkv = model_unshard(mesh, torch.stack(qkv), -1).unbind(0)
+    nh_l = qkv[0].shape[-1] // dh
+    q, k, v = (t.reshape(B, S, nh_l, dh) for t in qkv)
+    k = k.float()
     k = k / k.new_full((), math.sqrt(dh))
-    v = (u @ params["w_v"].to(dtype)).reshape(B, S, nh_l, dh)
     uf = u_own.float()
     it, ft = uf @ params["w_i"], uf @ params["w_f"]          # (B,S,nh)
-    if model_split(mesh):
+    if whole:
+        gates = model_sum(mesh, torch.cat([it, ft], -1))
+        it, ft = gates[..., :nh], gates[..., nh:]
+    elif model_split(mesh):
         gates = model_copy(mesh, model_sum(mesh, torch.cat([it, ft], -1)))
         lo = mesh.axis_index("model") * nh_l
         it = gates[..., lo:lo + nh_l]
@@ -169,7 +241,10 @@ def _mlstm_step(carry, inp):
 
 def _mlstm_out(params, h, z, cfg, mesh):
     """The norm over the inner width, the gate and ``w_down``; h and z
-    (B, S, inner) or the rank's inner blocks."""
+    (B, S, inner) or the rank's inner blocks (h whole where the heads run
+    whole: its block taken here)."""
+    if heads_whole(cfg, mesh):
+        h = model_shard(mesh, h, -1)
     h = _norm(params["norm"], h, cfg.norm_eps, 2 * cfg.d_model, mesh) * \
         F.silu(z)
     out = h @ params["w_down"].to(h.dtype)
@@ -177,8 +252,8 @@ def _mlstm_out(params, h, z, cfg, mesh):
 
 
 def _mlstm(params, x, cfg, mesh=None):
-    """The token-by-token scan from zero states on the rank's heads:
-    (out, (C, n, m))."""
+    """The token-by-token scan from zero states on the rank's heads (every
+    head where they run whole): (out, (C, n, m))."""
     B, S, d = x.shape
     dtype = x.dtype
     inp, z = _mlstm_inputs(params, x, cfg, mesh)
@@ -186,11 +261,15 @@ def _mlstm(params, x, cfg, mesh=None):
     carry = (x.new_zeros((B, nh_l, dh, dh), dtype=_F32),
              x.new_zeros((B, nh_l, dh), dtype=_F32),
              x.new_zeros((B, nh_l), dtype=_F32))
-    hs = []
-    for t in range(S):
-        carry, h = _mlstm_step(carry, [a[:, t] for a in inp])
-        hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(B, S, nh_l * dh).to(dtype)
+    if _fold(x):
+        carry, h = _folded(_mlstm_step, carry, inp, S)
+    else:
+        hs = []
+        for t in range(S):
+            carry, h = _mlstm_step(carry, [a[:, t] for a in inp])
+            hs.append(h)
+        h = torch.stack(hs, dim=1)
+    h = h.reshape(B, S, nh_l * dh).to(dtype)
     return _mlstm_out(params, h, z, cfg, mesh), carry
 
 
@@ -207,28 +286,35 @@ def mlstm_prefill(params, x, cfg, mesh=None):
     """(out, cache); on a mesh the cache is the rank's block of JAX's:
     ``C`` by key blocks over ``"model"`` (heads whole), re-blocked from
     the rank's heads with one all-to-all (gathered by heads where the key
-    dimension does not divide the axis), ``n`` and ``m`` whole."""
+    dimension does not divide the axis), ``n`` and ``m`` whole.  Where
+    the heads run whole every rank holds them all: its key block of ``C``
+    is a slice, and nothing is moved."""
     out, (C, n, m) = _mlstm(params, x, cfg, mesh)
     if model_split(mesh):
         M = mesh.shape["model"]
         dh = C.shape[-1]
-        if dh % M == 0 and dh >= M:
-            C = mesh.all_to_all(C, "model", 2, 1)
+        split = dh % M == 0 and dh >= M
+        if heads_whole(cfg, mesh):
+            if split:
+                kb = dh // M
+                C = C[:, :, mesh.axis_index("model") * kb:][:, :, :kb]
         else:
-            C = mesh.all_gather(C, "model", dim=1)
-        nm = mesh.all_gather(torch.cat([n, m[..., None]], -1), "model",
-                             dim=1)
-        n, m = nm[..., :-1], nm[..., -1]
+            C = mesh.all_to_all(C, "model", 2, 1) if split else \
+                mesh.all_gather(C, "model", dim=1)
+            nm = mesh.all_gather(torch.cat([n, m[..., None]], -1),
+                                 "model", dim=1)
+            n, m = nm[..., :-1], nm[..., -1]
     return out, {"C": C, "n": n, "m": m}
 
 
 def mlstm_decode(params, x, cfg, cache, mesh=None):
     """One token against the cache.  On a mesh the cache is the rank's
     block of JAX's (``C``'s key block, whole ``n``, ``m``): the rank's
-    heads of the token's q, k, v and gates are gathered over ``"model"``,
-    every rank updates its key block of ``C`` and the whole ``n`` and
-    ``m`` for every head, and the partial numerators over the key blocks
-    are summed over ``"model"``."""
+    heads of the token's q, k, v and gates are gathered over ``"model"``
+    (every rank computes every head's where the heads run whole), every
+    rank updates its key block of ``C`` and the whole ``n`` and ``m`` for
+    every head, and the partial numerators over the key blocks are summed
+    over ``"model"``."""
     B = x.shape[0]
     dtype = x.dtype
     inp, z = _mlstm_inputs(params, x, cfg, mesh)
@@ -238,11 +324,15 @@ def mlstm_decode(params, x, cfg, cache, mesh=None):
         h = h.reshape(B, 1, 2 * cfg.d_model).to(dtype)
         return _mlstm_out(params, h, z, cfg, mesh), {"C": C, "n": n, "m": m}
     qf, kf, vf, it, logf = (a[:, 0] for a in inp)
-    nh_l, dh = qf.shape[1], qf.shape[2]
-    got = mesh.all_gather(torch.cat([qf, kf, vf, it[..., None],
-                                     logf[..., None]], -1), "model", dim=1)
-    qf, kf, vf = got[..., :dh], got[..., dh:2 * dh], got[..., 2 * dh:3 * dh]
-    it, logf = got[..., 3 * dh], got[..., 3 * dh + 1]
+    dh = qf.shape[2]
+    whole = heads_whole(cfg, mesh)
+    if not whole:
+        got = mesh.all_gather(torch.cat([qf, kf, vf, it[..., None],
+                                         logf[..., None]], -1), "model",
+                              dim=1)
+        qf, kf = got[..., :dh], got[..., dh:2 * dh]
+        vf = got[..., 2 * dh:3 * dh]
+        it, logf = got[..., 3 * dh], got[..., 3 * dh + 1]
     C, n, m = cache["C"], cache["n"], cache["m"]
     kb = C.shape[-2]                              # the rank's key rows
     lo = mesh.axis_index("model") * kb if kb < dh else 0
@@ -255,8 +345,10 @@ def mlstm_decode(params, x, cfg, cache, mesh=None):
         num = mesh.all_reduce_sum(num, "model")
     den = torch.maximum(torch.einsum("bhd,bhd->bh", n, qf).abs(),
                         torch.exp(-m_new))[..., None]
-    h0 = mesh.axis_index("model") * nh_l
-    h = (num / den)[:, h0:h0 + nh_l].reshape(B, 1, nh_l * dh).to(dtype)
+    h = (num / den).reshape(B, 1, -1).to(dtype)
+    if not whole:             # the rank's heads: its inner block
+        w = z.shape[-1]
+        h = h[..., mesh.axis_index("model") * w:][..., :w]
     return _mlstm_out(params, h, z, cfg, mesh), {"C": C, "n": n,
                                                  "m": m_new}
 
@@ -300,45 +392,64 @@ def _slstm_step(r, carry, xproj):
     return ot * c / n.clamp_min(1e-6), c, n, m_new
 
 
-def _slstm_in(params, x, mesh):
+def _slstm_in(params, x, cfg, mesh):
     """The rank's input pre-activations (B, S, 4 nh_l dh) in f32 and its
-    heads' recurrent matrices (every head without a mesh)."""
+    heads' recurrent matrices (every head without a mesh, and where the
+    heads run whole: the rank's block of the pre-activations, a gate of a
+    head or less, gathered whole)."""
     r = params["r"]
     if not model_split(mesh):
         return x.float() @ params["w_x"] + params["b_x"], r
+    xp = model_copy(mesh, x).float() @ params["w_x"] + params["b_x"]
+    if heads_whole(cfg, mesh):
+        return model_unshard(mesh, xp, -1), r
     nh_l = params["w_x"].shape[1] // (4 * r.shape[1])
     lo = mesh.axis_index("model") * nh_l
-    xp = model_copy(mesh, x).float() @ params["w_x"] + params["b_x"]
     return xp, model_copy(mesh, r)[lo:lo + nh_l]
 
 
 def _slstm_out(params, h, cfg, mesh):
+    """The norm over d and ``w_out``; h the rank's heads (every head where
+    they run whole: its block of d taken here)."""
+    if heads_whole(cfg, mesh):
+        h = model_shard(mesh, h, -1)
     h = _norm(params["norm"], h, cfg.norm_eps, cfg.d_model, mesh)
     out = h @ params["w_out"].to(h.dtype)
     return model_sum(mesh, out) if model_split(mesh) else out
 
 
-def _gather_states(mesh, states):
+def _gather_states(cfg, mesh, states):
     """The rank's heads of (h, c, n, m) gathered whole over ``"model"``
-    in one collective."""
-    if not model_split(mesh):
+    in one collective (held whole already where the heads run whole)."""
+    if not model_split(mesh) or heads_whole(cfg, mesh):
         return states
     return mesh.all_gather(torch.stack(states), "model", dim=2).unbind(0)
 
 
+def _slstm_loop_step(r):
+    def step(carry, inp):
+        carry = _slstm_step(r, carry, inp[0])
+        return carry, carry[0]
+    return step
+
+
 def _slstm(params, x, cfg, mesh=None):
-    """The token-by-token scan from zero states on the rank's heads:
-    (out, (h, c, n, m))."""
+    """The token-by-token scan from zero states on the rank's heads (every
+    head where they run whole): (out, (h, c, n, m))."""
     B, S, d = x.shape
     dtype = x.dtype
-    xp, r = _slstm_in(params, x, mesh)                       # (B,S,4d)
+    xp, r = _slstm_in(params, x, cfg, mesh)                  # (B,S,4d)
     zero = x.new_zeros((B, r.shape[0], r.shape[1]), dtype=_F32)
     carry = (zero, zero, zero, zero)
-    hs = []
-    for t in range(S):
-        carry = _slstm_step(r, carry, xp[:, t])
-        hs.append(carry[0])
-    h = torch.stack(hs, dim=1).reshape(B, S, -1).to(dtype)
+    if _fold(x):
+        carry, h = _folded(_slstm_loop_step(r), carry, [xp], S)
+    else:
+        hs = []
+        for t in range(S):
+            carry = _slstm_step(r, carry, xp[:, t])
+            hs.append(carry[0])
+        h = torch.stack(hs, dim=1)
+    h = h.reshape(B, S, -1).to(dtype)
     return _slstm_out(params, h, cfg, mesh), carry
 
 
@@ -355,22 +466,24 @@ def slstm_prefill(params, x, cfg, mesh=None):
     """(out, cache); on a mesh the states gathered whole over
     ``"model"`` (JAX's cache holds them whole)."""
     out, states = _slstm(params, x, cfg, mesh)
-    h, c, n, m = _gather_states(mesh, states)
+    h, c, n, m = _gather_states(cfg, mesh, states)
     return out, {"h": h, "c": c, "n": n, "m": m}
 
 
 def slstm_decode(params, x, cfg, cache, mesh=None):
-    """One token; on a mesh the rank's heads of the whole states step, and
-    the new states are gathered whole again."""
+    """One token; on a mesh the rank's heads of the whole states step
+    (every head where they run whole), and the new states are gathered
+    whole again."""
     B = x.shape[0]
     dtype = x.dtype
-    xp, r = _slstm_in(params, x, mesh)
+    xp, r = _slstm_in(params, x, cfg, mesh)
     nh_l = r.shape[0]
-    lo = mesh.axis_index("model") * nh_l if model_split(mesh) else 0
+    lo = mesh.axis_index("model") * nh_l if model_split(mesh) and \
+        not heads_whole(cfg, mesh) else 0
     states = tuple(cache[k][:, lo:lo + nh_l] for k in ("h", "c", "n", "m"))
     new = _slstm_step(r, states, xp[:, 0])
     h = _slstm_out(params, new[0].reshape(B, 1, -1).to(dtype), cfg, mesh)
-    h_new, c, n, m = _gather_states(mesh, new)
+    h_new, c, n, m = _gather_states(cfg, mesh, new)
     return h, {"h": h_new, "c": c, "n": n, "m": m}
 
 

@@ -49,6 +49,7 @@ cache within one quantization step of JAX's (a value at a rounding edge
 may round the other way), the int8 case's logits within 1e-4; the MoE
 layer within 1e-5.
 """
+import dataclasses
 import types
 from concurrent.futures import ThreadPoolExecutor
 
@@ -97,8 +98,11 @@ HD_SPLIT = {"n_heads": 6, "n_kv_heads": 3}      # over llama3's reduced
 WHOLE_HEADS = {"whisper-tiny": {"n_heads": 6, "n_kv_heads": 6},
                "llama3-8b": {"n_heads": 6, "n_kv_heads": 2}}
 # a reduced xLSTM whose 2 heads do not divide model 4 (xlstm-125m's 4 at
-# model 16): refused, naming the step that lifts it
+# model 16): its mLSTM/sLSTM heads whole on every rank
 XLSTM_2_HEADS = {"n_heads": 2}
+# one mamba layer whose inner width (66) does not divide model 4: whole on
+# every rank (its w_in, 132 columns, still cut); no architecture's does
+MAMBA_WHOLE = {"d_model": 33}
 
 
 def _jdtype(t):
@@ -266,9 +270,9 @@ def test_mesh_past_model_1_refuses_mamba_xlstm_whisper():
     """(iii) The recurrent blocks and the encoder-decoder build at model 2
     (and at model 1), and ``make_step`` gives a training step for them as
     for an attention decoder; whisper-tiny builds at model 4 (its 6 heads
-    whole on every rank), and the refusal left at the production mesh's
-    model 16 is xlstm-125m (4 mLSTM/sLSTM heads over 16 ranks), naming
-    ROADMAP's step 11."""
+    whole on every rank), and xlstm-125m, once refused at the production
+    mesh's model 16 (4 mLSTM/sLSTM heads over 16 ranks), builds there for
+    serving and for training, its heads whole on every rank."""
     from repro_torch.models.factory import make_model
     for name in OTHERS:
         for shape in ({"data": 1, "model": 2}, {"data": 2, "model": 1}):
@@ -284,9 +288,12 @@ def test_mesh_past_model_1_refuses_mamba_xlstm_whisper():
     assert callable(make_model(get_config("whisper-tiny"),
                                mesh=types.SimpleNamespace(
                                    shape={"data": 1, "model": 4}))["loss"])
-    with pytest.raises(ValueError, match="step 11"):
-        make_model(get_config("xlstm-125m"), mesh=types.SimpleNamespace(
-            shape={"data": 16, "model": 16}))
+    prod = types.SimpleNamespace(shape={"data": 16, "model": 16},
+                                 size=256, model=16, in_mesh=True)
+    xl = get_config("xlstm-125m")
+    assert callable(make_model(xl, mesh=prod)["prefill"])
+    step = tsteps.make_step(xl, prod, ShapeConfig("c", "train", 4096, 256))
+    assert callable(step) and step.microbatches == 8
 
 
 def test_block_and_assemble_round_trip():
@@ -340,6 +347,8 @@ def _cases():
              B, False, False)]
     out += [(f"whole-heads-{name}@(1, 4)", name, kw, (1, 4), B, False, False)
             for name, kw in WHOLE_HEADS.items()]
+    out.append(("xlstm-2-heads@(1, 4)", "xlstm-125m", XLSTM_2_HEADS, (1, 4),
+                B, False, False))
     return out
 
 
@@ -385,6 +394,19 @@ def world(world_started):
     return world_started.result()
 
 
+def _mamba_whole() -> dict:
+    """One mamba layer of width 33 (inner 66) for (1, 4): its weights, a
+    prompt of 40 tokens and 4 decode steps' inputs, from seeds."""
+    from repro_torch.models import ssm
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b-reduced"),
+                              **MAMBA_WHOLE)
+    w = ssm.init_mamba(torch.Generator().manual_seed(3), cfg)
+    return {"cfg": cfg, "mesh": (1, 4),
+            "weights": {k: v.numpy() for k, v in w.items()},
+            "x": normal((2, 40, cfg.d_model), seed=31),
+            "xd": normal((STEPS, 2, 1, cfg.d_model), seed=32)}
+
+
 def _world(tmp_path_factory):
     """The world's results beside JAX's, computed here while the world
     runs."""
@@ -418,7 +440,7 @@ def _world(tmp_path_factory):
     xs = [normal((B, n, tm.d_model), seed=n) for n in (40, 160)]
     payload = {"cases": payload_cases, "weights": weights,
                "moe": {"cfg": tm, "layer": layer, "xs": xs,
-                       "mesh": (2, 2)},
+                       "mesh": (2, 2)}, "mamba_whole": _mamba_whole(),
                "refused": [(get_config(n + "-reduced"), (2, 2))
                            for n in OTHERS] +
                [(get_config("whisper-tiny"), (1, 4)),
@@ -449,7 +471,8 @@ def _world(tmp_path_factory):
     moe_refs = [r.result() for r in moe_runs]
     ranks = wait()
     return {"ranks": ranks, "refs": refs, "moe": moe_refs,
-            "cases": {c[0]: c for c in _cases()}, "weights": weights}
+            "cases": {c[0]: c for c in _cases()}, "weights": weights,
+            "mamba": payload["mamba_whole"]}
 
 
 def _rel(got, want):
@@ -713,11 +736,69 @@ def test_mesh_collectives_along_each_axis(world):
 def test_refusals_on_the_mesh(world):
     """(iii) On the world's (2, 2) mesh the reduced jamba, xLSTM and
     whisper build, and on its (1, 4) mesh whisper-tiny (6 heads, whole on
-    every rank); a reduced xLSTM with 2 heads raises there, naming
-    ROADMAP's step 11."""
-    *built, refused = [str(m) for m in world["ranks"][0]["refused"]]
-    assert built == [""] * (len(OTHERS) + 1)
-    assert "step 11" in refused and "2 heads" in refused, refused
+    every rank) and a reduced xLSTM with 2 heads (once refused: its heads
+    now run whole on every rank); nothing raises."""
+    built = [str(m) for m in world["ranks"][0]["refused"]]
+    assert built == [""] * (len(OTHERS) + 2)
+
+
+def test_xlstm_whole_heads_match_jax(world):
+    """A reduced xLSTM's 2 mLSTM/sLSTM heads over model 4 (xlstm-125m's 4
+    at model 16): each rank holds JAX's blocks (a quarter of the columns
+    of ``w_q``/``w_k``/``w_v``/``w_x``, ``b_i``/``b_f``/``r`` whole),
+    computes every head, and keeps JAX's cache blocks (``C``'s key block
+    of 64 / 4 rows, the other states whole); prefill and 4 decode steps
+    against JAX's one device (1e-5)."""
+    tag = "xlstm-2-heads@(1, 4)"
+    _check_case(world, tag)
+    specs = _param_specs("xlstm-125m", XLSTM_2_HEADS, (1, 4), train=False)
+    wkey = f"xlstm-125m{sorted(XLSTM_2_HEADS.items())}"
+    for r in range(4):
+        rank = world["ranks"][r]
+        got = {k[len(f"{tag}/own/params/"):]: v for k, v in rank.items()
+               if k.startswith(f"{tag}/own/params/")}
+        want = _jax_blocks(_flat(world["weights"][wkey]), specs, (1, 4), r)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert got[k].tobytes() == want[k].tobytes(), k
+        assert got["blocks/pos0/core/w_q"].shape[-1] == 128 // 4
+        assert got["blocks/pos0/core/b_i"].shape[-1] == 2
+        assert rank[f"{tag}/own/cache/pos0/C"].shape[-2:] == (64 // 4, 64)
+        assert rank[f"{tag}/own/cache/pos1/h"].shape[-2:] == (2, 32)
+
+
+def test_mamba_inner_width_whole_on_every_rank(world):
+    """One mamba layer of inner width 66 at model 4: the inner leaves
+    whole on every rank (JAX's ``_guard``), ``w_in``'s 132 columns cut
+    and its product gathered whole; the prefill of 40 tokens, 4 decode
+    steps and the cache, and the gradients of a loss on ``mamba_fwd``
+    (gathered whole), against the port's one device (1e-5 of each
+    leaf's largest; that path is held to JAX in tests/test_torch_ssm.py)."""
+    from repro_torch.models import ssm
+    m = world["mamba"]
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b-reduced"),
+                              **MAMBA_WHOLE)
+    w = {k: torch.from_numpy(v).requires_grad_(True)
+         for k, v in m["weights"].items()}
+    x, xd = torch.from_numpy(m["x"]), torch.from_numpy(m["xd"])
+    ssm.mamba_fwd(w, x, cfg).square().sum().backward()
+    with torch.no_grad():
+        out, cache = ssm.mamba_prefill(w, x, cfg)
+        outs = [out]
+        for i in range(STEPS):
+            out, cache = ssm.mamba_decode(w, xd[i], cfg, cache)
+            outs.append(out)
+    for r in range(4):
+        got = world["ranks"][r]
+        assert got["mamba_whole/w_in_cols"] == 132 // 4
+        assert got["mamba_whole/conv_w_cols"] == 66
+        for i, o in enumerate(outs):
+            assert _rel(got[f"mamba_whole/out{i}"], o.numpy()) < TOL, i
+        for k, t in cache.items():
+            assert _rel(got[f"mamba_whole/cache/{k}"], t.numpy()) < TOL, k
+        for k, t in w.items():
+            assert _rel(got[f"mamba_whole/grad/{k}"], t.grad.numpy()) \
+                < TOL, k
 
 
 @pytest.mark.parametrize("name", list(WHOLE_HEADS))

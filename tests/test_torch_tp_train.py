@@ -20,7 +20,9 @@ heads' kv heads by index); phi3, chameleon and dbrx one step on each.
 Reduced jamba (mamba's inner blocks, re-blocked from ``w_in``'s block by
 one exchange a layer; attention; the MoE), xlstm (the mLSTM's and
 sLSTM's heads) and whisper (heads and ff over "model", with encoder
-frames in the batch) take two steps on both meshes too, and so does a
+frames in the batch) take two steps on both meshes too, and a reduced
+xLSTM with 2 heads (xlstm-125m's 4 at model 16), whose heads do not
+divide model 4 and run whole on every rank, two steps on (1, 4), and so does a
 reduced whisper with a vocab of 509, which divides neither model size:
 its table stays whole over "model", the loss takes the whole logits and
 the table's gradient is not summed over "model" (whisper-tiny's 51,865
@@ -95,10 +97,15 @@ ODD = "whisper-tiny-odd-vocab"
 # query heads that do not divide model 4, whole on every rank (trained on
 # (1, 4) only): whisper's 6 and a GQA decoder's 6 over 2 kv heads
 WHOLE_HEADS = ("whisper-tiny-6-heads", "llama3-8b-6-heads")
+# mLSTM/sLSTM heads that do not divide model 4 (xlstm-125m's 4 at model
+# 16), whole on every rank (trained on (1, 4) only)
+XLSTM_WHOLE = "xlstm-125m-2-heads"
 VARIANTS = {ODD: ("whisper-tiny", {"vocab_size": 509}),
             WHOLE_HEADS[0]: ("whisper-tiny", {"n_heads": 6,
                                               "n_kv_heads": 6}),
-            WHOLE_HEADS[1]: ("llama3-8b", {"n_heads": 6, "n_kv_heads": 2})}
+            WHOLE_HEADS[1]: ("llama3-8b", {"n_heads": 6, "n_kv_heads": 2}),
+            XLSTM_WHOLE: ("xlstm-125m", {"n_heads": 2})}
+ON_MODEL_4 = WHOLE_HEADS + (XLSTM_WHOLE,)
 RECURRENT = ("jamba-v0.1-52b", "xlstm-125m", "whisper-tiny", ODD)
 TWO_STEPS = MAIN + RECURRENT     # two steps, two runs on (2, 2)
 ALL = DECODERS + RECURRENT
@@ -273,8 +280,8 @@ def _world(tmp_path_factory):
     weights, jcfgs, tcfgs, batches_of = {}, {}, {}, {}
     with few_threads(), ThreadPoolExecutor(4) as pool:   # XLA off the GIL
         made = {name: pool.submit(params, *_cfgs(name), seed=10 + i)
-                for i, name in enumerate(ALL + WHOLE_HEADS)}
-        for name in ALL + WHOLE_HEADS:
+                for i, name in enumerate(ALL + ON_MODEL_4)}
+        for name in ALL + ON_MODEL_4:
             jcfg, tcfg = _cfgs(name)
             jp, _ = made[name].result()
             weights[name] = _scaled_routers(jax.tree.map(np.asarray, jp))
@@ -300,7 +307,7 @@ def _world(tmp_path_factory):
     cases += [{"tag": _tag(name, (1, 4)), "name": name, "cfg": tcfgs[name],
                "mesh": (1, 4), "micro": 2, "steps": STEPS, "runs": 1,
                "batches": batches_of[name], "saves": []}
-              for name in WHOLE_HEADS]
+              for name in ON_MODEL_4]
     payload = {"cases": cases, "weights": weights, "batches": batches,
                "B": B, "S": S, "frames": _frames(tcfgs["whisper-tiny"]),
                "resume": {"cfg": tcfgs[RESUME], "dir": str(tmp / "world1"),
@@ -313,11 +320,11 @@ def _world(tmp_path_factory):
             ThreadPoolExecutor(4) as pool:            # XLA off the GIL
         jax_runs = {n: pool.submit(_jax_step, jcfgs[n], weights[n],
                                    batches_of[n][0], _frames(tcfgs[n]))
-                    for n in TWO_STEPS + WHOLE_HEADS}
+                    for n in TWO_STEPS + ON_MODEL_4}
         one = {n: _world1(tcfgs[n], weights[n], batches_of[n],
                           3 if n in (RESUME, RESUME_22) else
-                          STEPS if n in TWO_STEPS + WHOLE_HEADS else 1)
-               for n in ALL + WHOLE_HEADS}
+                          STEPS if n in TWO_STEPS + ON_MODEL_4 else 1)
+               for n in ALL + ON_MODEL_4}
         jax_ref = {n: r.result() for n, r in jax_runs.items()}
     ranks = wait()
     return {"ranks": ranks, "one": one, "jax": jax_ref, "tmp": tmp,
@@ -397,6 +404,49 @@ def test_whole_heads_train_on_model_4(world, name):
         own = _paths(_tree(rank, f"{tag}/own"))
         wq = [k for k in own if k.endswith("attn/wq")]
         assert wq and all(own[k].shape[-2] == 6 for k in wq), wq
+
+
+def test_xlstm_whole_heads_train_on_model_4(world):
+    """A reduced xLSTM's 2 mLSTM/sLSTM heads over model 4 (xlstm-125m's 4
+    at model 16), whole on every rank from JAX's training blocks (each
+    rank a quarter of the columns of ``w_q``/``w_k``/``w_v``/``w_x``, of
+    the rows of ``w_i``/``w_f``/``w_down``/``w_out``; ``b_i``, ``b_f``
+    and ``r`` whole): two steps on (1, 4) against world 1, the first
+    against JAX's ``make_train_step``, within the other architectures'
+    tolerances (moments 1e-4); the whole leaves' gradients (their first
+    moments) not summed over "model"."""
+    name, tag = XLSTM_WHOLE, _tag(XLSTM_WHOLE, (1, 4))
+    jloss, jparams, jm, jv = world["jax"][name]
+    for rank in world["ranks"]:
+        for i, (loss, state) in enumerate(world["one"][name]):
+            np.testing.assert_allclose(float(rank[f"{tag}/run0/loss{i}"]),
+                                       loss, rtol=1e-5)
+            got = _tree(rank, f"{tag}/run0/state{i}")
+            _params_close(got["params"], state["params"], _lr(i + 1))
+            _close(got["opt"]["m"], state["opt"]["m"], 1e-4)
+            _close(got["opt"]["v"], state["opt"]["v"], 1e-4)
+        np.testing.assert_allclose(float(rank[f"{tag}/run0/loss0"]), jloss,
+                                   rtol=1e-5)
+        got = _tree(rank, f"{tag}/run0/state0")
+        _params_close(got["params"], jparams, _lr(1))
+        _close(got["opt"]["m"], jm, 1e-4)
+        _close(got["opt"]["v"], jv, 1e-4)
+        own = _paths(_tree(rank, f"{tag}/own/params"))
+        for k, a in own.items():
+            leaf = k.rsplit("/", 1)[-1]
+            if leaf in ("w_q", "w_k", "w_v"):
+                assert a.shape[-1] == 128 // 4, (k, a.shape)
+            elif leaf == "w_x":
+                assert a.shape[-1] == 256 // 4, (k, a.shape)
+            elif leaf in ("b_i", "b_f"):
+                assert a.shape[-1] == 2, (k, a.shape)
+    jcfg = world["jcfgs"][name]
+    for r, rank in enumerate(world["ranks"]):
+        whole = _tree(rank, f"{tag}/run0/state{STEPS - 1}")
+        own = _tree(rank, f"{tag}/own")
+        for kind, tree in (("params", whole["params"]),
+                           ("m", whole["opt"]["m"])):
+            _bitwise(_paths(own[kind]), _jax_blocks(jcfg, (1, 4), tree, r))
 
 
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")

@@ -387,7 +387,7 @@ def tp_serve_world(_, pl):
     from repro_torch.launch.mesh import DataMesh, make_host_mesh
     from repro_torch.launch.steps import (decode_cache, make_decode_step,
                                           make_prefill_step)
-    from repro_torch.models import lm, moe
+    from repro_torch.models import lm, moe, ssm
     from repro_torch.models.attention import kv_tp_repeat
     from repro_torch.models.factory import make_model
     from repro_torch.runtime import sharding as sh
@@ -515,6 +515,32 @@ def tp_serve_world(_, pl):
         except ValueError as e:
             errs.append(str(e))
     out["refused"] = np.array(errs)
+    # one mamba layer whose inner width does not divide "model": whole on
+    # every rank (w_in's product gathered), prefill, decodes, gradients
+    m = pl["mamba_whole"]
+    mesh = make_host_mesh(*m["mesh"], device="cpu")
+    cfg = m["cfg"]
+    prefix = "blocks/pos0/mamba"
+    w = sh.blocks_of({k: torch.from_numpy(v) for k, v in
+                      m["weights"].items()}, mesh, prefix, stacked=False)
+    x, xd = torch.from_numpy(m["x"]), torch.from_numpy(m["xd"])
+    out["mamba_whole/w_in_cols"] = np.array(w["w_in"].shape[1])
+    out["mamba_whole/conv_w_cols"] = np.array(w["conv_w"].shape[1])
+    res, cache = ssm.mamba_prefill(w, x, cfg, mesh=mesh)
+    outs = [res]
+    for i in range(xd.shape[0]):
+        res, cache = ssm.mamba_decode(w, xd[i], cfg, cache, mesh=mesh)
+        outs.append(res)
+    for i, o in enumerate(outs):
+        out[f"mamba_whole/out{i}"] = o.numpy()
+    for k, t in cache.items():
+        out[f"mamba_whole/cache/{k}"] = t.numpy()
+    wt = {k: v.clone().requires_grad_(True) for k, v in w.items()}
+    ssm.mamba_fwd(wt, x, cfg, mesh=mesh).square().sum().backward()
+    for k, t in wt.items():
+        spec = sh.param_pspec(f"{prefix}/{k}", m["weights"][k].shape,
+                              mesh.shape, train=False, stacked=False)
+        out[f"mamba_whole/grad/{k}"] = sh.gather(mesh, t.grad, spec).numpy()
     return out
 
 

@@ -13,6 +13,7 @@ check, as the smoke does.
     python3 tools/lm_phases.py --phases tp_train      # the (2, 2) trainer
     python3 tools/lm_phases.py --phases tp_serve      # the (2, 2) servers
     python3 tools/lm_phases.py --phases production    # layout_4m, serve CLI
+    python3 tools/lm_phases.py --phases body_flash,body,xl8  # body cells
 
 Phases: ``flash`` (``check_flash``), ``flash_bwd`` (``check_flash_bwd``),
 ``gemma3``, ``mixtral``, ``jamba``, ``xlstm``, ``whisper``
@@ -27,7 +28,11 @@ and whisper trained there), ``tp_serve`` (``run_tp_serve``: mixtral on
 the (2, 2) serving mesh, then xlstm, whisper, a jamba mamba layer and
 jamba at one period there), ``production`` (``run_production_cell``:
 the LargeVis production cell's steps at layout_4m on the card, then the
-serve CLI).
+serve CLI), ``body_flash`` (``check_body_flash``: the flash kernels at the
+body cells' per-rank shapes), ``body`` (``run_body_cells``: the dry run's
+period bodies of five production cells on the card, then qwen's whole
+decode step), ``xl8``
+(``run_xlstm_model8``: xlstm-125m on a (1, 8) mesh of eight processes).
 Prints each phase's lines and seconds, then the flash launches each phase
 made, as JSON.
 """
@@ -46,7 +51,7 @@ sys.path.insert(0, str(ROOT))
 
 PHASES = ("flash", "flash_bwd", "gemma3", "mixtral", "jamba", "xlstm",
           "whisper", "train", "sharded", "tp_train", "tp_serve",
-          "production")
+          "production", "body_flash", "body", "xl8")
 
 
 def main() -> None:
@@ -99,6 +104,12 @@ def main() -> None:
             launches[name] = cs.run_tp_training(torch)
         elif name == "production":
             print(json.dumps(cs.run_production_cell(torch, 0)))
+        elif name == "body_flash":
+            cs.check_body_flash(torch)
+        elif name == "body":
+            launches[name] = cs.run_body_cells(torch)
+        elif name == "xl8":
+            cs.run_xlstm_model8(torch)
         else:
             launches[name] = getattr(cs, f"run_{name}")(torch)
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
